@@ -7,21 +7,27 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
 
   1. kernel vs plain: each kernel against its plain PyTorch version on the
      card, over seeded corpora (existing nodes, taints, host ports, Gt/Lt
-     bounds, zone/hostname spread and affinity, a claim-slot overflow,
-     relaxable pods in one-pass mode). ``ffd_loop`` must match exactly on
-     kind/index, integer and bool state and the sweep count, and within
-     rtol 1e-5 on float state; ``gate_counts`` must give identical counts on
-     clean results and on results corrupted to trip each invariant. A few
-     whole solves must equal the plain path's ``TorchSolver(device="cpu")``.
-  2. the main path at full width: ``TorchSolver().solve`` on 10,000 pods of
-     the reference's diverse mix against 400 catalog instance types and one
-     default NodePool, 128 claim slots with escalation, then ``full_gate``
-     (a reject fails the run); the plain loop at 2,500 pods against the
-     kernel.
+     bounds, zone/hostname spread and affinity, claim-slot overflows, a
+     rounding ladder that demotes pods, relaxable pods in one-pass mode).
+     ``ffd_loop`` (fresh, carried from phase 1, one-pass) and
+     ``relax_place`` must match exactly on kind/index, residue, stats,
+     integer and bool state and the sweep count, and within rtol 1e-5 on
+     float state; ``gate_counts`` must give identical counts on clean results
+     and on results corrupted to trip each invariant. Whole solves with
+     ``relax`` on and off must equal the plain path's
+     ``TorchSolver(device="cpu")``.
+  2. the main path at full width: ``TorchSolver().solve`` (the default
+     two-phase solve: ``relax_place``, the carried ``ffd_loop``, the relaxed
+     gate) on 10,000 pods of the reference's diverse mix against 400 catalog
+     instance types and one default NodePool, 128 claim slots with
+     escalation, then ``full_gate`` (a reject fails the run); then the
+     ``relax=False`` path on the same batch; then each kernel timed at the
+     main path's shapes, and the plain loop at 2,500 pods against the kernel.
   3. a ``kernels`` JSON line: per kernel its launches on the main path, its
-     time, its bound, and the plain version's time; for ``ffd_loop`` also the
-     work counters its launch recorded, from which the operation bound is
-     computed, and the latency floor of its barriers.
+     time, its bound, and the plain version's time; for ``ffd_loop`` and
+     ``relax_place`` also the work counters their launches recorded, from
+     which the operation bounds are computed, and for ``ffd_loop`` the
+     latency floor of its barriers and its fresh and one-pass modes.
   4. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
@@ -29,6 +35,7 @@ only torch, numpy and karpenter_tpu_torch.
 """
 
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -71,9 +78,15 @@ def run(dev) -> int:
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
     from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
-    from karpenter_tpu_torch.ops.ffd_core import initial_state, problem_bounds_free
+    from karpenter_tpu_torch.ops import relax as RX
+    from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
     from karpenter_tpu_torch.ops.ffd_step import solve_ffd, solve_ffd_plain
-    from karpenter_tpu_torch.ops.ffd_sweeps import WORK_COUNTERS, solve_ffd_sweeps, sweeps_plain
+    from karpenter_tpu_torch.ops.ffd_sweeps import (
+        WORK_COUNTERS,
+        solve_ffd_sweeps,
+        solve_ffd_sweeps_carried,
+        sweeps_plain,
+    )
     from karpenter_tpu_torch.ops.padding import pad_problem
     from karpenter_tpu_torch.provisioning.topology import Topology
     from karpenter_tpu_torch.solver.encode import Encoder, domains_from_instance_types
@@ -107,13 +120,10 @@ def run(dev) -> int:
         )
         return pad_problem(enc.problem)
 
-    def compare_results(tag, rk, rp, check_iters=True):
-        kk, kp = rk.kind.cpu().numpy(), rp.kind.cpu().numpy()
-        ik, ip = rk.index.cpu().numpy(), rp.index.cpu().numpy()
-        if not (np.array_equal(kk, kp) and np.array_equal(ik, ip)):
-            bad = np.flatnonzero((kk != kp) | (ik != ip))
-            raise AssertionError(f"{tag}: kind/index differ at rows {bad[:10].tolist()}")
-        sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    def compare_state(tag, state_k, state_p):
+        """Integer and bool leaves exact, float leaves within rtol 1e-5;
+        returns the largest float difference."""
+        sk, sp = numpy_fields(state_k), numpy_fields(state_p)
         max_err = 0.0
         for name in sp:
             a, b = sk[name], sp[name]
@@ -125,10 +135,28 @@ def run(dev) -> int:
                     max_err = max(max_err, float(np.abs(a[finite] - b[finite]).max()))
             elif not np.array_equal(a, b):
                 raise AssertionError(f"{tag}: state {name} differs")
+        return max_err
+
+    def compare_results(tag, rk, rp, check_iters=True):
+        kk, kp = rk.kind.cpu().numpy(), rp.kind.cpu().numpy()
+        ik, ip = rk.index.cpu().numpy(), rp.index.cpu().numpy()
+        if not (np.array_equal(kk, kp) and np.array_equal(ik, ip)):
+            bad = np.flatnonzero((kk != kp) | (ik != ip))
+            raise AssertionError(f"{tag}: kind/index differ at rows {bad[:10].tolist()}")
+        max_err = compare_state(tag, rk.state, rp.state)
         if check_iters:
             if int(rk.iters.sweeps) != int(rp.iters.sweeps) or int(rk.iters.narrow) != int(rp.iters.narrow):
                 raise AssertionError(f"{tag}: iters differ {rk.iters} vs {rp.iters}")
         return max_err
+
+    def compare_relax(tag, rk, rp):
+        for key in ("kind", "index", "residue_active"):
+            if not torch.equal(getattr(rk, key).cpu(), getattr(rp, key).cpu()):
+                raise AssertionError(f"{tag}: relax_place {key} differs")
+        sk, sp = [int(x) for x in rk.stats], [int(x) for x in rp.stats]
+        if sk != sp:
+            raise AssertionError(f"{tag}: relax_place stats {sk} != plain {sp}")
+        return compare_state(f"{tag} relax_place", rk.state, rp.state)
 
     # -- 1. kernel vs plain -------------------------------------------------
     log("phase 1: kernels vs plain PyTorch on the card")
@@ -146,12 +174,19 @@ def run(dev) -> int:
         ("diverse-300", W.diverse_workload(300, 40, seed=7), 32),
         # 256 claim slots mint 256 hostname lanes: V=256, 8 lane words
         ("diverse-300-wide", W.diverse_workload(300, 40, seed=7), 256),
+        # phase 1: its groups overflow 8 claim slots; its rounding ladder
+        # demotes pods; Gt/Lt bounds and existing nodes with eligible pods
+        ("diverse-300-overflow", W.diverse_workload(300, 40, seed=7), 8),
+        ("homogeneous-48", W.homogeneous_workload(48), 32),
+        ("bounds-0-free", W.bounds_workload(0, with_nodes=False), 32),
+        ("relax-fuzz-6", W.relax_fuzz_workload(6), 32),
     ]
     vol_wl, vol_sets = W.volume_workload(0)
     corpora = [(tag, wl, slots, None) for tag, wl, slots in corpora]
     corpora.append(("volumes-0", vol_wl, 32, vol_sets))
-    ffd_err = 0.0
-    saw = {"nodes": False, "bounded": False, "noslot": False, "ports": False, "volumes": False}
+    ffd_err = relax_err = 0.0
+    saw = {"nodes": False, "bounded": False, "noslot": False, "ports": False, "volumes": False,
+           "phase1-bounded": False, "phase1-nodes": False, "ladder-demotes": False, "slot-overflow": False}
     for tag, wl, slots, vols in corpora:
         host = encode(wl, slots, pod_volumes=vols)
         prob = problem_to_torch(host, dev)
@@ -172,31 +207,54 @@ def run(dev) -> int:
         ok2 = solve_ffd(prob, slots, init=op1.state)
         op2 = solve_ffd_plain(prob, op1.state, bf)
         ffd_err = max(ffd_err, compare_results(f"{tag} one-pass carried", ok2, op2, check_iters=False))
+        # phase 1, then the repair pass carrying it
+        xk = RX.relax_place(prob, slots)
+        xp = RX.relax_place_plain(prob, slots)
+        relax_err = max(relax_err, compare_relax(tag, xk, xp))
+        eligible, placed, demoted, claims = (int(x) for x in xp.stats)
+        if placed > 0:
+            res = dataclasses.replace(prob, pod_active=xp.residue_active)
+            ck = solve_ffd_sweeps_carried(res, slots, init=(xp.state, xp.kind, xp.index))
+            ares, astate = _lane_align(res, xp.state)
+            cp = sweeps_plain(ares, astate, problem_bounds_free(ares), xp.kind, xp.index)
+            ffd_err = max(ffd_err, compare_results(f"{tag} carried", ck, cp))
+            saw["phase1-bounded"] |= not bf
+            saw["phase1-nodes"] |= prob.num_nodes > 0
+        saw["ladder-demotes"] |= demoted > 0 and claims < slots
+        saw["slot-overflow"] |= demoted > 0 and claims == slots
         log(f"  {tag}: pods={len(wl[0])} P={prob.num_pods} C={slots} N={prob.num_nodes} "
             f"K={prob.num_keys} V={prob.num_lanes} G={prob.num_groups} "
             f"bounds_free={bf} sweeps={int(rk.iters.sweeps)} stepped={int(rk.iters.narrow)} "
-            f"kinds={np.bincount(rk.kind.cpu().numpy(), minlength=5).tolist()} ok")
+            f"kinds={np.bincount(rk.kind.cpu().numpy(), minlength=5).tolist()} "
+            f"phase1 eligible/placed/demoted/claims={eligible}/{placed}/{demoted}/{claims} ok")
     missing = [k for k, v in saw.items() if not v]
     if missing:
         raise AssertionError(f"phase 1 corpora do not cover: {missing}")
 
-    # whole solves: the kernel path against the plain CPU path
+    # whole solves: the kernel path against the plain CPU path, with the
+    # two-phase solve on (the default) and off
     gate_cases = []
     for tag, wl, vols in (("fuzz-1", W.fuzz_workload(1), None),
                           ("topology-0", W.topology_workload(0), None),
                           ("bounds-0", W.bounds_workload(0), None),
                           ("chain-2000", W.chain_workload(2000), None),
+                          ("homogeneous-48", W.homogeneous_workload(48), None),
+                          ("diverse-300", W.diverse_workload(300, 40, seed=7), None),
                           ("volumes-0", vol_wl, vol_sets)):
         pods, its, tpls, nodes = wl
-        rg = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=dev).solve(
-            pods, its, tpls, nodes, pod_volumes=vols)
-        rc = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu").solve(
-            pods, its, tpls, nodes, pod_volumes=vols)
-        if (rg.new_claims, rg.node_pods, rg.failures) != (rc.new_claims, rc.node_pods, rc.failures):
-            raise AssertionError(f"{tag}: TorchSolver on cuda differs from the plain CPU path")
-        if rg.verify_ctx is not None:
-            gate_cases.append((tag, wl, rg))
-        log(f"  solve {tag}: cuda == cpu ({rg.num_scheduled()}/{len(pods)} scheduled)")
+        for relax in (True, False):
+            sg = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=dev, relax=relax)
+            rg = sg.solve(pods, its, tpls, nodes, pod_volumes=vols)
+            sc = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", relax=relax)
+            rc = sc.solve(pods, its, tpls, nodes, pod_volumes=vols)
+            if (rg.new_claims, rg.node_pods, rg.failures) != (rc.new_claims, rc.node_pods, rc.failures):
+                raise AssertionError(f"{tag} relax={relax}: TorchSolver on cuda differs from the plain CPU path")
+            if (sg.last_relax, sg.relax_fallbacks) != (sc.last_relax, sc.relax_fallbacks):
+                raise AssertionError(f"{tag} relax={relax}: phase 1 {sg.last_relax} != plain {sc.last_relax}")
+            if rg.verify_ctx is not None and not relax:
+                gate_cases.append((tag, wl, rg))
+            log(f"  solve {tag} relax={relax}: cuda == cpu ({rg.num_scheduled()}/{len(pods)} scheduled, "
+                f"phase 1 {sg.last_relax})")
 
     # gate: clean and corrupted results, kernel counts == plain counts
     def corruptions(gp, ga):
@@ -269,33 +327,60 @@ def run(dev) -> int:
     # -- 2. the main path at full width --------------------------------------
     log(f"phase 2: main path, {MAIN_PODS} diverse pods x 400 instance types, 1 NodePool")
     pods, its, tpls, nodes = W.diverse_workload(MAIN_PODS, 400, seed=42)
-    solver = TorchSolver(initial_claim_slots=128, device=dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    result = solver.solve(pods, its, tpls, nodes)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    outcome = full_gate(result, pods, its, tpls, nodes)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    if outcome is None or outcome.violations or outcome.counts:
-        raise AssertionError(f"main path: gate rejected or could not run: {outcome}")
+
+    def drive(relax):
+        """One solve and its gate through the entry points a user calls, with
+        the launch counts set to 0 just before and read just after."""
+        solver = TorchSolver(initial_claim_slots=128, device=dev, relax=relax)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = solver.solve(pods, its, tpls, nodes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outcome = full_gate(result, pods, its, tpls, nodes)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if outcome is None or outcome.violations or outcome.counts or outcome.mode != "device":
+            raise AssertionError(f"main path relax={relax}: gate rejected or could not run: {outcome}")
+        if result.num_scheduled() + len(result.failures) != len(pods):
+            raise AssertionError(f"main path relax={relax}: pod accounting broken")
+        tm = solver.last_timing
+        ctx = result.verify_ctx
+        log(f"  relax={relax}: scheduled {result.num_scheduled()}/{len(pods)} claims={len(result.new_claims)} "
+            f"escalations={solver.claim_escalations} phase1={solver.last_relax} fallbacks={solver.relax_fallbacks} "
+            f"sweeps={solver.last_iters.sweeps} pods_stepped={solver.last_iters.narrow} "
+            f"P={ctx.device_problem.num_pods} C={ctx.max_claims} launches={launches}")
+        log(f"  relax={relax}: solve wall {wall * 1e3:.1f} ms = encode {tm['encode'] * 1e3:.1f} + relax "
+            f"{tm['relax'] * 1e3:.1f} + device {tm['device'] * 1e3:.1f} + decode {tm['decode'] * 1e3:.1f} "
+            f"+ gate {tm.get('gate', 0.0) * 1e3:.1f} (+ escalation retries); "
+            f"gate: mode={outcome.mode} audited={outcome.audited}")
+        return solver, result, launches
+
+    solver, result, launches = drive(True)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched {name}")
+    if solver.relax_fallbacks != 0 or solver.last_relax is None or solver.last_relax["placed"] <= 0:
+        raise AssertionError(f"main path: phase 1 did not place or was rejected: {solver.last_relax}, "
+                             f"fallbacks {solver.relax_fallbacks}")
     sched = result.num_scheduled()
-    if sched + len(result.failures) != len(pods):
-        raise AssertionError("main path: pod accounting broken")
+    solver_off, result_off, launches_off = drive(False)
+    # the same two solves again, to separate first-solve costs from the path's
+    for relax in (True, False):
+        drive(relax)
+    if launches_off["relax_place"] != 0 or launches_off["ffd_loop"] <= 0 or launches_off["gate_counts"] <= 0:
+        raise AssertionError(f"relax=False path launched {launches_off}")
+    if sched != len(pods) or sched < result_off.num_scheduled():
+        raise AssertionError(f"main path scheduled {sched}, relax=False {result_off.num_scheduled()} of {len(pods)}")
     ctx = result.verify_ctx
-    prob, C = ctx.device_problem, ctx.max_claims
-    tm = solver.last_timing
-    log(f"  scheduled {sched}/{len(pods)} claims={len(result.new_claims)} "
-        f"escalations={solver.claim_escalations} sweeps={solver.last_iters.sweeps} "
-        f"pods_stepped={solver.last_iters.narrow} P={prob.num_pods} C={C} T={prob.num_instance_types} "
-        f"K={prob.num_keys} V={prob.num_lanes} G={prob.num_groups}")
-    log(f"  solve wall {wall * 1e3:.1f} ms = encode {tm['encode'] * 1e3:.1f} + device "
-        f"{tm['device'] * 1e3:.1f} + decode {tm['decode'] * 1e3:.1f} (+ escalation retries); "
-        f"gate: mode={outcome.mode} audited={outcome.audited}")
+    C = ctx.max_claims
+    # the phase-1 input: the solve's padded problem (its context holds the
+    # repair pass's residue) with every pod active, as the relax=False solve
+    # of the same batch encodes it
+    active = result_off.verify_ctx.device_problem.pod_active
+    if active.shape != ctx.device_problem.pod_active.shape or int(active.sum()) != len(pods):
+        raise AssertionError("main path: the two paths padded the batch differently")
+    prob = dataclasses.replace(ctx.device_problem, pod_active=active)
 
     def time_ms(fn, reps):
         times = []
@@ -308,7 +393,40 @@ def run(dev) -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times), times
 
-    k1_ms, k1_all = time_ms(lambda: solve_ffd_sweeps(prob, C), 3)
+    # relax_place at the main path's shapes: kernel, plain, their agreement
+    rx_ms, rx_all = time_ms(lambda: RX.relax_place(prob, C), 10)
+    rxk = RX.relax_place(prob, C)
+    rx_work = dict(zip(RX.WORK_COUNTERS, rxk.work.cpu().tolist()))
+    t0 = time.perf_counter()
+    rxp = RX.relax_place_plain(prob, C)
+    torch.cuda.synchronize()
+    rx_plain_ms = (time.perf_counter() - t0) * 1e3
+    relax_err = max(relax_err, compare_relax("main path", rxk, rxp))
+    stats = dict(zip(("eligible", "placed", "demoted", "claims"), (int(x) for x in rxk.stats)))
+    if stats != solver.last_relax:
+        raise AssertionError(f"main path: phase 1 {stats} != the solve's {solver.last_relax}")
+    log(f"  relax_place: {rx_ms:.4f} ms median of {[round(t, 4) for t in rx_all]}; plain {rx_plain_ms:.1f} ms; "
+        f"kernel == plain; {stats}; work {rx_work}")
+
+    # ffd_loop: the carried repair pass (the main path), the fresh loop (the
+    # relax=False path) and one one-pass scan, each with its work counters
+    residue = dataclasses.replace(prob, pod_active=rxk.residue_active)
+    carry = (rxk.state, rxk.kind, rxk.index)
+    k1_ms, k1_all = time_ms(lambda: solve_ffd_sweeps_carried(residue, C, carry), 3)
+    rc_main = solve_ffd_sweeps_carried(residue, C, carry)
+    work = dict(zip(WORK_COUNTERS, rc_main.work.cpu().tolist()))
+    fresh_ms, fresh_all = time_ms(lambda: solve_ffd_sweeps(prob, C), 3)
+    rf_main = solve_ffd_sweeps(prob, C)
+    work_fresh = dict(zip(WORK_COUNTERS, rf_main.work.cpu().tolist()))
+    op_ms, op_all = time_ms(lambda: solve_ffd(prob, C), 2)
+    ro_main = solve_ffd(prob, C)
+    work_one_pass = dict(zip(WORK_COUNTERS, ro_main.work.cpu().tolist()))
+    log(f"  ffd_loop carried: {k1_ms:.3f} ms median of {[round(t, 3) for t in k1_all]}, "
+        f"stepped {int(rc_main.iters.narrow)} in {int(rc_main.iters.sweeps)} sweeps, work {work}")
+    log(f"  ffd_loop fresh: {fresh_ms:.3f} ms median of {[round(t, 3) for t in fresh_all]}, "
+        f"stepped {int(rf_main.iters.narrow)} in {int(rf_main.iters.sweeps)} sweeps, work {work_fresh}")
+    log(f"  ffd_loop one-pass: {op_ms:.3f} ms median of {[round(t, 3) for t in op_all]}, work {work_one_pass}")
+
     gp, ga, bf = _build_args(ctx, result, pods, None)
     k2_ms, _ = time_ms(lambda: gdev.launch_gate_counts(gp, ga), 10)
     k2_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gp, ga, bf), 3)
@@ -317,8 +435,7 @@ def run(dev) -> int:
     gate_err = max(gate_err, int(np.abs(ck.astype(np.int64) - cp).max()))
     if not np.array_equal(ck, cp):
         raise AssertionError("main path gate: kernel != plain")
-    log(f"  ffd_loop: {k1_ms:.3f} ms median of {[round(t, 3) for t in k1_all]}; "
-        f"gate_counts: {k2_ms:.4f} ms (plain {k2_plain_ms:.3f} ms)")
+    log(f"  gate_counts: {k2_ms:.4f} ms (plain {k2_plain_ms:.3f} ms)")
 
     # the plain loop at the largest reference grid point
     host = encode(W.diverse_workload(PLAIN_PODS, 400, seed=42), 128, well_known=None)
@@ -333,6 +450,20 @@ def run(dev) -> int:
     ffd_err = max(ffd_err, compare_results(f"diverse-{PLAIN_PODS}", r25k, r25p))
     log(f"  {PLAIN_PODS} pods: ffd_loop {k1_25_ms:.3f} ms, plain loop {plain25_ms:.1f} ms, "
         f"kernel == plain (sweeps={int(r25k.iters.sweeps)} stepped={int(r25k.iters.narrow)})")
+    # the carried loop there, after phase 1, against the seeded plain loop
+    x25 = RX.relax_place(p25, 128)
+    res25 = dataclasses.replace(p25, pod_active=x25.residue_active)
+    carry25 = (x25.state, x25.kind, x25.index)
+    c25k = solve_ffd_sweeps_carried(res25, 128, carry25)
+    c25_ms, _ = time_ms(lambda: solve_ffd_sweeps_carried(res25, 128, carry25), 3)
+    ares25, astate25 = _lane_align(res25, x25.state)
+    t0 = time.perf_counter()
+    c25p = sweeps_plain(ares25, astate25, bf25, x25.kind, x25.index)
+    torch.cuda.synchronize()
+    plain_c25_ms = (time.perf_counter() - t0) * 1e3
+    ffd_err = max(ffd_err, compare_results(f"diverse-{PLAIN_PODS} carried", c25k, c25p))
+    log(f"  {PLAIN_PODS} pods carried: ffd_loop {c25_ms:.3f} ms, plain loop {plain_c25_ms:.1f} ms, "
+        f"kernel == plain (stepped={int(c25k.iters.narrow)}, phase 1 {[int(x) for x in x25.stats]})")
 
     # bounds: bytes every input read once + outputs written once, and the
     # operations this run's data needs
@@ -348,21 +479,28 @@ def run(dev) -> int:
             return sum(nbytes(v) for v in x)
         return 0
 
-    # ffd_loop's operations, from the work counters of a launch on the main
-    # path's problem (the same work as every timed launch): per bin gate the
-    # merge and the intersect test over K x W packed words; per topology lane
-    # of a matched group a compare and a select; per instance-type test the
-    # compat words, the offerings and, in float32, an add and a compare per
-    # resource
-    rk_main = solve_ffd_sweeps(prob, C)
-    work = dict(zip(WORK_COUNTERS, rk_main.work.cpu().tolist()))
+    # ffd_loop's operations, from the work counters of a launch (the same
+    # work as every timed launch of that mode): per bin gate the merge and
+    # the intersect test over K x W packed words; per topology lane of a
+    # matched group a compare and a select; per instance-type test the compat
+    # words, the offerings and, in float32, an add and a compare per resource
     K, V, T, R = prob.num_keys, prob.num_lanes, prob.num_instance_types, prob.num_resources
     O, Wd, PT = prob.offer_ok.shape[1], prob.num_lanes // 32, prob.pod_ports.shape[1]
-    k1_bytes = nbytes(prob) + 2 * nbytes(initial_state(prob, C))
-    k1_int_ops = work["bin_gates"] * 2 * K * Wd + work["topo_lanes"] * 2 + work["type_tests"] * (K * Wd + O)
-    k1_flt_ops = work["type_tests"] * 2 * R
-    k1_ops_s = max(k1_int_ops / PEAK_INT32_OPS_S, k1_flt_ops / PEAK_FP32_OPS_S)
-    k1_bound = max(k1_bytes / PEAK_BYTES_S, k1_ops_s) * 1e3
+    P, N, G, TPL = prob.num_pods, prob.num_nodes, prob.num_groups, prob.num_templates
+    D = prob.pod_vol_counts.shape[1]
+    state_bytes = nbytes(initial_state(prob, C))
+
+    def ffd_bound(w, problem):
+        nbytes_io = nbytes(problem) + 2 * state_bytes
+        int_ops = w["bin_gates"] * 2 * K * Wd + w["topo_lanes"] * 2 + w["type_tests"] * (K * Wd + O)
+        flt_ops = w["type_tests"] * 2 * R
+        ops_s = max(int_ops / PEAK_INT32_OPS_S, flt_ops / PEAK_FP32_OPS_S)
+        return max(nbytes_io / PEAK_BYTES_S, ops_s) * 1e3, ("bytes" if nbytes_io / PEAK_BYTES_S >= ops_s
+                                                             else "operations"), int_ops, flt_ops
+
+    k1_bound, k1_by, k1_int_ops, k1_flt_ops = ffd_bound(work, residue)
+    fresh_bound, fresh_by, _, _ = ffd_bound(work_fresh, prob)
+    op_bound, op_by, _, _ = ffd_bound(work_one_pass, prob)
     # the latency floor of the one-block design: its barriers, each at the
     # cost of a barrier alone in a block of the loop's size
     probe = kernels.library("ffd_loop").ffd_sync_probe_launch
@@ -378,8 +516,24 @@ def run(dev) -> int:
     run_probe(n_sync)
     sync_ms = (time_ms(lambda: run_probe(n_sync), 5)[0] - time_ms(lambda: run_probe(0), 5)[0]) / n_sync
     k1_latency = work["barriers"] * sync_ms
-    log(f"  ffd_loop work: {work}; int ops {k1_int_ops:.4g}, float ops {k1_flt_ops:.4g}; "
-        f"one barrier {sync_ms * 1e6:.2f} ns -> latency floor {k1_latency:.3f} ms")
+    log(f"  ffd_loop carried: int ops {k1_int_ops:.4g}, float ops {k1_flt_ops:.4g}; bound {k1_bound:.5f} ms "
+        f"({k1_by}); one barrier {sync_ms * 1e6:.2f} ns -> latency floor {k1_latency:.3f} ms; "
+        f"fresh bound {fresh_bound:.5f} ms ({fresh_by}), one-pass bound {op_bound:.5f} ms ({op_by})")
+    # relax_place: every input read once, the claim and topology state read
+    # and written once, kind/index/residue written; operations from its
+    # counted instance-type tests (K x W compat words and O offerings in
+    # int32, an add and a compare per resource in float32) and record lanes
+    # (a test and an add), plus the per-pod screen (ports, groups, node
+    # tests, the row compare with the predecessor) and the float32 demand
+    # math (max, sum, size: about 6 operations per pod and resource)
+    rx_bytes = nbytes(prob) + 2 * state_bytes + 9 * P
+    rx_int_ops = (rx_work["type_tests"] * (K * Wd + O) + rx_work["record_lanes"] * 2
+                  + P * (2 * PT + 3 * G + 2 + (K * Wd + 4 * K + TPL) + N * (K * Wd + D + 2)))
+    rx_flt_ops = rx_work["type_tests"] * 2 * R + P * R * 6 + P * N * 2 * R
+    rx_ops_s = max(rx_int_ops / PEAK_INT32_OPS_S, rx_flt_ops / PEAK_FP32_OPS_S)
+    rx_bound = max(rx_bytes / PEAK_BYTES_S, rx_ops_s) * 1e3
+    log(f"  relax_place: bytes {rx_bytes}, int ops {rx_int_ops:.4g}, float ops {rx_flt_ops:.4g}; "
+        f"bound {rx_bound:.5f} ms")
     k2_bytes = nbytes(gp) + nbytes(ga)
     k2_int_ops = prob.num_pods * (K * (Wd + 3) + 2 * PT) + C * T * (K * Wd + O)
     k2_flt_ops = prob.num_pods * R + C * T * 2 * R
@@ -391,19 +545,29 @@ def run(dev) -> int:
                 "name": "ffd_loop",
                 "route": "cuda",
                 "source": "karpenter_tpu_torch/csrc/ffd_loop.cu",
-                "replaces": "karpenter_tpu/ops/ffd_sweeps.py:1910",
+                "replaces": "karpenter_tpu/ops/ffd_sweeps.py:1922",
+                "also_replaces": ["karpenter_tpu/ops/ffd_sweeps.py:1910", "karpenter_tpu/ops/ffd_step.py:483"],
                 "launches": launches["ffd_loop"],
                 "max_abs_err": ffd_err,
                 "ms": k1_ms,
-                "plain_ms": plain25_ms,
+                "plain_ms": plain_c25_ms,
                 "bound_ms": k1_bound,
-                "bound_by": "bytes" if k1_bytes / PEAK_BYTES_S >= k1_ops_s else "operations",
+                "bound_by": k1_by,
                 "library_ms": None,
                 "latency_bound_ms": k1_latency,
                 "work": work,
                 "ms_pods": len(pods),
+                "fresh_ms": fresh_ms,
+                "fresh_bound_ms": fresh_bound,
+                "fresh_work": work_fresh,
+                "one_pass_ms": op_ms,
+                "one_pass_bound_ms": op_bound,
+                "one_pass_work": work_one_pass,
                 "plain_ms_pods": PLAIN_PODS,
-                "ms_at_plain_pods": k1_25_ms,
+                "ms_at_plain_pods": c25_ms,
+                "fresh_plain_ms": plain25_ms,
+                "fresh_ms_at_plain_pods": k1_25_ms,
+                "launches_relax_off": launches_off["ffd_loop"],
             },
             {
                 "name": "gate_counts",
@@ -417,6 +581,23 @@ def run(dev) -> int:
                 "bound_ms": k2_bound,
                 "bound_by": "bytes" if k2_bytes / PEAK_BYTES_S >= k2_ops_s else "operations",
                 "library_ms": None,
+                "launches_relax_off": launches_off["gate_counts"],
+            },
+            {
+                "name": "relax_place",
+                "route": "cuda",
+                "source": "karpenter_tpu_torch/csrc/relax_place.cu",
+                "replaces": "karpenter_tpu/ops/relax.py:162",
+                "launches": launches["relax_place"],
+                "max_abs_err": relax_err,
+                "ms": rx_ms,
+                "plain_ms": rx_plain_ms,
+                "bound_ms": rx_bound,
+                "bound_by": "bytes" if rx_bytes / PEAK_BYTES_S >= rx_ops_s else "operations",
+                "library_ms": None,
+                "work": rx_work,
+                "stats": stats,
+                "launches_relax_off": launches_off["relax_place"],
             },
         ]
     }

@@ -2,6 +2,7 @@
 //
 // Replaces the JAX package's device programs
 //   ops/ffd_sweeps.py:1910 _solve_ffd_sweeps_fresh_jit (_sweeps_impl :1632)
+//   ops/ffd_sweeps.py:1922 _solve_ffd_sweeps_carried_jit (seeded with kind0/index0)
 //   ops/ffd_step.py:483/:506 _solve_ffd_jit / _solve_ffd_fresh_jit (one-pass mode)
 // and steps pods one at a time through the logic of ops/ffd_step.make_step
 // (the parity anchor: the JAX chain/stride commits are bit-identical to it).
@@ -39,7 +40,7 @@
 // masks.cuh for why FMA contraction must stay off).
 #include <cuda_runtime.h>
 
-#include "masks.cuh"
+#include "topology.cuh"
 
 using namespace kt;
 
@@ -139,6 +140,9 @@ struct FfdArgs {
   const uint8_t* flt_neg;
   const uint8_t* flt_valid;  // [G, F]
   const int* host_lane;      // [CH]
+  // verdict seeds (carried repair pass): null for a fresh solve
+  const int* kind0;   // [P]
+  const int* index0;  // [P]
   // carried state (updated in place)
   int* claim_adm;
   uint8_t* claim_comp;
@@ -384,26 +388,6 @@ __device__ __forceinline__ Row fin_row(const FfdArgs& a, int b) {
   return row_at(a.fin_adm, a.fin_comp, a.fin_def, a.fin_gt, a.fin_lt, b, a.K, a.W);
 }
 
-__device__ __forceinline__ ITs its_of(const FfdArgs& a) {
-  ITs its;
-  its.adm = a.it_adm;
-  its.comp = a.it_comp;
-  its.def = a.it_def;
-  its.gt = a.it_gt;
-  its.lt = a.it_lt;
-  its.neg = a.it_neg;
-  its.alloc = a.it_alloc;
-  its.offer_zone = a.offer_zone;
-  its.offer_ct = a.offer_ct;
-  its.offer_ok = a.offer_ok;
-  return its;
-}
-
-// NodePool limits: the pessimistic instance capacity fits the headroom.
-__device__ __forceinline__ bool within_limits(const FfdArgs& a, int j, int t) {
-  return fits_add(a.it_cap + (long)t * a.R, nullptr, a.remaining + (long)j * a.R, a.R);
-}
-
 __device__ __forceinline__ bool tpl_type_ok(const FfdArgs& a, const ITs& its, int p, int j, int t) {
   const int b = a.N + a.C + j;
   return a.tpl_it_ok[(long)j * a.T + t] && within_limits(a, j, t) &&
@@ -616,23 +600,12 @@ __device__ void step(const FfdArgs& a, int p, Shared& s, int* s_gmin, int* s_boo
   const Row rec = fin_row(a, bin);
   const uint8_t* rec_neg = a.fin_neg + (long)bin * K;
   const uint8_t* allow = kind == KIND_NODE ? nullptr : a.wellknown;
+  const TopoGroups tg = topo_of(a);
   for (int g = warp; g < a.G; g += NWARPS) {
     const int kg = a.grp_key[g];
-    const bool concrete = !rec.comp[kg];
-    bool filt = !a.grp_has_filter[g];
-    for (int f = 0; f < a.F && !filt; ++f) {
-      const long gf = (long)g * a.F + f;
-      if (!a.flt_valid[gf]) continue;
-      const Row term = row_at(a.flt_adm, a.flt_comp, a.flt_def, a.flt_gt, a.flt_lt, gf, K, W);
-      filt = compatible_ok(rec, rec_neg, term, a.flt_neg + gf * K, allow, K, W);
-    }
-    int pop = 0;
-    for (int w = 0; w < W; ++w) pop += __popc(rec.adm[kg * W + w]);
-    const int type = a.grp_type[g];
-    const bool counts_pod = a.pod_selects[(long)p * a.G + g] && filt && !a.grp_inverse[g];
-    const bool regular = counts_pod && concrete && ((type == 0 || type == 1) ? pop == 1 : true);
-    const bool inverse = a.grp_inverse[g] && a.pod_owned[(long)p * a.G + g] && concrete;
-    if (!(regular || inverse)) continue;
+    if (!records_group(tg, g, rec, rec_neg, a.pod_selects[(long)p * a.G + g], a.pod_owned[(long)p * a.G + g],
+                       allow, K, W))
+      continue;
     if (lane == 0) count_work(WORK_TOPO_LANES, a.V);
     for (int v = lane; v < a.V; v += 32) {
       if (bit_of(rec.adm + kg * W, v)) {
@@ -652,9 +625,11 @@ __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
   int* s_maxcap = dyn + 3 * a.G;
   const int tid = threadIdx.x;
 
+  // the carried repair pass (ops/ffd_sweeps.py:1938-1941) seeds the rows of
+  // phase 1's placements, which are inactive here and never stepped
   for (int p = tid; p < a.P; p += THREADS) {
-    a.kind[p] = KIND_FAIL;
-    a.index[p] = -1;
+    a.kind[p] = a.kind0 ? a.kind0[p] : KIND_FAIL;
+    a.index[p] = a.index0 ? a.index0[p] : -1;
   }
   if (tid < NWORK) s_work[tid] = 0;
   __syncthreads();

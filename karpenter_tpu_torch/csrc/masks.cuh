@@ -1,5 +1,6 @@
 // Requirement-mask algebra as __device__ functions, shared by the FFD loop
-// kernel (ffd_loop.cu) and the invariant-gate kernel (gate_counts.cu).
+// kernel (ffd_loop.cu), the phase-1 waterfill kernel (relax_place.cu) and the
+// invariant-gate kernel (gate_counts.cu).
 //
 // Device counterpart of karpenter_tpu_torch/ops/masks.py (and of the JAX
 // package's ops/masks.py): closed-world requirement rows over a per-batch
@@ -150,6 +151,30 @@ struct ITs {
   const int* offer_ct;
   const uint8_t* offer_ok;
 };
+
+// The instance-type tables of a kernel's argument struct.
+template <class A>
+__device__ __forceinline__ ITs its_of(const A& a) {
+  ITs its;
+  its.adm = a.it_adm;
+  its.comp = a.it_comp;
+  its.def = a.it_def;
+  its.gt = a.it_gt;
+  its.lt = a.it_lt;
+  its.neg = a.it_neg;
+  its.alloc = a.it_alloc;
+  its.offer_zone = a.offer_zone;
+  its.offer_ct = a.offer_ct;
+  its.offer_ok = a.offer_ok;
+  return its;
+}
+
+// NodePool limits: template j's pessimistic capacity of type t fits its
+// remaining headroom.
+template <class A>
+__device__ __forceinline__ bool within_limits(const A& a, int j, int t) {
+  return fits_add(a.it_cap + (long)t * a.R, nullptr, a.remaining + (long)j * a.R, a.R);
+}
 
 // The instance-type survival test of one bin row against type t
 // (ffd_core._make_it_gate): compatible x fits x offering.

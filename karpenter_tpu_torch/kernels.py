@@ -29,11 +29,13 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "ffd_loop": "ffd_loop.cu",
     "gate_counts": "gate_counts.cu",
+    "relax_place": "relax_place.cu",
 }
 # each library's exported (launch, args-size) symbols
 _SYMBOLS = {
     "ffd_loop": ("ffd_loop_launch", "ffd_loop_args_size"),
     "gate_counts": ("gate_counts_launch", "gate_args_size"),
+    "relax_place": ("relax_place_launch", "relax_place_args_size"),
 }
 
 # -fmad=false: masks.cuh's fits() must round like the plain PyTorch version
@@ -62,7 +64,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for f in (SOURCES[name], "masks.cuh"):
+    for f in (SOURCES[name], *sorted(p.name for p in CSRC.glob("*.cuh"))):
         digest.update((CSRC / f).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -36,6 +36,7 @@ from karpenter_tpu_torch.ops.ffd_core import (
     FFDResult,
     FFDState,
     IterCounts,
+    _lane_align,
     _pad_lanes_mult32,
     _pod_xs,
     _statics,
@@ -46,8 +47,11 @@ from karpenter_tpu_torch.ops.ffd_core import (
 from karpenter_tpu_torch.ops.ffd_step import clone_state, make_step
 
 
-def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool) -> FFDResult:
-    """Plain PyTorch requeue loop (see module docstring)."""
+def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
+                 kind0=None, index0=None) -> FFDResult:
+    """Plain PyTorch requeue loop (see module docstring). ``kind0``/``index0``
+    seed the verdict rows of pods the loop does not step (the carried repair
+    pass: phase 1's placements); unseeded rows start KIND_FAIL / -1."""
     P = problem.num_pods
     C = init.claim_open.shape[0]
     dev = problem.lane_valid.device
@@ -56,8 +60,8 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool) 
     xs = _pod_xs(problem, bounds_free)
     active = problem.pod_active.cpu().tolist()
     queue = [p for p in range(P) if active[p]]
-    kinds = [KIND_FAIL] * P
-    idxs = [-1] * P
+    kinds = [KIND_FAIL] * P if kind0 is None else kind0.cpu().tolist()
+    idxs = [-1] * P if index0 is None else index0.cpu().tolist()
     stepped = sweeps = 0
     progress, noslot = True, False
     while progress and queue and not noslot:
@@ -91,6 +95,22 @@ def solve_ffd_sweeps(problem: SchedulingProblem, max_claims: int) -> FFDResult:
     return sweeps_plain(problem, init, problem_bounds_free(problem))
 
 
+def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init) -> FFDResult:
+    """The repair pass of the two-phase solve (ops/relax.py): ``init`` is
+    (state, kind, index) from phase 1, ``problem.pod_active`` holds only the
+    residue. The loop starts from phase 1's claim landscape, and phase 1's
+    verdict rows ride through untouched because their pods are never stepped.
+    One ``ffd_loop`` launch for CUDA tensors, the plain version for CPU
+    tensors. ``max_claims`` must equal the carried state's claim axis."""
+    state, kind0, index0 = init
+    if state.claim_open.shape[0] != max_claims:
+        raise ValueError(f"carried state has {state.claim_open.shape[0]} claim slots, not {max_claims}")
+    problem, state = _lane_align(problem, state)
+    if problem.lane_valid.is_cuda:
+        return launch_ffd_loop(problem, state, one_pass=False, kind0=kind0, index0=index0)
+    return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0)
+
+
 # -- the ffd_loop kernel's argument struct (csrc/ffd_loop.cu FfdArgs) ---------
 
 _FFD_POINTERS = (
@@ -105,7 +125,7 @@ _FFD_POINTERS = (
     "node_avail", "node_vol_limits",
     "grp_type", "grp_key", "grp_max_skew", "grp_min_domains", "grp_inverse", "grp_has_filter",
     "flt_adm", "flt_comp", "flt_def", "flt_gt", "flt_lt", "flt_neg", "flt_valid",
-    "host_lane",
+    "host_lane", "kind0", "index0",
     "claim_adm", "claim_comp", "claim_def", "claim_gt", "claim_lt",
     "claim_requests", "claim_it_ok", "claim_open", "claim_npods", "claim_tpl", "claim_ports",
     "node_adm", "node_comp", "node_def", "node_gt", "node_lt",
@@ -136,15 +156,27 @@ def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = Fal
         out[prefix + "_neg"] = masks.negative_polarity(r, lv, ln).contiguous()
 
 
-def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool) -> FFDResult:
+def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
+                    kind0=None, index0=None) -> FFDResult:
     """Run the ``ffd_loop`` kernel on CUDA tensors: the requeue loop, or with
     ``one_pass`` a single scan over every row (the backend's per-pass mode).
-    ``init`` is not modified. The kernel evaluates the general (bounded) arm
-    of the mask algebra, which equals the bounds-free arm on problems without
-    Gt/Lt bounds, so there is no separate bounds-free kernel path."""
+    ``kind0``/``index0`` (i32[P], both or neither) seed the verdict rows, as
+    in ``sweeps_plain``. ``init`` is not modified. The kernel evaluates the
+    general (bounded) arm of the mask algebra, which equals the bounds-free
+    arm on problems without Gt/Lt bounds, so there is no separate bounds-free
+    kernel path."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_ffd_loop needs CUDA tensors")
+    t, args = _ffd_args(problem, init, one_pass, kind0, index0)
+    kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream)
+    return _ffd_result(t, problem.num_lanes, one_pass)
+
+
+def _ffd_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0, index0):
+    """The kernel's tensors (inputs in its layout, a copy of the carried
+    state to update in place, outputs) and its argument struct."""
+    dev = problem.lane_valid.device
     K, V = problem.num_keys, problem.num_lanes
     W = V // 32
     if K > _MAX_KEYS or W > _MAX_WORDS or V % 32:
@@ -206,6 +238,12 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool) 
     t["queue"] = torch.empty((2 * P,), dtype=i32, device=dev)
     t["kind"] = torch.empty((P,), dtype=i32, device=dev)
     t["index"] = torch.empty((P,), dtype=i32, device=dev)
+    if (kind0 is None) != (index0 is None):
+        raise ValueError("kind0 and index0 seed the verdict rows together")
+    for name, seed in (("kind0", kind0), ("index0", index0)):
+        if seed is not None and (seed.shape != (P,) or seed.device != dev):
+            raise ValueError(f"{name} must be i32[{P}] on {dev}")
+        t[name] = None if seed is None else seed.to(i32).contiguous()
     t["counters"] = torch.zeros((2,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
 
@@ -213,9 +251,13 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool) 
                 O=problem.offer_ok.shape[1], PT=problem.pod_ports.shape[1],
                 D=problem.pod_vol_counts.shape[1], G=G, F=F,
                 CH=problem.claim_hostname_lane.shape[0], one_pass=int(one_pass))
-    args = _FfdArgs(**{name: t[name].data_ptr() for name in _FFD_POINTERS}, **dims)
-    kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream)
+    args = _FfdArgs(**{name: (t[name].data_ptr() if t[name] is not None else None) for name in _FFD_POINTERS},
+                    **dims)
+    return t, args
 
+
+def _ffd_result(t: dict, V: int, one_pass: bool) -> FFDResult:
+    """The FFDResult of a finished launch over ``t``."""
     def req_back(prefix: str) -> ReqTensor:
         return ReqTensor(
             admitted=masks.unpack_lanes(t[prefix + "_adm"], V),

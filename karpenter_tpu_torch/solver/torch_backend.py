@@ -14,17 +14,24 @@ Two solve modes, chosen as the JAX backend chooses them:
     per rung of the relax ladder (provisioning/preferences.py), the bin and
     topology state carried between passes.
 
+In sweeps mode with ``relax=True`` (the default, as the JAX package's
+``KARPENTER_TPU_RELAX`` defaults to 1) and unlimited NodePools, the solve has
+two phases: one ``relax_place`` launch (ops/relax.py) waterfills the
+eligible bulk of the batch into claims, and the carried ``ffd_loop``
+(ops/ffd_sweeps.solve_ffd_sweeps_carried) repairs the residue from phase 1's
+claim landscape. Phase-1 placements are validator-equivalent to FFD rather
+than identical, so every two-phase result goes through
+``verify.gate_relaxed``; a violation re-solves the batch with relaxation off
+(``relax_fallbacks``). With ``relax=False`` the placements equal the JAX
+backend's with ``KARPENTER_TPU_RELAX=0`` pod for pod.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 GPU and without that argument they raise. Every batch goes through the
 kernels on the card: there is no small-batch host dispatch.
 
-Not yet honoured: ``KARPENTER_TPU_RELAX=1``. The JAX package's phase-1
-waterfill (ops/relax.py) and its carried repair pass are the next slice of
-the port, so this backend always runs the ``KARPENTER_TPU_RELAX=0``
-configuration, whose placements equal the JAX backend's pod for pod. The
-JAX backend's other flag-gated subsystems (device world, shard, relax2,
-learned order, AOT, program registry, explain, trace and metrics) are not
-ported.
+Not ported: the JAX backend's other flag-gated subsystems (device world,
+shard, relax2, learned order, AOT, program registry, explain, trace and
+metrics).
 """
 
 from __future__ import annotations
@@ -42,8 +49,9 @@ from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, problem_to_torch
 from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd
-from karpenter_tpu_torch.ops.ffd_sweeps import solve_ffd_sweeps
+from karpenter_tpu_torch.ops.ffd_sweeps import solve_ffd_sweeps, solve_ffd_sweeps_carried
 from karpenter_tpu_torch.ops.padding import claim_axis_bucket, pad_problem
+from karpenter_tpu_torch.ops.relax import relax_applicable, relax_place
 from karpenter_tpu_torch.provisioning.preferences import Preferences
 from karpenter_tpu_torch.provisioning.topology import Topology
 from karpenter_tpu_torch.scheduling import Requirements
@@ -179,8 +187,17 @@ def _remap_group_state(state, old_keys, new_keys, padded_problem):
 class TorchSolver(SolverBackend):
     """FFD provisioning solve on PyTorch tensors (see module docstring)."""
 
-    def __init__(self, well_known=None, initial_claim_slots: int = 32, device=None):
+    def __init__(self, well_known=None, initial_claim_slots: int = 32, device=None,
+                 relax: bool = True):
         self.device = resolve_device(device)
+        # the two-phase solve (module docstring); the JAX package's
+        # KARPENTER_TPU_RELAX, on by default there too
+        self.relax = relax
+        # phase 1's counts (eligible/placed/demoted/claims) of the LAST solve
+        # attempt; None when phase 1 did not run or placed nothing
+        self.last_relax: Optional[Dict[str, int]] = None
+        # two-phase results the gate rejected (each re-solved with relax off)
+        self.relax_fallbacks = 0
         # IterCounts of the LAST sweeps-mode solve; None before any, and after
         # a per-pass solve
         self.last_iters = None
@@ -189,7 +206,9 @@ class TorchSolver(SolverBackend):
         self.claim_slots = claim_axis_bucket(initial_claim_slots)
         self.claim_escalations = 0
         # wall seconds of the LAST solve's phases: encode (host encode + pad +
-        # upload), device (the FFD loop, synchronised), decode (host)
+        # upload), relax (phase 1 and its stats fetch), device (the FFD loop,
+        # synchronised), decode (host), gate (gate_relaxed of a two-phase
+        # result)
         self.last_timing: Dict[str, float] = {}
 
     def solve(
@@ -209,11 +228,12 @@ class TorchSolver(SolverBackend):
         if domains is None:
             domains = domains_from_instance_types(instance_types, templates)
         max_claims = min(self.claim_slots, claim_axis_bucket(len(pods)))
+        allow_relax = self.relax
         while True:
             try:
-                return self._solve_with_slots(
+                result = self._solve_with_slots(
                     pods, instance_types, templates, nodes, pod_requirements_override,
-                    topology, cluster_pods, domains, max_claims, pod_volumes,
+                    topology, cluster_pods, domains, max_claims, pod_volumes, allow_relax,
                 )
             except _SlotOverflow:
                 if max_claims >= len(pods):
@@ -223,15 +243,47 @@ class TorchSolver(SolverBackend):
                 max_claims = min(claim_axis_bucket(max_claims + 1), claim_axis_bucket(len(pods)))
                 self.claim_slots = max(self.claim_slots, max_claims)
                 self.claim_escalations += 1
+                continue
+            if self.last_relax is not None:
+                # the two-phase contract: gate every relaxed result; a
+                # violation re-solves with relaxation off
+                # (the JAX package's solver/jax_backend.py:414-447)
+                import time
+
+                from karpenter_tpu_torch.verify import gate_relaxed
+
+                t0 = time.perf_counter()
+                violations = gate_relaxed(
+                    result, pods, instance_types, templates, nodes,
+                    pod_requirements_override, cluster_pods, domains,
+                )
+                self.last_timing["gate"] = time.perf_counter() - t0
+                if violations:
+                    self.relax_fallbacks += 1
+                    allow_relax = False
+                    continue
+            return result
+
+    def _relax_phase(self, problem, max_claims):
+        """Phase 1 over the padded device problem: its RelaxOut, or None when
+        it placed nothing (the plain sweeps solve is then the whole solve)."""
+        rout = relax_place(problem, max_claims)
+        stats = torch.stack(list(rout.stats)).cpu().tolist()
+        self.last_relax = dict(zip(("eligible", "placed", "demoted", "claims"), stats))
+        if self.last_relax["placed"] <= 0:
+            self.last_relax = None
+            return None
+        return rout
 
     def _solve_with_slots(
         self, pods, instance_types, templates, nodes, pod_requirements_override,
-        topology, cluster_pods, domains, max_claims, pod_volumes=None,
+        topology, cluster_pods, domains, max_claims, pod_volumes=None, allow_relax=False,
     ) -> SolveResult:
         import time
 
-        timing = {"encode": 0.0, "device": 0.0, "decode": 0.0}
+        timing = {"encode": 0.0, "relax": 0.0, "device": 0.0, "decode": 0.0}
         self.last_timing = timing
+        self.last_relax = None  # never report a prior attempt's phase 1
         work = list(pods)
         copied = set()
         vocab_pods = list(pods)  # frozen vocabulary seed (originals never mutate)
@@ -291,8 +343,26 @@ class TorchSolver(SolverBackend):
             problem = problem_to_torch(host_problem, self.device)
             timing["encode"] += time.perf_counter() - t0
 
+            rout = None
+            if use_sweeps and allow_relax and state is None and relax_applicable(host_problem):
+                # phase 1 places the eligible bulk; the SAME sweeps loop then
+                # repairs the residue carrying phase 1's claims and verdicts.
+                # Sweeps mode runs one pass, so this only ever sees a fresh
+                # state.
+                t0 = time.perf_counter()
+                rout = self._relax_phase(problem, max_claims)
+                timing["relax"] += time.perf_counter() - t0
+
             t0 = time.perf_counter()
-            if use_sweeps:
+            if rout is not None:
+                problem = dataclasses.replace(problem, pod_active=rout.residue_active)
+                host_problem = dataclasses.replace(
+                    host_problem, pod_active=rout.residue_active.cpu().numpy()
+                )
+                result = solve_ffd_sweeps_carried(
+                    problem, max_claims, init=(rout.state, rout.kind, rout.index)
+                )
+            elif use_sweeps:
                 result = solve_ffd_sweeps(problem, max_claims)
             else:
                 result = solve_ffd(problem, max_claims, init=state)
@@ -356,7 +426,8 @@ class TorchSolver(SolverBackend):
         decode_claim_placements(out, meta, max_claims, np_final if state is not None else None, pod_kinds)
         if use_sweeps and meta is not None:
             # single-pass solves hand the device gate the exact padded tensors
-            # this result decoded from
+            # this result decoded from (the repair pass's residue problem after
+            # phase 1, as the JAX backend does)
             from karpenter_tpu_torch import verify
 
             out.verify_ctx = verify.make_context(

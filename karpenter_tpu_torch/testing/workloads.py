@@ -357,9 +357,11 @@ def topology_workload(seed: int) -> Workload:
     return pods, its, templates, nodes
 
 
-def bounds_workload(seed: int) -> Workload:
+def bounds_workload(seed: int, with_nodes: bool = True) -> Workload:
     """Integer Gt/Lt requirements on a template and on pods (the bounded arm
-    of the mask algebra), with existing nodes."""
+    of the mask algebra), with existing nodes unless ``with_nodes`` is False
+    (then every unconstrained pod is eligible for phase 1 of the two-phase
+    solve)."""
     rng = random.Random(5000 + seed)
     its = instance_types(12)
     templates = [
@@ -376,6 +378,8 @@ def bounds_workload(seed: int) -> Workload:
             reqs = [("integer", LT, [str(rng.randint(3, 12))])]
         pods.append(make_pod(i, cpu=rng.choice([0.25, 0.5, 1.0, 2.0, 3.0]), mem=rng.choice([1e8, 1e9]),
                              requirements=reqs))
+    if not with_nodes:
+        return pods, its, templates, []
     nodes = [make_node(f"node-{j}", cpu=rng.choice([2.0, 4.0])) for j in range(rng.randint(1, 3))]
     return pods, its, templates, nodes
 
@@ -399,3 +403,67 @@ def volume_workload(seed: int):
         k = rng.choice([0, 0, 1, 2])
         volumes.append({"ebs.csi": frozenset(f"vol-{i}-{v}" for v in range(k))} if k else {})
     return (pods, its, templates, nodes), volumes
+
+
+def relax_fuzz_workload(seed: int) -> Workload:
+    """tests/test_solver_relax_parity.py ``TestRelaxFuzzGeneric.test_fuzz(seed)``:
+    the generic fuzz family under the two-phase solve (selectors, taints,
+    host ports, NodePool limits, existing nodes)."""
+    rng = random.Random(5000 + seed)
+    its = instance_types(rng.randint(2, 12))
+    taint = Taint(key="team", value="x", effect="NoSchedule")
+    templates = [simple_template(its, name="a")]
+    if rng.random() < 0.3:
+        templates[0].remaining_resources = {"cpu": float(rng.randint(4, 40))}
+    if rng.random() < 0.5:
+        templates.append(simple_template(its, name="b", taints=[taint]))
+    pods = []
+    for i in range(rng.randint(5, 30)):
+        selector = {}
+        if rng.random() < 0.3:
+            selector[wk.LABEL_TOPOLOGY_ZONE] = rng.choice(ZONES)
+        if rng.random() < 0.2:
+            selector["integer"] = str(rng.randint(1, 12))
+        tols = [Toleration(key="team", operator="Exists")] if rng.random() < 0.3 else []
+        pod = make_pod(
+            i,
+            cpu=rng.choice([0.1, 0.25, 0.5, 1.0, 1.5, 3.0]),
+            mem=rng.choice([1e8, 2.5e8, 1e9, 4e9]),
+            selector=selector,
+            tolerations=tols,
+        )
+        if rng.random() < 0.25:
+            pod.spec.containers[0].ports.append(
+                ContainerPort(
+                    host_port=rng.choice([80, 443, 8080]),
+                    host_ip=rng.choice(["", "10.0.0.1"]),
+                    protocol=rng.choice(["TCP", "UDP"]),
+                )
+            )
+        pods.append(pod)
+    nodes = [make_node(f"node-{n}", cpu=rng.choice([2.0, 4.0, 8.0])) for n in range(rng.randint(0, 3))]
+    return pods, its, templates, nodes
+
+
+def relax_topology_workload(seed: int) -> Workload:
+    """tests/test_solver_relax_parity.py ``TestRelaxFuzzTopology
+    .test_fuzz_topology(seed)``: spread, affinity and anti-affinity mixes
+    whose constrained pods all go to the repair pass."""
+    rng = random.Random(7000 + seed)
+    its = instance_types(rng.choice([6, 10]))
+    templates = [simple_template(its, name="a")]
+    n = rng.randint(12, 60)
+    pods = [_topology_pod(rng, i) for i in range(n)]
+    nodes = [
+        make_node(f"node-{j}", cpu=rng.choice([2.0, 4.0, 8.0]), zone=rng.choice(ZONES))
+        for j in range(rng.randint(0, 3))
+    ]
+    return pods, its, templates, nodes
+
+
+def homogeneous_workload(n: int = 48) -> Workload:
+    """tests/test_solver_relax_parity.py ``test_phase1_places_bulk_and_shrinks
+    _repair``: a bulk of unconstrained pods of five sizes, phase 1's target."""
+    its = instance_types(8)
+    pods = [make_pod(i, cpu=0.3 + 0.2 * (i % 5)) for i in range(n)]
+    return pods, its, [simple_template(its)], []

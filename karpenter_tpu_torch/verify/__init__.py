@@ -5,5 +5,6 @@ from karpenter_tpu_torch.verify.gate import (  # noqa: F401
     GateContext,
     GateOutcome,
     full_gate,
+    gate_relaxed,
     make_context,
 )

@@ -166,6 +166,29 @@ def full_gate(
     return outcome
 
 
+def gate_relaxed(
+    result, pods, instance_types, templates, nodes=(),
+    pod_requirements_override=None, cluster_pods=(), domains=None,
+) -> List[Any]:
+    """The gate of the two-phase solve (solver/torch_backend.py): phase-1
+    placements are validator-equivalent to FFD rather than identical, so
+    every relaxed result is gated before the backend returns it. The
+    composite verdict of ``full_gate`` where the result carries a context,
+    the host ``full_gate_relaxed`` otherwise. Device errors propagate."""
+    outcome = full_gate(
+        result, pods, instance_types, templates, nodes,
+        pod_requirements_override, cluster_pods, domains,
+    )
+    if outcome is not None:
+        return outcome.violations
+    from karpenter_tpu_torch.solver.validator import full_gate_relaxed
+
+    return full_gate_relaxed(
+        result, pods, instance_types, templates, nodes,
+        pod_requirements_override, cluster_pods, domains,
+    )
+
+
 # -- host-side pieces ----------------------------------------------------------
 
 

@@ -59,6 +59,11 @@ WORKLOADS = {
     "chain-2002": lambda m: m.chain_workload(2002),
     "chain-2004": lambda m: m.chain_workload(2004),
     "bounds-1": lambda m: m.bounds_workload(1),
+    # the two-phase solve's corpora (tests/test_solver_relax_parity.py families)
+    "homog-48": lambda m: m.homogeneous_workload(48),
+    "bounds-0-free": lambda m: m.bounds_workload(0, with_nodes=False),
+    **{f"rfuzz-{s}": (lambda s: lambda m: m.relax_fuzz_workload(s))(s) for s in range(8)},
+    **{f"rtopo-{s}": (lambda s: lambda m: m.relax_topology_workload(s))(s) for s in range(8)},
 }
 
 

@@ -8,6 +8,7 @@ ctypes argument structs must list the C structs' fields in order, and the
 launch wrappers must refuse CPU tensors instead of falling back.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -18,8 +19,8 @@ import torch
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
-from karpenter_tpu_torch.ops import ffd_sweeps
-from karpenter_tpu_torch.ops.ffd_core import initial_state, problem_bounds_free
+from karpenter_tpu_torch.ops import ffd_sweeps, relax
+from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd_plain
 from karpenter_tpu_torch.ops.padding import pad_problem
 from karpenter_tpu_torch.provisioning.topology import Topology
@@ -46,6 +47,7 @@ def _c_struct_fields(source: str, struct: str):
     [
         ("ffd_loop.cu", "FfdArgs", ffd_sweeps._FFD_POINTERS, ffd_sweeps._FFD_INTS),
         ("gate_counts.cu", "GateKernelArgs", gdev._GATE_POINTERS, gdev._GATE_INTS),
+        ("relax_place.cu", "RelaxArgs", relax._RELAX_POINTERS, relax._RELAX_INTS),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
@@ -67,6 +69,8 @@ def test_launch_wrappers_refuse_cpu_tensors():
     prob = problem_to_torch(_encode(W.fuzz_workload(1), 8), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         ffd_sweeps.launch_ffd_loop(prob, initial_state(prob, 8), one_pass=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        relax.launch_relax_place(prob, 8)
     gp = gdev.gate_problem(prob)
     with pytest.raises(ValueError, match="CUDA"):
         gdev.launch_gate_counts(gp, None)
@@ -76,6 +80,7 @@ def test_library_path_tracks_sources_and_flags():
     a = kernels.library_path("ffd_loop")
     assert a == kernels.library_path("ffd_loop")
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
+    assert set(kernels.SOURCES) == {"ffd_loop", "gate_counts", "relax_place"}
 
 
 @pytest.fixture
@@ -86,6 +91,9 @@ def cuda():
 
 
 CORPORA = {
+    "homogeneous-48": (lambda: W.homogeneous_workload(48), 32),
+    "diverse-300-overflow": (lambda: W.diverse_workload(300, 40, seed=7), 8),
+    "bounds-0-free": (lambda: W.bounds_workload(0, with_nodes=False), 32),
     "chain-2000": (lambda: W.chain_workload(2000), 32),
     "chain-2001-overflow": (lambda: W.chain_workload(2001), 8),
     "fuzz-6": (lambda: W.fuzz_workload(6), 32),
@@ -105,8 +113,11 @@ def _assert_same(rk, rp):
             np.testing.assert_array_equal(sk[key], sp[key], err_msg=key)
 
 
+PR1_CORPORA = ("chain-2000", "chain-2001-overflow", "fuzz-6", "bounds-0", "topology-3")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CORPORA))
+@pytest.mark.parametrize("name", PR1_CORPORA)
 def test_ffd_loop_matches_plain(cuda, name):
     make, slots = CORPORA[name]
     prob = problem_to_torch(_encode(make(), slots), cuda)
@@ -135,3 +146,25 @@ def test_gate_counts_matches_plain(cuda, name):
     rep[0, 0] += 1.0
     bad = ga._replace(claim_reported=rep)
     assert torch.equal(gdev.launch_gate_counts(gp, bad).cpu(), gdev.gate_counts_plain(gp, bad, bf).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["homogeneous-48", "diverse-300-overflow", "bounds-0-free", "fuzz-6", "chain-2000"])
+def test_relax_place_and_carried_loop_match_plain(cuda, name):
+    """relax_place against relax_place_plain (integers and bools exact, floats
+    within rtol 1e-5), then the carried ffd_loop against the seeded plain
+    loop, on the card."""
+    make, slots = CORPORA[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    rk = relax.relax_place(prob, slots)
+    rp = relax.relax_place_plain(prob, slots)
+    for key in ("kind", "index", "residue_active"):
+        assert torch.equal(getattr(rk, key).cpu(), getattr(rp, key).cpu()), key
+    assert [int(x) for x in rk.stats] == [int(x) for x in rp.stats]
+    _assert_same(rk, rp)
+    residue = dataclasses.replace(prob, pod_active=rp.residue_active)
+    ck = ffd_sweeps.solve_ffd_sweeps_carried(residue, slots, init=(rp.state, rp.kind, rp.index))
+    aprob, state = _lane_align(residue, rp.state)
+    cp = ffd_sweeps.sweeps_plain(aprob, state, problem_bounds_free(aprob), rp.kind, rp.index)
+    _assert_same(ck, cp)
+    assert int(ck.iters.sweeps) == cp.iters.sweeps and int(ck.iters.narrow) == cp.iters.narrow

@@ -1,5 +1,6 @@
-"""Backend parity: TorchSolver(device="cpu") against JaxSolver with
-KARPENTER_TPU_RELAX=0 (tests/conftest.py pins it) on the same API objects.
+"""Backend parity: TorchSolver(device="cpu", relax=False) against JaxSolver
+with KARPENTER_TPU_RELAX=0 (tests/conftest.py pins it) on the same API
+objects. The two-phase solve's parity is tests/test_torch_relax.py.
 
 Claims (template, pod indices, instance types, requests), node placements
 and failures (keys and reasons) must be equal, and so must the claim-slot
@@ -25,7 +26,8 @@ def _solve_both(name, initial_claim_slots=32):
     js = JaxSolver(well_known=FAKE_WELL_KNOWN_LABELS, initial_claim_slots=initial_claim_slots)
     jr = js.solve(*workload, pod_volumes=pod_volumes)
     ts = TorchSolver(
-        well_known=FAKE_WELL_KNOWN_LABELS, initial_claim_slots=initial_claim_slots, device="cpu"
+        well_known=FAKE_WELL_KNOWN_LABELS, initial_claim_slots=initial_claim_slots, device="cpu",
+        relax=False,
     )
     tr = ts.solve(*t_workload, pod_volumes=pod_volumes)
     return js, jr, ts, tr
