@@ -20,14 +20,19 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      two-phase solve: ``relax_place``, the carried ``ffd_loop``, the relaxed
      gate) on 10,000 pods of the reference's diverse mix against 400 catalog
      instance types and one default NodePool, 128 claim slots with
-     escalation, then ``full_gate`` (a reject fails the run); then the
-     ``relax=False`` path on the same batch; then each kernel timed at the
-     main path's shapes, and the plain loop at 2,500 pods against the kernel.
+     escalation, with the launch counts read just after it; then
+     ``full_gate`` of the result (a reject fails the run); then the
+     ``relax=False`` path on the same batch. Then at the main path's shapes
+     each kernel alone (CUDA events around the launch, arguments built
+     beforehand), its wrapper, and its plain version on the same inputs,
+     which it must equal: ``relax_place``, ``ffd_loop`` carried, fresh and
+     one-pass, ``gate_counts``.
   3. a ``kernels`` JSON line: per kernel its launches on the main path, its
-     time, its bound, and the plain version's time; for ``ffd_loop`` and
-     ``relax_place`` also the work counters their launches recorded, from
-     which the operation bounds are computed, and for ``ffd_loop`` the
-     latency floor of its barriers and its fresh and one-pass modes.
+     time alone and through its wrapper, its bound, and the plain version's
+     time; for ``ffd_loop`` and ``relax_place`` also the work counters their
+     launches recorded, from which the operation bounds are computed, and
+     for ``ffd_loop`` the latency floor of its barriers and its fresh and
+     one-pass modes. Bytes are those of the kernel's own arguments.
   4. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
@@ -55,7 +60,6 @@ FLOAT_RTOL = 1e-5  # float state: same adds in the same order, FMA off
 FLOAT_ATOL = 1e-6
 
 MAIN_PODS = 10000  # the north-star batch
-PLAIN_PODS = 2500  # the largest reference grid point, for the plain loop
 
 
 def log(msg):
@@ -79,10 +83,13 @@ def run(dev) -> int:
     from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
     from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
     from karpenter_tpu_torch.ops import relax as RX
-    from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
+    from karpenter_tpu_torch.ops.ffd_core import _lane_align, _pad_lanes_mult32, initial_state, problem_bounds_free
     from karpenter_tpu_torch.ops.ffd_step import solve_ffd, solve_ffd_plain
     from karpenter_tpu_torch.ops.ffd_sweeps import (
+        FFD_SCRATCH,
+        FFD_STATE,
         WORK_COUNTERS,
+        ffd_loop_args,
         solve_ffd_sweeps,
         solve_ffd_sweeps_carried,
         sweeps_plain,
@@ -329,17 +336,18 @@ def run(dev) -> int:
     pods, its, tpls, nodes = W.diverse_workload(MAIN_PODS, 400, seed=42)
 
     def drive(relax):
-        """One solve and its gate through the entry points a user calls, with
-        the launch counts set to 0 just before and read just after."""
+        """One solve through the entry point a user calls, with the launch
+        counts set to 0 just before it and read just after; then the smoke's
+        own ``full_gate`` of the result, outside that window."""
         solver = TorchSolver(initial_claim_slots=128, device=dev, relax=relax)
         kernels.reset_launches()
         t0 = time.perf_counter()
         result = solver.solve(pods, its, tpls, nodes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
         outcome = full_gate(result, pods, its, tpls, nodes)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
         if outcome is None or outcome.violations or outcome.counts or outcome.mode != "device":
             raise AssertionError(f"main path relax={relax}: gate rejected or could not run: {outcome}")
         if result.num_scheduled() + len(result.failures) != len(pods):
@@ -368,7 +376,9 @@ def run(dev) -> int:
     # the same two solves again, to separate first-solve costs from the path's
     for relax in (True, False):
         drive(relax)
-    if launches_off["relax_place"] != 0 or launches_off["ffd_loop"] <= 0 or launches_off["gate_counts"] <= 0:
+    # the relax=False solve runs no phase 1 and gates nothing itself
+    if launches_off != {"ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "relax_place": 0} \
+            or launches_off["ffd_loop"] <= 0:
         raise AssertionError(f"relax=False path launched {launches_off}")
     if sched != len(pods) or sched < result_off.num_scheduled():
         raise AssertionError(f"main path scheduled {sched}, relax=False {result_off.num_scheduled()} of {len(pods)}")
@@ -380,7 +390,8 @@ def run(dev) -> int:
     active = result_off.verify_ctx.device_problem.pod_active
     if active.shape != ctx.device_problem.pod_active.shape or int(active.sum()) != len(pods):
         raise AssertionError("main path: the two paths padded the batch differently")
-    prob = dataclasses.replace(ctx.device_problem, pod_active=active)
+    prob = _pad_lanes_mult32(dataclasses.replace(ctx.device_problem, pod_active=active))
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def time_ms(fn, reps):
         times = []
@@ -393,91 +404,112 @@ def run(dev) -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times), times
 
+    def time_launches(name, arg_sets):
+        """The kernel alone: CUDA events around ``kernels.launch`` over
+        argument sets built beforehand, one set per launch (the kernels
+        update their state in place)."""
+        times = []
+        for _, args in arg_sets:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            kernels.launch(name, args, stream)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), times
+
+    def same_verdicts(tag, arg_sets, ref):
+        for t, _ in arg_sets:
+            if not (torch.equal(t["kind"], ref.kind) and torch.equal(t["index"], ref.index)):
+                raise AssertionError(f"{tag}: a timed launch differs from the wrapper's")
+
+    def plain_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
     # relax_place at the main path's shapes: kernel, plain, their agreement
-    rx_ms, rx_all = time_ms(lambda: RX.relax_place(prob, C), 10)
     rxk = RX.relax_place(prob, C)
+    rx_sets = [(t, a) for t, _, a in (RX.relax_place_args(prob, C) for _ in range(10))]
+    rx_ms, rx_all = time_launches("relax_place", rx_sets)
+    same_verdicts("relax_place", rx_sets, rxk)
+    rx_wrap_ms, _ = time_ms(lambda: RX.relax_place(prob, C), 5)
     rx_work = dict(zip(RX.WORK_COUNTERS, rxk.work.cpu().tolist()))
-    t0 = time.perf_counter()
-    rxp = RX.relax_place_plain(prob, C)
-    torch.cuda.synchronize()
-    rx_plain_ms = (time.perf_counter() - t0) * 1e3
+    rxp, rx_plain_ms = plain_ms(lambda: RX.relax_place_plain(prob, C))
     relax_err = max(relax_err, compare_relax("main path", rxk, rxp))
     stats = dict(zip(("eligible", "placed", "demoted", "claims"), (int(x) for x in rxk.stats)))
     if stats != solver.last_relax:
         raise AssertionError(f"main path: phase 1 {stats} != the solve's {solver.last_relax}")
-    log(f"  relax_place: {rx_ms:.4f} ms median of {[round(t, 4) for t in rx_all]}; plain {rx_plain_ms:.1f} ms; "
-        f"kernel == plain; {stats}; work {rx_work}")
+    log(f"  relax_place: kernel {rx_ms:.4f} ms median of {[round(t, 4) for t in rx_all]}; wrapper {rx_wrap_ms:.4f} ms; "
+        f"plain {rx_plain_ms:.1f} ms; kernel == plain; {stats}; work {rx_work}")
 
-    # ffd_loop: the carried repair pass (the main path), the fresh loop (the
-    # relax=False path) and one one-pass scan, each with its work counters
-    residue = dataclasses.replace(prob, pod_active=rxk.residue_active)
-    carry = (rxk.state, rxk.kind, rxk.index)
-    k1_ms, k1_all = time_ms(lambda: solve_ffd_sweeps_carried(residue, C, carry), 3)
-    rc_main = solve_ffd_sweeps_carried(residue, C, carry)
+    # ffd_loop in each mode at the main path's shapes, each against its
+    # plain loop on the same inputs: the carried repair pass (the main
+    # path), the fresh loop (the relax=False path) and one one-pass scan
+    residue, astate = _lane_align(dataclasses.replace(prob, pod_active=rxk.residue_active), rxk.state)
+    rc_main = solve_ffd_sweeps_carried(residue, C, (rxk.state, rxk.kind, rxk.index))
+    k1_sets = [ffd_loop_args(residue, astate, False, rxk.kind, rxk.index) for _ in range(3)]
+    k1_ms, k1_all = time_launches("ffd_loop", k1_sets)
+    same_verdicts("ffd_loop carried", k1_sets, rc_main)
+    k1_wrap_ms, _ = time_ms(lambda: solve_ffd_sweeps_carried(residue, C, (rxk.state, rxk.kind, rxk.index)), 2)
     work = dict(zip(WORK_COUNTERS, rc_main.work.cpu().tolist()))
-    fresh_ms, fresh_all = time_ms(lambda: solve_ffd_sweeps(prob, C), 3)
+    rc_plain, k1_plain_ms = plain_ms(lambda: sweeps_plain(residue, astate, problem_bounds_free(residue),
+                                                          rxk.kind, rxk.index))
+    ffd_err = max(ffd_err, compare_results("main path carried", rc_main, rc_plain))
+    log(f"  ffd_loop carried: kernel {k1_ms:.3f} ms median of {[round(t, 3) for t in k1_all]}, wrapper "
+        f"{k1_wrap_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, kernel == plain; stepped {int(rc_main.iters.narrow)} "
+        f"in {int(rc_main.iters.sweeps)} sweeps, work {work}")
+
+    bf = problem_bounds_free(prob)
     rf_main = solve_ffd_sweeps(prob, C)
+    fresh_sets = [ffd_loop_args(prob, initial_state(prob, C), False) for _ in range(3)]
+    fresh_ms, fresh_all = time_launches("ffd_loop", fresh_sets)
+    same_verdicts("ffd_loop fresh", fresh_sets, rf_main)
     work_fresh = dict(zip(WORK_COUNTERS, rf_main.work.cpu().tolist()))
-    op_ms, op_all = time_ms(lambda: solve_ffd(prob, C), 2)
+    rf_plain, fresh_plain_ms = plain_ms(lambda: sweeps_plain(prob, initial_state(prob, C), bf))
+    ffd_err = max(ffd_err, compare_results("main path fresh", rf_main, rf_plain))
+    log(f"  ffd_loop fresh: kernel {fresh_ms:.3f} ms median of {[round(t, 3) for t in fresh_all]}, "
+        f"plain {fresh_plain_ms:.1f} ms, kernel == plain; stepped {int(rf_main.iters.narrow)} "
+        f"in {int(rf_main.iters.sweeps)} sweeps, work {work_fresh}")
+
     ro_main = solve_ffd(prob, C)
+    op_sets = [ffd_loop_args(prob, initial_state(prob, C), True) for _ in range(2)]
+    op_ms, op_all = time_launches("ffd_loop", op_sets)
+    same_verdicts("ffd_loop one-pass", op_sets, ro_main)
     work_one_pass = dict(zip(WORK_COUNTERS, ro_main.work.cpu().tolist()))
-    log(f"  ffd_loop carried: {k1_ms:.3f} ms median of {[round(t, 3) for t in k1_all]}, "
-        f"stepped {int(rc_main.iters.narrow)} in {int(rc_main.iters.sweeps)} sweeps, work {work}")
-    log(f"  ffd_loop fresh: {fresh_ms:.3f} ms median of {[round(t, 3) for t in fresh_all]}, "
-        f"stepped {int(rf_main.iters.narrow)} in {int(rf_main.iters.sweeps)} sweeps, work {work_fresh}")
-    log(f"  ffd_loop one-pass: {op_ms:.3f} ms median of {[round(t, 3) for t in op_all]}, work {work_one_pass}")
+    ro_plain, op_plain_ms = plain_ms(lambda: solve_ffd_plain(prob, initial_state(prob, C), bf))
+    ffd_err = max(ffd_err, compare_results("main path one-pass", ro_main, ro_plain, check_iters=False))
+    log(f"  ffd_loop one-pass: kernel {op_ms:.3f} ms median of {[round(t, 3) for t in op_all]}, "
+        f"plain {op_plain_ms:.1f} ms, kernel == plain; work {work_one_pass}")
 
-    gp, ga, bf = _build_args(ctx, result, pods, None)
-    k2_ms, _ = time_ms(lambda: gdev.launch_gate_counts(gp, ga), 10)
-    k2_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gp, ga, bf), 3)
+    gp, ga, gbf = _build_args(ctx, result, pods, None)
     ck = gdev.launch_gate_counts(gp, ga).cpu().numpy()
-    cp = gdev.gate_counts_plain(gp, ga, bf).cpu().numpy()
+    k2_sets = [gdev.gate_counts_args(gp, ga) for _ in range(10)]
+    k2_ms, _ = time_launches("gate_counts", k2_sets)
+    k2_wrap_ms, _ = time_ms(lambda: gdev.launch_gate_counts(gp, ga), 5)
+    k2_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gp, ga, gbf), 3)
+    cp = gdev.gate_counts_plain(gp, ga, gbf).cpu().numpy()
     gate_err = max(gate_err, int(np.abs(ck.astype(np.int64) - cp).max()))
-    if not np.array_equal(ck, cp):
+    if not np.array_equal(ck, cp) or any(not torch.equal(t["counts"].cpu(), torch.from_numpy(ck)) for t, _ in k2_sets):
         raise AssertionError("main path gate: kernel != plain")
-    log(f"  gate_counts: {k2_ms:.4f} ms (plain {k2_plain_ms:.3f} ms)")
+    log(f"  gate_counts: kernel {k2_ms:.4f} ms, wrapper {k2_wrap_ms:.4f} ms (plain {k2_plain_ms:.3f} ms)")
 
-    # the plain loop at the largest reference grid point
-    host = encode(W.diverse_workload(PLAIN_PODS, 400, seed=42), 128, well_known=None)
-    p25 = problem_to_torch(host, dev)
-    bf25 = problem_bounds_free(p25)
-    r25k = solve_ffd_sweeps(p25, 128)
-    k1_25_ms, _ = time_ms(lambda: solve_ffd_sweeps(p25, 128), 3)
-    t0 = time.perf_counter()
-    r25p = sweeps_plain(p25, initial_state(p25, 128), bf25)
-    torch.cuda.synchronize()
-    plain25_ms = (time.perf_counter() - t0) * 1e3
-    ffd_err = max(ffd_err, compare_results(f"diverse-{PLAIN_PODS}", r25k, r25p))
-    log(f"  {PLAIN_PODS} pods: ffd_loop {k1_25_ms:.3f} ms, plain loop {plain25_ms:.1f} ms, "
-        f"kernel == plain (sweeps={int(r25k.iters.sweeps)} stepped={int(r25k.iters.narrow)})")
-    # the carried loop there, after phase 1, against the seeded plain loop
-    x25 = RX.relax_place(p25, 128)
-    res25 = dataclasses.replace(p25, pod_active=x25.residue_active)
-    carry25 = (x25.state, x25.kind, x25.index)
-    c25k = solve_ffd_sweeps_carried(res25, 128, carry25)
-    c25_ms, _ = time_ms(lambda: solve_ffd_sweeps_carried(res25, 128, carry25), 3)
-    ares25, astate25 = _lane_align(res25, x25.state)
-    t0 = time.perf_counter()
-    c25p = sweeps_plain(ares25, astate25, bf25, x25.kind, x25.index)
-    torch.cuda.synchronize()
-    plain_c25_ms = (time.perf_counter() - t0) * 1e3
-    ffd_err = max(ffd_err, compare_results(f"diverse-{PLAIN_PODS} carried", c25k, c25p))
-    log(f"  {PLAIN_PODS} pods carried: ffd_loop {c25_ms:.3f} ms, plain loop {plain_c25_ms:.1f} ms, "
-        f"kernel == plain (stepped={int(c25k.iters.narrow)}, phase 1 {[int(x) for x in x25.stats]})")
+    # bounds: the bytes a launch must move (each of the kernel's inputs read
+    # once, each output written once, the state it updates in place read and
+    # written, its scratch not counted), and the operations this run's data
+    # needs
+    def io_bytes(t, state=(), scratch=()):
+        total = 0
+        for name, x in t.items():
+            if x is not None and name not in scratch:
+                total += x.numel() * x.element_size() * (2 if name in state else 1)
+        return total
 
-    # bounds: bytes every input read once + outputs written once, and the
-    # operations this run's data needs
-    def nbytes(x):
-        """Bytes of every tensor in a dataclass / tuple tree."""
-        if x is None:
-            return 0
-        if isinstance(x, torch.Tensor):
-            return x.numel() * x.element_size()
-        if hasattr(x, "__dataclass_fields__"):
-            return sum(nbytes(getattr(x, f)) for f in x.__dataclass_fields__)
-        if isinstance(x, tuple):
-            return sum(nbytes(v) for v in x)
-        return 0
+    def bound(nbytes_io, int_ops, flt_ops):
+        bytes_s = nbytes_io / PEAK_BYTES_S
+        ops_s = max(int_ops / PEAK_INT32_OPS_S, flt_ops / PEAK_FP32_OPS_S)
+        return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
 
     # ffd_loop's operations, from the work counters of a launch (the same
     # work as every timed launch of that mode): per bin gate the merge and
@@ -488,25 +520,21 @@ def run(dev) -> int:
     O, Wd, PT = prob.offer_ok.shape[1], prob.num_lanes // 32, prob.pod_ports.shape[1]
     P, N, G, TPL = prob.num_pods, prob.num_nodes, prob.num_groups, prob.num_templates
     D = prob.pod_vol_counts.shape[1]
-    state_bytes = nbytes(initial_state(prob, C))
 
-    def ffd_bound(w, problem):
-        nbytes_io = nbytes(problem) + 2 * state_bytes
+    def ffd_bound(w, t):
+        nbytes_io = io_bytes(t, FFD_STATE, FFD_SCRATCH)
         int_ops = w["bin_gates"] * 2 * K * Wd + w["topo_lanes"] * 2 + w["type_tests"] * (K * Wd + O)
         flt_ops = w["type_tests"] * 2 * R
-        ops_s = max(int_ops / PEAK_INT32_OPS_S, flt_ops / PEAK_FP32_OPS_S)
-        return max(nbytes_io / PEAK_BYTES_S, ops_s) * 1e3, ("bytes" if nbytes_io / PEAK_BYTES_S >= ops_s
-                                                             else "operations"), int_ops, flt_ops
+        return (*bound(nbytes_io, int_ops, flt_ops), nbytes_io, int_ops, flt_ops)
 
-    k1_bound, k1_by, k1_int_ops, k1_flt_ops = ffd_bound(work, residue)
-    fresh_bound, fresh_by, _, _ = ffd_bound(work_fresh, prob)
-    op_bound, op_by, _, _ = ffd_bound(work_one_pass, prob)
+    k1_bound, k1_by, k1_bytes, k1_int_ops, k1_flt_ops = ffd_bound(work, k1_sets[0][0])
+    fresh_bound, fresh_by, _, _, _ = ffd_bound(work_fresh, fresh_sets[0][0])
+    op_bound, op_by, _, _, _ = ffd_bound(work_one_pass, op_sets[0][0])
     # the latency floor of the one-block design: its barriers, each at the
     # cost of a barrier alone in a block of the loop's size
     probe = kernels.library("ffd_loop").ffd_sync_probe_launch
     probe.argtypes = [ctypes.c_int, ctypes.c_void_p]
     probe.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
     n_sync = 100000
 
     def run_probe(n):
@@ -516,29 +544,28 @@ def run(dev) -> int:
     run_probe(n_sync)
     sync_ms = (time_ms(lambda: run_probe(n_sync), 5)[0] - time_ms(lambda: run_probe(0), 5)[0]) / n_sync
     k1_latency = work["barriers"] * sync_ms
-    log(f"  ffd_loop carried: int ops {k1_int_ops:.4g}, float ops {k1_flt_ops:.4g}; bound {k1_bound:.5f} ms "
-        f"({k1_by}); one barrier {sync_ms * 1e6:.2f} ns -> latency floor {k1_latency:.3f} ms; "
-        f"fresh bound {fresh_bound:.5f} ms ({fresh_by}), one-pass bound {op_bound:.5f} ms ({op_by})")
-    # relax_place: every input read once, the claim and topology state read
-    # and written once, kind/index/residue written; operations from its
-    # counted instance-type tests (K x W compat words and O offerings in
-    # int32, an add and a compare per resource in float32) and record lanes
-    # (a test and an add), plus the per-pod screen (ports, groups, node
-    # tests, the row compare with the predecessor) and the float32 demand
-    # math (max, sum, size: about 6 operations per pod and resource)
-    rx_bytes = nbytes(prob) + 2 * state_bytes + 9 * P
+    log(f"  ffd_loop carried: bytes {k1_bytes}, int ops {k1_int_ops:.4g}, float ops {k1_flt_ops:.4g}; "
+        f"bound {k1_bound:.5f} ms ({k1_by}); one barrier {sync_ms * 1e6:.2f} ns -> latency floor "
+        f"{k1_latency:.3f} ms; fresh bound {fresh_bound:.5f} ms ({fresh_by}), one-pass bound {op_bound:.5f} ms ({op_by})")
+    # relax_place: operations from its counted instance-type tests (K x W
+    # compat words and O offerings in int32, an add and a compare per
+    # resource in float32) and record lanes (a test and an add), plus the
+    # per-pod screen (ports, groups, node tests, the row compare with the
+    # predecessor) and the float32 demand math (max, sum, size: about 6
+    # operations per pod and resource)
+    rx_bytes = io_bytes(rx_sets[0][0], RX.RELAX_STATE, RX.RELAX_SCRATCH)
     rx_int_ops = (rx_work["type_tests"] * (K * Wd + O) + rx_work["record_lanes"] * 2
                   + P * (2 * PT + 3 * G + 2 + (K * Wd + 4 * K + TPL) + N * (K * Wd + D + 2)))
     rx_flt_ops = rx_work["type_tests"] * 2 * R + P * R * 6 + P * N * 2 * R
-    rx_ops_s = max(rx_int_ops / PEAK_INT32_OPS_S, rx_flt_ops / PEAK_FP32_OPS_S)
-    rx_bound = max(rx_bytes / PEAK_BYTES_S, rx_ops_s) * 1e3
+    rx_bound, rx_by = bound(rx_bytes, rx_int_ops, rx_flt_ops)
     log(f"  relax_place: bytes {rx_bytes}, int ops {rx_int_ops:.4g}, float ops {rx_flt_ops:.4g}; "
-        f"bound {rx_bound:.5f} ms")
-    k2_bytes = nbytes(gp) + nbytes(ga)
-    k2_int_ops = prob.num_pods * (K * (Wd + 3) + 2 * PT) + C * T * (K * Wd + O)
-    k2_flt_ops = prob.num_pods * R + C * T * 2 * R
-    k2_ops_s = max(k2_int_ops / PEAK_INT32_OPS_S, k2_flt_ops / PEAK_FP32_OPS_S)
-    k2_bound = max(k2_bytes / PEAK_BYTES_S, k2_ops_s) * 1e3
+        f"bound {rx_bound:.5f} ms ({rx_by})")
+    k2_bytes = io_bytes(k2_sets[0][0], (), gdev.GATE_SCRATCH)
+    k2_int_ops = P * (K * (Wd + 3) + 2 * PT) + C * T * (K * Wd + O)
+    k2_flt_ops = P * R + C * T * 2 * R
+    k2_bound, k2_by = bound(k2_bytes, k2_int_ops, k2_flt_ops)
+    log(f"  gate_counts: bytes {k2_bytes}, int ops {k2_int_ops:.4g}, float ops {k2_flt_ops:.4g}; "
+        f"bound {k2_bound:.5f} ms ({k2_by})")
     line = {
         "kernels": [
             {
@@ -550,23 +577,21 @@ def run(dev) -> int:
                 "launches": launches["ffd_loop"],
                 "max_abs_err": ffd_err,
                 "ms": k1_ms,
-                "plain_ms": plain_c25_ms,
+                "plain_ms": k1_plain_ms,
                 "bound_ms": k1_bound,
                 "bound_by": k1_by,
                 "library_ms": None,
+                "wrapper_ms": k1_wrap_ms,
                 "latency_bound_ms": k1_latency,
                 "work": work,
-                "ms_pods": len(pods),
                 "fresh_ms": fresh_ms,
+                "fresh_plain_ms": fresh_plain_ms,
                 "fresh_bound_ms": fresh_bound,
                 "fresh_work": work_fresh,
                 "one_pass_ms": op_ms,
+                "one_pass_plain_ms": op_plain_ms,
                 "one_pass_bound_ms": op_bound,
                 "one_pass_work": work_one_pass,
-                "plain_ms_pods": PLAIN_PODS,
-                "ms_at_plain_pods": c25_ms,
-                "fresh_plain_ms": plain25_ms,
-                "fresh_ms_at_plain_pods": k1_25_ms,
                 "launches_relax_off": launches_off["ffd_loop"],
             },
             {
@@ -579,8 +604,9 @@ def run(dev) -> int:
                 "ms": k2_ms,
                 "plain_ms": k2_plain_ms,
                 "bound_ms": k2_bound,
-                "bound_by": "bytes" if k2_bytes / PEAK_BYTES_S >= k2_ops_s else "operations",
+                "bound_by": k2_by,
                 "library_ms": None,
+                "wrapper_ms": k2_wrap_ms,
                 "launches_relax_off": launches_off["gate_counts"],
             },
             {
@@ -593,8 +619,9 @@ def run(dev) -> int:
                 "ms": rx_ms,
                 "plain_ms": rx_plain_ms,
                 "bound_ms": rx_bound,
-                "bound_by": "bytes" if rx_bytes / PEAK_BYTES_S >= rx_ops_s else "operations",
+                "bound_by": rx_by,
                 "library_ms": None,
+                "wrapper_ms": rx_wrap_ms,
                 "work": rx_work,
                 "stats": stats,
                 "launches_relax_off": launches_off["relax_place"],

@@ -271,25 +271,6 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device):
     return _build(FFDState, fields, torch.device(device))
 
 
-def relax_out_from_numpy(out, device):
-    """ops/relax.RelaxOut of torch tensors on ``device`` from a phase-1
-    result with the same fields (this package's, or the JAX package's
-    RelaxOut, whose leaves are arrays): the carry the repair pass starts
-    from, with its stats."""
-    from karpenter_tpu_torch.ops.relax import RelaxOut, RelaxStats
-
-    def leaf(x):
-        return _tensor(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x), device)
-
-    return RelaxOut(
-        state=state_from_numpy(numpy_fields(out.state), device),
-        kind=leaf(out.kind),
-        index=leaf(out.index),
-        residue_active=leaf(out.residue_active),
-        stats=RelaxStats(*(leaf(x) for x in out.stats)),
-    )
-
-
 def problem_to_torch(problem: SchedulingProblem, device) -> SchedulingProblem:
     """Move a host (numpy) problem onto ``device``."""
     return problem_from_numpy(numpy_fields(problem), device)

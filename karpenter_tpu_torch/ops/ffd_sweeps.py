@@ -113,7 +113,7 @@ def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init) 
 
 # -- the ffd_loop kernel's argument struct (csrc/ffd_loop.cu FfdArgs) ---------
 
-_FFD_POINTERS = (
+_FFD_INPUTS = (
     "lvw", "ln", "lex", "wellknown",
     "pod_adm", "pod_comp", "pod_def", "pod_gt", "pod_lt", "pod_neg", "pod_strict_adm",
     "pod_requests", "pod_tol_tpl", "pod_tol_node", "pod_ports", "pod_conflict",
@@ -126,14 +126,18 @@ _FFD_POINTERS = (
     "grp_type", "grp_key", "grp_max_skew", "grp_min_domains", "grp_inverse", "grp_has_filter",
     "flt_adm", "flt_comp", "flt_def", "flt_gt", "flt_lt", "flt_neg", "flt_valid",
     "host_lane", "kind0", "index0",
+)
+# the carried state, read and updated in place
+FFD_STATE = (
     "claim_adm", "claim_comp", "claim_def", "claim_gt", "claim_lt",
     "claim_requests", "claim_it_ok", "claim_open", "claim_npods", "claim_tpl", "claim_ports",
     "node_adm", "node_comp", "node_def", "node_gt", "node_lt",
     "node_requests", "node_npods", "node_ports", "node_vol_used",
     "remaining", "grp_counts", "grp_registered",
-    "fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok",
-    "queue", "kind", "index", "counters", "work",
 )
+# the kernel's own working rows, neither read before nor kept after it
+FFD_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok", "queue")
+_FFD_POINTERS = _FFD_INPUTS + FFD_STATE + FFD_SCRATCH + ("kind", "index", "counters", "work")
 _FFD_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "one_pass")
 _FfdArgs = kernels.make_struct("FfdArgs", _FFD_POINTERS, _FFD_INTS)
 
@@ -168,14 +172,45 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_ffd_loop needs CUDA tensors")
-    t, args = _ffd_args(problem, init, one_pass, kind0, index0)
+    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0)
     kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream)
-    return _ffd_result(t, problem.num_lanes, one_pass)
+
+    V = problem.num_lanes
+
+    def req_back(prefix: str) -> ReqTensor:
+        return ReqTensor(
+            admitted=masks.unpack_lanes(t[prefix + "_adm"], V),
+            comp=t[prefix + "_comp"], gt=t[prefix + "_gt"], lt=t[prefix + "_lt"],
+            defined=t[prefix + "_def"],
+        )
+
+    state = FFDState(
+        claim_req=req_back("claim"),
+        claim_requests=t["claim_requests"],
+        claim_it_ok=t["claim_it_ok"],
+        claim_open=t["claim_open"],
+        claim_npods=t["claim_npods"],
+        claim_tpl=t["claim_tpl"],
+        claim_used_ports=t["claim_ports"],
+        node_req=req_back("node"),
+        node_requests=t["node_requests"],
+        node_npods=t["node_npods"],
+        node_used_ports=t["node_ports"],
+        node_vol_used=t["node_vol_used"],
+        remaining=t["remaining"],
+        grp_counts=t["grp_counts"],
+        grp_registered=t["grp_registered"],
+    )
+    iters: Optional[IterCounts] = None
+    if not one_pass:
+        iters = IterCounts(narrow=t["counters"][0], sweeps=t["counters"][1])
+    return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])
 
 
-def _ffd_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0, index0):
-    """The kernel's tensors (inputs in its layout, a copy of the carried
-    state to update in place, outputs) and its argument struct."""
+def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None):
+    """The kernel's tensors by struct field name (inputs in its layout, a
+    copy of the carried state to update in place, scratch, outputs) and its
+    argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
     dev = problem.lane_valid.device
     K, V = problem.num_keys, problem.num_lanes
     W = V // 32
@@ -254,35 +289,3 @@ def _ffd_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0,
     args = _FfdArgs(**{name: (t[name].data_ptr() if t[name] is not None else None) for name in _FFD_POINTERS},
                     **dims)
     return t, args
-
-
-def _ffd_result(t: dict, V: int, one_pass: bool) -> FFDResult:
-    """The FFDResult of a finished launch over ``t``."""
-    def req_back(prefix: str) -> ReqTensor:
-        return ReqTensor(
-            admitted=masks.unpack_lanes(t[prefix + "_adm"], V),
-            comp=t[prefix + "_comp"], gt=t[prefix + "_gt"], lt=t[prefix + "_lt"],
-            defined=t[prefix + "_def"],
-        )
-
-    state = FFDState(
-        claim_req=req_back("claim"),
-        claim_requests=t["claim_requests"],
-        claim_it_ok=t["claim_it_ok"],
-        claim_open=t["claim_open"],
-        claim_npods=t["claim_npods"],
-        claim_tpl=t["claim_tpl"],
-        claim_used_ports=t["claim_ports"],
-        node_req=req_back("node"),
-        node_requests=t["node_requests"],
-        node_npods=t["node_npods"],
-        node_used_ports=t["node_ports"],
-        node_vol_used=t["node_vol_used"],
-        remaining=t["remaining"],
-        grp_counts=t["grp_counts"],
-        grp_registered=t["grp_registered"],
-    )
-    iters: Optional[IterCounts] = None
-    if not one_pass:
-        iters = IterCounts(narrow=t["counters"][0], sweeps=t["counters"][1])
-    return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])

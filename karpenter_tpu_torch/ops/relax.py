@@ -132,7 +132,7 @@ def relax_place(problem: SchedulingProblem, max_claims: int) -> RelaxOut:
 
 # -- the relax_place kernel's argument struct (csrc/relax_place.cu RelaxArgs) --
 
-_RELAX_POINTERS = (
+_RELAX_INPUTS = (
     "lvw", "ln", "wellknown",
     "pod_adm", "pod_comp", "pod_def", "pod_gt", "pod_lt", "pod_neg",
     "pod_requests", "pod_tol_tpl", "pod_tol_node", "pod_ports", "pod_conflict",
@@ -146,11 +146,16 @@ _RELAX_POINTERS = (
     "grp_type", "grp_key", "grp_inverse", "grp_has_filter",
     "flt_adm", "flt_comp", "flt_def", "flt_gt", "flt_lt", "flt_neg", "flt_valid",
     "host_lane",
+)
+# the initial claim and topology state, read and committed in place
+RELAX_STATE = (
     "claim_adm", "claim_comp", "claim_def", "claim_gt", "claim_lt",
     "claim_requests", "claim_it_ok", "claim_open", "claim_npods", "claim_tpl",
     "grp_counts", "grp_registered",
-    "kind", "index", "residue", "stats", "work", "workspace",
 )
+# the kernel's own working memory, sized by relax_place_workspace_bytes
+RELAX_SCRATCH = ("workspace",)
+_RELAX_POINTERS = _RELAX_INPUTS + RELAX_STATE + ("kind", "index", "residue", "stats", "work") + RELAX_SCRATCH
 _RELAX_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "n_passes")
 _RelaxArgs = kernels.make_struct("RelaxArgs", _RELAX_POINTERS, _RELAX_INTS)
 
@@ -158,10 +163,12 @@ _RelaxArgs = kernels.make_struct("RelaxArgs", _RELAX_POINTERS, _RELAX_INTS)
 WORK_COUNTERS = ("type_tests", "record_lanes")
 
 
-def _relax_args(problem: SchedulingProblem, C: int):
-    """The kernel's tensors (inputs in its layout, the initial state to be
-    committed in place, outputs) and its argument struct, without the
-    workspace pointer. ``problem`` has lanes padded to a multiple of 32."""
+def relax_place_args(problem: SchedulingProblem, C: int):
+    """The kernel's tensors by struct field name (inputs in its layout, the
+    initial state to be committed in place, outputs, its workspace), the
+    initial state, and its argument struct: one launch's worth, as
+    ``launch_relax_place`` passes it. ``problem`` holds CUDA tensors with
+    lanes padded to a multiple of 32."""
     dev = problem.lane_valid.device
     K, V = problem.num_keys, problem.num_lanes
     if V % 32:
@@ -210,28 +217,20 @@ def _relax_args(problem: SchedulingProblem, C: int):
     t["residue"] = torch.empty((P,), dtype=torch.bool, device=dev)
     t["stats"] = torch.zeros((4,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
-    t["workspace"] = None
     dims = dict(P=P, K=K, V=V, W=V // 32, C=C, N=problem.num_nodes, T=problem.num_instance_types,
                 TPL=problem.num_templates, R=problem.num_resources, O=problem.offer_ok.shape[1],
                 PT=problem.pod_ports.shape[1], D=problem.pod_vol_counts.shape[1], G=problem.num_groups,
                 F=problem.grp_filter_valid.shape[1], CH=problem.claim_hostname_lane.shape[0],
                 n_passes=RELAX_PASSES)
+    t["workspace"] = None
     args = _RelaxArgs(**{n: (t[n].data_ptr() if t[n] is not None else None) for n in _RELAX_POINTERS}, **dims)
+    lib = kernels.library("relax_place")
+    lib.relax_place_workspace_bytes.argtypes = [ctypes.c_void_p]
+    lib.relax_place_workspace_bytes.restype = ctypes.c_longlong
+    t["workspace"] = torch.empty((int(lib.relax_place_workspace_bytes(ctypes.addressof(args))),),
+                                 dtype=torch.uint8, device=dev)
+    args.workspace = t["workspace"].data_ptr()
     return t, state0, args
-
-
-def _relax_result(t: dict, state0: FFDState, V: int) -> RelaxOut:
-    """The RelaxOut of a finished launch over ``t``."""
-    state = dataclasses.replace(
-        state0,
-        claim_req=ReqTensor(admitted=masks.unpack_lanes(t["claim_adm"], V), comp=t["claim_comp"],
-                            gt=t["claim_gt"], lt=t["claim_lt"], defined=t["claim_def"]),
-        claim_requests=t["claim_requests"], claim_it_ok=t["claim_it_ok"], claim_open=t["claim_open"],
-        claim_npods=t["claim_npods"], claim_tpl=t["claim_tpl"],
-        grp_counts=t["grp_counts"], grp_registered=t["grp_registered"],
-    )
-    return RelaxOut(state=state, kind=t["kind"], index=t["index"], residue_active=t["residue"],
-                    stats=RelaxStats(*t["stats"]), work=t["work"])
 
 
 def launch_relax_place(problem: SchedulingProblem, C: int) -> RelaxOut:
@@ -240,12 +239,15 @@ def launch_relax_place(problem: SchedulingProblem, C: int) -> RelaxOut:
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_relax_place needs CUDA tensors")
-    t, state0, args = _relax_args(problem, C)
-    lib = kernels.library("relax_place")
-    lib.relax_place_workspace_bytes.argtypes = [ctypes.c_void_p]
-    lib.relax_place_workspace_bytes.restype = ctypes.c_longlong
-    workspace = torch.empty((int(lib.relax_place_workspace_bytes(ctypes.addressof(args))),),
-                          dtype=torch.uint8, device=dev)
-    args.workspace = workspace.data_ptr()
+    t, state0, args = relax_place_args(problem, C)
     kernels.launch("relax_place", args, torch.cuda.current_stream(dev).cuda_stream)
-    return _relax_result(t, state0, problem.num_lanes)
+    state = dataclasses.replace(
+        state0,
+        claim_req=ReqTensor(admitted=masks.unpack_lanes(t["claim_adm"], problem.num_lanes), comp=t["claim_comp"],
+                            gt=t["claim_gt"], lt=t["claim_lt"], defined=t["claim_def"]),
+        claim_requests=t["claim_requests"], claim_it_ok=t["claim_it_ok"], claim_open=t["claim_open"],
+        claim_npods=t["claim_npods"], claim_tpl=t["claim_tpl"],
+        grp_counts=t["grp_counts"], grp_registered=t["grp_registered"],
+    )
+    return RelaxOut(state=state, kind=t["kind"], index=t["index"], residue_active=t["residue"],
+                    stats=RelaxStats(*t["stats"]), work=t["work"])

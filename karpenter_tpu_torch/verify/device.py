@@ -214,6 +214,8 @@ _GATE_POINTERS = (
     "pod_bin", "pod_check",
     "summed", "nsum", "ngot", "port_cnt", "counts",
 )
+# the kernel's zeroed accumulators, neither read before nor kept after it
+GATE_SCRATCH = ("summed", "nsum", "ngot", "port_cnt")
 _GATE_INTS = ("P", "K", "W", "T", "TPL", "C", "N", "R", "O", "PT")
 _GateKernelArgs = kernels.make_struct("GateKernelArgs", _GATE_POINTERS, _GATE_INTS)
 
@@ -233,6 +235,16 @@ def launch_gate_counts(gp: GateProblem, ga: GateArgs) -> torch.Tensor:
     dev = gp.pod_requests.device
     if dev.type != "cuda":
         raise ValueError("launch_gate_counts needs CUDA tensors")
+    t, args = gate_counts_args(gp, ga)
+    kernels.launch("gate_counts", args, torch.cuda.current_stream(dev).cuda_stream)
+    return t["counts"]
+
+
+def gate_counts_args(gp: GateProblem, ga: GateArgs):
+    """The kernel's tensors by struct field name (inputs in its layout,
+    zeroed accumulators, the counts) and its argument struct: one launch's
+    worth, as ``launch_gate_counts`` passes it."""
+    dev = gp.pod_requests.device
     lv, ln = gp.lane_valid, gp.lane_numeric
     K, V = lv.shape
     if V % 32:
@@ -266,8 +278,7 @@ def launch_gate_counts(gp: GateProblem, ga: GateArgs) -> torch.Tensor:
     dims = dict(P=P, K=K, W=V // 32, T=gp.it_alloc.shape[0], TPL=gp.tpl_overhead.shape[0],
                 C=C, N=N, R=R, O=gp.offer_ok.shape[1], PT=PT)
     args = _GateKernelArgs(**{name: t[name].data_ptr() for name in _GATE_POINTERS}, **dims)
-    kernels.launch("gate_counts", args, torch.cuda.current_stream(dev).cuda_stream)
-    return t["counts"]
+    return t, args
 
 
 def verify_gate(gp: GateProblem, ga: GateArgs, bounds_free: bool) -> torch.Tensor:

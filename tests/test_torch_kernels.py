@@ -76,6 +76,47 @@ def test_launch_wrappers_refuse_cpu_tensors():
         gdev.launch_gate_counts(gp, None)
 
 
+def _gate_inputs():
+    pods, its, tpls, nodes = W.fuzz_workload(6)
+    result = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", relax=False).solve(pods, its, tpls, nodes)
+    gp, ga, _ = _build_args(result.verify_ctx, result, pods, None)
+    return gp, ga
+
+
+@pytest.mark.parametrize("kernel", ["ffd_loop", "gate_counts"])
+def test_args_builders_fill_every_pointer(kernel):
+    """One launch's tensors: every struct pointer set from its tensor, the
+    carried state copied (a launch leaves its input state alone), scratch
+    accumulators zeroed. chip_smoke.py counts a launch's bytes from them."""
+    if kernel == "ffd_loop":
+        prob = problem_to_torch(_encode(W.fuzz_workload(6), 8), "cpu")
+        init = initial_state(prob, 8)
+        t, args = ffd_sweeps.ffd_loop_args(prob, init, one_pass=False)
+        pointers, state, scratch = ffd_sweeps._FFD_POINTERS, ffd_sweeps.FFD_STATE, ffd_sweeps.FFD_SCRATCH
+        ours = {x.data_ptr() for x in numpy_fields_tensors(init) if x.numel()}
+        assert not any(t[name].data_ptr() in ours for name in state if t[name].numel())
+    else:
+        t, args = gdev.gate_counts_args(*_gate_inputs())
+        pointers, state, scratch = gdev._GATE_POINTERS, (), gdev.GATE_SCRATCH
+        assert all(not t[name].any() for name in scratch)
+    assert set(t) == set(pointers) and set(state) | set(scratch) <= set(pointers)
+    for name in pointers:
+        expected = t[name].data_ptr() if t[name] is not None else None
+        assert getattr(args, name) == (expected or None), name  # ctypes reads a null pointer as None
+
+
+def numpy_fields_tensors(obj):
+    """Every tensor leaf of a dataclass tree."""
+    out = []
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if dataclasses.is_dataclass(value):
+            out += numpy_fields_tensors(value)
+        elif isinstance(value, torch.Tensor):
+            out.append(value)
+    return out
+
+
 def test_library_path_tracks_sources_and_flags():
     a = kernels.library_path("ffd_loop")
     assert a == kernels.library_path("ffd_loop")

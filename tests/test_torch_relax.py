@@ -23,7 +23,7 @@ from karpenter_tpu.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
 from karpenter_tpu.ops.ffd_sweeps import solve_ffd_sweeps_carried as j_carried
 from karpenter_tpu.ops.relax import relax_place as j_relax_place
 from karpenter_tpu.solver.jax_backend import JaxSolver
-from karpenter_tpu_torch.models.problem import numpy_fields, problem_from_numpy, relax_out_from_numpy
+from karpenter_tpu_torch.models.problem import numpy_fields, problem_from_numpy, state_from_numpy
 from karpenter_tpu_torch.ops import ffd_sweeps
 from karpenter_tpu_torch.ops import relax as t_relax
 from karpenter_tpu_torch.ops.ffd_core import KIND_FAIL, initial_state, problem_bounds_free
@@ -66,6 +66,13 @@ def assert_same_relax(jr, tr):
             np.testing.assert_array_equal(ts[key], js[key], err_msg=key)
 
 
+def carry_from_jax(jr):
+    """(state, kind, index) of the JAX package's phase-1 result as CPU
+    tensors: the carry the port's repair pass starts from."""
+    return (state_from_numpy(numpy_fields(jr.state), "cpu"),
+            torch.from_numpy(np.array(jr.kind)), torch.from_numpy(np.array(jr.index)))
+
+
 @pytest.mark.parametrize("name,slots", PHASE1_CASES)
 def test_relax_place_parity(name, slots):
     jp, tp = _problems(name, slots)
@@ -87,16 +94,16 @@ def test_carried_sweeps_parity(name, slots):
     same sweep count."""
     jp, _ = _problems(name, slots)
     jr = j_relax_place(jp, slots)
-    carry = relax_out_from_numpy(jr, "cpu")  # before the JAX entry donates it
+    state, kind, index = carry_from_jax(jr)  # before the JAX entry donates it
     residue = dataclasses.replace(jp, pod_active=np.asarray(jr.residue_active))
     jc = j_carried(residue, slots, init=(jr.state, jr.kind, jr.index))
     tp = problem_from_numpy(numpy_fields(residue), "cpu")
-    tc = ffd_sweeps.solve_ffd_sweeps_carried(tp, slots, init=(carry.state, carry.kind, carry.index))
+    tc = ffd_sweeps.solve_ffd_sweeps_carried(tp, slots, init=(state, kind, index))
     assert_same_result(jc, tc, check_sweeps=False)
     assert int(tc.iters.sweeps) == int(jc.iters.sweeps)
-    placed = carry.kind.numpy() != KIND_FAIL
+    placed = kind.numpy() != KIND_FAIL
     assert placed.any()
-    np.testing.assert_array_equal(tc.kind.numpy()[placed], carry.kind.numpy()[placed])
+    np.testing.assert_array_equal(tc.kind.numpy()[placed], kind.numpy()[placed])
     # every pod the loop stepped was in the residue
     assert int(tc.iters.narrow) >= int(residue.pod_active.sum()) - int((tc.kind.numpy() == 3).sum())
 
