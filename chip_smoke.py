@@ -27,13 +27,28 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      beforehand), its wrapper, and its plain version on the same inputs,
      which it must equal: ``relax_place``, ``ffd_loop`` carried, fresh and
      one-pass, ``gate_counts``.
-  3. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  3. the consolidation screen at full width: ``UnionScorer.score_subsets``
+     over the bench cluster widened to 200 candidates (the 100 prefixes, the
+     200 singletons and 20 seeded random subsets of 150-200 candidates: 320
+     lanes in one ``runs_screen`` launch). Corpus A (8 pinned base pods
+     filling the survivors) through the residual screen (``delta=True``, its
+     base world on the seeded ``ffd_loop``) and through the full screen
+     (``delta=False``); corpus B (A plus 24 zonal spread pods) stands the
+     batch down to the full screen with three passes and a topology run.
+     The delta verdicts must equal the full screen's on every lane, the
+     counts must equal the JAX package's on the same subsets, and
+     ``runs_screen`` must equal its plain version exactly (kind, index, every
+     state leaf) in each mode on 50 lanes (every 10th, the last, the 20 large
+     random subsets); then the kernel alone, through its wrapper, and its
+     plain version are timed.
+  4. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
-     time; for ``ffd_loop`` and ``relax_place`` also the work counters their
-     launches recorded, from which the operation bounds are computed, and
-     for ``ffd_loop`` the latency floor of its barriers and its fresh and
-     one-pass modes. Bytes are those of the kernel's own arguments.
-  4. the card's name and power limit; the last line is the device JSON.
+     time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
+     work counters their launches recorded, from which the operation bounds
+     are computed, and for ``ffd_loop`` the latency floor of its barriers and
+     its fresh and one-pass modes. Bytes are those of the kernel's own
+     arguments.
+  5. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -42,6 +57,7 @@ only torch, numpy and karpenter_tpu_torch.
 import ctypes
 import dataclasses
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -60,6 +76,15 @@ FLOAT_RTOL = 1e-5  # float state: same adds in the same order, FMA off
 FLOAT_ATOL = 1e-6
 
 MAIN_PODS = 10000  # the north-star batch
+SOLVE_KERNELS = ("ffd_loop", "gate_counts", "relax_place")
+
+# the consolidation screen's cluster: the bench scorer widened to the screen's
+# 200-candidate basis; the JAX package's counts on these subsets, read on the
+# CPU (the residual path: every lane residual, the run trim 9 wide)
+SCREEN_CANDIDATES = 200
+SCREEN_SEED = 3
+EXPECT_A = {"delta_lanes": 320, "fallback_lanes": 0, "rnr": 9, "consolidatable": 316, "new_claims": [306, 10, 4]}
+EXPECT_B = {"mode": "full", "passes": 3, "all_scheduled": 320, "consolidatable": 307, "new_claims": [306, 1, 13]}
 
 
 def log(msg):
@@ -365,8 +390,8 @@ def run(dev) -> int:
         return solver, result, launches
 
     solver, result, launches = drive(True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SOLVE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
     if solver.relax_fallbacks != 0 or solver.last_relax is None or solver.last_relax["placed"] <= 0:
         raise AssertionError(f"main path: phase 1 did not place or was rejected: {solver.last_relax}, "
@@ -377,8 +402,8 @@ def run(dev) -> int:
     for relax in (True, False):
         drive(relax)
     # the relax=False solve runs no phase 1 and gates nothing itself
-    if launches_off != {"ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "relax_place": 0} \
-            or launches_off["ffd_loop"] <= 0:
+    if launches_off != {"ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "relax_place": 0, "runs_screen": 0} \
+            or launches_off["ffd_loop"] <= 0 or launches["runs_screen"] != 0:
         raise AssertionError(f"relax=False path launched {launches_off}")
     if sched != len(pods) or sched < result_off.num_scheduled():
         raise AssertionError(f"main path scheduled {sched}, relax=False {result_off.num_scheduled()} of {len(pods)}")
@@ -566,6 +591,8 @@ def run(dev) -> int:
     k2_bound, k2_by = bound(k2_bytes, k2_int_ops, k2_flt_ops)
     log(f"  gate_counts: bytes {k2_bytes}, int ops {k2_int_ops:.4g}, float ops {k2_flt_ops:.4g}; "
         f"bound {k2_bound:.5f} ms ({k2_by})")
+    rs = consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
+
     line = {
         "kernels": [
             {
@@ -626,6 +653,7 @@ def run(dev) -> int:
                 "stats": stats,
                 "launches_relax_off": launches_off["relax_place"],
             },
+            rs,
         ]
     }
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
@@ -638,6 +666,209 @@ def run(dev) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
+    """Phase 3 (see the module docstring). Returns the ``runs_screen`` entry
+    of the kernels line."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.disruption import batch
+    from karpenter_tpu_torch.models.problem import numpy_fields
+    from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32, initial_state
+    from karpenter_tpu_torch.parallel import mesh as M
+    from karpenter_tpu_torch.testing import workloads as W
+
+    log(f"phase 3: consolidation screen, {SCREEN_CANDIDATES} candidates")
+    n = SCREEN_CANDIDATES
+    subsets = screen_subsets(n)
+    B = len(subsets)
+    # the checked lanes: every 10th, the last, and the large random subsets
+    checked = sorted(set(range(0, B, 10)) | {B - 1} | set(range(B - 20, B)))
+    captured = {}
+    real_lean, real_res = batch.lean_screen, batch.residual_screen
+
+    def lean(base, variants, C, passes=3):
+        captured["full"] = (base, variants, C, passes)
+        return real_lean(base, variants, C, passes)
+
+    def res(base, carried, variants, run_idx, C):
+        captured["residual"] = (base, carried, variants, run_idx, C)
+        return real_res(base, carried, variants, run_idx, C)
+
+    def score(tag, base_pods, delta):
+        """One score_subsets call on a fresh scorer, launch counts set to 0
+        just before it and read just after; then the same call again on the
+        same scorer (its base world cached)."""
+        scorer, its, cands = batch.build_bench_scorer(n, base_pods=base_pods, device=dev, delta=delta)
+        captured.clear()
+        batch.lean_screen, batch.residual_screen = lean, res
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            verdicts = scorer.score_subsets(subsets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            stats = dict(scorer.last_screen_stats)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            again = scorer.score_subsets(subsets)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+            launches2 = dict(kernels.LAUNCHES)
+            stats2 = dict(scorer.last_screen_stats)
+        finally:
+            batch.lean_screen, batch.residual_screen = real_lean, real_res
+        keys = [verdict_key(v) for v in verdicts]
+        if keys != [verdict_key(v) for v in again]:
+            raise AssertionError(f"{tag}: a repeated score_subsets call changed its verdicts")
+        cons = sum(1 for v, sub in zip(verdicts, subsets) if v.consolidatable_with([cands[i] for i in sub], its))
+        claims = np.bincount([v.n_new_claims for v in verdicts], minlength=3).tolist()
+        sched = sum(v.all_pods_scheduled for v in verdicts)
+        prob = scorer.device_problem
+        modes = np.bincount(prob.run_mode[prob.run_len > 0].cpu().numpy(), minlength=3).tolist()
+        log(f"  {tag}: {B} lanes, mode={stats['mode']} passes={stats.get('passes')} delta_lanes={stats.get('delta_lanes')} "
+            f"fallback={stats.get('fallback_lanes')} rnr={stats.get('rnr')} outcomes={stats.get('outcomes')}; "
+            f"all scheduled {sched}, consolidatable {cons}, new claims 0/1/2 = {claims}; P={prob.num_pods} "
+            f"N={prob.num_nodes} T={prob.num_instance_types} V={prob.num_lanes} K={prob.num_keys} G={prob.num_groups} "
+            f"R={prob.num_resources} runs single/analytic/topo={modes} max_run={M.max_run_bucket(prob)}")
+        for i, (w, ln, st) in enumerate(((wall, launches, stats), (wall2, launches2, stats2))):
+            log(f"  {tag} call {i + 1}: wall {w * 1e3:.1f} ms = shared {st['screen_shared_ms']:.1f} + lanes "
+                f"{st['screen_lane_ms']:.1f} ms (+ host decode); {B / w:.1f} candidates/s; launches {ln}")
+        return dict(scorer=scorer, keys=keys, stats=stats, cons=cons, claims=claims, sched=sched,
+                    launches=launches, launches2=launches2, wall=wall, wall2=wall2, captured=dict(captured))
+
+    a_delta = score("corpus A delta", W.pinned_base_pods(8, cpu=63.5), True)
+    a_full = score("corpus A full", W.pinned_base_pods(8, cpu=63.5), False)
+    b = score("corpus B", W.pinned_base_pods(8, cpu=63.5) + W.zonal_spread_pods(24), True)
+
+    # the JAX package's contract: the delta path publishes the full screen's verdicts
+    bad = [i for i, (x, y) in enumerate(zip(a_delta["keys"], a_full["keys"])) if x != y]
+    if bad:
+        raise AssertionError(f"corpus A: delta verdicts differ from the full screen's on lanes {bad[:10]}")
+    got_a = {"delta_lanes": a_delta["stats"]["delta_lanes"], "fallback_lanes": a_delta["stats"]["fallback_lanes"],
+             "rnr": a_delta["stats"]["rnr"], "consolidatable": a_delta["cons"], "new_claims": a_delta["claims"]}
+    got_b = {"mode": b["stats"]["mode"], "passes": b["stats"]["passes"], "all_scheduled": b["sched"],
+             "consolidatable": b["cons"], "new_claims": b["claims"]}
+    if got_a != EXPECT_A or (a_full["cons"], a_full["claims"]) != (EXPECT_A["consolidatable"], EXPECT_A["new_claims"]):
+        raise AssertionError(f"corpus A: {got_a} != the JAX package's {EXPECT_A}")
+    if got_b != EXPECT_B or b["stats"]["outcomes"] != {"standdown-topology": B}:
+        raise AssertionError(f"corpus B: {got_b} != the JAX package's {EXPECT_B}")
+    for tag, r, want in (("corpus A delta", a_delta, {"runs_screen": 1, "ffd_loop": 1}),
+                         ("corpus A full", a_full, {"runs_screen": 1}),
+                         ("corpus B", b, {"runs_screen": 1})):
+        want = {k: want.get(k, 0) for k in kernels.LAUNCHES}
+        want2 = dict(want, ffd_loop=0)  # the repeat reuses the cached base world
+        if r["launches"] != want or r["launches2"] != want2:
+            raise AssertionError(f"{tag}: launches {r['launches']} then {r['launches2']}, expected {want} then {want2}")
+    log(f"  delta == full on all {B} lanes; counts equal the JAX package's: A {got_a}, B {got_b}")
+
+    # runs_screen against its plain version, per mode, on the checked lanes
+    modes = {
+        "residual": a_delta["captured"]["residual"],
+        "full": a_full["captured"]["full"],
+        "full-topology": b["captured"]["full"],
+    }
+    out = {"max_abs_err": 0.0, "work": {}, "per_mode": {}}
+    for mode, cap in modes.items():
+        if mode == "residual":
+            base, carried, variants, run_idx, C = cap
+            base = _pad_lanes_mult32(base)
+            p0 = M.trim_runs(base, run_idx)
+            kw = dict(max_run=M.max_run_bucket(base), passes=1, with_topo=False)
+            make_args = lambda: M.runs_screen_args(p0, carried, variants.node_avail, variants.pod_active, **kw)
+            wrap = lambda: M.residual_screen(base, carried, variants, run_idx, C)
+            plain = lambda: M.residual_screen_plain(base, carried, variants, run_idx, C, lanes=checked)
+        else:
+            base, variants, C, passes = cap
+            base = _pad_lanes_mult32(base)
+            kw = dict(max_run=M.max_run_bucket(base), passes=passes, with_topo=M.has_topo_runs(base),
+                      grp_counts0=variants.grp_counts0, grp_registered0=variants.grp_registered0)
+            init = initial_state(base, C)
+            make_args = lambda: M.runs_screen_args(base, init, variants.node_avail, variants.pod_active, **kw)
+            wrap = lambda: M.lean_screen(base, variants, C, passes)
+            plain = lambda: M.lean_screen_plain(base, variants, C, passes, lanes=checked)
+        if mode == "full-topology" and not (kw["with_topo"] and kw["passes"] == 3):
+            raise AssertionError("corpus B did not run the topology commit with three passes")
+        rk = wrap()
+        torch.cuda.synchronize()
+        sets = [make_args() for _ in range(5)]
+        k_ms, k_all = time_launches("runs_screen", sets)
+        for t, _ in sets:
+            if not (torch.equal(t["kind"], rk.kind) and torch.equal(t["index"], rk.index)):
+                raise AssertionError(f"runs_screen {mode}: a timed launch differs from the wrapper's")
+        w_ms, _ = time_ms(wrap, 5)
+        rp, p_ms = plain_ms(plain)
+        sel = torch.tensor(checked, device=rk.kind.device)
+        if not (torch.equal(rk.kind[sel].cpu(), rp.kind.cpu()) and torch.equal(rk.index[sel].cpu(), rp.index.cpu())):
+            raise AssertionError(f"runs_screen {mode}: kind/index differ from the plain version")
+        sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+        for key in sp:
+            a_, b_ = sk[key][checked], sp[key]
+            if a_.dtype.kind == "f":
+                fin = np.isfinite(a_) & np.isfinite(b_)
+                if fin.any():
+                    out["max_abs_err"] = max(out["max_abs_err"], float(np.abs(a_[fin] - b_[fin]).max()))
+            if not np.array_equal(a_, b_, equal_nan=a_.dtype.kind == "f"):
+                raise AssertionError(f"runs_screen {mode}: state {key} differs from the plain version")
+        work = dict(zip(M.RS_WORK_COUNTERS, rk.work.sum(dim=0).cpu().tolist()))
+        t0 = sets[0][0]
+        nbytes = io_bytes(t0, (), M.RS_SCRATCH)
+        K, Wd, O, R = base.num_keys, base.num_lanes // 32, base.offer_ok.shape[1], base.num_resources
+        int_ops = work["bin_gates"] * 2 * K * Wd + work["topo_lanes"] * 2 + work["type_tests"] * (K * Wd + O)
+        flt_ops = work["type_tests"] * 2 * R
+        b_ms, b_by = bound(nbytes, int_ops, flt_ops)
+        lanes = variants.pod_active.shape[0]
+        out["per_mode"][mode] = dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, plain_lanes=len(checked), lanes=lanes,
+                                     bound_ms=b_ms, bound_by=b_by, bytes=nbytes, int_ops=int_ops, flt_ops=flt_ops,
+                                     work=work)
+        log(f"  runs_screen {mode}: {lanes} lanes, kernel {k_ms:.3f} ms median of {[round(x, 3) for x in k_all]}, "
+            f"wrapper {w_ms:.3f} ms, plain {p_ms:.1f} ms on {len(checked)} lanes; kernel == plain on those lanes "
+            f"(max float err {out['max_abs_err']}); bytes {nbytes}, int ops {int_ops:.4g}, float ops {flt_ops:.4g}, "
+            f"bound {b_ms:.5f} ms ({b_by}); work {work}")
+    main = out["per_mode"]["residual"]
+    return {
+        "name": "runs_screen",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/runs_screen.cu",
+        "replaces": "karpenter_tpu/parallel/mesh.py:321",
+        "also_replaces": ["karpenter_tpu/parallel/mesh.py:232", "karpenter_tpu/ops/ffd_runs.py:519"],
+        "launches": a_delta["launches"]["runs_screen"],
+        "max_abs_err": out["max_abs_err"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "wrapper_ms": main["wrapper_ms"],
+        "plain_lanes": main["plain_lanes"],
+        "work": main["work"],
+        "modes": out["per_mode"],
+        "launches_full": a_full["launches"]["runs_screen"],
+        "launches_topology": b["launches"]["runs_screen"],
+        "candidates_per_s": {"residual": B / a_delta["wall2"], "full": B / a_full["wall2"],
+                             "full_topology": B / b["wall2"]},
+        "screen_ms": {tag: {"shared": r["stats"]["screen_shared_ms"], "lanes": r["stats"]["screen_lane_ms"],
+                            "wall_first": r["wall"] * 1e3, "wall_repeat": r["wall2"] * 1e3}
+                      for tag, r in (("residual", a_delta), ("full", a_full), ("full_topology", b))},
+    }
+
+
+def screen_subsets(n, seed=SCREEN_SEED):
+    """The subsets one consolidation pass asks about: the n/2 prefixes
+    (Multi-node), the n singletons (Single-node), and 20 seeded random
+    subsets of 3n/4 to n candidates."""
+    rng = random.Random(seed)
+    return ([list(range(k + 1)) for k in range(n // 2)] + [[k] for k in range(n)]
+            + [sorted(rng.sample(range(n), rng.randint(3 * n // 4, n))) for _ in range(20)])
+
+
+def verdict_key(v):
+    return (v.all_pods_scheduled, v.n_new_claims, sorted(v.replacement_its or []),
+            sorted(v.replacement_zones or []), sorted(v.replacement_cts or []))
 
 
 if __name__ == "__main__":

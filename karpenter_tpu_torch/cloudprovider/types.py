@@ -28,6 +28,12 @@ class Offering:
 class Offerings(list):
     """Decorated list of Offering (types.go:136-166)."""
 
+    def get(self, capacity_type: str, zone: str) -> Optional[Offering]:
+        for o in self:
+            if o.capacity_type == capacity_type and o.zone == zone:
+                return o
+        return None
+
     def available(self) -> "Offerings":
         return Offerings(o for o in self if o.available)
 

@@ -30,12 +30,14 @@ SOURCES = {
     "ffd_loop": "ffd_loop.cu",
     "gate_counts": "gate_counts.cu",
     "relax_place": "relax_place.cu",
+    "runs_screen": "runs_screen.cu",
 }
 # each library's exported (launch, args-size) symbols
 _SYMBOLS = {
     "ffd_loop": ("ffd_loop_launch", "ffd_loop_args_size"),
     "gate_counts": ("gate_counts_launch", "gate_args_size"),
     "relax_place": ("relax_place_launch", "relax_place_args_size"),
+    "runs_screen": ("runs_screen_launch", "runs_screen_args_size"),
 }
 
 # -fmad=false: masks.cuh's fits() must round like the plain PyTorch version

@@ -1,5 +1,6 @@
 """FFD solver core: carried state, constants, initial state, lane padding and
-alignment, and the shared per-pod gate builders.
+alignment, the shared per-pod gate builders, and the closed-form capacity and
+water-level math of the run commit (ops/ffd_runs.py).
 
 Plain PyTorch counterpart of the JAX package's ``ops/ffd_core.py``. Reference
 anchor: scheduler.go:140-189 (Solve pod loop) and :238-285 (placement
@@ -361,3 +362,50 @@ def _pod_xs(problem: SchedulingProblem, bounds_free: bool = False) -> PodRow:
 
 def pod_row(xs: PodRow, p: int) -> PodRow:
     return PodRow(*(x.row(p) if isinstance(x, ReqTensor) else x[p] for x in xs))
+
+
+# integer "unbounded" sentinel for analytic pod-count capacities; large enough
+# to never bind, small enough that int32 level arithmetic cannot overflow
+_BIG_CAP = 2**20
+
+
+def _capacity(avail, used, req):
+    """Integer count of additional identical pods with requests ``req`` that
+    fit in ``avail - used`` (trailing resource axis), honoring fits()'s float
+    tolerance: max j with used + j*req <= avail + eps, the closed form of
+    iterating the per-pod fit check. Zero-request dims still gate: an already
+    overcommitted dim (or the -1 sentinel of a removed or padded bin) admits
+    no pod."""
+    eps = 1e-6 + 1e-6 * torch.abs(avail)
+    room = avail + eps - used
+    roomf = room / torch.where(req > 0, req, torch.ones_like(req))
+    per_r = torch.where(req > 0, torch.floor(roomf), torch.full_like(roomf, float(_BIG_CAP)))
+    zero_ok = ((req > 0) | (room >= 0)).all(dim=-1)
+    cap = torch.clamp(per_r.min(dim=-1).values, 0, _BIG_CAP).to(torch.int32)
+    return torch.where(zero_ok, cap, torch.zeros_like(cap))
+
+
+def _add_times(base, take, req):
+    """``base + take * req`` (float32, ``take`` an integer count) with one
+    rounding, as a fused multiply-add: the JAX package's CPU compilation
+    contracts the run commits' ``requests + take * pod_requests`` into one
+    FMA. float64 holds the product of an int32 and a float32 exactly, so the
+    sum rounds once to float64 and then to float32; the runs_screen kernel
+    evaluates the same float64 expression."""
+    return (base.to(torch.float64) + take.to(torch.float64) * req.to(torch.float64)).to(torch.float32)
+
+
+def _water_level(levels, caps, units, iters: int = 22):
+    """Largest integer L with sum(clip(L - levels, 0, caps)) <= units: the
+    common fill level after pouring ``units`` one by one into the bin with the
+    lowest level (index tie-break), each bin bounded by its cap. ``levels`` and
+    ``caps`` are int32 [C]; ``units`` is an int32 tensor of any shape (the
+    bisection runs elementwise over it)."""
+    lo = torch.zeros_like(units)
+    hi = torch.full_like(units, 2 * _BIG_CAP)
+    for _ in range(iters):
+        mid = torch.div(lo + hi + 1, 2, rounding_mode="floor")
+        used = torch.minimum(torch.clamp(mid[..., None] - levels, min=0), caps).sum(dim=-1)
+        ok = used <= units
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid - 1)
+    return lo

@@ -111,6 +111,21 @@ def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init) 
     return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0)
 
 
+def fresh_carry(problem: SchedulingProblem, max_claims: int):
+    """A cold carry for ``solve_ffd_sweeps_carried``: the plain initial state
+    and all-FAIL verdict seeds. The consolidation screen's base-world solve
+    (disruption/screen_delta.py) rides the carried entry this way, because
+    the state it keeps is that entry's output."""
+    problem = _pad_lanes_mult32(problem)
+    P = problem.num_pods
+    dev = problem.lane_valid.device
+    return (
+        initial_state(problem, max_claims),
+        torch.full((P,), KIND_FAIL, dtype=torch.int32, device=dev),
+        torch.full((P,), -1, dtype=torch.int32, device=dev),
+    )
+
+
 # -- the ffd_loop kernel's argument struct (csrc/ffd_loop.cu FfdArgs) ---------
 
 _FFD_INPUTS = (
@@ -175,50 +190,20 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     t, args = ffd_loop_args(problem, init, one_pass, kind0, index0)
     kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream)
 
-    V = problem.num_lanes
-
-    def req_back(prefix: str) -> ReqTensor:
-        return ReqTensor(
-            admitted=masks.unpack_lanes(t[prefix + "_adm"], V),
-            comp=t[prefix + "_comp"], gt=t[prefix + "_gt"], lt=t[prefix + "_lt"],
-            defined=t[prefix + "_def"],
-        )
-
-    state = FFDState(
-        claim_req=req_back("claim"),
-        claim_requests=t["claim_requests"],
-        claim_it_ok=t["claim_it_ok"],
-        claim_open=t["claim_open"],
-        claim_npods=t["claim_npods"],
-        claim_tpl=t["claim_tpl"],
-        claim_used_ports=t["claim_ports"],
-        node_req=req_back("node"),
-        node_requests=t["node_requests"],
-        node_npods=t["node_npods"],
-        node_used_ports=t["node_ports"],
-        node_vol_used=t["node_vol_used"],
-        remaining=t["remaining"],
-        grp_counts=t["grp_counts"],
-        grp_registered=t["grp_registered"],
-    )
+    state = state_back(t, problem.num_lanes)
     iters: Optional[IterCounts] = None
     if not one_pass:
         iters = IterCounts(narrow=t["counters"][0], sweeps=t["counters"][1])
     return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])
 
 
-def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None):
-    """The kernel's tensors by struct field name (inputs in its layout, a
-    copy of the carried state to update in place, scratch, outputs) and its
-    argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
-    dev = problem.lane_valid.device
+def problem_tensors(problem: SchedulingProblem) -> dict:
+    """The problem's tables in the kernels' layout, by struct field name:
+    packed lane words, per-row polarities, int32 indices. Shared by the
+    ``ffd_loop`` and ``runs_screen`` argument builders."""
     K, V = problem.num_keys, problem.num_lanes
-    W = V // 32
-    if K > _MAX_KEYS or W > _MAX_WORDS or V % 32:
-        raise ValueError(f"ffd_loop supports K <= {_MAX_KEYS} keys and V <= {32 * _MAX_WORDS} lanes (multiple of 32); got K={K}, V={V}")
-    P, T, TPL, R = problem.num_pods, problem.num_instance_types, problem.num_templates, problem.num_resources
-    N, C, G = problem.num_nodes, init.claim_open.shape[0], problem.num_groups
-    F = problem.grp_filter_valid.shape[1]
+    if K > _MAX_KEYS or V > 32 * _MAX_WORDS or V % 32:
+        raise ValueError(f"the kernels support K <= {_MAX_KEYS} keys and V <= {32 * _MAX_WORDS} lanes (multiple of 32); got K={K}, V={V}")
     lv, ln = problem.lane_valid, problem.lane_numeric
     i32 = torch.int32
     t: dict = {}
@@ -248,20 +233,63 @@ def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, ki
     _req_tensors("it", problem.it_reqs, lv, ln, t)
     _req_tensors("tpl", problem.tpl_reqs, lv, ln, t)
     _req_tensors("flt", problem.grp_filter, lv, ln, t)
+    return t
 
-    # the carried state, copied into the kernel's layout (updated in place)
+
+# the carried state's struct fields and their FFDState sources
+_STATE_LEAVES = (
+    ("claim_requests", "claim_requests"), ("claim_it_ok", "claim_it_ok"),
+    ("claim_open", "claim_open"), ("claim_npods", "claim_npods"),
+    ("claim_tpl", "claim_tpl"), ("claim_ports", "claim_used_ports"),
+    ("node_requests", "node_requests"), ("node_npods", "node_npods"),
+    ("node_ports", "node_used_ports"), ("node_vol_used", "node_vol_used"),
+    ("remaining", "remaining"), ("grp_counts", "grp_counts"),
+    ("grp_registered", "grp_registered"),
+)
+
+
+def state_tensors(init: FFDState, lv, ln, prefix: str = "") -> dict:
+    """A copy of the carried state in the kernels' layout (packed requirement
+    rows), by struct field name with ``prefix``."""
+    t: dict = {}
     _req_tensors("claim", init.claim_req, lv, ln, t, state=True)
     _req_tensors("node", init.node_req, lv, ln, t, state=True)
-    for name, src in (
-        ("claim_requests", init.claim_requests), ("claim_it_ok", init.claim_it_ok),
-        ("claim_open", init.claim_open), ("claim_npods", init.claim_npods),
-        ("claim_tpl", init.claim_tpl), ("claim_ports", init.claim_used_ports),
-        ("node_requests", init.node_requests), ("node_npods", init.node_npods),
-        ("node_ports", init.node_used_ports), ("node_vol_used", init.node_vol_used),
-        ("remaining", init.remaining), ("grp_counts", init.grp_counts),
-        ("grp_registered", init.grp_registered),
-    ):
-        t[name] = src.clone().contiguous()
+    for name, leaf in _STATE_LEAVES:
+        t[name] = getattr(init, leaf).clone().contiguous()
+    return {prefix + name: t[name] for name in FFD_STATE}
+
+
+def state_back(t: dict, V: int) -> FFDState:
+    """The FFDState of the kernel-layout state tensors in ``t`` (unpacked
+    lanes; leading lane axes kept)."""
+
+    def req_back(prefix: str) -> ReqTensor:
+        return ReqTensor(
+            admitted=masks.unpack_lanes(t[prefix + "_adm"], V),
+            comp=t[prefix + "_comp"], gt=t[prefix + "_gt"], lt=t[prefix + "_lt"],
+            defined=t[prefix + "_def"],
+        )
+
+    return FFDState(
+        claim_req=req_back("claim"), node_req=req_back("node"),
+        **{leaf: t[name] for name, leaf in _STATE_LEAVES},
+    )
+
+
+def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None):
+    """The kernel's tensors by struct field name (inputs in its layout, a
+    copy of the carried state to update in place, scratch, outputs) and its
+    argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
+    dev = problem.lane_valid.device
+    K, V = problem.num_keys, problem.num_lanes
+    W = V // 32
+    P, T, TPL, R = problem.num_pods, problem.num_instance_types, problem.num_templates, problem.num_resources
+    N, C, G = problem.num_nodes, init.claim_open.shape[0], problem.num_groups
+    F = problem.grp_filter_valid.shape[1]
+    i32 = torch.int32
+    t = problem_tensors(problem)
+    # the carried state, copied into the kernel's layout (updated in place)
+    t.update(state_tensors(init, problem.lane_valid, problem.lane_numeric))
 
     B = N + C + TPL
     t["fin_adm"] = torch.empty((B, K, W), dtype=i32, device=dev)

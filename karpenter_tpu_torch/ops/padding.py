@@ -80,6 +80,23 @@ def quarter_bucket(n: int, lo: int = 8) -> int:
     return base * 2
 
 
+def screen_axis_bucket(n: int, lo: int = 8) -> int:
+    """Eighth-pow2 bucket (1.125/1.25/.../2.0 x 2^k steps above ``lo``) for
+    the consolidation screen's subset axis and the residual screen's run
+    axis: every padded lane is a dummy solve, so eighth steps cap the waste
+    at 12.5% (300 lanes pad to 320)."""
+    if n <= lo:
+        return lo
+    base = lo
+    while base * 2 < n:
+        base *= 2
+    for mantissa in (9, 10, 11, 12, 13, 14, 15):
+        b = base * mantissa // 8
+        if b >= n:
+            return b
+    return base * 2
+
+
 def _pad(arr: np.ndarray, target_shape, fill) -> np.ndarray:
     arr = np.asarray(arr)
     pads = [(0, t - s) for s, t in zip(arr.shape, target_shape)]

@@ -467,3 +467,57 @@ def homogeneous_workload(n: int = 48) -> Workload:
     its = instance_types(8)
     pods = [make_pod(i, cpu=0.3 + 0.2 * (i % 5)) for i in range(n)]
     return pods, its, [simple_template(its)], []
+
+
+# -- the consolidation screen's base pods (tests/test_screen_delta.py shapes) --
+
+
+def _screen_pod(name: str, cpu: float, labels=None, node_selector=None, host_ports=(),
+                topology_spread=()) -> Pod:
+    return Pod(
+        metadata=ObjectMeta(name=name, labels=dict(labels or {})),
+        spec=PodSpec(
+            containers=[Container(requests={"cpu": cpu},
+                                  ports=[ContainerPort(container_port=p, host_port=p) for p in host_ports])],
+            node_selector=dict(node_selector or {}),
+            topology_spread_constraints=list(topology_spread),
+        ),
+    )
+
+
+def pinned_base_pods(n: int = 6, cpu: float = 2.0) -> List[Pod]:
+    """Pending pods pinned by hostname to the bench scorer's roomy survivors
+    (``big-node-<i % 8>``): they drive the residual screen's base-world solve
+    without landing on a candidate, and sort before every resident."""
+    return [_screen_pod(f"base-{i}", cpu, node_selector={wk.LABEL_HOSTNAME: f"big-node-{i % 8}"})
+            for i in range(n)]
+
+
+def zonal_spread_pods(n: int, cpu: float = 0.2) -> List[Pod]:
+    """Pending pods under one zonal DoNotSchedule spread (max skew 1): the
+    screen needs more than one placement pass for them, so the residual
+    path stands the whole batch down to the full screen."""
+    spread = TopologySpreadConstraint(
+        max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable=DO_NOT_SCHEDULE,
+        label_selector=LabelSelector(match_labels={"spread": "s"}),
+    )
+    return [_screen_pod(f"spread-{i}", cpu, labels={"spread": "s"}, topology_spread=[spread])
+            for i in range(n)]
+
+
+def port_pods(n: int = 1, cpu: float = 0.2) -> List[Pod]:
+    """Pending pods with a host port (the ports standdown)."""
+    return [_screen_pod(f"portly-{i}", cpu, host_ports=[8080]) for i in range(n)]
+
+
+def unpinned_base_pods(n: int = 2, cpu: float = 3.0) -> List[Pod]:
+    """Fat pending pods with no selector: first fit lands them on the first
+    candidate nodes (the base-on-candidate standdown)."""
+    return [_screen_pod(f"fat-{i}", cpu) for i in range(n)]
+
+
+def tiny_base_pods(n: int = 2, cpu: float = 0.05) -> List[Pod]:
+    """Pending pods smaller than every resident, pinned to survivors: they
+    sort after the residents (the resident-order standdown)."""
+    return [_screen_pod(f"tiny-{i}", cpu, node_selector={wk.LABEL_HOSTNAME: f"big-node-{i}"})
+            for i in range(n)]

@@ -20,6 +20,7 @@ from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
 from karpenter_tpu_torch.ops import ffd_sweeps, relax
+from karpenter_tpu_torch.parallel import mesh
 from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd_plain
 from karpenter_tpu_torch.ops.padding import pad_problem
@@ -48,6 +49,7 @@ def _c_struct_fields(source: str, struct: str):
         ("ffd_loop.cu", "FfdArgs", ffd_sweeps._FFD_POINTERS, ffd_sweeps._FFD_INTS),
         ("gate_counts.cu", "GateKernelArgs", gdev._GATE_POINTERS, gdev._GATE_INTS),
         ("relax_place.cu", "RelaxArgs", relax._RELAX_POINTERS, relax._RELAX_INTS),
+        ("runs_screen.cu", "RunsArgs", mesh._RS_POINTERS, mesh._RS_INTS),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
@@ -74,6 +76,13 @@ def test_launch_wrappers_refuse_cpu_tensors():
     gp = gdev.gate_problem(prob)
     with pytest.raises(ValueError, match="CUDA"):
         gdev.launch_gate_counts(gp, None)
+    B = 2
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh.launch_runs_screen(
+            prob, initial_state(prob, 8), prob.node_avail[None].expand(B, -1, -1).contiguous(),
+            prob.pod_active[None].expand(B, -1).contiguous(), max_run=mesh.max_run_bucket(prob),
+            passes=1, with_topo=mesh.has_topo_runs(prob),
+        )
 
 
 def _gate_inputs():
@@ -83,7 +92,25 @@ def _gate_inputs():
     return gp, ga
 
 
-@pytest.mark.parametrize("kernel", ["ffd_loop", "gate_counts"])
+def _screen_args():
+    """One runs_screen launch's arguments: the bench scorer's union problem
+    (4 candidates) in full mode over 3 lanes."""
+    from karpenter_tpu_torch.disruption.batch import build_bench_scorer
+
+    scorer = build_bench_scorer(4, device="cpu")[0]
+    prob = scorer.device_problem
+    B = 3
+    init = initial_state(prob, scorer.num_claim_slots)
+    t, args = mesh.runs_screen_args(
+        prob, init, prob.node_avail[None].expand(B, -1, -1).contiguous(),
+        prob.pod_active[None].expand(B, -1).contiguous(), max_run=mesh.max_run_bucket(prob), passes=3,
+        with_topo=False, grp_counts0=prob.grp_counts0[None].expand(B, -1, -1).contiguous(),
+        grp_registered0=prob.grp_registered0[None].expand(B, -1, -1).contiguous(),
+    )
+    return init, t, args
+
+
+@pytest.mark.parametrize("kernel", ["ffd_loop", "gate_counts", "runs_screen"])
 def test_args_builders_fill_every_pointer(kernel):
     """One launch's tensors: every struct pointer set from its tensor, the
     carried state copied (a launch leaves its input state alone), scratch
@@ -95,6 +122,13 @@ def test_args_builders_fill_every_pointer(kernel):
         pointers, state, scratch = ffd_sweeps._FFD_POINTERS, ffd_sweeps.FFD_STATE, ffd_sweeps.FFD_SCRATCH
         ours = {x.data_ptr() for x in numpy_fields_tensors(init) if x.numel()}
         assert not any(t[name].data_ptr() in ours for name in state if t[name].numel())
+    elif kernel == "runs_screen":
+        init, t, args = _screen_args()
+        pointers, state, scratch = mesh._RS_POINTERS, mesh.RS_STATE, mesh.RS_SCRATCH
+        ours = {x.data_ptr() for x in numpy_fields_tensors(init) if x.numel()}
+        # the lanes' state is the kernel's own: no buffer is shared with init
+        assert not any(t[name].data_ptr() in ours for name in state + mesh.RS_INIT if t[name].numel())
+        assert all(t[name].shape[0] == 3 for name in state + mesh.RS_LANE_INPUTS + ("kind", "index", "work"))
     else:
         t, args = gdev.gate_counts_args(*_gate_inputs())
         pointers, state, scratch = gdev._GATE_POINTERS, (), gdev.GATE_SCRATCH
@@ -121,7 +155,24 @@ def test_library_path_tracks_sources_and_flags():
     a = kernels.library_path("ffd_loop")
     assert a == kernels.library_path("ffd_loop")
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
-    assert set(kernels.SOURCES) == {"ffd_loop", "gate_counts", "relax_place"}
+    assert set(kernels.SOURCES) == {"ffd_loop", "gate_counts", "relax_place", "runs_screen"}
+    assert set(kernels.LAUNCHES) == set(kernels.SOURCES)
+
+
+def test_step_is_shared_by_the_loop_and_the_screen():
+    """ffd_loop.cu and runs_screen.cu compile the one per-pod step of
+    step.cuh: neither defines its own, and the loop writes each verdict row
+    from the step's Shared::kind / index right after the call."""
+    step = (CSRC / "step.cuh").read_text()
+    assert "__device__ void step(const A& a, int p, Shared& s" in step
+    assert "a.kind[" not in step and "a.index[" not in step
+    for source in ("ffd_loop.cu", "runs_screen.cu"):
+        text = (CSRC / source).read_text()
+        assert '#include "step.cuh"' in text
+        assert "void step(" not in text and "bool bin_gate(" not in text and "void group_prep(" not in text
+    loop = (CSRC / "ffd_loop.cu").read_text()
+    assert loop.count("step(a, p, s, s_gmin, s_boot, s_nothing, s_maxcap);\n      if (tid == 0) {\n"
+                      "        a.kind[p] = s.kind;\n        a.index[p] = s.index;") == 2
 
 
 @pytest.fixture
@@ -209,3 +260,50 @@ def test_relax_place_and_carried_loop_match_plain(cuda, name):
     cp = ffd_sweeps.sweeps_plain(aprob, state, problem_bounds_free(aprob), rp.kind, rp.index)
     _assert_same(ck, cp)
     assert int(ck.iters.sweeps) == cp.iters.sweeps and int(ck.iters.narrow) == cp.iters.narrow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus", ["residual", "full", "full-topology"])
+def test_runs_screen_matches_plain(cuda, corpus):
+    """runs_screen against lean_screen_plain / residual_screen_plain at a
+    small size: the bench scorer's cluster (10 candidates) with survivors
+    filled by pinned base pods (lanes open claims), without them, and with
+    zonal spread pods (three passes, topology runs). Exact on kind, index and
+    every state leaf, floats included."""
+    from karpenter_tpu_torch.disruption import batch
+    from karpenter_tpu_torch.testing import workloads as wl
+
+    n = 10
+    base_pods = {
+        "residual": wl.pinned_base_pods(8, cpu=63.5),
+        "full": wl.pinned_base_pods(8, cpu=63.5),
+        "full-topology": wl.zonal_spread_pods(6),
+    }[corpus]
+    scorer = batch.build_bench_scorer(n, base_pods=base_pods, device=cuda, delta=corpus == "residual")[0]
+    subsets = [list(range(k + 1)) for k in range(n)] + [[k] for k in range(n)]
+    seen = {}
+    real_lean, real_res = batch.lean_screen, batch.residual_screen
+
+    def lean(base, variants, C, passes=3):
+        rk = real_lean(base, variants, C, passes)
+        seen["full"] = (rk, mesh.lean_screen_plain(base, variants, C, passes))
+        return rk
+
+    def res(base, carried, variants, run_idx, C):
+        rk = real_res(base, carried, variants, run_idx, C)
+        seen["residual"] = (rk, mesh.residual_screen_plain(base, carried, variants, run_idx, C))
+        return rk
+
+    batch.lean_screen, batch.residual_screen = lean, res
+    try:
+        scorer.score_subsets(subsets)
+    finally:
+        batch.lean_screen, batch.residual_screen = real_lean, real_res
+    torch.cuda.synchronize()
+    rk, rp = seen["residual" if corpus == "residual" else "full"]
+    assert torch.equal(rk.kind.cpu(), rp.kind.cpu()) and torch.equal(rk.index.cpu(), rp.index.cpu())
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for key in sp:
+        np.testing.assert_array_equal(sk[key], sp[key], err_msg=key)
+    if corpus == "full-topology":
+        assert scorer.last_screen_stats["passes"] == 3 and mesh.has_topo_runs(scorer.device_problem)
