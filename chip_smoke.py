@@ -41,14 +41,28 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      state leaf) in each mode on 50 lanes (every 10th, the last, the 20 large
      random subsets); then the kernel alone, through its wrapper, and its
      plain version are timed.
-  4. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  4. the steady-state churn cycle (the JAX package's device-world bench
+     scenario): 10,000 ``default_pod_factory`` pods against 400 catalog
+     types, 200 arrivals and 200 deletes a cycle, 24 cycles, through
+     ``TorchSolver(relax=False, device_world=True)`` and, in lockstep on the
+     same snapshots, ``TorchSolver(relax=False)``. One adopt and 23 patched
+     cycles with no standdown; placements equal to the legacy arm's on
+     every cycle; the fused counts zero; per patched cycle exactly one
+     ``patch_world``, one ``ffd_loop`` and one ``gate_counts`` launch (the
+     counts set to 0 before each cycle and read after it); ``patch_world``
+     bit-equal to its plain version on every patched cycle; the resident
+     world bit-equal to the cold encode's on every fourth cycle and the
+     last; the fused counts equal to ``gate_counts_plain`` over the same
+     state on two cycles. Then the cycle walls, their split, the bytes up,
+     and ``patch_world`` and the fused gate alone, wrapped and plain.
+  5. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
      are computed, and for ``ffd_loop`` the latency floor of its barriers and
      its fresh and one-pass modes. Bytes are those of the kernel's own
-     arguments.
-  5. the card's name and power limit; the last line is the device JSON.
+     arguments. The churn phase's record rides in the same line.
+  6. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -85,6 +99,17 @@ SCREEN_CANDIDATES = 200
 SCREEN_SEED = 3
 EXPECT_A = {"delta_lanes": 320, "fallback_lanes": 0, "rnr": 9, "consolidatable": 316, "new_claims": [306, 10, 4]}
 EXPECT_B = {"mode": "full", "passes": 3, "all_scheduled": 320, "consolidatable": 307, "new_claims": [306, 1, 13]}
+
+# the steady-state churn cycle: the JAX package's device-world bench scenario
+# (bench.py device_churn): 10,000 default_pod_factory pods, 2% arrivals and
+# 2% deletes a cycle, 24 cycles; 64 claim slots, the bucket the batch's 39
+# claims escalate to from the default 32 (read from the JAX package on the
+# CPU), so that no cycle overflows
+CHURN_PODS = 10000
+CHURN_CYCLES = 24
+CHURN_RATE = CHURN_PODS * 2 // 100
+CHURN_SEED = 21
+CHURN_SLOTS = 64
 
 
 def log(msg):
@@ -402,7 +427,8 @@ def run(dev) -> int:
     for relax in (True, False):
         drive(relax)
     # the relax=False solve runs no phase 1 and gates nothing itself
-    if launches_off != {"ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "relax_place": 0, "runs_screen": 0} \
+    if launches_off != {"ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "patch_world": 0, "relax_place": 0,
+                        "runs_screen": 0} \
             or launches_off["ffd_loop"] <= 0 or launches["runs_screen"] != 0:
         raise AssertionError(f"relax=False path launched {launches_off}")
     if sched != len(pods) or sched < result_off.num_scheduled():
@@ -592,6 +618,7 @@ def run(dev) -> int:
     log(f"  gate_counts: bytes {k2_bytes}, int ops {k2_int_ops:.4g}, float ops {k2_flt_ops:.4g}; "
         f"bound {k2_bound:.5f} ms ({k2_by})")
     rs = consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
+    churn_entries, churn = churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
 
     line = {
         "kernels": [
@@ -620,6 +647,7 @@ def run(dev) -> int:
                 "one_pass_bound_ms": op_bound,
                 "one_pass_work": work_one_pass,
                 "launches_relax_off": launches_off["ffd_loop"],
+                "launches_churn": churn["launches"]["ffd_loop"],
             },
             {
                 "name": "gate_counts",
@@ -654,7 +682,9 @@ def run(dev) -> int:
                 "launches_relax_off": launches_off["relax_place"],
             },
             rs,
-        ]
+            *churn_entries,
+        ],
+        "churn": churn,
     }
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
@@ -855,6 +885,248 @@ def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
                             "wall_first": r["wall"] * 1e3, "wall_repeat": r["wall2"] * 1e3}
                       for tag, r in (("residual", a_delta), ("full", a_full), ("full_topology", b))},
     }
+
+
+def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
+    """Phase 4 (see the module docstring). Returns the ``patch_world`` and
+    fused ``gate_counts`` entries of the kernels line, and the phase's
+    record."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.apis.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.models.problem import problem_to_torch
+    from karpenter_tpu_torch.ops import fused
+    from karpenter_tpu_torch.ops.ffd_sweeps import state_tensors
+    from karpenter_tpu_torch.ops.padding import pad_problem
+    from karpenter_tpu_torch.solver.encode import Encoder, template_from_nodepool
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.streaming.churn import ChurnConfig, ChurnProcess, default_pod_factory
+    from karpenter_tpu_torch.verify import device as gdev
+
+    t_phase = time.perf_counter()
+    log(f"phase 4: steady-state churn, {CHURN_PODS} pods, {CHURN_CYCLES} cycles, "
+        f"{CHURN_RATE} arrivals + {CHURN_RATE} deletes a cycle")
+    its = instance_types(400)
+    tpls = [template_from_nodepool(NodePool(metadata=ObjectMeta(name="d")), its, range(len(its)))]
+    rng = random.Random(CHURN_SEED)
+    proc = ChurnProcess([default_pod_factory(f"dw-{i}", rng) for i in range(CHURN_PODS)],
+                        config=ChurnConfig(seed=CHURN_SEED, arrivals_per_cycle=CHURN_RATE,
+                                           deletes_per_cycle=CHURN_RATE))
+    resident = TorchSolver(relax=False, device_world=True, device=dev, initial_claim_slots=CHURN_SLOTS)
+    legacy = TorchSolver(relax=False, device=dev, initial_claim_slots=CHURN_SLOTS)
+    dw = resident._device_world
+    C = CHURN_SLOTS
+
+    def bits(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    def placements(result):
+        return ([(c.template_index, c.pod_indices, c.instance_type_indices, sorted(c.requests.items()))
+                 for c in result.new_claims], sorted(result.node_pods.items()), sorted(result.failures))
+
+    def fused_check(pods, tag):
+        """The fused gate's counts against gate_counts_plain over
+        gate_args_from_state of the same final state (one more fused solve
+        of the resident world, outside the counted window)."""
+        pc = torch.from_numpy(dw._pod_check(pods, dw.meta)).to(dev)
+        rk, ck = fused.solve_ffd_fused_gate(dw.world, pc, C)
+        problem = fused.world_problem(dw.world.t)
+        gbf = gdev.gate_bounds_free(gdev.gate_problem(problem))
+        ga = gdev.gate_args_from_state(rk.state, rk.kind, rk.index, pc, C)
+        cp = gdev.gate_counts_plain(gdev.gate_problem(problem), ga, gbf)
+        if not torch.equal(ck.cpu(), cp.cpu()) or ck.any():
+            raise AssertionError(f"churn {tag}: fused counts {ck.tolist()} != plain {cp.tolist()} or nonzero")
+        errs["gate"] = max(errs["gate"], int((ck.long() - cp.long()).abs().max()))
+        return rk, ck, pc, problem, ga, gbf
+
+    records, totals = [], {name: 0 for name in kernels.LAUNCHES}
+    errs = {"patch": 0.0, "gate": 0}
+    world_checks, fused_checks = 0, 0
+    for cyc in range(CHURN_CYCLES):
+        if cyc:
+            proc.step()
+        pods = list(proc.pods)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = resident.solve(pods, its, tpls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for name, n in launches.items():
+            totals[name] += n
+        outcome = dw.last_outcome
+        expect = "adopt-first-encode" if cyc == 0 else ("patched", "repatched")
+        if outcome != expect and outcome not in expect:
+            raise AssertionError(f"churn cycle {cyc}: outcome {outcome}, expected {expect}")
+        want = {**{name: 0 for name in kernels.LAUNCHES}, "ffd_loop": 1, "gate_counts": 1,
+                "patch_world": int(cyc > 0)}
+        if launches != want:
+            raise AssertionError(f"churn cycle {cyc} ({outcome}): launches {launches}, expected {want}")
+        if result.verify_ctx is None or result.verify_ctx.fused_counts != {}:
+            raise AssertionError(f"churn cycle {cyc}: fused counts {result.verify_ctx}")
+        if cyc:
+            # patch_world against its plain version on the same arguments: the
+            # swap left the previous rows in the spare buffers
+            plain = fused.patch_world_plain(dw.world.spare, dw.last_patch)
+            for name, value in plain.items():
+                if not torch.equal(bits(dw.world.t[name]), bits(value)):
+                    raise AssertionError(f"churn cycle {cyc}: patch_world {name} != plain")
+                if value.numel():
+                    diff = (dw.world.t[name].double() - value.double()).abs().max()
+                    errs["patch"] = max(errs["patch"], float(diff))
+        if cyc % 4 == 0 or cyc == CHURN_CYCLES - 1:
+            cold = Encoder().encode(pods, its, tpls, num_claim_slots=C)
+            ref = fused.world_tensors(problem_to_torch(pad_problem(cold.problem), dev))
+            if ref.keys() != dw.world.t.keys() or any(
+                    not torch.equal(bits(dw.world.t[k]), bits(ref[k])) for k in ref):
+                raise AssertionError(f"churn cycle {cyc}: resident world != cold encode")
+            world_checks += 1
+        if cyc in (1, CHURN_CYCLES - 1):
+            fused_check(pods, f"cycle {cyc}")
+            fused_checks += 1
+        t0 = time.perf_counter()
+        ref_result = legacy.solve(pods, its, tpls)
+        torch.cuda.synchronize()
+        legacy_wall = time.perf_counter() - t0
+        if placements(result) != placements(ref_result):
+            raise AssertionError(f"churn cycle {cyc}: placements differ from the legacy arm")
+        records.append(dict(cycle=cyc, outcome=outcome, wall_ms=wall * 1e3, legacy_ms=legacy_wall * 1e3,
+                            detail=dict(dw.last_cycle), scheduled=result.num_scheduled(),
+                            claims=len(result.new_claims), pods=len(pods)))
+        log(f"  cycle {cyc:2d} {outcome:18s} wall {wall * 1e3:8.1f} ms (legacy {legacy_wall * 1e3:8.1f}) "
+            f"encode {dw.last_cycle['encode_ms']:.1f} patch {dw.last_cycle['patch_ms']:.1f} "
+            f"solve {dw.last_cycle['solve_ms']:.1f} decode {dw.last_cycle['decode_ms']:.1f} ms; "
+            f"h2d {dw.last_cycle['h2d_bytes']} B; scheduled {result.num_scheduled()}/{len(pods)} "
+            f"on {len(result.new_claims)} claims")
+    if dw.counters.get("adopt-first-encode") != 1 or dw.cold_solves != 1 or any(
+            k.startswith("standdown") for k in dw.counters):
+        raise AssertionError(f"churn: outcomes {dw.counters}, cold solves {dw.cold_solves}")
+    steady = [r for r in records if r["outcome"] in ("patched", "repatched")]
+    walls = sorted(r["wall_ms"] for r in steady)
+
+    def p(vals, q):
+        vals = sorted(vals)
+        return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+    summary = dict(
+        pods=CHURN_PODS, cycles=CHURN_CYCLES, churn_frac=2 * CHURN_RATE / CHURN_PODS, outcomes=dict(dw.counters),
+        cold_solves=dw.cold_solves, wall_ms_p50=statistics.median(walls), wall_ms_p99=p(walls, 0.99),
+        legacy_ms_p50=statistics.median(r["legacy_ms"] for r in records[1:]),
+        split_ms_p50={k: statistics.median(r["detail"][k] for r in steady)
+                      for k in ("encode_ms", "patch_ms", "prep_ms", "solve_ms", "decode_ms")},
+        h2d_bytes_p50=statistics.median(r["detail"]["h2d_bytes"] for r in steady),
+        world_bytes=steady[-1]["detail"]["world_bytes"],
+        adopt_h2d_bytes=records[0]["detail"]["h2d_bytes"],
+        overlap_frac_mean=statistics.mean(r["detail"]["overlap_frac"] for r in steady),
+        world_checks=world_checks, fused_checks=fused_checks,
+        claims_last=records[-1]["claims"], scheduled_last=records[-1]["scheduled"],
+    )
+    log(f"  churn: patched wall p50 {summary['wall_ms_p50']:.1f} ms, p99 {summary['wall_ms_p99']:.1f} ms; "
+        f"legacy p50 {summary['legacy_ms_p50']:.1f} ms; split p50 {summary['split_ms_p50']}; "
+        f"h2d p50 {summary['h2d_bytes_p50']} B of a {summary['world_bytes']} B world "
+        f"(adopt {summary['adopt_h2d_bytes']} B); overlap {summary['overlap_frac_mean']:.3f}; "
+        f"outcomes {summary['outcomes']}; world == cold on {world_checks} cycles, fused == plain on {fused_checks}")
+
+    # patch_world alone: the last cycle's launch again (its table reads the
+    # previous rows, now in the spare buffers, and rewrites the same world)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    up = dw.last_patch
+    pw_ms, pw_all = time_launches("patch_world", [(None, up.args)] * 10)
+    # through its wrapper: pack, upload and launch, on a copy of the world
+    # before the last patch (swapped back after each call)
+    w = dw.world
+    pre = fused.World(
+        t={k: (w.spare[k] if k in fused.PATCH_ROWS else v).clone() for k, v in w.t.items()},
+        spare={k: torch.empty_like(v) for k, v in w.spare.items()}, init=w.init, lanes=w.lanes,
+        shapes=w.shapes, max_claims=w.max_claims)
+    args = fused.build_patch_args(dw.delta._state.problem, dw.delta.last_rows_prev, w.shapes)
+
+    def wrapped_patch():
+        fused.patch_world(pre, fused.upload_patch(args, pre))
+        for name in fused.PATCH_ROWS:
+            pre.t[name], pre.spare[name] = pre.spare[name], pre.t[name]
+
+    pw_wrap_ms, _ = time_ms(wrapped_patch, 10)
+    prev_rows = dict(w.spare)
+    _, pw_plain_ms = plain_ms(lambda: fused.patch_world_plain(prev_rows, up))
+    survivors = int((~up.use_fresh).sum())
+    Pb = up.gather_idx.shape[0]
+    pw_bytes = Pb * (4 + 1 + 4)
+    for name in fused.PATCH_ROWS:
+        stk = up.stack[name]
+        if stk.numel():
+            row = stk.numel() * stk.element_size() // stk.shape[0]
+            pw_bytes += survivors * row + stk.numel() * stk.element_size() + Pb * row
+    pw_bytes += 2 * sum(x.numel() * x.element_size() for x in up.full.values())
+    pw_bound, pw_by = bound(pw_bytes, 0, 0)
+    log(f"  patch_world: kernel {pw_ms:.4f} ms median of {[round(x, 4) for x in pw_all]}, wrapper "
+        f"{pw_wrap_ms:.4f} ms, plain {pw_plain_ms:.3f} ms; kernel == plain on {len(steady)} cycles; "
+        f"{survivors} survivors of {Pb} rows, {up.stack['pod_requests'].shape[0]} stack rows; "
+        f"bytes {pw_bytes}, bound {pw_bound:.5f} ms ({pw_by})")
+
+    # the fused gate alone and wrapped, over the last cycle's final state
+    rk, ck, pc, problem, ga, gbf = fused_check(list(proc.pods), "timing")
+    t = dict(w.t)
+    t.update(state_tensors(rk.state, problem.lane_valid, problem.lane_numeric))
+    t["kind"], t["index"] = rk.kind, rk.index
+    g_sets = [gdev.gate_fused_args(t, pc) for _ in range(10)]
+    g_ms, g_all = time_launches("gate_counts", g_sets)
+    if any(not torch.equal(gt["counts"].cpu(), ck.cpu()) for gt, _ in g_sets):
+        raise AssertionError("churn: a timed fused gate launch differs")
+    g_wrap_ms, _ = time_ms(lambda: gdev.launch_gate_counts_fused(t, pc), 5)
+    g_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gdev.gate_problem(problem), ga, gbf), 3)
+    K, Wd = t["lvw"].shape
+    P, R = t["pod_requests"].shape
+    T, O, PT = t["it_alloc"].shape[0], t["offer_ok"].shape[1], t["pod_ports"].shape[1]
+    g_bytes = io_bytes(g_sets[0][0], (), gdev.GATE_FUSED_SCRATCH)
+    g_int = P * (K * (Wd + 3) + 2 * PT) + C * T * (K * Wd + O) + C * K * Wd
+    g_flt = P * R + C * T * 2 * R
+    g_bound, g_by = bound(g_bytes, g_int, g_flt)
+    log(f"  gate_counts fused: kernel {g_ms:.4f} ms median of {[round(x, 4) for x in g_all]}, wrapper "
+        f"{g_wrap_ms:.4f} ms, plain {g_plain_ms:.3f} ms; bytes {g_bytes}, int ops {g_int:.4g}, float ops "
+        f"{g_flt:.4g}; bound {g_bound:.5f} ms ({g_by})")
+    summary["launches"] = totals
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"  churn phase wall {summary['phase_s']:.1f}s")
+    return [
+        {
+            "name": "patch_world",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/patch_world.cu",
+            "replaces": "karpenter_tpu/ops/fused.py:211",
+            "launches": totals["patch_world"],
+            "max_abs_err": errs["patch"],
+            "ms": pw_ms,
+            "plain_ms": pw_plain_ms,
+            "bound_ms": pw_bound,
+            "bound_by": pw_by,
+            "library_ms": None,
+            "wrapper_ms": pw_wrap_ms,
+            "bytes": pw_bytes,
+            "launches_per_patched_cycle": 1,
+        },
+        {
+            "name": "gate_counts_fused",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/gate_counts.cu",
+            "replaces": "karpenter_tpu/ops/fused.py:302",
+            "also_replaces": ["karpenter_tpu/ops/fused.py:271"],
+            "launches": totals["gate_counts"],
+            "max_abs_err": errs["gate"],
+            "ms": g_ms,
+            "plain_ms": g_plain_ms,
+            "bound_ms": g_bound,
+            "bound_by": g_by,
+            "library_ms": None,
+            "wrapper_ms": g_wrap_ms,
+            "bytes": g_bytes,
+            "launches_per_cycle": 1,
+        },
+    ], summary
 
 
 def screen_subsets(n, seed=SCREEN_SEED):

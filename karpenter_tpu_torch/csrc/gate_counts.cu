@@ -22,6 +22,18 @@
 // below the claim-requests tolerance (1e-4 relative), so the integer counts
 // equal the plain version's. It shares masks.cuh with the loop kernel, so
 // the survivor test is the same instance-type gate the solve applied.
+//
+// Fused mode (the epilogue of the JAX package's ops/fused.py:302
+// _solve_ffd_fused_gate_jit, fused_gate_counts :271): ``pod_bin`` is null
+// and the launch reads ffd_loop's final state where the loop left it, with
+// no host step between the two launches. Each pod's bin comes from the
+// loop's kind/index (a claim slot on KIND_CLAIM / KIND_NEW_CLAIM, C + node
+// on KIND_NODE, else unplaced); the claim rows are the loop's own packed
+// state rows (the minted hostname pin included), active and with
+// requirements where the claim is open, reported requests the claim's
+// accumulated requests, listed types its surviving types. The claim rows'
+// polarity, which the unfused wrapper computes on the host side, is
+// computed by gate_scatter's extra blocks into ``neg_out`` (= claim_neg).
 #include <cuda_runtime.h>
 
 #include "masks.cuh"
@@ -78,13 +90,17 @@ struct GateKernelArgs {
   const float* claim_reported;  // [C, R]
   const uint8_t* claim_its;     // [C, T]
   const uint8_t* claim_has_reqs;
-  const int* pod_bin;  // [P]
+  const int* pod_bin;  // [P]; null in fused mode
   const uint8_t* pod_check;
+  // fused mode: ffd_loop's verdict rows, from which each pod's bin derives
+  const int* kind;   // [P]
+  const int* index;  // [P]
   // scratch (zeroed by the wrapper) and output
   float* summed;  // [C, R]
   float* nsum;    // [N, R]
   int* ngot;      // [N]
   int* port_cnt;  // [C + N, PT]
+  uint8_t* neg_out;  // [C, K] fused mode: the claim rows' polarity (claim_neg points here)
   int* counts;    // [7]
   int P, K, W, T, TPL, C, N, R, O, PT;
 };
@@ -94,11 +110,37 @@ namespace {
 constexpr int THREADS = 256;
 constexpr float ABS_TOL = 1e-6f;
 constexpr float REL_TOL = 1e-4f;
+// ffd_loop's verdict kinds (ops/ffd_core.py KIND_*)
+constexpr int KIND_NODE = 0;
+constexpr int KIND_CLAIM = 1;
+constexpr int KIND_NEW_CLAIM = 2;
 
-__global__ void gate_scatter(GateKernelArgs a) {
+// The bin of pod row p: claim slot 0..C-1, node C..C+N-1, or -1.
+__device__ __forceinline__ int bin_of(const GateKernelArgs& a, int p) {
+  if (a.pod_bin) return a.pod_bin[p];
+  const int kind = a.kind[p];
+  if (kind == KIND_CLAIM || kind == KIND_NEW_CLAIM) return a.index[p];
+  if (kind == KIND_NODE) return a.C + a.index[p];
+  return -1;
+}
+
+// Blocks past the pod blocks (fused mode only): one thread per claim key.
+__device__ void claim_polarity(const GateKernelArgs& a, int e) {
+  if (e >= a.C * a.K) return;
+  const int k = e % a.K;
+  a.neg_out[e] = negative_polarity_key(a.claim_adm + (long)e * a.W, a.claim_comp[e], a.claim_gt[e],
+                                       a.claim_lt[e], a.lvw + (long)k * a.W, a.ln + (long)k * 32 * a.W,
+                                       a.W) ? 1 : 0;
+}
+
+__global__ void gate_scatter(GateKernelArgs a, int pod_blocks) {
+  if ((int)blockIdx.x >= pod_blocks) {
+    claim_polarity(a, (blockIdx.x - pod_blocks) * blockDim.x + threadIdx.x);
+    return;
+  }
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.P) return;
-  const int b = a.pod_bin[p];
+  const int b = bin_of(a, p);
   if (b < 0 || b >= a.C + a.N) return;
   const float* req = a.pod_requests + (long)p * a.R;
   if (b < a.C) {
@@ -113,7 +155,7 @@ __global__ void gate_scatter(GateKernelArgs a) {
 }
 
 __device__ void check_pod(const GateKernelArgs& a, int p) {
-  const int b = a.pod_bin[p];
+  const int b = bin_of(a, p);
   const bool on_claim = b >= 0 && b < a.C;
   const bool on_node = b >= a.C && b < a.C + a.N;
   if (!on_claim && !on_node) return;
@@ -230,11 +272,14 @@ __global__ void gate_check(GateKernelArgs a, int pod_blocks, int node_blocks) {
 extern "C" int gate_args_size() { return (int)sizeof(GateKernelArgs); }
 
 // Both launches on ``stream``; returns cudaGetLastError() (0 on success).
+// In fused mode (pod_bin null) the first launch also computes the claim
+// rows' polarity, which the second reads.
 extern "C" int gate_counts_launch(const GateKernelArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int pod_blocks = (args->P + THREADS - 1) / THREADS;
+  const int neg_blocks = args->pod_bin ? 0 : (args->C * args->K + THREADS - 1) / THREADS;
   const int node_blocks = (args->N + THREADS - 1) / THREADS;
-  if (pod_blocks > 0) gate_scatter<<<pod_blocks, THREADS, 0, st>>>(*args);
+  if (pod_blocks + neg_blocks > 0) gate_scatter<<<pod_blocks + neg_blocks, THREADS, 0, st>>>(*args, pod_blocks);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int blocks = pod_blocks + args->C + node_blocks;

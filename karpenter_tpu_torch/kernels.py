@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "ffd_loop": "ffd_loop.cu",
     "gate_counts": "gate_counts.cu",
+    "patch_world": "patch_world.cu",
     "relax_place": "relax_place.cu",
     "runs_screen": "runs_screen.cu",
 }
@@ -36,6 +37,7 @@ SOURCES = {
 _SYMBOLS = {
     "ffd_loop": ("ffd_loop_launch", "ffd_loop_args_size"),
     "gate_counts": ("gate_counts_launch", "gate_args_size"),
+    "patch_world": ("patch_world_launch", "patch_world_args_size"),
     "relax_place": ("relax_place_launch", "relax_place_args_size"),
     "runs_screen": ("runs_screen_launch", "runs_screen_args_size"),
 }

@@ -271,6 +271,15 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device):
     return _build(FFDState, fields, torch.device(device))
 
 
+def patch_args_from_numpy(fields: Dict[str, np.ndarray]):
+    """ops/fused.PatchArgs from numpy leaves keyed by field name (as
+    ``_asdict()`` of either package's PatchArgs gives them), so one row patch
+    can go through both packages."""
+    from karpenter_tpu_torch.ops.fused import PatchArgs
+
+    return PatchArgs(**{name: np.asarray(fields[name]) for name in PatchArgs._fields})
+
+
 def problem_to_torch(problem: SchedulingProblem, device) -> SchedulingProblem:
     """Move a host (numpy) problem onto ``device``."""
     return problem_from_numpy(numpy_fields(problem), device)

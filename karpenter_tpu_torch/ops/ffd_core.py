@@ -96,7 +96,8 @@ def _bcast(row: ReqTensor) -> ReqTensor:
 
 def problem_bounds_free(problem: SchedulingProblem) -> bool:
     """No requirement in the problem carries a finite integer Gt/Lt bound, so
-    gt/lt are sentinels everywhere for the whole solve."""
+    gt/lt are sentinels everywhere for the whole solve. Takes a problem of
+    torch tensors or of numpy arrays."""
     for r in (
         problem.pod_reqs,
         problem.pod_strict_reqs,
@@ -105,7 +106,7 @@ def problem_bounds_free(problem: SchedulingProblem) -> bool:
         problem.node_reqs,
         problem.grp_filter,
     ):
-        gt, lt = r.gt, r.lt
+        gt, lt = torch.as_tensor(r.gt), torch.as_tensor(r.lt)
         if gt.numel() and (bool((gt != int(GT_NONE)).any()) or bool((lt != int(LT_NONE)).any())):
             return False
     return True

@@ -197,6 +197,35 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])
 
 
+# the pod-axis tables in the kernels' layout: struct field <- problem field
+POD_FIELDS = (
+    ("pod_requests", "pod_requests"), ("pod_tol_tpl", "pod_tol_tpl"),
+    ("pod_tol_node", "pod_tol_node"), ("pod_ports", "pod_ports"),
+    ("pod_conflict", "pod_port_conflict"), ("pod_match", "pod_grp_match"),
+    ("pod_selects", "pod_grp_selects"), ("pod_owned", "pod_grp_owned"),
+    ("pod_vols", "pod_vol_counts"),
+)
+
+
+def _i32(src: torch.Tensor) -> torch.Tensor:
+    return (src.to(torch.int32) if src.dtype == torch.int64 else src).contiguous()
+
+
+def pod_tensors(src, lv, ln) -> dict:
+    """The pod-axis rows of ``src`` (anything with the SchedulingProblem
+    pod fields ``pod_reqs``, ``pod_strict_reqs`` and ``POD_FIELDS``) in the
+    kernels' layout: packed lane words, per-row polarity, int32 indices.
+    ``pod_active`` is not among them. Rows convert independently of each
+    other, which is what lets the device world patch converted rows
+    (ops/fused.py)."""
+    t: dict = {}
+    _req_tensors("pod", src.pod_reqs, lv, ln, t)
+    t["pod_strict_adm"] = masks.pack_lanes(src.pod_strict_reqs.admitted).contiguous()
+    for name, field in POD_FIELDS:
+        t[name] = _i32(getattr(src, field))
+    return t
+
+
 def problem_tensors(problem: SchedulingProblem) -> dict:
     """The problem's tables in the kernels' layout, by struct field name:
     packed lane words, per-row polarities, int32 indices. Shared by the
@@ -211,14 +240,9 @@ def problem_tensors(problem: SchedulingProblem) -> dict:
     t["ln"] = ln.contiguous()
     t["lex"] = problem.lane_lex_rank.to(i32).contiguous()
     t["wellknown"] = problem.key_wellknown.contiguous()
-    _req_tensors("pod", problem.pod_reqs, lv, ln, t)
-    t["pod_strict_adm"] = masks.pack_lanes(problem.pod_strict_reqs.admitted).contiguous()
+    t.update(pod_tensors(problem, lv, ln))
     for name, src in (
-        ("pod_requests", problem.pod_requests), ("pod_tol_tpl", problem.pod_tol_tpl),
-        ("pod_tol_node", problem.pod_tol_node), ("pod_ports", problem.pod_ports),
-        ("pod_conflict", problem.pod_port_conflict), ("pod_match", problem.pod_grp_match),
-        ("pod_selects", problem.pod_grp_selects), ("pod_owned", problem.pod_grp_owned),
-        ("pod_vols", problem.pod_vol_counts), ("pod_active", problem.pod_active),
+        ("pod_active", problem.pod_active),
         ("it_alloc", problem.it_alloc), ("it_cap", problem.it_cap),
         ("offer_zone", problem.offer_zone), ("offer_ct", problem.offer_ct),
         ("offer_ok", problem.offer_ok), ("tpl_overhead", problem.tpl_overhead),
@@ -229,7 +253,7 @@ def problem_tensors(problem: SchedulingProblem) -> dict:
         ("grp_has_filter", problem.grp_has_filter), ("flt_valid", problem.grp_filter_valid),
         ("host_lane", problem.claim_hostname_lane),
     ):
-        t[name] = (src.to(i32) if src.dtype in (torch.int64,) else src).contiguous()
+        t[name] = _i32(src)
     _req_tensors("it", problem.it_reqs, lv, ln, t)
     _req_tensors("tpl", problem.tpl_reqs, lv, ln, t)
     _req_tensors("flt", problem.grp_filter, lv, ln, t)
@@ -280,17 +304,26 @@ def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, ki
     """The kernel's tensors by struct field name (inputs in its layout, a
     copy of the carried state to update in place, scratch, outputs) and its
     argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
-    dev = problem.lane_valid.device
-    K, V = problem.num_keys, problem.num_lanes
-    W = V // 32
-    P, T, TPL, R = problem.num_pods, problem.num_instance_types, problem.num_templates, problem.num_resources
-    N, C, G = problem.num_nodes, init.claim_open.shape[0], problem.num_groups
-    F = problem.grp_filter_valid.shape[1]
-    i32 = torch.int32
     t = problem_tensors(problem)
     # the carried state, copied into the kernel's layout (updated in place)
     t.update(state_tensors(init, problem.lane_valid, problem.lane_numeric))
+    return loop_args_from(t, one_pass, kind0, index0)
 
+
+def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None):
+    """``ffd_loop_args`` over tables already in the kernel's layout: the
+    problem's (``problem_tensors``, or a device-resident world holding them,
+    ops/fused.py) and a state the launch may update in place
+    (``state_tensors``), by struct field name. Adds scratch and outputs to a
+    copy of ``tensors``; the dimensions are read from the tables' shapes."""
+    t = dict(tensors)
+    dev = t["ln"].device
+    K, W = t["lvw"].shape
+    V = t["ln"].shape[1]
+    P, R = t["pod_requests"].shape
+    T, TPL, N = t["it_alloc"].shape[0], t["tpl_overhead"].shape[0], t["node_avail"].shape[0]
+    C, G, F = t["claim_open"].shape[0], t["grp_type"].shape[0], t["flt_valid"].shape[1]
+    i32 = torch.int32
     B = N + C + TPL
     t["fin_adm"] = torch.empty((B, K, W), dtype=i32, device=dev)
     t["fin_gt"] = torch.empty((B, K), dtype=i32, device=dev)
@@ -311,9 +344,9 @@ def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, ki
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
 
     dims = dict(P=P, K=K, V=V, W=W, C=C, N=N, T=T, TPL=TPL, R=R,
-                O=problem.offer_ok.shape[1], PT=problem.pod_ports.shape[1],
-                D=problem.pod_vol_counts.shape[1], G=G, F=F,
-                CH=problem.claim_hostname_lane.shape[0], one_pass=int(one_pass))
+                O=t["offer_ok"].shape[1], PT=t["pod_ports"].shape[1],
+                D=t["pod_vols"].shape[1], G=G, F=F,
+                CH=t["host_lane"].shape[0], one_pass=int(one_pass))
     args = _FfdArgs(**{name: (t[name].data_ptr() if t[name] is not None else None) for name in _FFD_POINTERS},
                     **dims)
     return t, args

@@ -29,9 +29,16 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 GPU and without that argument they raise. Every batch goes through the
 kernels on the card: there is no small-batch host dispatch.
 
-Not ported: the JAX backend's other flag-gated subsystems (device world,
-shard, relax2, learned order, AOT, program registry, explain, trace and
-metrics).
+With ``device_world=True`` (the JAX package's KARPENTER_TPU_DEVICE_WORLD,
+off by default there too) the solve first tries the device-resident cycle
+(streaming/device_world.py): the encoded world stays on the card across
+calls, a host delta encode and one ``patch_world`` launch bring it up to the
+new snapshot, and the fresh ``ffd_loop`` and the fused ``gate_counts`` run
+back to back before one fetch. A classified standdown falls through to the
+path above unchanged; an error propagates.
+
+Not ported: the JAX backend's other flag-gated subsystems (shard, relax2,
+learned order, AOT, program registry, explain, trace and metrics).
 """
 
 from __future__ import annotations
@@ -188,7 +195,7 @@ class TorchSolver(SolverBackend):
     """FFD provisioning solve on PyTorch tensors (see module docstring)."""
 
     def __init__(self, well_known=None, initial_claim_slots: int = 32, device=None,
-                 relax: bool = True):
+                 relax: bool = True, device_world: bool = False):
         self.device = resolve_device(device)
         # the two-phase solve (module docstring); the JAX package's
         # KARPENTER_TPU_RELAX, on by default there too
@@ -208,8 +215,29 @@ class TorchSolver(SolverBackend):
         # wall seconds of the LAST solve's phases: encode (host encode + pad +
         # upload), relax (phase 1 and its stats fetch), device (the FFD loop,
         # synchronised), decode (host), gate (gate_relaxed of a two-phase
-        # result)
+        # result); a resident cycle reports encode (the delta encode), patch,
+        # relax (0), device (the fused solve and the fetch) and decode
         self.last_timing: Dict[str, float] = {}
+        # the device-resident cycle (module docstring); None when off
+        self._device_world = None
+        if device_world:
+            from karpenter_tpu_torch.streaming.device_world import DeviceWorld
+
+            self._device_world = DeviceWorld(self)
+
+    @property
+    def last_world_outcome(self) -> Optional[str]:
+        """The resident path's outcome of the LAST solve (``adopt-*``,
+        ``patched``, ``repatched``, ``standdown-*``); None when it is off."""
+        return self._device_world.last_outcome if self._device_world is not None else None
+
+    def reset_streaming_state(self) -> None:
+        """Drop the device-resident world and its delta state, so that a
+        rejected result never seeds the next patched cycle (the JAX
+        backend's hook of the same name). No-op when the resident path is
+        off."""
+        if self._device_world is not None:
+            self._device_world.reset()
 
     def solve(
         self,
@@ -225,9 +253,19 @@ class TorchSolver(SolverBackend):
     ) -> SolveResult:
         if not pods:
             return SolveResult()
+        # the resident path must see the CALLER's domains: the derived
+        # default below never blocks it, explicitly passed ones do
+        caller_domains = domains
         if domains is None:
             domains = domains_from_instance_types(instance_types, templates)
         max_claims = min(self.claim_slots, claim_axis_bucket(len(pods)))
+        if self._device_world is not None:
+            resident = self._device_world.try_solve(
+                pods, instance_types, templates, nodes, pod_requirements_override,
+                topology, cluster_pods, caller_domains, pod_volumes, max_claims,
+            )
+            if resident is not None:
+                return resident
         allow_relax = self.relax
         while True:
             try:

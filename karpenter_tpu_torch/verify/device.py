@@ -10,7 +10,9 @@ describing what the result PUBLISHED.
 
 Two implementations of ``verify_gate``: ``gate_counts_plain`` (plain
 PyTorch, taken for CPU tensors) and the ``gate_counts`` CUDA kernel
-(csrc/gate_counts.cu, taken for CUDA tensors).
+(csrc/gate_counts.cu, taken for CUDA tensors). The device-resident cycle
+(ops/fused.py) runs the kernel in its fused mode over the solve's own final
+state (``launch_gate_counts_fused``; plain: ``gate_args_from_state``).
 
 Tolerance direction (the safety contract): every predicate here is equal to
 or TIGHTER than its float64 host twin in solver/validator.py. masks.fits
@@ -211,11 +213,14 @@ _GATE_POINTERS = (
     "node_avail", "node_overhead", "node_used_ports",
     "claim_adm", "claim_comp", "claim_def", "claim_gt", "claim_lt", "claim_neg",
     "claim_tpl", "claim_active", "claim_reported", "claim_its", "claim_has_reqs",
-    "pod_bin", "pod_check",
-    "summed", "nsum", "ngot", "port_cnt", "counts",
+    "pod_bin", "pod_check", "kind", "index",
+    "summed", "nsum", "ngot", "port_cnt", "neg_out", "counts",
 )
 # the kernel's zeroed accumulators, neither read before nor kept after it
 GATE_SCRATCH = ("summed", "nsum", "ngot", "port_cnt")
+# fused mode adds the claim rows' polarity, computed and read in the launch
+# (written as neg_out, read as claim_neg)
+GATE_FUSED_SCRATCH = GATE_SCRATCH + ("neg_out", "claim_neg")
 _GATE_INTS = ("P", "K", "W", "T", "TPL", "C", "N", "R", "O", "PT")
 _GateKernelArgs = kernels.make_struct("GateKernelArgs", _GATE_POINTERS, _GATE_INTS)
 
@@ -244,15 +249,10 @@ def gate_counts_args(gp: GateProblem, ga: GateArgs):
     """The kernel's tensors by struct field name (inputs in its layout,
     zeroed accumulators, the counts) and its argument struct: one launch's
     worth, as ``launch_gate_counts`` passes it."""
-    dev = gp.pod_requests.device
     lv, ln = gp.lane_valid, gp.lane_numeric
-    K, V = lv.shape
+    V = lv.shape[1]
     if V % 32:
         raise ValueError(f"gate_counts needs a lane axis padded to a multiple of 32, got {V}")
-    P, R = gp.pod_requests.shape
-    C = ga.claim_tpl.shape[0]
-    N = gp.node_avail.shape[0]
-    PT = gp.pod_ports.shape[1]
     t: dict = {"lvw": masks.pack_lanes(lv).contiguous(), "ln": ln.contiguous()}
     _packed_rows("pod", gp.pod_reqs, lv, ln, t)
     _packed_rows("it", gp.it_reqs, lv, ln, t)
@@ -270,15 +270,98 @@ def gate_counts_args(gp: GateProblem, ga: GateArgs):
         ("claim_has_reqs", ga.claim_has_reqs), ("pod_bin", ga.pod_bin), ("pod_check", ga.pod_check),
     ):
         t[name] = src.contiguous()
+    t["kind"] = t["index"] = t["neg_out"] = None
+    return _gate_struct(t)
+
+
+def _gate_struct(t: dict):
+    """Zeroed accumulators and the counts added to ``t``, and the argument
+    struct, with the dimensions read from the tables' shapes."""
+    dev = t["ln"].device
+    K, W = t["lvw"].shape
+    P, R = t["pod_requests"].shape
+    C, N, PT = t["claim_tpl"].shape[0], t["node_avail"].shape[0], t["pod_ports"].shape[1]
     t["summed"] = torch.zeros((C, R), dtype=torch.float32, device=dev)
     t["nsum"] = torch.zeros((N, R), dtype=torch.float32, device=dev)
     t["ngot"] = torch.zeros((N,), dtype=torch.int32, device=dev)
     t["port_cnt"] = torch.zeros((C + N, PT), dtype=torch.int32, device=dev)
     t["counts"] = torch.zeros((len(INVARIANTS),), dtype=torch.int32, device=dev)
-    dims = dict(P=P, K=K, W=V // 32, T=gp.it_alloc.shape[0], TPL=gp.tpl_overhead.shape[0],
-                C=C, N=N, R=R, O=gp.offer_ok.shape[1], PT=PT)
-    args = _GateKernelArgs(**{name: t[name].data_ptr() for name in _GATE_POINTERS}, **dims)
+    dims = dict(P=P, K=K, W=W, T=t["it_alloc"].shape[0], TPL=t["tpl_overhead"].shape[0],
+                C=C, N=N, R=R, O=t["offer_ok"].shape[1], PT=PT)
+    args = _GateKernelArgs(**{name: (t[name].data_ptr() if t[name] is not None else None)
+                              for name in _GATE_POINTERS}, **dims)
     return t, args
+
+
+def gate_args_from_state(state, kind, index, pod_check, max_claims) -> GateArgs:
+    """GateArgs of a solve's own final state (the JAX package's
+    ops/fused.py:283-299): a pod's bin is its claim slot on a claim, C + its
+    node on a node, else -1; the claim rows are the state's (the minted
+    hostname pin included), active and with requirements where the claim is
+    open, reported requests the accumulated ones, listed types the
+    surviving ones."""
+    from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE
+
+    C = int(max_claims)
+    on_claim = (kind == KIND_CLAIM) | (kind == KIND_NEW_CLAIM)
+    on_node = kind == KIND_NODE
+    pod_bin = torch.where(on_claim, index, torch.where(on_node, C + index, torch.full_like(index, -1)))
+    return GateArgs(
+        claim_req=state.claim_req,
+        claim_tpl=state.claim_tpl,
+        claim_active=state.claim_open,
+        claim_reported=state.claim_requests,
+        claim_its=state.claim_it_ok,
+        claim_has_reqs=state.claim_open,
+        pod_bin=pod_bin.to(torch.int32),
+        pod_check=pod_check,
+    )
+
+
+# gate_counts' fused-mode inputs taken from a resident world (ops/fused.py):
+# struct field <- world field
+_FUSED_FROM_WORLD = (
+    *((name, name) for name in (
+        "lvw", "ln", "pod_adm", "pod_comp", "pod_def", "pod_gt", "pod_lt", "pod_neg",
+        "pod_requests", "pod_tol_tpl", "pod_tol_node", "pod_ports", "pod_conflict",
+        "it_adm", "it_comp", "it_def", "it_gt", "it_lt", "it_neg",
+        "it_alloc", "offer_zone", "offer_ct", "offer_ok", "tpl_overhead",
+        "node_avail", "node_overhead", "node_used_ports",
+        "claim_adm", "claim_comp", "claim_def", "claim_gt", "claim_lt", "claim_tpl", "kind", "index",
+    )),
+    ("node_adm", "nreq_adm"), ("node_comp", "nreq_comp"), ("node_def", "nreq_def"),
+    ("node_gt", "nreq_gt"), ("node_lt", "nreq_lt"), ("node_neg", "nreq_neg"),
+    ("claim_active", "claim_open"), ("claim_reported", "claim_requests"),
+    ("claim_its", "claim_it_ok"), ("claim_has_reqs", "claim_open"),
+)
+
+
+def gate_fused_args(world: dict, pod_check):
+    """gate_counts' fused-mode tensors by struct field name and its argument
+    struct, over ``world``: a resident world's tables with ``ffd_loop``'s
+    final state and kind/index added (ops/fused.solve_ffd_fused_gate), all
+    in the kernels' layout and read where they lie."""
+    P = world["pod_requests"].shape[0]
+    if pod_check.shape != (P,) or pod_check.dtype != torch.bool or pod_check.device != world["ln"].device:
+        raise ValueError(f"pod_check must be bool[{P}] on {world['ln'].device}")
+    t = {name: world[src] for name, src in _FUSED_FROM_WORLD}
+    C, K = t["claim_comp"].shape
+    t["neg_out"] = torch.empty((C, K), dtype=torch.bool, device=pod_check.device)
+    t["claim_neg"] = t["neg_out"]
+    t["pod_bin"] = None
+    t["pod_check"] = pod_check.contiguous()
+    return _gate_struct(t)
+
+
+def launch_gate_counts_fused(world: dict, pod_check) -> torch.Tensor:
+    """The ``gate_counts`` kernel in its fused mode on CUDA tensors (see
+    ``gate_fused_args``): the i32[7] counts, not synchronised."""
+    dev = world["ln"].device
+    if dev.type != "cuda":
+        raise ValueError("launch_gate_counts_fused needs CUDA tensors")
+    t, args = gate_fused_args(world, pod_check)
+    kernels.launch("gate_counts", args, torch.cuda.current_stream(dev).cuda_stream)
+    return t["counts"]
 
 
 def verify_gate(gp: GateProblem, ga: GateArgs, bounds_free: bool) -> torch.Tensor:

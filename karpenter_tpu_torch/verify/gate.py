@@ -9,8 +9,8 @@ The flow for one result (``full_gate``):
      guard whether the placement can even be mapped onto the problem axes).
   2. device invariant program (verify/device.py, the gate_counts kernel on
      the card) over the SAME padded problem tensors the solve consumed
-     (stashed on the result as a GateContext by solver/torch_backend.py),
-     re-checking the
+     (stashed on the result as a GateContext by solver/torch_backend.py;
+     a device-resident solve brings its fused counts instead), re-checking the
      published claims/placements: claim-requests, claim-capacity,
      instance-type-survivor, taints, host-ports, requirement intersection,
      node-capacity.
@@ -85,6 +85,11 @@ class GateContext:
     # ``device``
     device_problem: Any = None
     device: Any = "cpu"
+    # a device-resident solve (streaming/device_world.py) already counted the
+    # invariants in the fused gate over its own final state: the nonzero
+    # counts by invariant (empty = device-accept), which full_gate uses in
+    # place of a gate_counts launch. None = no fused counts.
+    fused_counts: Optional[Dict[str, int]] = None
 
 
 @dataclasses.dataclass
@@ -97,12 +102,13 @@ class GateOutcome:
 
 
 def make_context(
-    problem, meta, max_claims, num_pods, has_override, device_problem=None, device="cpu"
+    problem, meta, max_claims, num_pods, has_override, device_problem=None, device="cpu",
+    fused_counts=None,
 ) -> GateContext:
     return GateContext(
         problem=problem, meta=meta, max_claims=int(max_claims),
         num_pods=int(num_pods), has_override=bool(has_override),
-        device_problem=device_problem, device=device,
+        device_problem=device_problem, device=device, fused_counts=fused_counts,
     )
 
 
@@ -133,7 +139,13 @@ def full_gate(
     reject = _screen(result, pods, templates, instance_types, nodes, ctx)
     counts: Dict[str, int] = {}
     if reject is None:
-        counts = _device_counts(ctx, result, pods, pod_requirements_override)
+        if ctx.fused_counts is not None:
+            # the fused solve + gate already reduced the invariants over the
+            # solver's own committed state; the screen above, the skew check
+            # and the sampled audit below still cover the published decode
+            counts = dict(ctx.fused_counts)
+        else:
+            counts = _device_counts(ctx, result, pods, pod_requirements_override)
         if counts:
             reject = "device:" + ",".join(sorted(counts))
     if reject is None and _skew_check(*host_args):

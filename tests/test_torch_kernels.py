@@ -19,7 +19,7 @@ import torch
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
-from karpenter_tpu_torch.ops import ffd_sweeps, relax
+from karpenter_tpu_torch.ops import ffd_sweeps, fused, relax
 from karpenter_tpu_torch.parallel import mesh
 from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd_plain
@@ -50,6 +50,7 @@ def _c_struct_fields(source: str, struct: str):
         ("gate_counts.cu", "GateKernelArgs", gdev._GATE_POINTERS, gdev._GATE_INTS),
         ("relax_place.cu", "RelaxArgs", relax._RELAX_POINTERS, relax._RELAX_INTS),
         ("runs_screen.cu", "RunsArgs", mesh._RS_POINTERS, mesh._RS_INTS),
+        ("patch_world.cu", "PatchKernelArgs", fused._PATCH_POINTERS, fused._PATCH_INTS),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
@@ -155,7 +156,7 @@ def test_library_path_tracks_sources_and_flags():
     a = kernels.library_path("ffd_loop")
     assert a == kernels.library_path("ffd_loop")
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
-    assert set(kernels.SOURCES) == {"ffd_loop", "gate_counts", "relax_place", "runs_screen"}
+    assert set(kernels.SOURCES) == {"ffd_loop", "gate_counts", "patch_world", "relax_place", "runs_screen"}
     assert set(kernels.LAUNCHES) == set(kernels.SOURCES)
 
 
@@ -307,3 +308,158 @@ def test_runs_screen_matches_plain(cuda, corpus):
         np.testing.assert_array_equal(sk[key], sp[key], err_msg=key)
     if corpus == "full-topology":
         assert scorer.last_screen_stats["passes"] == 3 and mesh.has_topo_runs(scorer.device_problem)
+
+
+def _churn_world(n_pods=40, nodes=2, permute=True, seed=3):
+    """A small resident-world corpus: (previous padded problem, the next
+    snapshot's patch arguments, the next snapshot's cold padded problem)."""
+    import random
+
+    from karpenter_tpu_torch.streaming.churn import default_pod_factory
+    from karpenter_tpu_torch.streaming.delta import DeltaEncoder
+
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+
+    its = instance_types(12)
+    tpls = [W.simple_template(its)]
+    rng = random.Random(seed)
+    pods = [default_pod_factory(f"p-{i}", rng) for i in range(n_pods)]
+    node_list = [W.make_node(f"node-{i}") for i in range(nodes)]
+    enc = DeltaEncoder()
+    first = enc.encode(pods, its, tpls, nodes=node_list, num_claim_slots=8)
+    if permute:
+        pods2 = pods[3:] + [default_pod_factory(f"new-{i}", rng) for i in range(3)]
+    else:
+        pods2 = list(pods)
+        pods2[5] = dataclasses.replace(pods2[5])
+        pods2[5].spec = dataclasses.replace(pods2[5].spec, containers=[dataclasses.replace(
+            pods2[5].spec.containers[0], requests={**pods2[5].spec.containers[0].requests, "cpu": 3.0})])
+    second = enc.encode(pods2, its, tpls, nodes=node_list, num_claim_slots=8)
+    assert enc.last_patch["mode"] == "patched", enc.last_patch
+    prev = pad_problem(first.problem)
+    args = fused.build_patch_args(second.problem, enc.last_rows_prev, fused.leaf_shapes(prev))
+    return prev, args, pad_problem(Encoder().encode(pods2, its, tpls, nodes=node_list, num_claim_slots=8).problem)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def test_resident_args_point_at_the_world():
+    """The patch's leaf table and the fused gate's struct point at the
+    resident world's own buffers (built on the CPU; no launch)."""
+    prev, args, _ = _churn_world()
+    world = fused.adopt_world(prev, 8, "cpu")
+    up = fused.upload_patch(args, world)
+    table = up.buffer[up.args.leaves - up.buffer.data_ptr():].view(torch.int64)
+    rows = [n for n in fused.PATCH_ROWS if up.stack[n].numel()]
+    assert up.args.L == len(rows) and up.args.FL == len(fused.PATCH_FULL)
+    for i, name in enumerate(rows):
+        prev_ptr, out_ptr, stk_ptr, row_bytes = table[4 * i: 4 * i + 4].tolist()
+        assert (prev_ptr, out_ptr, stk_ptr) == (
+            world.t[name].data_ptr(), world.spare[name].data_ptr(), up.stack[name].data_ptr())
+        assert row_bytes * up.stack[name].shape[0] == up.stack[name].numel() * up.stack[name].element_size()
+    for j, (name, _) in enumerate(fused.PATCH_FULL):
+        _, out_ptr, src_ptr, nbytes = table[4 * (len(rows) + j): 4 * (len(rows) + j) + 4].tolist()
+        assert (out_ptr, src_ptr, nbytes) == (
+            world.t[name].data_ptr(), up.full[name].data_ptr(), up.full[name].numel() * up.full[name].element_size())
+    fused.patch_world(world, up)
+    t = dict(world.t)
+    t.update(ffd_sweeps.state_tensors(initial_state(fused.world_problem(world.t), 8), fused.world_problem(world.t).lane_valid,
+                                      world.t["ln"]))
+    t["kind"] = torch.zeros((world.t["pod_requests"].shape[0],), dtype=torch.int32)
+    t["index"] = torch.zeros_like(t["kind"])
+    pc = torch.ones_like(t["kind"], dtype=torch.bool)
+    g, gargs = gdev.gate_fused_args(t, pc)
+    assert set(g) == set(gdev._GATE_POINTERS) and g["pod_bin"] is None and g["claim_neg"] is g["neg_out"]
+    for name in gdev._GATE_POINTERS:
+        expected = g[name].data_ptr() if g[name] is not None else None
+        assert getattr(gargs, name) == (expected or None), name
+    assert g["node_adm"] is world.t["nreq_adm"] and g["claim_active"] is t["claim_open"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("permute", [True, False])
+def test_patch_world_matches_plain(cuda, permute):
+    """patch_world against patch_world_plain on the same arguments, bit for
+    bit, and the patched world against the cold encode's: on a patch whose
+    survivors move both ways (arrivals and deletes) and on a spec change,
+    whose survivors keep their rows."""
+    prev, args, cold = _churn_world(permute=permute)
+    world = fused.adopt_world(prev, 8, cuda)
+    before = {k: v.clone() for k, v in world.t.items()}
+    up = fused.upload_patch(args, world)
+    launches = kernels.LAUNCHES["patch_world"]
+    fused.patch_world(world, up)
+    assert kernels.LAUNCHES["patch_world"] == launches + 1
+    plain = fused.patch_world_plain(before, up)
+    torch.cuda.synchronize()
+    for name, value in plain.items():
+        assert torch.equal(_bits(world.t[name]), _bits(value)), name
+    ref = fused.world_tensors(problem_to_torch(cold, cuda))
+    for name in ref:
+        assert torch.equal(_bits(world.t[name]), _bits(ref[name])), name
+
+
+def _fused_corruptions(t, C):
+    """Copies of ``t`` (a world with a final loop state), each corrupted to
+    trip one invariant, as (invariant, tensors)."""
+    kind, index = t["kind"].cpu(), t["index"].cpu()
+    on_claim = ((kind == 1) | (kind == 2)).nonzero().flatten().tolist()
+    c0 = int(index[on_claim[0]])
+    mates = [p for p in on_claim if int(index[p]) == c0]
+    assert len(mates) > 1 and (kind == 0).any()
+    p0 = mates[0]
+    out = []
+
+    def variant(name, **edits):
+        v = dict(t)
+        for key, fn in edits.items():
+            v[key] = t[key].clone()
+            fn(v[key])
+        out.append((name, v))
+
+    variant("claim-requests", claim_requests=lambda x: x[c0, 0].add_(1.0))
+    pad_types = (t["it_alloc"][:, 0] < 0).nonzero().flatten().tolist()
+    # a padded type fits nothing: listed alone, no listed type holds the claim
+    variant("claim-capacity", claim_it_ok=lambda x: (x[c0].fill_(False), x[c0, pad_types[0]].fill_(True)))
+    variant("instance-type-survivor", claim_it_ok=lambda x: x[c0, pad_types[0]].fill_(True))
+    variant("taint-admissibility", pod_tol_tpl=lambda x: x[p0].fill_(False))
+    variant("host-port", pod_ports=lambda x: x.__setitem__((mates[:2], 0), True),
+            pod_conflict=lambda x: x[p0, 0].fill_(True))
+    variant("requirement-intersection", pod_adm=lambda x: x[p0, 0].fill_(0),
+            pod_comp=lambda x: x[p0, 0].fill_(False), pod_def=lambda x: x[p0, 0].fill_(True),
+            pod_neg=lambda x: x[p0, 0].fill_(True), claim_adm=lambda x: x[c0, 0].copy_(t["lvw"][0]),
+            claim_comp=lambda x: x[c0, 0].fill_(False), claim_def=lambda x: x[c0, 0].fill_(True))
+    variant("node-capacity", node_avail=lambda x: x.fill_(0.0))
+    return out
+
+
+@pytest.mark.cuda
+def test_fused_gate_matches_plain(cuda):
+    """The fused solve (ffd_loop fresh, then gate_counts in its fused mode)
+    against the plain loop and gate_counts_plain over gate_args_from_state;
+    then the fused gate alone on the loop's state corrupted to trip each
+    invariant, against the plain gate on the same tensors."""
+    prev, _, _ = _churn_world()
+    C = 8
+    world = fused.adopt_world(prev, C, cuda)
+    P = world.t["pod_requests"].shape[0]
+    pc = torch.ones((P,), dtype=torch.bool, device=cuda)
+    rk, ck = fused.solve_ffd_fused_gate(world, pc, C)
+    rp, cp = fused.solve_ffd_fused_gate_plain(fused.world_problem(world.t), pc, C)
+    _assert_same(rk, rp)
+    assert torch.equal(ck.cpu(), cp.cpu()) and not ck.any()
+    V = world.t["ln"].shape[1]
+    t = dict(world.t)
+    t.update(ffd_sweeps.state_tensors(rk.state, fused.world_problem(world.t).lane_valid, world.t["ln"]))
+    t["kind"], t["index"] = rk.kind, rk.index
+    tripped = set()
+    for name, v in _fused_corruptions(t, C):
+        got = gdev.launch_gate_counts_fused(v, pc).cpu()
+        ref = fused.fused_gate_counts(fused.world_problem(v), v["kind"], v["index"],
+                                      ffd_sweeps.state_back(v, V), pc, C, False).cpu()
+        assert torch.equal(got, ref), (name, got.tolist(), ref.tolist())
+        assert got[gdev.INVARIANTS.index(name)] > 0, name
+        tripped.add(name)
+    assert tripped == set(gdev.INVARIANTS)
