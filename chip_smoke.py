@@ -55,14 +55,32 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      last; the fused counts equal to ``gate_counts_plain`` over the same
      state on two cycles. Then the cycle walls, their split, the bytes up,
      and ``patch_world`` and the fused gate alone, wrapped and plain.
-  5. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  5. the supervised multi-tenant serve path (the JAX package's serve
+     scenario): ``runs_screen`` in its stacked mode through
+     ``serve.batch.stacked_solve`` (encode, stack, one launch, decode, full
+     validation) at 8 tenants x 50 pods (50 types) and 8 x 1,250 (400
+     types), one launch each with every lane riding it, each lane's
+     scheduled count equal to a solo ``TorchSolver`` solve, the kernel
+     equal to ``batched_screen_plain`` (three passes) and
+     ``batched_solve_plain`` (one) on every narrow lane and two wide ones,
+     then timed alone, wrapped and plain; the 16-tenant x 6-cycle scenario
+     through ``SolveService`` (a warm pass, a measured pass with its launch
+     counts, every ticket ok, the stacked ``runs_screen`` launched) beside
+     the same problems through one ``SupervisedSolver``, every tenant's
+     supervisor and the control left with a closed circuit and no fallback,
+     retry or rejection; the overload probe (a 2-deep queue, a 20 ms
+     solver, a 50 ms budget: no unclassified outcome); and phase 2's batch
+     through ``SupervisedSolver(TorchSolver(), fallback=OracleSolver())``,
+     which must return phase 2's placements with the circuit closed and no
+     fallback, retry or rejection.
+  6. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
      are computed, and for ``ffd_loop`` the latency floor of its barriers and
      its fresh and one-pass modes. Bytes are those of the kernel's own
-     arguments. The churn phase's record rides in the same line.
-  6. the card's name and power limit; the last line is the device JSON.
+     arguments. The churn and serve phases' records ride in the same line.
+  7. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -110,6 +128,20 @@ CHURN_CYCLES = 24
 CHURN_RATE = CHURN_PODS * 2 // 100
 CHURN_SEED = 21
 CHURN_SLOTS = 64
+
+# the multi-tenant serve path: the JAX package's serve scenario (bench.py
+# serve: 16 tenants, 6 cycles of 50 default_pod_factory pods each, 50 catalog
+# types, one NodePool, seed 99) and the stacked kernel at two shapes: that
+# scenario's first cycle over 8 tenants, and the north-star 10k batch split
+# over 8 tenant clusters at the 400-type catalog
+SERVE_TENANTS = 16
+SERVE_CYCLES = 6
+SERVE_PODS = 50
+SERVE_ITS = 50
+SERVE_SEED = 99
+STACK_LANES = 8
+WIDE_PODS = 1250
+WIDE_ITS = 400
 
 
 def log(msg):
@@ -619,6 +651,7 @@ def run(dev) -> int:
         f"bound {k2_bound:.5f} ms ({k2_by})")
     rs = consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
     churn_entries, churn = churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
+    stacked = serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, (pods, its, tpls, nodes), result)
 
     line = {
         "kernels": [
@@ -683,6 +716,7 @@ def run(dev) -> int:
             },
             rs,
             *churn_entries,
+            stacked,
         ],
         "churn": churn,
     }
@@ -1127,6 +1161,286 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
             "launches_per_cycle": 1,
         },
     ], summary
+
+
+def serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, main_workload, main_result):
+    """Phase 5 (see the module docstring). Returns the stacked
+    ``runs_screen`` entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels, serve
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.apis.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.models.problem import numpy_fields
+    from karpenter_tpu_torch.parallel import mesh as M
+    from karpenter_tpu_torch.serve import batch as xbatch
+    from karpenter_tpu_torch.serve.dispatcher import Ticket, _Request
+    from karpenter_tpu_torch.solver.encode import template_from_nodepool
+    from karpenter_tpu_torch.solver.oracle import OracleSolver
+    from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.streaming.churn import default_pod_factory
+
+    t_phase = time.perf_counter()
+
+    def catalog(n):
+        its = instance_types(n)
+        return its, [template_from_nodepool(NodePool(metadata=ObjectMeta(name="serve")), its, range(len(its)))]
+
+    def placements(result):
+        return ([(c.template_index, c.pod_indices, c.instance_type_indices, sorted(c.requests.items()))
+                 for c in result.new_claims], sorted(result.node_pods.items()), sorted(result.failures))
+
+    # -- 5a. the stacked kernel through serve.batch.stacked_solve, at two shapes
+    shapes = {}
+    max_err = 0.0
+    for tag, n_pods, n_its in (("narrow", SERVE_PODS, SERVE_ITS), ("wide", WIDE_PODS, WIDE_ITS)):
+        its, tpls = catalog(n_its)
+        rng = random.Random(SERVE_SEED)
+        group = [_Request(tenant=f"tenant-{t}", pods=[default_pod_factory(f"sv-0-{t}-{i}", rng) for i in range(n_pods)],
+                          instance_types=its, templates=tpls, kwargs={}, deadline_s=0.0, submitted_at=0.0,
+                          ticket=Ticket(f"tenant-{t}"))
+                 for t in range(STACK_LANES)]
+        captured = {}
+        real_screen = M.batched_screen
+
+        def spy(batch, C, passes=3):
+            captured["args"] = (batch, C, passes)
+            out = real_screen(batch, C, passes)
+            captured["result"] = out
+            return out
+
+        stats = {}
+        M.batched_screen = spy
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            results = xbatch.stacked_solve(group, device=dev, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            M.batched_screen = real_screen
+        lanes = list(stats["lanes"])
+        want = {**{k: 0 for k in kernels.LAUNCHES}, "runs_screen": 1}
+        if launches != want or len(lanes) < 2:
+            raise AssertionError(f"stacked {tag}: launches {launches}, lanes {lanes}: expected one runs_screen "
+                                 f"launch with at least 2 lanes")
+        answered = [i for i, r in enumerate(results) if r is not None]
+        if not answered:
+            raise AssertionError(f"stacked {tag}: every lane stood down: {stats['reasons']}")
+        # every answered lane schedules what a solo solve of its pods does
+        solo = TorchSolver(device=dev)
+        for i in answered:
+            control = solo.solve(group[i].pods, its, tpls)
+            if results[i].num_scheduled() != control.num_scheduled():
+                raise AssertionError(f"stacked {tag} lane {i}: {results[i].num_scheduled()} scheduled, a solo solve "
+                                     f"{control.num_scheduled()}")
+        torch.cuda.synchronize()
+        batch, C, passes = captured["args"]
+        rk = captured["result"]
+        B = batch.pod_active.shape[0]
+        checked = list(range(B)) if tag == "narrow" else [0, B - 1]
+        sel = torch.tensor(checked, device=rk.kind.device)
+
+        def against_plain(name, rk, rp):
+            """Kind/index and integer and bool state exact on the checked
+            lanes, float state within FLOAT_RTOL; the largest float
+            difference."""
+            if not (torch.equal(rk.kind[sel].cpu(), rp.kind.cpu()) and torch.equal(rk.index[sel].cpu(),
+                                                                                      rp.index.cpu())):
+                raise AssertionError(f"stacked {tag} {name}: kind/index differ from the plain version")
+            sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+            err = 0.0
+            for key in sp:
+                a, b = sk[key][checked], sp[key]
+                if a.dtype.kind == "f":
+                    if not np.allclose(a, b, rtol=FLOAT_RTOL, atol=FLOAT_ATOL, equal_nan=True):
+                        raise AssertionError(f"stacked {tag} {name}: float state {key} differs")
+                    fin = np.isfinite(a) & np.isfinite(b)
+                    if fin.any():
+                        err = max(err, float(np.abs(a[fin] - b[fin]).max()))
+                elif not np.array_equal(a, b):
+                    raise AssertionError(f"stacked {tag} {name}: state {key} differs")
+            return err
+
+        # the kernel against its plain version on the same stack: the screen
+        # (the serve path's three passes) and batched_solve (one pass)
+        rp, p_ms = plain_ms(lambda: M.batched_screen_plain(batch, C, passes, lanes=checked))
+        max_err = max(max_err, against_plain("batched_screen", rk, rp))
+        rk1 = M.batched_solve(batch, C)
+        rp1, p1_ms = plain_ms(lambda: M.batched_solve_plain(batch, C, lanes=checked))
+        max_err = max(max_err, against_plain("batched_solve", rk1, rp1))
+        # alone: CUDA events around the launch over argument sets built
+        # beforehand; through the wrapper; and batched_solve alone
+        max_run, with_topo = M.max_run_bucket(batch), M.has_topo_runs(batch)
+        sets = [M.stacked_screen_args(batch, C, max_run=max_run, passes=passes, with_topo=with_topo) for _ in range(5)]
+        k_ms, k_all = time_launches("runs_screen", sets)
+        for t, _ in sets:
+            if not (torch.equal(t["kind"], rk.kind) and torch.equal(t["index"], rk.index)):
+                raise AssertionError(f"stacked {tag}: a timed launch differs from the wrapper's")
+        w_ms, _ = time_ms(lambda: M.batched_screen(batch, C, passes), 5)
+        sets1 = [M.stacked_screen_args(batch, C, max_run=max_run, passes=1, with_topo=with_topo) for _ in range(5)]
+        k1_ms, _ = time_launches("runs_screen", sets1)
+        work = dict(zip(M.RS_WORK_COUNTERS, rk.work.sum(dim=0).cpu().tolist()))
+        nbytes = io_bytes(sets[0][0], (), M.RS_SCRATCH)
+        a0 = sets[0][1]  # the problem's sizes are the struct's ints (the stack leads every leaf)
+        K, Wd, O, R = a0.K, a0.W, a0.O, a0.R
+        int_ops = work["bin_gates"] * 2 * K * Wd + work["topo_lanes"] * 2 + work["type_tests"] * (K * Wd + O)
+        flt_ops = work["type_tests"] * 2 * R
+        b_ms, b_by = bound(nbytes, int_ops, flt_ops)
+        dims = {f: getattr(a0, f) for f in ("B", "P", "C", "T", "V", "W", "K", "N", "G", "R", "TPL", "RN", "MR")}
+        # the launch's dynamic shared memory, as runs_screen_launch sizes it
+        dims["dyn_smem_bytes"] = 4 * (3 * a0.G + a0.R + 4 * a0.MR + 2 * a0.N + 5 * a0.C + 2 * a0.TPL)
+        shapes[tag] = dict(lanes=len(lanes), answered=len(answered), reasons=stats["reasons"], dims=dims,
+                           wall_ms=wall * 1e3, split_ms=stats["timing"], ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+                           plain_lanes=len(checked), solve_ms=k1_ms, solve_plain_ms=p1_ms, bound_ms=b_ms,
+                           bound_by=b_by, bytes=nbytes, int_ops=int_ops, flt_ops=flt_ops, work=work,
+                           scheduled=[r.num_scheduled() if r is not None else None for r in results],
+                           claims=[len(r.new_claims) if r is not None else None for r in results])
+        log(f"  stacked {tag}: {len(lanes)} lanes in one launch ({len(answered)} answered, reasons "
+            f"{stats['reasons']}), dims {dims}; stacked_solve wall {wall * 1e3:.1f} ms = {stats['timing']}; "
+            f"kernel {k_ms:.3f} ms median of {[round(x, 3) for x in k_all]}, wrapper {w_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms on {len(checked)} lanes; batched_solve kernel {k1_ms:.3f} ms, plain {p1_ms:.1f} ms; "
+            f"kernel == plain (max float err {max_err}); bytes {nbytes}, int ops {int_ops:.4g}, float ops "
+            f"{flt_ops:.4g}, bound {b_ms:.5f} ms ({b_by}); scheduled {shapes[tag]['scheduled']} = solo")
+
+    # -- 5b. the serve scenario at the reference's full size
+    its, tpls = catalog(SERVE_ITS)
+    rng = random.Random(SERVE_SEED)
+    problems = [[[default_pod_factory(f"sv-{c}-{t}-{i}", rng) for i in range(SERVE_PODS)]
+                 for t in range(SERVE_TENANTS)] for c in range(SERVE_CYCLES)]
+    shared = TorchSolver(device=dev)
+    service = serve.SolveService(device=dev)
+    supervisors = {f"tenant-{t}": serve.build_tenant_solver(f"tenant-{t}", primary=shared, fallback=OracleSolver())
+                   for t in range(SERVE_TENANTS)}
+    for name, solver in supervisors.items():
+        service.register_tenant(name, solver=solver)
+    service.start()
+
+    def serve_pass():
+        lat, outs = [], []
+        t0 = time.perf_counter()
+        for cycle in problems:
+            tickets = [service.submit(f"tenant-{t}", cycle[t], its, tpls) for t in range(SERVE_TENANTS)]
+            outs += [tk.wait(timeout=300.0) for tk in tickets]
+        wall = time.perf_counter() - t0
+        bad = [(o.tenant, o.status, o.reason) for o in outs if o.status != "ok"]
+        if bad:
+            raise AssertionError(f"serve: {len(bad)} tickets not ok: {bad[:4]}")
+        return wall, sorted(o.latency_s for o in outs), outs
+
+    try:
+        serve_pass()  # warm pass
+        before = service.summary()
+        kernels.reset_launches()
+        serve_wall, lat, outs = serve_pass()
+        torch.cuda.synchronize()
+        serve_launches = dict(kernels.LAUNCHES)
+        after = service.summary()
+    finally:
+        service.close()
+    completed = after["completed"] - before["completed"]
+    batched = after["batched"] - before["batched"]
+    if after["errors"] or completed != SERVE_TENANTS * SERVE_CYCLES:
+        raise AssertionError(f"serve: {after}")
+    if serve_launches["runs_screen"] <= 0:
+        raise AssertionError(f"serve: the measured pass never launched the stacked runs_screen: {serve_launches}")
+    control = SupervisedSolver(shared, fallback=OracleSolver())
+    for _ in range(2):  # the second pass is timed
+        t0 = time.perf_counter()
+        for cycle in problems:
+            for t in range(SERVE_TENANTS):
+                control.solve(cycle[t], its, tpls)
+        torch.cuda.synchronize()
+        seq_wall = time.perf_counter() - t0
+    # neither side's walls may hide a failover to the host oracle, a retry
+    # or a rejection
+    for name, sup_ in {**supervisors, "sequential control": control}.items():
+        if sup_.circuit_state() != "closed" or any(sup_.counters.values()):
+            raise AssertionError(f"serve: {name}: circuit {sup_.circuit_state()}, counters {sup_.counters}")
+    pods_total = SERVE_TENANTS * SERVE_CYCLES * SERVE_PODS
+    scenario = dict(tenants=SERVE_TENANTS, cycles=SERVE_CYCLES, pods_per_cycle=SERVE_PODS, serve_wall_s=serve_wall,
+                    sequential_wall_s=seq_wall, agg_pods_per_s=pods_total / serve_wall,
+                    vs_sequential=seq_wall / serve_wall, p50_cycle_s=statistics.median(lat),
+                    p99_cycle_s=lat[min(len(lat) - 1, int(0.99 * len(lat)))], completed=completed, batched=batched,
+                    batch_hit_rate=batched / max(completed, 1), launches=serve_launches,
+                    paths={p_: sum(o.path == p_ for o in outs) for p_ in ("batched", "solo")})
+
+    # the overload probe: a 2-deep queue, a 20 ms solver, a 50 ms budget
+    class _Slow:
+        def solve(self, pods, its_, tpls_, **kw):
+            time.sleep(0.02)
+            return type("R", (), {"num_scheduled": lambda s: 0, "new_claims": (), "node_pods": {},
+                                  "failures": {}})()
+
+    probe = serve.SolveService(queue_depth=2, batching=False, device=dev)
+    probe.register_tenant("flood", solver=_Slow())
+    probe.start()
+    try:
+        flood = [probe.submit("flood", problems[0][0][:4], its, tpls, deadline_s=0.05) for _ in range(24)]
+        flood_outs = [tk.wait(timeout=60.0) for tk in flood]
+    finally:
+        probe.close()
+    statuses = {}
+    for o in flood_outs:
+        key = o.status if o.status == "ok" else f"{o.status}:{o.reason}"
+        statuses[key] = statuses.get(key, 0) + 1
+    unclassified = sum(1 for o in flood_outs
+                       if o.status not in ("ok", "overloaded", "rejected") or (o.status != "ok" and not o.reason))
+    if unclassified:
+        raise AssertionError(f"overload probe: {unclassified} unclassified outcomes: {statuses}")
+    scenario["overload"] = dict(submitted=len(flood_outs), statuses=statuses, unclassified=unclassified)
+    log(f"  serve: {SERVE_TENANTS} tenants x {SERVE_CYCLES} cycles x {SERVE_PODS} pods: serve wall "
+        f"{serve_wall:.4f} s, sequential {seq_wall:.4f} s, {scenario['agg_pods_per_s']:.1f} pods/s, vs_sequential "
+        f"{scenario['vs_sequential']:.3f}, p50 {scenario['p50_cycle_s']:.4f} s, p99 {scenario['p99_cycle_s']:.4f} s, "
+        f"completed {completed}, batched {batched} (hit rate {scenario['batch_hit_rate']:.3f}), launches "
+        f"{serve_launches}; overload probe {statuses}")
+
+    # -- the supervised main path: phase 2's batch through SupervisedSolver
+    pods, its, tpls, nodes = main_workload
+    sup = SupervisedSolver(TorchSolver(initial_claim_slots=128, device=dev), fallback=OracleSolver())
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = sup.solve(pods, its, tpls, nodes)
+    torch.cuda.synchronize()
+    sup_wall = time.perf_counter() - t0
+    sup_launches = dict(kernels.LAUNCHES)
+    if placements(res) != placements(main_result):
+        raise AssertionError("supervised main path: placements differ from phase 2's")
+    if sup.circuit_state() != "closed" or any(sup.counters.values()):
+        raise AssertionError(f"supervised main path: circuit {sup.circuit_state()}, counters {sup.counters}")
+    for name in ("ffd_loop", "gate_counts", "relax_place"):
+        if sup_launches[name] <= 0:
+            raise AssertionError(f"supervised main path never launched {name}: {sup_launches}")
+    supervised = dict(wall_ms=sup_wall * 1e3, launches=sup_launches, scheduled=res.num_scheduled(),
+                      circuit=sup.circuit_state(), counters=dict(sup.counters))
+    log(f"  supervised main path: {res.num_scheduled()}/{len(pods)} scheduled, placements == phase 2's, circuit "
+        f"closed, counters {sup.counters}; wall {sup_wall * 1e3:.1f} ms; launches {sup_launches}")
+    log(f"  serve phase wall {time.perf_counter() - t_phase:.1f}s")
+    wide = shapes["wide"]
+    return {
+        "name": "runs_screen_stacked",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/runs_screen.cu",
+        "replaces": "karpenter_tpu/parallel/mesh.py:154",
+        "also_replaces": ["karpenter_tpu/parallel/mesh.py:88"],
+        "launches": serve_launches["runs_screen"],
+        "max_abs_err": max_err,
+        "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"],
+        "library_ms": None,
+        "wrapper_ms": wide["wrapper_ms"],
+        "plain_lanes": wide["plain_lanes"],
+        "float_rtol": FLOAT_RTOL,
+        "shapes": shapes,
+        "serve": scenario,
+        "supervised": supervised,
+    }
 
 
 def screen_subsets(n, seed=SCREEN_SEED):

@@ -6,6 +6,10 @@
 //     the shared run trim from the carried base world)
 //   parallel/mesh.py:232 _lean_screen_jit (full mode: up to three passes
 //     from each lane's initial state and topology census)
+//   parallel/mesh.py:154 _batched_screen_jit and :88 _batched_solve_jit
+//     (stacked mode: the full mode's passes, 3 or 1, where every lane is a
+//     whole problem of its own, stacked on a leading axis with its own
+//     vocabulary, tables, run axis and initial state; ``stacked`` = 1)
 //   ops/ffd_runs.py:519 _solve_ffd_runs_jit, the scan both vmap over lanes,
 //     with its commits: the per-pod step (RUN_SINGLE, step.cuh), the
 //     closed-form run commit _make_run_commit :53 (RUN_ANALYTIC) and the
@@ -26,7 +30,10 @@
 // blockIdx.x. A block builds its lane's view of the argument struct in
 // shared memory (state pointers offset to its slot) and hands it to the
 // per-pod step of step.cuh, so RUN_SINGLE and every RUN_TOPO member run the
-// ffd_loop kernel's own step. The analytic commit keeps the JAX package's
+// ffd_loop kernel's own step. In stacked mode the view also offsets every
+// problem table and the start state to the lane's own slot, so nothing is
+// shared but the dimensions: the serve layer's 8 tenant lanes fill 8 of the
+// 132 SMs, one block each. The analytic commit keeps the JAX package's
 // closed form: integer capacities (a float division and a floor), the
 // claims' water level by a 22-step bisection, the temporal ordinal -> bin
 // maps, one template claim opened at a time with its limit headroom burned
@@ -183,7 +190,10 @@ struct RunsArgs {
   int* index;                // [B, P]
   unsigned long long* work;  // [B, NWORK_RS]
   // dims
-  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, B, RN, MR, passes;
+  // stacked: 1 when every lane is a whole problem of its own (the batched
+  // programs): the problem tables above and the init_* state then carry a
+  // leading lane axis too, and the lane census pointers are null
+  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, B, RN, MR, passes, stacked;
 };
 
 namespace {
@@ -774,6 +784,93 @@ __device__ void lane_view(const RunsArgs& g, RunsArgs& a, int b) {
   a.kind += b * P;
   a.index += b * P;
   a.work += b * NWORK_RS;
+  if (!g.stacked) return;
+  // stacked mode: lane b's own problem tables and start state, each leaf
+  // advanced by b x its per-lane element count (mirrored by lane_elems in
+  // mesh.py, which the wrapper checks against the tensors it stacked)
+  const long O = g.O, F = g.F, CH = g.CH, RN = g.RN, KW = K * W;
+#define RS_LANE(field, n) a.field += b * (n)
+  RS_LANE(lvw, KW);
+  RS_LANE(ln, K * V);
+  RS_LANE(lex, K * V);
+  RS_LANE(wellknown, K);
+  RS_LANE(pod_adm, P * KW);
+  RS_LANE(pod_comp, P * K);
+  RS_LANE(pod_def, P * K);
+  RS_LANE(pod_gt, P * K);
+  RS_LANE(pod_lt, P * K);
+  RS_LANE(pod_neg, P * K);
+  RS_LANE(pod_strict_adm, P * KW);
+  RS_LANE(pod_requests, P * R);
+  RS_LANE(pod_tol_tpl, P * TPL);
+  RS_LANE(pod_tol_node, P * N);
+  RS_LANE(pod_ports, P * PT);
+  RS_LANE(pod_conflict, P * PT);
+  RS_LANE(pod_match, P * G);
+  RS_LANE(pod_selects, P * G);
+  RS_LANE(pod_owned, P * G);
+  RS_LANE(pod_vols, P * D);
+  RS_LANE(it_adm, T * KW);
+  RS_LANE(it_comp, T * K);
+  RS_LANE(it_def, T * K);
+  RS_LANE(it_gt, T * K);
+  RS_LANE(it_lt, T * K);
+  RS_LANE(it_neg, T * K);
+  RS_LANE(it_alloc, T * R);
+  RS_LANE(it_cap, T * R);
+  RS_LANE(offer_zone, T * O);
+  RS_LANE(offer_ct, T * O);
+  RS_LANE(offer_ok, T * O);
+  RS_LANE(tpl_adm, TPL * KW);
+  RS_LANE(tpl_comp, TPL * K);
+  RS_LANE(tpl_def, TPL * K);
+  RS_LANE(tpl_gt, TPL * K);
+  RS_LANE(tpl_lt, TPL * K);
+  RS_LANE(tpl_neg, TPL * K);
+  RS_LANE(tpl_overhead, TPL * R);
+  RS_LANE(tpl_it_ok, TPL * T);
+  RS_LANE(node_vol_limits, N * D);
+  RS_LANE(grp_type, G);
+  RS_LANE(grp_key, G);
+  RS_LANE(grp_max_skew, G);
+  RS_LANE(grp_min_domains, G);
+  RS_LANE(grp_inverse, G);
+  RS_LANE(grp_has_filter, G);
+  RS_LANE(flt_adm, G * F * KW);
+  RS_LANE(flt_comp, G * F * K);
+  RS_LANE(flt_def, G * F * K);
+  RS_LANE(flt_gt, G * F * K);
+  RS_LANE(flt_lt, G * F * K);
+  RS_LANE(flt_neg, G * F * K);
+  RS_LANE(flt_valid, G * F);
+  RS_LANE(host_lane, CH);
+  RS_LANE(run_start, RN);
+  RS_LANE(run_len, RN);
+  RS_LANE(run_mode, RN);
+  RS_LANE(init_claim_adm, C * KW);
+  RS_LANE(init_claim_comp, C * K);
+  RS_LANE(init_claim_def, C * K);
+  RS_LANE(init_claim_gt, C * K);
+  RS_LANE(init_claim_lt, C * K);
+  RS_LANE(init_claim_requests, C * R);
+  RS_LANE(init_claim_it_ok, C * T);
+  RS_LANE(init_claim_open, C);
+  RS_LANE(init_claim_npods, C);
+  RS_LANE(init_claim_tpl, C);
+  RS_LANE(init_claim_ports, C * PT);
+  RS_LANE(init_node_adm, N * KW);
+  RS_LANE(init_node_comp, N * K);
+  RS_LANE(init_node_def, N * K);
+  RS_LANE(init_node_gt, N * K);
+  RS_LANE(init_node_lt, N * K);
+  RS_LANE(init_node_requests, N * R);
+  RS_LANE(init_node_npods, N);
+  RS_LANE(init_node_ports, N * PT);
+  RS_LANE(init_node_vol_used, N * D);
+  RS_LANE(init_remaining, TPL * R);
+  RS_LANE(init_grp_counts, G * V);
+  RS_LANE(init_grp_registered, G * V);
+#undef RS_LANE
 }
 
 __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) {

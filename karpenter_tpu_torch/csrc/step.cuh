@@ -168,7 +168,8 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
   const uint8_t* match = a.pod_match + (long)p * a.G;
   for (int k = 0; k < K && a.G > 0; ++k) {
     bool touched = false;
-    unsigned lim = FULL;  // bit j: lane 32j + lane stays allowed on key k
+    // bit j: lane 32j + lane stays allowed on key k (64 bits: W <= 64 words)
+    unsigned long long lim = ~0ull;
     const int* ndw = fadm + k * W;  // the merged row's lanes (node_dom)
     const int* pdw = a.pod_strict_adm + ((long)p * K + k) * W;
     for (int g = 0; g < a.G; ++g) {
@@ -199,7 +200,7 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
         }
         best = warp_min(best);
       }
-      unsigned amask = 0;
+      unsigned long long amask = 0;
       for (int j = 0; j < W; ++j) {
         const int v = 32 * j + lane;
         const bool reg = registered_at(a, g, k, v, extra_lane);
@@ -222,7 +223,7 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
           // anti-affinity (topologygroup.go:248-256)
           allowed = reg && cnt[v] == 0 && pd;
         }
-        if (allowed) amask |= 1u << j;
+        if (allowed) amask |= 1ull << j;
       }
       if (!__any_sync(FULL, amask != 0)) ok = false;  // the group allows no domain
       lim &= amask;
@@ -230,7 +231,7 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
     if (!touched) continue;
     bool any_new = false;
     for (int j = 0; j < W; ++j) {
-      const bool keep = bit_of(ndw, 32 * j + lane) && ((lim >> j) & 1u);
+      const bool keep = bit_of(ndw, 32 * j + lane) && ((lim >> j) & 1ull);
       const unsigned word = __ballot_sync(FULL, keep);
       any_new |= word != 0;
       if (lane == 0) fadm[k * W + j] = (int)word;

@@ -10,6 +10,12 @@ which returns ``cudaGetLastError()`` after its launch, and an args-size
 function the wrappers check their ``ctypes.Structure`` against.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.
+
+Failures raise typed exceptions, which the solver supervisor classifies by
+class name (solver/supervisor.classify_failure): a build that fails raises
+:class:`KernelCompileError` (class ``compile``: the same sources fail the
+same way again), a launch that the CUDA runtime refuses raises
+:class:`KernelDeviceError` (class ``device``, retried).
 """
 
 from __future__ import annotations
@@ -50,6 +56,16 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
+
+class KernelCompileError(RuntimeError):
+    """A kernel did not build: no ``nvcc``, or ``nvcc`` failed (its output
+    is in the message)."""
+
+
+class KernelDeviceError(RuntimeError):
+    """The CUDA runtime refused a kernel launch (its error code is in the
+    message)."""
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -62,7 +78,7 @@ def reset_launches() -> None:
 def nvcc_path() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+        raise KernelCompileError("nvcc not found: the CUDA kernels need the CUDA toolkit")
     return path
 
 
@@ -77,7 +93,8 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile the named kernels (default: all) that are not built yet, one
     ``nvcc`` process per source, all started together. Returns the library
-    paths; raises with the compiler's output if any build fails. The ptxas
+    paths; raises KernelCompileError with the compiler's output if any
+    build fails. The ptxas
     report (registers, shared memory, spills) lands in ``_build/<name>.log``."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -98,7 +115,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         else:
             os.replace(tmp, paths[n])
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise KernelCompileError("kernel build failed:\n" + "\n".join(failures))
     return paths
 
 
@@ -120,7 +137,7 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, args: ctypes.Structure, stream: int) -> None:
     """Launch kernel ``name`` with its argument struct on a CUDA stream
-    handle; raises on a launch error. Counts the launch."""
+    handle; raises KernelDeviceError on a launch error. Counts the launch."""
     lib = library(name)
     launch_sym, size_sym = _SYMBOLS[name]
     expected = getattr(lib, size_sym)()
@@ -130,7 +147,7 @@ def launch(name: str, args: ctypes.Structure, stream: int) -> None:
         )
     rc = getattr(lib, launch_sym)(ctypes.addressof(args), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch error {rc}")
+        raise KernelDeviceError(f"{name}: CUDA launch error {rc}")
     LAUNCHES[name] += 1
 
 

@@ -328,10 +328,11 @@ def has_topo_runs(problem: SchedulingProblem) -> bool:
 def check_run_modes(problem: SchedulingProblem, with_topo: bool) -> None:
     """A RUN_TOPO run in a scan built without the topology commit is an
     error: taking the analytic commit for it would ignore its topology (the
-    JAX package's switch clamps it there silently)."""
+    JAX package's switch clamps it there silently). A stacked problem is
+    checked over all its lanes."""
     if not with_topo and has_topo_runs(problem):
         raise ValueError("the problem has RUN_TOPO runs but the scan was built without the topology commit")
-    modes = set(problem.run_mode.tolist())
+    modes = set(problem.run_mode.unique().tolist())
     if not modes <= {RUN_SINGLE, RUN_ANALYTIC, RUN_TOPO}:
         raise ValueError(f"unknown run modes {sorted(modes)}")
 

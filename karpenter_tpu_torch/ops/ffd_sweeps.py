@@ -159,9 +159,10 @@ _FfdArgs = kernels.make_struct("FfdArgs", _FFD_POINTERS, _FFD_INTS)
 # the kernel's work counters (csrc/ffd_loop.cu WORK_*), in order
 WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers")
 
-# masks.cuh keeps one key per warp lane and a lane's bits in one 32-bit mask
+# masks.cuh keeps one key per warp lane, and step.cuh a warp lane's allowed
+# words of one key in one 64-bit mask
 _MAX_KEYS = 32
-_MAX_WORDS = 32
+_MAX_WORDS = 64
 
 
 def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = False) -> None:

@@ -123,10 +123,14 @@ def _pad_reqs(r: ReqTensor, e: int, k: int, v: int) -> ReqTensor:
     )
 
 
-def pad_problem(p: SchedulingProblem) -> SchedulingProblem:
+def pad_problem(p: SchedulingProblem, min_pods: int = 0) -> SchedulingProblem:
     """Pad every axis of ``p`` to its bucket. Padded pod rows tolerate
-    nothing, so they resolve to KIND_FAIL without touching state."""
-    P = pod_axis_bucket(p.num_pods)
+    nothing, so they resolve to KIND_FAIL without touching state.
+    ``min_pods`` raises the pod-axis bucket floor, so that problems stacked
+    into one batch (parallel/mesh.stack_problems) line up; it keeps the JAX
+    package's signature, whose sharded solve sets it (the serve layer's
+    lanes need no floor: it stacks only lanes whose shapes already match)."""
+    P = pod_axis_bucket(max(p.num_pods, min_pods))
     T = pow2_bucket(p.num_instance_types)
     # N=0 stays 0: provisioning batches without existing nodes skip the
     # whole node branch statically instead of scanning 8 inert rows

@@ -13,6 +13,12 @@ the reference's forensics HOST-SIDE at decode time — failed pods are rare, so
 a straight-line Python pass over the (price-capped) instance-type lists costs
 microseconds and keeps the device program lean. Both backends call the same
 function, so the rendered reasons are backend-independent.
+
+The quarantine ring (``dump_quarantine`` / ``load_quarantine`` /
+``scan_quarantine``) keeps the results the solver supervisor's validator
+rejected as JSON files for offline diagnosis: atomic writes, a bounded ring
+evicted oldest first, and a per-tenant namespace with its own cap, as the
+JAX package keeps them.
 """
 
 from __future__ import annotations
@@ -182,6 +188,227 @@ def failure_reason(
     if not parts:
         return "no nodepools available"
     return "; ".join(parts)
+
+
+# -- the quarantine ring: rejected results, dumped for offline diagnosis ------
+
+def quarantine_dir() -> str:
+    """``KARPENTER_TPU_QUARANTINE_DIR``, else ``karpenter-tpu-quarantine``
+    under the temporary directory."""
+    import os
+    import tempfile
+
+    return os.environ.get(
+        "KARPENTER_TPU_QUARANTINE_DIR",
+        os.path.join(tempfile.gettempdir(), "karpenter-tpu-quarantine"),
+    )
+
+
+_quarantine_seq = 0
+
+
+def _quarantine_max() -> int:
+    """Ring size for on-disk quarantine dumps (KARPENTER_TPU_QUARANTINE_MAX,
+    default 32): a crash-looping validator must not fill the disk."""
+    import os
+
+    try:
+        return max(1, int(os.environ.get("KARPENTER_TPU_QUARANTINE_MAX", "32")))
+    except ValueError:
+        return 32
+
+
+def _tenant_quarantine_max() -> int:
+    """Per-tenant ring size (KARPENTER_TPU_QUARANTINE_TENANT_MAX, default 8).
+    Tenant dumps live in their own ``tenant-<id>/`` namespace with their own
+    cap, so one noisy tenant can only ever evict its OWN forensics — the
+    global ring used to be oldest-first across all dumps, which let a
+    crash-looping tenant erase every other tenant's evidence."""
+    import os
+
+    try:
+        return max(
+            1, int(os.environ.get("KARPENTER_TPU_QUARANTINE_TENANT_MAX", "8"))
+        )
+    except ValueError:
+        return 8
+
+
+def _tenant_dirname(tenant: str) -> str:
+    """Filesystem-safe namespace directory for a tenant's quarantine ring."""
+    import re
+
+    return "tenant-" + re.sub(r"[^A-Za-z0-9._-]", "-", tenant)
+
+
+def _evict_quarantine(directory: str, keep: int) -> None:
+    """Oldest-first eviction down to ``keep`` files. The timestamp-pid-seq
+    filename sorts lexicographically wrong across epochs of different digit
+    counts, so order on mtime (ties broken by name for determinism)."""
+    import os
+
+    try:
+        entries = [
+            (os.path.getmtime(os.path.join(directory, name)), name)
+            for name in os.listdir(directory)
+            if name.startswith("quarantine-") and name.endswith(".json")
+        ]
+    except OSError:
+        return
+    entries.sort()
+    for _, name in entries[: max(0, len(entries) - keep)]:
+        try:
+            os.remove(os.path.join(directory, name))
+        except OSError:
+            pass
+
+
+def dump_quarantine(
+    result,
+    violations: Sequence,
+    backend: str = "",
+    directory: Optional[str] = None,
+    parent_trace_id: Optional[str] = None,
+    tenant: Optional[str] = None,
+) -> Optional[str]:
+    """Write a rejected SolveResult to a forensics JSON file so a bad
+    placement can be diagnosed offline after the supervisor failed over.
+    Directory: ``quarantine_dir()``, bounded to the newest
+    ``KARPENTER_TPU_QUARANTINE_MAX`` dumps (oldest evicted first). With a
+    ``tenant``, the dump lands in that tenant's ``tenant-<id>/`` namespace
+    with its own ``KARPENTER_TPU_QUARANTINE_TENANT_MAX`` ring — eviction
+    never crosses tenant boundaries. Best-effort — quarantine must never be
+    the thing that breaks the failover path — returns the path or None."""
+    import json
+    import os
+    import time
+
+    global _quarantine_seq
+    directory = directory or quarantine_dir()
+    keep = _quarantine_max()
+    if tenant:
+        directory = os.path.join(directory, _tenant_dirname(tenant))
+        keep = _tenant_quarantine_max()
+    try:
+        os.makedirs(directory, exist_ok=True)
+        _quarantine_seq += 1
+        path = os.path.join(
+            directory,
+            f"quarantine-{int(time.time())}-{os.getpid()}-{_quarantine_seq}.json",
+        )
+        from karpenter_tpu_torch.obs import trace
+
+        payload = {
+            "backend": backend,
+            "tenant": tenant,
+            # the solve cycle that produced this rejected result — grep the
+            # id across /debug/traces and logs to reconstruct the timeline
+            "trace_id": trace.current_trace_id(),
+            # the previous cycle in the same stream (SupervisedSolver threads
+            # it forward), so a churn lineage reconstructs end to end
+            "parent_trace_id": parent_trace_id,
+            "violations": [str(v) for v in violations],
+            "new_claims": [
+                {
+                    "template_index": c.template_index,
+                    "nodepool_name": c.nodepool_name,
+                    "pod_indices": list(c.pod_indices),
+                    "instance_type_indices": list(c.instance_type_indices),
+                    "requests": dict(c.requests),
+                    "requirements": str(c.requirements),
+                }
+                for c in result.new_claims
+            ],
+            "node_pods": {k: list(v) for k, v in result.node_pods.items()},
+            "failures": {str(k): v for k, v in result.failures.items()},
+        }
+        explain = getattr(result, "explain", None)
+        if explain is not None:
+            # decision provenance travels with the quarantined result: the
+            # offline diagnosis starts from the per-pod gate attribution
+            payload["explain"] = (
+                explain.to_dict() if hasattr(explain, "to_dict") else explain
+            )
+        # atomic tmp+rename: a crash (or SIGKILL) mid-dump must leave either
+        # no file or a complete one — a torn half-JSON used to poison every
+        # later loader pass over the ring
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=1, default=str)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        _evict_quarantine(directory, keep)
+        return path
+    except Exception:
+        return None
+
+
+def load_quarantine(
+    directory: Optional[str] = None, limit: int = 0,
+    tenant: Optional[str] = None,
+) -> List[Dict]:
+    """Load the quarantine ring, newest first, each payload annotated with
+    its ``_path``. Walks the shared ring AND every tenant namespace (or just
+    one tenant's with ``tenant=``). Tolerant by design: unparseable or
+    unreadable files — pre-fix torn dumps, bit rot, concurrent eviction —
+    are SKIPPED, never raised; offline forensics must degrade to the dumps
+    that survived. Use :func:`scan_quarantine` to also see which paths were
+    skipped."""
+    return scan_quarantine(directory, limit, tenant)[0]
+
+
+def scan_quarantine(
+    directory: Optional[str] = None, limit: int = 0,
+    tenant: Optional[str] = None,
+) -> Tuple[List[Dict], List[str]]:
+    """Like :func:`load_quarantine` but also returns the paths that failed
+    to parse (so tooling can report how much of the ring was torn)."""
+    import json
+    import os
+
+    directory = directory or quarantine_dir()
+    roots = [directory]
+    if tenant:
+        roots = [os.path.join(directory, _tenant_dirname(tenant))]
+    else:
+        try:
+            roots += sorted(
+                os.path.join(directory, name)
+                for name in os.listdir(directory)
+                if name.startswith("tenant-")
+                and os.path.isdir(os.path.join(directory, name))
+            )
+        except OSError:
+            pass
+    entries: List[Tuple[float, str]] = []
+    for root in roots:
+        try:
+            entries += [
+                (os.path.getmtime(os.path.join(root, name)),
+                 os.path.join(root, name))
+                for name in os.listdir(root)
+                if name.startswith("quarantine-") and name.endswith(".json")
+            ]
+        except OSError:
+            continue
+    entries.sort(reverse=True)  # newest first
+    loaded: List[Dict] = []
+    skipped: List[str] = []
+    for _, path in entries:
+        if limit and len(loaded) >= limit:
+            break
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+            if not isinstance(payload, dict):
+                raise ValueError("quarantine payload is not an object")
+        except (OSError, ValueError):
+            skipped.append(path)
+            continue
+        payload["_path"] = path
+        loaded.append(payload)
+    return loaded, skipped
 
 
 def _fmt_resources(requests: Dict[str, float]) -> str:

@@ -169,13 +169,20 @@ def validate_result(
     audit): None means every bin, a set restricts the per-claim / per-node
     loops to those claim indices / node names. Pod accounting always runs —
     it is the cross-bin invariant scoping cannot localize. Defaults keep the
-    historical full-surface behavior bit-for-bit."""
-    return _validate_result(
-        result, pods, instance_types, templates, nodes,
-        pod_requirements_override, cluster_pods, domains, level,
-        claim_scope=claim_scope, node_scope=node_scope,
-        check_topology=check_topology,
-    )
+    historical full-surface behavior bit-for-bit. Runs under a ``validate``
+    trace span (obs/trace.py), as the JAX package's does."""
+    from karpenter_tpu_torch.obs import trace
+
+    with trace.span("validate", level=level) as sp:
+        violations = _validate_result(
+            result, pods, instance_types, templates, nodes,
+            pod_requirements_override, cluster_pods, domains, level,
+            claim_scope=claim_scope, node_scope=node_scope,
+            check_topology=check_topology,
+        )
+        if sp is not None and violations:
+            sp.count("violations", len(violations))
+        return violations
 
 
 def full_gate_relaxed(

@@ -6,7 +6,8 @@ positions), which is what lets the tests and ``chip_smoke.py`` drive both
 packages, or two solvers of this one, through byte-identical snapshots.
 
 Not ported: the provider spot-reclaim hook (``cloud.reclaim`` of the JAX
-package's fault grammar), which waits for a port of ``testing/faults.py``.
+package's fault grammar, which testing/faults.py parses), which waits for
+the cloud provider's reclaim path.
 """
 
 from __future__ import annotations

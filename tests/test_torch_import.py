@@ -1,7 +1,8 @@
 """karpenter_tpu_torch stands alone: importing the package and every module
-in it pulls in neither jax nor the JAX package, entry points refuse to run
-without a GPU unless asked for the CPU, and chip_smoke.py fails (printing no
-result) where there is no CUDA device."""
+in it (the solver, the supervisor and its fallback, the serve layer, the
+observability hooks) pulls in neither jax nor the JAX package, entry points
+refuse to run without a GPU unless asked for the CPU, and chip_smoke.py
+fails (printing no result) where there is no CUDA device."""
 
 import json
 import os
@@ -41,6 +42,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "karpenter_tpu_torch.solver.torch_backend" in report["modules"]
     assert "karpenter_tpu_torch.verify.gate" in report["modules"]
+    # the supervised serve path and what it stands on
+    for name in ("metrics.registry", "obs.trace", "obs.slo", "obs.flight", "utils.persist", "testing.faults",
+                 "solver.forensics", "solver.oracle", "solver.supervisor", "parallel.mesh", "serve",
+                 "serve.estimator", "serve.pool", "serve.tenant", "serve.batch", "serve.dispatcher"):
+        assert f"karpenter_tpu_torch.{name}" in report["modules"], name
     assert report["bad"] == []
 
 

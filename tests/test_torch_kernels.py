@@ -9,6 +9,7 @@ launch wrappers must refuse CPU tensors instead of falling back.
 """
 
 import dataclasses
+import random
 import re
 from pathlib import Path
 
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from karpenter_tpu_torch import kernels
-from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
+from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, instance_types
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
 from karpenter_tpu_torch.ops import ffd_sweeps, fused, relax
 from karpenter_tpu_torch.parallel import mesh
@@ -192,6 +193,8 @@ CORPORA = {
     "fuzz-6": (lambda: W.fuzz_workload(6), 32),
     "bounds-0": (lambda: W.bounds_workload(0), 32),
     "topology-3": (lambda: W.topology_workload(3), 32),
+    # 1,280 claim slots: V = 1,536 hostname lanes, W = 48 words, with groups
+    "topology-3-wide": (lambda: W.topology_workload(3), 1280),
 }
 
 
@@ -206,7 +209,7 @@ def _assert_same(rk, rp):
             np.testing.assert_array_equal(sk[key], sp[key], err_msg=key)
 
 
-PR1_CORPORA = ("chain-2000", "chain-2001-overflow", "fuzz-6", "bounds-0", "topology-3")
+PR1_CORPORA = ("chain-2000", "chain-2001-overflow", "fuzz-6", "bounds-0", "topology-3", "topology-3-wide")
 
 
 @pytest.mark.cuda
@@ -463,3 +466,133 @@ def test_fused_gate_matches_plain(cuda):
         assert got[gdev.INVARIANTS.index(name)] > 0, name
         tripped.add(name)
     assert tripped == set(gdev.INVARIANTS)
+
+
+# -- runs_screen's stacked mode (the batched programs) -------------------------
+
+
+# claim slots of a stacked corpus, where not 16: 1,280 slots put 1,280
+# hostname lanes in the vocabulary (V = 1,280, W = 40 words)
+_STACK_SLOTS = {"distinct-tenants": 1280}
+
+
+def _distinct_tenant(t):
+    """Tenant ``t`` of the distinct-tenants stack: its own catalog size
+    (9 + 2t instance types), its own NodePool template and label, and 40
+    topology pods (spread, affinity, anti-affinity) from its own seed that
+    select its label."""
+    rng = random.Random(100 + t)
+    its = instance_types(9 + 2 * t)
+    tpl = W.simple_template(its, name=f"tenant-{t}", labels={"team": f"t{t}"})
+    pods = [W._topology_pod(rng, i) for i in range(40)]
+    for pod in pods:
+        pod.spec.node_selector = {**(pod.spec.node_selector or {}), "team": f"t{t}"}
+    return pods, its, [tpl], []
+
+
+def _stacked_corpus(name, slots=16):
+    """A stack of lanes of equal padded shapes. ``distinct-tenants``: four
+    tenants that share nothing but the shapes (catalog, template, vocabulary,
+    pods and topology groups are each lane's own), at 1,280 claim slots.
+    Else three lanes of one workload's padded problem, the second and third
+    with some rows inactive: every problem table is per lane, and the lanes
+    differ. ``volumes-0`` carries CSI volume counts, ``topology-3`` nodes,
+    groups and filters."""
+    if name == "distinct-tenants":
+        lanes = [_encode(_distinct_tenant(t), _STACK_SLOTS[name]) for t in range(4)]
+        return mesh.stack_problems(lanes), lanes
+    if name == "volumes-0":
+        (pods, its, tpls, nodes), vols = W.volume_workload(0)
+        topo = Topology(domains_from_instance_types(its, tpls), batch_pods=pods, cluster_pods=[])
+        for n in nodes:
+            topo.register("kubernetes.io/hostname", n.name)
+        host = pad_problem(Encoder(FAKE_WELL_KNOWN_LABELS).encode(
+            pods, its, tpls, nodes, topology=topo, num_claim_slots=slots, pod_volumes=vols).problem)
+    else:
+        host = _encode(CORPORA[name][0](), slots)
+    lanes = []
+    for drop in (0, 3, 2):
+        lane = dataclasses.replace(host, pod_active=np.array(host.pod_active, copy=True))
+        if drop:
+            lane.pod_active[::drop] = False
+        lanes.append(lane)
+    return mesh.stack_problems(lanes), lanes
+
+
+def _kernel_lane_offsets():
+    """lane_view's stacked offsets in csrc/runs_screen.cu: field -> the
+    per-lane element count expression."""
+    text = (CSRC / "runs_screen.cu").read_text()
+    return dict(re.findall(r"^\s*RS_LANE\((\w+), ([^;]+)\);$", text, re.M))
+
+
+@pytest.mark.parametrize("name", ["topology-3", "volumes-0", "fuzz-6", "distinct-tenants"])
+def test_stacked_lane_offsets_match_the_kernel(name):
+    """Every problem table and start-state leaf advances per lane in the
+    kernel's stacked view, by the count lane_elems computes, which is each
+    stacked tensor's per-lane size, and lane b's slice is lane b's own
+    tables."""
+    batch, lanes = _stacked_corpus(name)
+    batch = problem_to_torch(batch, "cpu")
+    slots = _STACK_SLOTS.get(name, 16)
+    t, args = mesh.stacked_screen_args(batch, slots, max_run=mesh.max_run_bucket(batch), passes=3,
+                                       with_topo=mesh.has_topo_runs(batch))
+    assert args.stacked == 1 and args.B == len(lanes)
+    assert args.lane_grp_counts0 is None and args.lane_grp_registered0 is None
+    offsets = _kernel_lane_offsets()
+    assert set(offsets) == set(mesh._RS_SHARED + mesh.RS_INIT)
+    env = {f: getattr(args, f) for f in mesh._RS_INTS}
+    env["KW"] = env["K"] * env["W"]
+    expected = mesh.lane_elems(args)
+    for field, expr in offsets.items():
+        assert eval(expr, {}, env) == expected[field] == t[field][0].numel(), field
+    for b, lane in enumerate(lanes):
+        own = mesh._shared_tensors(problem_to_torch(lane, "cpu"))
+        for name_, x in own.items():
+            assert torch.equal(_bits(t[name_][b]), _bits(x)), (b, name_)
+        assert torch.equal(t["pod_active"][b, : lane.pod_active.shape[0]], torch.from_numpy(lane.pod_active))
+        init = ffd_sweeps.state_tensors(initial_state(problem_to_torch(lane, "cpu"), slots),
+                                        torch.from_numpy(lane.lane_valid), torch.from_numpy(lane.lane_numeric),
+                                        prefix="init_")
+        for name_, x in init.items():
+            assert torch.equal(_bits(t[name_][b]), _bits(x)), (b, name_)
+
+
+def test_stacked_launch_refuses_cpu_tensors():
+    batch, _ = _stacked_corpus("fuzz-6")
+    with pytest.raises(ValueError, match="CUDA"):
+        mesh.launch_stacked_screen(problem_to_torch(batch, "cpu"), 16, passes=3)
+
+
+def test_distinct_tenants_share_only_their_shapes():
+    """The distinct-tenants stack is what the stacked mode must not confuse:
+    every lane's catalog, template, vocabulary and pods differ, each has
+    topology groups, and its lane axis is wider than 32 words."""
+    _, lanes = _stacked_corpus("distinct-tenants")
+    for a in range(len(lanes)):
+        x = lanes[a]
+        assert x.num_groups > 0 and x.num_lanes > 1024
+        for b in range(a):
+            y = lanes[b]
+            for field in ("it_alloc", "tpl_it_ok", "pod_requests", "grp_type", "pod_grp_match"):
+                assert not np.array_equal(getattr(x, field), getattr(y, field)), (a, b, field)
+            assert not np.array_equal(x.pod_reqs.admitted, y.pod_reqs.admitted), (a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["topology-3", "volumes-0", "fuzz-6", "chain-2000", "distinct-tenants"])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_stacked_screen_matches_plain(cuda, name, passes):
+    """runs_screen's stacked mode against batched_screen_plain: exact on
+    kind, index and every state leaf, floats included."""
+    batch, _ = _stacked_corpus(name)
+    batch = problem_to_torch(batch, cuda)
+    slots = _STACK_SLOTS.get(name, 16)
+    rk = mesh.batched_screen(batch, slots, passes=passes)
+    rp = mesh.batched_screen_plain(batch, slots, passes=passes)
+    torch.cuda.synchronize()
+    assert torch.equal(rk.kind.cpu(), rp.kind.cpu()) and torch.equal(rk.index.cpu(), rp.index.cpu())
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for key in sp:
+        np.testing.assert_array_equal(sk[key], sp[key], err_msg=key)
+    assert kernels.LAUNCHES["runs_screen"] > 0
