@@ -8,14 +8,19 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
   1. kernel vs plain: each kernel against its plain PyTorch version on the
      card, over seeded corpora (existing nodes, taints, host ports, Gt/Lt
      bounds, zone/hostname spread and affinity, claim-slot overflows, a
-     rounding ladder that demotes pods, relaxable pods in one-pass mode).
-     ``ffd_loop`` (fresh, carried from phase 1, one-pass) and
-     ``relax_place`` must match exactly on kind/index, residue, stats,
-     integer and bool state and the sweep count, and within rtol 1e-5 on
-     float state; ``gate_counts`` must give identical counts on clean results
-     and on results corrupted to trip each invariant. Whole solves with
-     ``relax`` on and off must equal the plain path's
-     ``TorchSolver(device="cpu")``.
+     rounding ladder that demotes pods, relaxable pods in one-pass mode,
+     chain-heavy populations whose chains commit through every branch, more
+     than 32 label keys and 2,560 value lanes). ``ffd_loop`` (fresh,
+     carried from phase 1, one-pass) and ``relax_place`` must match exactly
+     on kind/index, residue, stats, integer and bool state and all four
+     IterCounts fields (narrow iterations, sweeps, chain commits, chain
+     pods), and within rtol 1e-5 on float state; ``attribute`` must give the
+     plain words for every active row against each solve's final state, and
+     every gate family must fail somewhere; ``runs_screen`` (stacked) must
+     equal its plain version at the wide shapes; ``gate_counts`` must give
+     identical counts on clean results and on results corrupted to trip each
+     invariant. Whole solves with ``relax`` on and off must equal the plain
+     path's ``TorchSolver(device="cpu")``.
   2. the main path at full width: ``TorchSolver().solve`` (the default
      two-phase solve: ``relax_place``, the carried ``ffd_loop``, the relaxed
      gate) on 10,000 pods of the reference's diverse mix against 400 catalog
@@ -25,8 +30,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      ``relax=False`` path on the same batch. Then at the main path's shapes
      each kernel alone (CUDA events around the launch, arguments built
      beforehand), its wrapper, and its plain version on the same inputs,
-     which it must equal: ``relax_place``, ``ffd_loop`` carried, fresh and
-     one-pass, ``gate_counts``.
+     which it must equal: ``relax_place``, ``ffd_loop`` carried and fresh
+     (with their IterCounts) and one-pass (over the batch's first
+     ONE_PASS_PODS rows, the depth cut so the whole smoke keeps its time),
+     ``gate_counts``.
   3. the consolidation screen at full width: ``UnionScorer.score_subsets``
      over the bench cluster widened to 200 candidates (the 100 prefixes, the
      200 singletons and 20 seeded random subsets of 150-200 candidates: 320
@@ -73,14 +80,24 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      through ``SupervisedSolver(TorchSolver(), fallback=OracleSolver())``,
      which must return phase 2's placements with the circuit closed and no
      fallback, retry or rejection.
-  6. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  6. the explain pass at full width: phase 2's batch under a NodePool cpu
+     limit that leaves about a quarter of it unscheduled (claim-capacity,
+     topology), and phase
+     2's batch with tests/test_explain.py's engineered pods added
+     (resources, requirements), each with ``KARPENTER_TPU_EXPLAIN`` off and
+     on: the same placements, one ``attribute`` launch with the flag on
+     (none off), words equal to ``attribute_plain``'s on the same rows and
+     state, the report's reasons equal to the plain words' decode; then the
+     kernel alone, wrapped and plain on the limited batch's rows, and the
+     explain overhead.
+  7. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
      are computed, and for ``ffd_loop`` the latency floor of its barriers and
      its fresh and one-pass modes. Bytes are those of the kernel's own
      arguments. The churn and serve phases' records ride in the same line.
-  7. the card's name and power limit; the last line is the device JSON.
+  8. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -108,6 +125,7 @@ FLOAT_RTOL = 1e-5  # float state: same adds in the same order, FMA off
 FLOAT_ATOL = 1e-6
 
 MAIN_PODS = 10000  # the north-star batch
+ONE_PASS_PODS = 2500  # the one-pass scan's depth in phase 2 (its plain loop is per pod)
 SOLVE_KERNELS = ("ffd_loop", "gate_counts", "relax_place")
 
 # the consolidation screen's cluster: the bench scorer widened to the screen's
@@ -143,6 +161,12 @@ STACK_LANES = 8
 WIDE_PODS = 1250
 WIDE_ITS = 400
 
+# the explain phase: phase 2's batch under a NodePool cpu limit that leaves a
+# large share of it unscheduled (each opened claim burns the largest surviving
+# type's capacity, 400 cpu at the 400-type catalog: 20 claims take 7,352 of
+# the 10,000 pods on the card)
+EXPLAIN_CPU_LIMIT = 8000.0
+
 
 def log(msg):
     print(msg, flush=True)
@@ -166,7 +190,7 @@ def run(dev) -> int:
     from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
     from karpenter_tpu_torch.ops import relax as RX
     from karpenter_tpu_torch.ops.ffd_core import _lane_align, _pad_lanes_mult32, initial_state, problem_bounds_free
-    from karpenter_tpu_torch.ops.ffd_step import solve_ffd, solve_ffd_plain
+    from karpenter_tpu_torch.ops.ffd_step import attribute_plain, launch_attribute, solve_ffd, solve_ffd_plain
     from karpenter_tpu_torch.ops.ffd_sweeps import (
         FFD_SCRATCH,
         FFD_STATE,
@@ -177,6 +201,7 @@ def run(dev) -> int:
         sweeps_plain,
     )
     from karpenter_tpu_torch.ops.padding import pad_problem
+    from karpenter_tpu_torch.parallel import mesh
     from karpenter_tpu_torch.provisioning.topology import Topology
     from karpenter_tpu_torch.solver.encode import Encoder, domains_from_instance_types
     from karpenter_tpu_torch.solver.torch_backend import TorchSolver
@@ -234,9 +259,12 @@ def run(dev) -> int:
             raise AssertionError(f"{tag}: kind/index differ at rows {bad[:10].tolist()}")
         max_err = compare_state(tag, rk.state, rp.state)
         if check_iters:
-            if int(rk.iters.sweeps) != int(rp.iters.sweeps) or int(rk.iters.narrow) != int(rp.iters.narrow):
+            if tuple(int(x) for x in rk.iters) != tuple(int(x) for x in rp.iters):
                 raise AssertionError(f"{tag}: iters differ {rk.iters} vs {rp.iters}")
         return max_err
+
+    def iters_of(result):
+        return dict(zip(("narrow", "sweeps", "chain_commits", "chain_pods"), (int(x) for x in result.iters)))
 
     def compare_relax(tag, rk, rp):
         for key in ("kind", "index", "residue_active"):
@@ -248,10 +276,18 @@ def run(dev) -> int:
         return compare_state(f"{tag} relax_place", rk.state, rp.state)
 
     # -- 1. kernel vs plain -------------------------------------------------
+    t_phase = time.perf_counter()
     log("phase 1: kernels vs plain PyTorch on the card")
     corpora = [
         ("chain-2000", W.chain_workload(2000), 128),
         ("chain-2003", W.chain_workload(2003), 128),
+        # chain commits through every branch (waterfill, round, spread
+        # mini-scan), and the most spread commits
+        ("chain-3000", W.chain_workload(3000), 128),
+        ("chain-3003", W.chain_workload(3003), 128),
+        # no kernel shape limit: K = 64 keys; V = 2,560 lanes (W = 80 words)
+        ("wide-keys", W.wide_keys_workload(), 32),
+        ("wide-lanes", W.wide_lanes_workload(), 32),
         ("chain-2001-overflow", W.chain_workload(2001), 8),
         ("fuzz-1", W.fuzz_workload(1), 32),
         ("fuzz-5", W.fuzz_workload(5), 32),
@@ -274,8 +310,11 @@ def run(dev) -> int:
     corpora = [(tag, wl, slots, None) for tag, wl, slots in corpora]
     corpora.append(("volumes-0", vol_wl, 32, vol_sets))
     ffd_err = relax_err = 0.0
+    attr_err = 0
     saw = {"nodes": False, "bounded": False, "noslot": False, "ports": False, "volumes": False,
-           "phase1-bounded": False, "phase1-nodes": False, "ladder-demotes": False, "slot-overflow": False}
+           "phase1-bounded": False, "phase1-nodes": False, "ladder-demotes": False, "slot-overflow": False,
+           "chain-commits": False, "keys>32": False, "lanes>2048": False}
+    families = 0  # gate families the attribute kernel saw fail, over all corpora
     for tag, wl, slots, vols in corpora:
         host = encode(wl, slots, pod_volumes=vols)
         prob = problem_to_torch(host, dev)
@@ -289,6 +328,31 @@ def run(dev) -> int:
         torch.cuda.synchronize()
         ffd_err = max(ffd_err, compare_results(f"{tag} sweeps", rk, rp))
         saw["noslot"] |= bool((rk.kind == 4).any())
+        saw["chain-commits"] |= int(rk.iters.chain_commits) > 0
+        saw["keys>32"] |= prob.num_keys > 32
+        saw["lanes>2048"] |= prob.num_lanes > 2048
+        # the explain pass over every active row against the final state
+        rows = torch.nonzero(prob.pod_active).reshape(-1)
+        aprob, astate = _lane_align(prob, rk.state)
+        wk_, _ = launch_attribute(aprob, astate, rows)
+        wp_ = attribute_plain(prob, rk.state, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(wk_.cpu(), wp_.cpu()):
+            raise AssertionError(f"{tag}: attribute words differ from plain")
+        if rows.numel():
+            attr_err = max(attr_err, int((wk_.cpu().long() - wp_.cpu().long()).abs().max()))
+        for word in wk_[:, 0].cpu().tolist():
+            families |= (word | word >> 8 | word >> 16) & 0x7F
+        if tag in ("wide-keys", "wide-lanes"):
+            # runs_screen at the same shapes: two stacked lanes, 1 and 3 passes
+            batch = mesh.stack_problems([prob, prob])
+            for passes in (1, 3):
+                sk = mesh.batched_screen(batch, slots, passes)
+                sp = mesh.batched_screen_plain(batch, slots, passes)
+                torch.cuda.synchronize()
+                if not (torch.equal(sk.kind.cpu(), sp.kind.cpu()) and torch.equal(sk.index.cpu(), sp.index.cpu())):
+                    raise AssertionError(f"{tag}: runs_screen kind/index differ from plain ({passes} passes)")
+                compare_state(f"{tag} runs_screen {passes} passes", sk.state, sp.state)
         # one-pass mode, twice: fresh, then carrying the first pass's state
         ok1 = solve_ffd(prob, slots)
         op1 = solve_ffd_plain(prob, initial_state(prob, slots), bf)
@@ -313,12 +377,15 @@ def run(dev) -> int:
         saw["slot-overflow"] |= demoted > 0 and claims == slots
         log(f"  {tag}: pods={len(wl[0])} P={prob.num_pods} C={slots} N={prob.num_nodes} "
             f"K={prob.num_keys} V={prob.num_lanes} G={prob.num_groups} "
-            f"bounds_free={bf} sweeps={int(rk.iters.sweeps)} stepped={int(rk.iters.narrow)} "
+            f"bounds_free={bf} iters={tuple(int(x) for x in rk.iters)} "
             f"kinds={np.bincount(rk.kind.cpu().numpy(), minlength=5).tolist()} "
             f"phase1 eligible/placed/demoted/claims={eligible}/{placed}/{demoted}/{claims} ok")
     missing = [k for k, v in saw.items() if not v]
     if missing:
         raise AssertionError(f"phase 1 corpora do not cover: {missing}")
+    if families != 0x7F:
+        raise AssertionError(f"attribute: the corpora make only families {families:#x} of 0x7f fail")
+    log("  attribute == plain on every corpus; every gate family failed somewhere")
 
     # whole solves: the kernel path against the plain CPU path, with the
     # two-phase solve on (the default) and off
@@ -413,7 +480,10 @@ def run(dev) -> int:
     if tripped != {"clean", *gdev.INVARIANTS}:
         raise AssertionError(f"gate corruptions cover only {sorted(tripped)}")
 
+    log(f"  phase 1 wall {time.perf_counter() - t_phase:.1f}s")
+
     # -- 2. the main path at full width --------------------------------------
+    t_phase = time.perf_counter()
     log(f"phase 2: main path, {MAIN_PODS} diverse pods x 400 instance types, 1 NodePool")
     pods, its, tpls, nodes = W.diverse_workload(MAIN_PODS, 400, seed=42)
 
@@ -438,7 +508,7 @@ def run(dev) -> int:
         ctx = result.verify_ctx
         log(f"  relax={relax}: scheduled {result.num_scheduled()}/{len(pods)} claims={len(result.new_claims)} "
             f"escalations={solver.claim_escalations} phase1={solver.last_relax} fallbacks={solver.relax_fallbacks} "
-            f"sweeps={solver.last_iters.sweeps} pods_stepped={solver.last_iters.narrow} "
+            f"iters={tuple(solver.last_iters)} "
             f"P={ctx.device_problem.num_pods} C={ctx.max_claims} launches={launches}")
         log(f"  relax={relax}: solve wall {wall * 1e3:.1f} ms = encode {tm['encode'] * 1e3:.1f} + relax "
             f"{tm['relax'] * 1e3:.1f} + device {tm['device'] * 1e3:.1f} + decode {tm['decode'] * 1e3:.1f} "
@@ -459,9 +529,9 @@ def run(dev) -> int:
     for relax in (True, False):
         drive(relax)
     # the relax=False solve runs no phase 1 and gates nothing itself
-    if launches_off != {"ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "patch_world": 0, "relax_place": 0,
-                        "runs_screen": 0} \
-            or launches_off["ffd_loop"] <= 0 or launches["runs_screen"] != 0:
+    if launches_off != {"attribute": 0, "ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "patch_world": 0,
+                        "relax_place": 0, "runs_screen": 0} \
+            or launches_off["ffd_loop"] <= 0 or launches["runs_screen"] != 0 or launches["attribute"] != 0:
         raise AssertionError(f"relax=False path launched {launches_off}")
     if sched != len(pods) or sched < result_off.num_scheduled():
         raise AssertionError(f"main path scheduled {sched}, relax=False {result_off.num_scheduled()} of {len(pods)}")
@@ -541,8 +611,8 @@ def run(dev) -> int:
                                                           rxk.kind, rxk.index))
     ffd_err = max(ffd_err, compare_results("main path carried", rc_main, rc_plain))
     log(f"  ffd_loop carried: kernel {k1_ms:.3f} ms median of {[round(t, 3) for t in k1_all]}, wrapper "
-        f"{k1_wrap_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, kernel == plain; stepped {int(rc_main.iters.narrow)} "
-        f"in {int(rc_main.iters.sweeps)} sweeps, work {work}")
+        f"{k1_wrap_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, kernel == plain; IterCounts {iters_of(rc_main)} "
+        f"(narrow, sweeps, chain commits, chain pods), work {work}")
 
     bf = problem_bounds_free(prob)
     rf_main = solve_ffd_sweeps(prob, C)
@@ -553,18 +623,22 @@ def run(dev) -> int:
     rf_plain, fresh_plain_ms = plain_ms(lambda: sweeps_plain(prob, initial_state(prob, C), bf))
     ffd_err = max(ffd_err, compare_results("main path fresh", rf_main, rf_plain))
     log(f"  ffd_loop fresh: kernel {fresh_ms:.3f} ms median of {[round(t, 3) for t in fresh_all]}, "
-        f"plain {fresh_plain_ms:.1f} ms, kernel == plain; stepped {int(rf_main.iters.narrow)} "
-        f"in {int(rf_main.iters.sweeps)} sweeps, work {work_fresh}")
+        f"plain {fresh_plain_ms:.1f} ms, kernel == plain; IterCounts {iters_of(rf_main)}, work {work_fresh}")
 
-    ro_main = solve_ffd(prob, C)
-    op_sets = [ffd_loop_args(prob, initial_state(prob, C), True) for _ in range(2)]
+    # the one-pass scan (a relax rung's, off the 10k path) at the main path's
+    # shapes over its first ONE_PASS_PODS rows, the largest pods: its plain
+    # version steps one pod at a time in Python
+    op_prob = dataclasses.replace(prob, pod_active=prob.pod_active & (
+        torch.arange(prob.pod_active.shape[0], device=dev) < ONE_PASS_PODS))
+    ro_main = solve_ffd(op_prob, C)
+    op_sets = [ffd_loop_args(op_prob, initial_state(op_prob, C), True) for _ in range(2)]
     op_ms, op_all = time_launches("ffd_loop", op_sets)
     same_verdicts("ffd_loop one-pass", op_sets, ro_main)
     work_one_pass = dict(zip(WORK_COUNTERS, ro_main.work.cpu().tolist()))
-    ro_plain, op_plain_ms = plain_ms(lambda: solve_ffd_plain(prob, initial_state(prob, C), bf))
+    ro_plain, op_plain_ms = plain_ms(lambda: solve_ffd_plain(op_prob, initial_state(op_prob, C), bf))
     ffd_err = max(ffd_err, compare_results("main path one-pass", ro_main, ro_plain, check_iters=False))
-    log(f"  ffd_loop one-pass: kernel {op_ms:.3f} ms median of {[round(t, 3) for t in op_all]}, "
-        f"plain {op_plain_ms:.1f} ms, kernel == plain; work {work_one_pass}")
+    log(f"  ffd_loop one-pass over the first {ONE_PASS_PODS} rows: kernel {op_ms:.3f} ms median of "
+        f"{[round(t, 3) for t in op_all]}, plain {op_plain_ms:.1f} ms, kernel == plain; work {work_one_pass}")
 
     gp, ga, gbf = _build_args(ctx, result, pods, None)
     ck = gdev.launch_gate_counts(gp, ga).cpu().numpy()
@@ -649,9 +723,11 @@ def run(dev) -> int:
     k2_bound, k2_by = bound(k2_bytes, k2_int_ops, k2_flt_ops)
     log(f"  gate_counts: bytes {k2_bytes}, int ops {k2_int_ops:.4g}, float ops {k2_flt_ops:.4g}; "
         f"bound {k2_bound:.5f} ms ({k2_by})")
+    log(f"  phase 2 wall {time.perf_counter() - t_phase:.1f}s")
     rs = consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
     churn_entries, churn = churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
     stacked = serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, (pods, its, tpls, nodes), result)
+    attr_entry = explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_err)
 
     line = {
         "kernels": [
@@ -675,13 +751,17 @@ def run(dev) -> int:
                 "fresh_plain_ms": fresh_plain_ms,
                 "fresh_bound_ms": fresh_bound,
                 "fresh_work": work_fresh,
+                "one_pass_pods": ONE_PASS_PODS,
                 "one_pass_ms": op_ms,
                 "one_pass_plain_ms": op_plain_ms,
                 "one_pass_bound_ms": op_bound,
                 "one_pass_work": work_one_pass,
                 "launches_relax_off": launches_off["ffd_loop"],
                 "launches_churn": churn["launches"]["ffd_loop"],
+                "iters": iters_of(rc_main),
+                "fresh_iters": iters_of(rf_main),
             },
+            attr_entry,
             {
                 "name": "gate_counts",
                 "route": "cuda",
@@ -732,6 +812,152 @@ def run(dev) -> int:
     return 0
 
 
+def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_err):
+    """Phase 6: the explain pass at full width, on phase 2's batch (10,000
+    diverse pods, 400 types) twice: under a NodePool cpu limit that leaves a
+    large share unscheduled (claim-capacity), and without the limit but with
+    tests/test_explain.py's engineered pods added (resources,
+    requirements). Each is solved with ``KARPENTER_TPU_EXPLAIN`` off and on:
+    the placements must be the same, the solve with the flag on must launch
+    ``attribute`` once (none off), its words must equal ``attribute_plain``'s
+    on the same rows and state, and the report's reasons the plain words'
+    decode. Returns the ``attribute`` entry of the kernels line, timed on the
+    limited batch's rows."""
+    import copy
+    import os
+
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.apis.objects import Container, ObjectMeta, Pod, PodSpec
+    from karpenter_tpu_torch.obs import explain as obs_explain
+    from karpenter_tpu_torch.ops import ffd_step
+    from karpenter_tpu_torch.ops.ffd_core import _lane_align
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.testing import workloads as W
+
+    t_phase = time.perf_counter()
+    pods, its, tpls, nodes = W.diverse_workload(MAIN_PODS, 400, seed=42)
+    limited = copy.copy(tpls[0])
+    limited.remaining_resources = {"cpu": EXPLAIN_CPU_LIMIT}
+
+    def pod(name, cpu=0.5, node_selector=None):
+        return Pod(metadata=ObjectMeta(name=name), spec=PodSpec(
+            containers=[Container(requests={"cpu": cpu, "memory": 1e8})], node_selector=node_selector or {}))
+
+    engineered = pods + [pod("huge", cpu=10_000.0), pod("moon", node_selector={wk.LABEL_TOPOLOGY_ZONE: "no-such-zone"})]
+    scenarios = (
+        ("limit", pods, limited, lambda rep, n: rep.counts().get(obs_explain.REASON_CLAIM_CAPACITY, 0) >= n // 10),
+        ("engineered", engineered, tpls[0], lambda rep, n: {i: e.reason for i, e in rep.pods.items()} == {
+            n - 2: obs_explain.REASON_RESOURCES, n - 1: obs_explain.REASON_REQUIREMENTS}),
+    )
+
+    def solve(batch, tpl):
+        solver = TorchSolver(initial_claim_slots=128, device=dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = solver.solve(batch, its, [tpl], nodes)
+        torch.cuda.synchronize()
+        return result, dict(kernels.LAUNCHES), (time.perf_counter() - t0) * 1e3
+
+    seen = []
+    real = ffd_step.attribute_pods
+
+    def recording(problem, state, rows):
+        words = real(problem, state, rows)
+        seen.append((problem, state, list(rows), words))
+        return words
+
+    prev = os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
+    obs_explain.set_enabled(None)
+    timed = None
+    try:
+        for name, batch, tpl, expected in scenarios:
+            os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
+            off, off_launches, off_ms = solve(batch, tpl)
+            os.environ["KARPENTER_TPU_EXPLAIN"] = "1"
+            ffd_step.attribute_pods = recording
+            seen.clear()
+            on, on_launches, on_ms = solve(batch, tpl)
+            ffd_step.attribute_pods = real
+            if off.explain is not None or off_launches["attribute"] != 0:
+                raise AssertionError(f"explain {name} off: a report or an attribute launch ({off_launches})")
+            if (on.new_claims, on.node_pods, on.failures) != (off.new_claims, off.node_pods, off.failures):
+                raise AssertionError(f"explain {name}: placements differ from the flag-off solve")
+            if on_launches["attribute"] != 1 or len(seen) != 1:
+                raise AssertionError(f"explain {name}: attribute launched {on_launches['attribute']} times, not once")
+            rep = on.explain
+            if rep is None or rep.pods.keys() != on.failures.keys() or not expected(rep, len(batch)):
+                raise AssertionError(f"explain {name}: {len(on.failures)} failures, reasons "
+                                     f"{None if rep is None else rep.counts()}")
+            problem, state, rows, words = seen[0]
+            wp, p_ms = plain_ms(lambda: ffd_step.attribute_plain(problem, state, rows))
+            if not torch.equal(words.cpu(), wp.cpu()):
+                raise AssertionError(f"explain {name}: attribute words differ from plain on the solve's rows")
+            attr_err = max(attr_err, int((words.cpu().long() - wp.cpu().long()).abs().max()))
+            plain_reasons = {
+                orig: obs_explain.decode_pod(orig, obs_explain.KIND_NAMES.index(e.kind), wp[i].tolist()).reason
+                for i, (orig, e) in enumerate(rep.pods.items())
+            }
+            if plain_reasons != {orig: e.reason for orig, e in rep.pods.items()}:
+                raise AssertionError(f"explain {name}: the report's reasons differ from the plain words' decode")
+            log(f"  {name}: scheduled {on.num_scheduled()}/{len(batch)}, {len(on.failures)} explained; reasons "
+                f"{rep.counts()}; placements == flag off; attribute launches on/off "
+                f"{on_launches['attribute']}/{off_launches['attribute']}; words == plain ({p_ms:.1f} ms plain); "
+                f"solve {off_ms:.1f} ms off, {on_ms:.1f} ms on; explain overhead {rep.overhead_s * 1e3:.2f} ms")
+            if timed is None:
+                timed = (problem, state, rows, words, p_ms, rep, on_launches["attribute"])
+    finally:
+        ffd_step.attribute_pods = real
+        os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
+        if prev is not None:
+            os.environ["KARPENTER_TPU_EXPLAIN"] = prev
+
+    # the kernel alone, through its wrapper, and plain, on the limited
+    # batch's rows
+    problem, state, rows, words, p_ms, rep, n_launch = timed
+    aprob, astate = _lane_align(problem, state)
+    sets = [ffd_step.attribute_args(aprob, astate, rows) for _ in range(5)]
+    k_ms, k_all = time_launches("attribute", sets)
+    for t, _ in sets:
+        if not torch.equal(t["words"], words):
+            raise AssertionError("explain: a timed attribute launch differs from the wrapper's")
+    wrap_ms, _ = time_ms(lambda: ffd_step.launch_attribute(aprob, astate, rows), 5)
+    work = dict(zip(ffd_step.ATTR_WORK_COUNTERS, sets[0][0]["work"].cpu().tolist()))
+    K, V, R = aprob.num_keys, aprob.num_lanes, aprob.num_resources
+    Wd, O = V // 32, aprob.offer_ok.shape[1]
+    nbytes = io_bytes(sets[0][0], (), ffd_step.ATTR_SCRATCH)
+    # per bin gate the merge and intersect over K x W words; per topology
+    # lane a compare and a select; per type test the compat words and the
+    # offerings in int32, an add and a compare per resource in float32
+    int_ops = work["bin_gates"] * 2 * K * Wd + work["topo_lanes"] * 2 + work["type_tests"] * (K * Wd + O)
+    flt_ops = work["type_tests"] * 2 * R
+    b_ms, b_by = bound(nbytes, int_ops, flt_ops)
+    log(f"  attribute over {len(rows)} rows: kernel {k_ms:.4f} ms median of {[round(t, 4) for t in k_all]}, "
+        f"wrapper {wrap_ms:.4f} ms, plain {p_ms:.1f} ms; work {work}; bytes {nbytes}, int ops {int_ops:.4g}, "
+        f"float ops {flt_ops:.4g}; bound {b_ms:.5f} ms ({b_by})")
+    log(f"  explain phase wall {time.perf_counter() - t_phase:.1f}s")
+    return {
+        "name": "attribute",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/attribute.cu",
+        "replaces": "karpenter_tpu/ops/ffd_step.py:730",
+        "launches": n_launch,
+        "max_abs_err": attr_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "wrapper_ms": wrap_ms,
+        "rows": len(rows),
+        "work": work,
+        "explain_overhead_ms": rep.overhead_s * 1e3,
+        "reasons": rep.counts(),
+    }
+
+
 def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     """Phase 3 (see the module docstring). Returns the ``runs_screen`` entry
     of the kernels line."""
@@ -745,6 +971,7 @@ def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     from karpenter_tpu_torch.parallel import mesh as M
     from karpenter_tpu_torch.testing import workloads as W
 
+    t_phase = time.perf_counter()
     log(f"phase 3: consolidation screen, {SCREEN_CANDIDATES} candidates")
     n = SCREEN_CANDIDATES
     subsets = screen_subsets(n)
@@ -894,6 +1121,7 @@ def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
             f"(max float err {out['max_abs_err']}); bytes {nbytes}, int ops {int_ops:.4g}, float ops {flt_ops:.4g}, "
             f"bound {b_ms:.5f} ms ({b_by}); work {work}")
     main = out["per_mode"]["residual"]
+    log(f"  phase 3 wall {time.perf_counter() - t_phase:.1f}s")
     return {
         "name": "runs_screen",
         "route": "cuda",

@@ -4,8 +4,10 @@
 //   ops/ffd_sweeps.py:1910 _solve_ffd_sweeps_fresh_jit (_sweeps_impl :1632)
 //   ops/ffd_sweeps.py:1922 _solve_ffd_sweeps_carried_jit (seeded with kind0/index0)
 //   ops/ffd_step.py:483/:506 _solve_ffd_jit / _solve_ffd_fresh_jit (one-pass mode)
-// and steps pods one at a time through the logic of ops/ffd_step.make_step
-// (the parity anchor: the JAX chain/stride commits are bit-identical to it).
+// In the sweeps modes each iteration evaluates the pod at the queue cursor
+// and commits its chain of chain-identical successors (csrc/chain.cuh, the
+// JAX package's narrow_iter); the one-pass mode steps one pod at a time
+// through ops/ffd_step.make_step's logic, as program 2 has no chains.
 //
 // What bounds it on an H100: the loop is sequential over pods (a pod's
 // verdict depends on every earlier commit), so one step's latency times the
@@ -26,7 +28,11 @@
 // the committed row — and block-wide atomicMin picks the winner (first node,
 // fewest-pods claim with lowest-slot tie-break, first template). One thread
 // commits the scalars. The step itself is csrc/step.cuh, shared with the
-// consolidation screen's kernel (runs_screen.cu).
+// consolidation screen's kernel (runs_screen.cu). A chain commit (chain.cuh)
+// consumes up to 64 queue entries an iteration: at 10k the fresh loop runs
+// about a fifth as many iterations as pods, each dearer (the types of every
+// claim that passes its gates tested in full, then the waterfill, the round
+// or the spread mini-scan).
 //
 // The kernel counts its own work as it goes (WORK_*: bin gates, topology
 // lanes of matched groups, instance-type tests, block barriers) into ``work``,
@@ -34,11 +40,12 @@
 // needed, not estimated from shapes.
 //
 // This uses one SM of the card's 132. Keeping the claim and instance-type
-// tables resident in shared memory, splitting the claims x types test across
-// blocks, and the JAX package's closed-form chain commits are later work.
+// tables resident in shared memory and splitting the claims x types test
+// across blocks are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // masks.cuh for why FMA contraction must stay off).
+#include "chain.cuh"
 #include "step.cuh"
 
 // Field order is mirrored by FfdArgs in karpenter_tpu_torch/ops/ffd_sweeps.py
@@ -67,6 +74,7 @@ struct FfdArgs {
   const uint8_t* pod_owned;     // [P, G]
   const int* pod_vols;          // [P, D]
   const uint8_t* pod_active;    // [P]
+  const uint8_t* pod_eqprev_chain;  // [P] the row extends its predecessor's chain
   // instance types
   const int* it_adm;
   const uint8_t* it_comp;
@@ -142,10 +150,14 @@ struct FfdArgs {
   uint8_t* fin_neg;
   uint8_t* bin_ok;
   int* queue;  // [2P]
+  uint8_t* ok_t;  // [C, T] chain commit: claim_it_ok2 of the head
+  int* cap_t;     // [C, T] chain commit: per-type capacity
+  int* chain_c;   // [NCS, C] chain commit: per-claim scratch
+  int* chain_v;   // [NVS, V] chain commit: per-lane scratch
   // outputs
   int* kind;      // [P]
   int* index;     // [P]
-  int* counters;  // [2]: pods stepped, sweeps
+  int* counters;  // [4]: narrow iterations, sweeps, chain commits, chain pods
   unsigned long long* work;  // [NWORK]: WORK_* counters
   // dims
   int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, one_pass;
@@ -155,6 +167,7 @@ namespace {
 
 __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
   __shared__ Shared s;
+  __shared__ ChainShared cs;
   extern __shared__ int dyn[];
   int* s_gmin = dyn;
   int* s_boot = dyn + a.G;
@@ -196,6 +209,8 @@ __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
     s.noslot = 0;
     s.stepped = 0;
     s.sweeps = 0;
+    s.chains = 0;
+    s.chain_pods = 0;
   }
   block_sync();
   // requeue until a sweep makes no progress or a pod ran out of claim slots
@@ -203,22 +218,35 @@ __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
     if (tid == 0) s.nqlen = 0;
     block_sync();
     const int qlen = s.qlen;
-    for (int i = 0; i < qlen; ++i) {
+    for (int i = 0; i < qlen;) {
       const int p = q[i];
-      step(a, p, s, s_gmin, s_boot, s_nothing, s_maxcap);
       if (tid == 0) {
-        a.kind[p] = s.kind;
-        a.index[p] = s.index;
+        // the chain run at the cursor: consecutive rows, each chain-identical
+        int kc = 1;
+        while (kc < STRIDE && i + kc < qlen && q[i + kc] == p + kc && a.pod_eqprev_chain[p + kc]) ++kc;
+        cs.kc = kc;
       }
       block_sync();
-      if (tid == 0) {
-        const int k = s.kind;
-        if (k == KIND_FAIL) nq[s.nqlen++] = p;
-        if (k == KIND_NO_SLOT) s.noslot = 1;
-        s.stepped += 1;
+      narrow_iter(a, p, s, cs, s_gmin, s_boot, s_nothing, s_maxcap);
+      block_sync();
+      const int k = cs.k, kind = s.kind;
+      for (int x = tid; x < k; x += THREADS) {
+        a.kind[p + x] = kind;
+        a.index[p + x] = cs.of[x];
       }
+      if (tid == 0) {
+        if (kind == KIND_FAIL)
+          for (int x = 0; x < k; ++x) nq[s.nqlen++] = p + x;
+        if (kind == KIND_NO_SLOT) s.noslot = 1;
+        s.stepped += 1;
+        if (k > 1) {
+          s.chains += 1;
+          s.chain_pods += k;
+        }
+      }
+      i += k;
+      block_sync();
     }
-    block_sync();
     if (tid == 0) {
       s.progress = s.nqlen < qlen;
       s.qlen = s.nqlen;
@@ -232,6 +260,8 @@ __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
   if (tid == 0) {
     a.counters[0] = s.stepped;
     a.counters[1] = s.sweeps;
+    a.counters[2] = s.chains;
+    a.counters[3] = s.chain_pods;
   }
   if (tid < NWORK) a.work[tid] = s_work[tid];
 }
@@ -251,6 +281,13 @@ extern "C" int ffd_loop_args_size() { return (int)sizeof(FfdArgs); }
 // Launch on ``stream``; returns cudaGetLastError() (0 on success).
 extern "C" int ffd_loop_launch(const FfdArgs* args, void* stream) {
   const size_t smem = (size_t)(3 * args->G + args->R) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(ffd_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // above the card's opt-in limit: the caller raises KernelDeviceError;
+    // clear the error so that it does not surface at a later launch
+    if (e != cudaSuccess) return (int)cudaGetLastError();
+  }
   ffd_loop_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*args);
   return (int)cudaGetLastError();
 }

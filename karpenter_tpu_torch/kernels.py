@@ -15,7 +15,10 @@ Failures raise typed exceptions, which the solver supervisor classifies by
 class name (solver/supervisor.classify_failure): a build that fails raises
 :class:`KernelCompileError` (class ``compile``: the same sources fail the
 same way again), a launch that the CUDA runtime refuses raises
-:class:`KernelDeviceError` (class ``device``, retried).
+:class:`KernelDeviceError` (class ``device``, retried). A shape whose
+dynamic shared memory exceeds what a block of the card may opt into is such a
+refused launch: each ``*_launch`` sizes its shared memory from the shape and
+returns the runtime's error when the card cannot hold it.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 SOURCES = {
+    "attribute": "attribute.cu",
     "ffd_loop": "ffd_loop.cu",
     "gate_counts": "gate_counts.cu",
     "patch_world": "patch_world.cu",
@@ -41,6 +45,7 @@ SOURCES = {
 }
 # each library's exported (launch, args-size) symbols
 _SYMBOLS = {
+    "attribute": ("attribute_launch", "attribute_args_size"),
     "ffd_loop": ("ffd_loop_launch", "ffd_loop_args_size"),
     "gate_counts": ("gate_counts_launch", "gate_args_size"),
     "patch_world": ("patch_world_launch", "patch_world_args_size"),
@@ -65,6 +70,7 @@ class KernelCompileError(RuntimeError):
 class KernelDeviceError(RuntimeError):
     """The CUDA runtime refused a kernel launch (its error code is in the
     message)."""
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -255,6 +255,18 @@ FLIGHT_DUMPS = REGISTRY.counter(
     "SLO-gated.",
 )
 
+# -- placement explainability series (obs/explain.py) -------------------------
+UNSCHEDULABLE_PODS = REGISTRY.counter(
+    "unschedulable_pods_total",
+    "Pods a solve left unscheduled, by UnschedulableReason (label values are "
+    "bounded to the obs/explain.py taxonomy; KARPENTER_TPU_EXPLAIN only)",
+)
+EXPLAIN_OVERHEAD = REGISTRY.histogram(
+    "solver_explain_overhead_seconds",
+    "Wall time of the post-pass gate-attribution + decode (the explain "
+    "feature's whole marginal cost; zero series when the flag is off)",
+)
+
 
 def tenant_label_max() -> int:
     """Cap on DISTINCT tenant-id label values any metric family may carry

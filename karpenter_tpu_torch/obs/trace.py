@@ -1,9 +1,9 @@
 """Solve-cycle tracing: phase spans and a ring of the last cycles.
 
 Counterpart of the JAX package's ``obs/trace.py``, ported for what the
-solver supervisor and the serve layer call: ``cycle`` (a solve cycle's root,
-or a nested span when one is already open), ``span`` (a phase span under
-it) and ``current_trace_id``. The same span names and attributes, the same
+solver supervisor, the serve layer and the explain pass call: ``cycle`` (a
+solve cycle's root, or a nested span when one is already open), ``span`` (a
+phase span under it), ``attr`` and ``current_trace_id``. The same span names and attributes, the same
 ``KARPENTER_TPU_TRACE`` flag (off: every call is a no-op), the same
 self-time accounting (``phase_totals`` sums to the root's wall clock), and
 the same per-phase histogram (``karpenter_solver_phase_duration_seconds``).
@@ -237,6 +237,13 @@ def span(name: str, **attrs):
     finally:
         _cur_span.reset(token)
         sp.close()
+
+
+def attr(name: str, value) -> None:
+    """Attach an attribute to the current span (no-op outside one)."""
+    sp = _cur_span.get()
+    if sp is not None:
+        sp.attrs[name] = value
 
 
 def current_trace_id() -> Optional[str]:

@@ -55,16 +55,16 @@ class FFDState:
 
 
 class IterCounts(NamedTuple):
-    """Loop counters of one sweeps-mode solve. ``narrow`` counts pods stepped
-    (this package steps one pod per iteration: the JAX package's chain and
-    stride commits are not ported, so ``chain_*`` stay 0 and ``narrow`` is
-    not comparable with the JAX count); ``sweeps`` counts requeue sweeps and
-    matches the JAX package exactly."""
+    """Loop counters of one sweeps-mode solve, as the JAX package counts
+    them: ``narrow`` the narrow iterations (each evaluates one pod and
+    commits its chain, ops/ffd_chain.py), ``sweeps`` the requeue sweeps,
+    ``chain_commits`` the iterations that consumed more than one pod and
+    ``chain_pods`` the pods those iterations consumed."""
 
     narrow: Any
     sweeps: Any
-    chain_commits: Any = 0
-    chain_pods: Any = 0
+    chain_commits: Any
+    chain_pods: Any
 
 
 @dataclass

@@ -5,20 +5,18 @@ placement makes progress (scheduler.go:150-170): a pod whose required
 pod-affinity peers were placed later in the queue succeeds on the next sweep.
 This is the JAX package's ``ops/ffd_sweeps._sweeps_impl`` without its
 flag-gated branches: a compact queue of the active rows in FFD order; each
-sweep steps every queued pod once (ops/ffd_step.make_step) and queues the
-KIND_FAIL rows for the next sweep; the loop stops when a sweep makes no
-progress or a pod hit KIND_NO_SLOT (the backend then retries with more claim
-slots, at the same sweep boundary as the JAX package).
+sweep walks the queue in narrow iterations (ops/ffd_chain.py: one pod
+evaluated, its chain of chain-identical successors committed in closed form)
+and queues the KIND_FAIL rows for the next sweep; the loop stops when a sweep
+makes no progress or a pod hit KIND_NO_SLOT (the backend then retries with
+more claim slots, at the same sweep boundary as the JAX package).
+``IterCounts`` counts as the JAX package does.
 
 Two implementations of the same function:
-  * ``sweeps_plain`` — plain PyTorch, one ``make_step`` call per pod. Taken
-    for CPU tensors (the tests) and as the yardstick on the card.
+  * ``sweeps_plain`` — plain PyTorch, one ``ffd_chain`` narrow iteration at a
+    time. Taken for CPU tensors (the tests) and as the yardstick on the card.
   * the ``ffd_loop`` CUDA kernel (csrc/ffd_loop.cu) — the whole loop in one
     launch, taken for CUDA tensors. There is no fallback between the two.
-
-The JAX package batches chains of identical pods in closed form; this
-package steps them one at a time (ops/ffd_step.py documents why that is
-exact), so ``IterCounts.narrow`` counts pods stepped here.
 """
 
 from __future__ import annotations
@@ -44,7 +42,8 @@ from karpenter_tpu_torch.ops.ffd_core import (
     pod_row,
     problem_bounds_free,
 )
-from karpenter_tpu_torch.ops.ffd_step import clone_state, make_step
+from karpenter_tpu_torch.ops.ffd_chain import chain_flags, chain_length, chain_rows, make_narrow
+from karpenter_tpu_torch.ops.ffd_step import clone_state
 
 
 def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
@@ -56,24 +55,31 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
     C = init.claim_open.shape[0]
     dev = problem.lane_valid.device
     state = clone_state(init)
-    step = make_step(problem, _statics(problem, bounds_free), C)
+    narrow = make_narrow(problem, _statics(problem, bounds_free), C)
+    chain = chain_flags(problem)
     xs = _pod_xs(problem, bounds_free)
     active = problem.pod_active.cpu().tolist()
     queue = [p for p in range(P) if active[p]]
     kinds = [KIND_FAIL] * P if kind0 is None else kind0.cpu().tolist()
     idxs = [-1] * P if index0 is None else index0.cpu().tolist()
-    stepped = sweeps = 0
+    n_narrow = sweeps = chain_commits = chain_pods = 0
     progress, noslot = True, False
     while progress and queue and not noslot:
         nq = []
-        for p in queue:
-            kind, index = step(state, pod_row(xs, p))
-            kinds[p], idxs[p] = kind, index
-            if kind == KIND_FAIL:
-                nq.append(p)
-            elif kind == KIND_NO_SLOT:
-                noslot = True
-            stepped += 1
+        i = 0
+        while i < len(queue):
+            p = queue[i]
+            kind, rows, k = narrow(state, pod_row(xs, p), p, chain_length(queue, i, chain))
+            for s in range(k):
+                kinds[p + s], idxs[p + s] = kind, rows[s]
+                if kind == KIND_FAIL:
+                    nq.append(p + s)
+            noslot |= kind == KIND_NO_SLOT
+            n_narrow += 1
+            if k > 1:
+                chain_commits += 1
+                chain_pods += k
+            i += k
         progress = len(nq) < len(queue)
         queue = nq
         sweeps += 1
@@ -81,7 +87,7 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
         kind=torch.tensor(kinds, dtype=torch.int32, device=dev).reshape(P),
         index=torch.tensor(idxs, dtype=torch.int32, device=dev).reshape(P),
         state=state,
-        iters=IterCounts(narrow=stepped, sweeps=sweeps),
+        iters=IterCounts(narrow=n_narrow, sweeps=sweeps, chain_commits=chain_commits, chain_pods=chain_pods),
     )
 
 
@@ -132,7 +138,7 @@ _FFD_INPUTS = (
     "lvw", "ln", "lex", "wellknown",
     "pod_adm", "pod_comp", "pod_def", "pod_gt", "pod_lt", "pod_neg", "pod_strict_adm",
     "pod_requests", "pod_tol_tpl", "pod_tol_node", "pod_ports", "pod_conflict",
-    "pod_match", "pod_selects", "pod_owned", "pod_vols", "pod_active",
+    "pod_match", "pod_selects", "pod_owned", "pod_vols", "pod_active", "pod_eqprev_chain",
     "it_adm", "it_comp", "it_def", "it_gt", "it_lt", "it_neg",
     "it_alloc", "it_cap", "offer_zone", "offer_ct", "offer_ok",
     "tpl_adm", "tpl_comp", "tpl_def", "tpl_gt", "tpl_lt", "tpl_neg",
@@ -151,7 +157,8 @@ FFD_STATE = (
     "remaining", "grp_counts", "grp_registered",
 )
 # the kernel's own working rows, neither read before nor kept after it
-FFD_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok", "queue")
+FFD_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok", "queue",
+               "ok_t", "cap_t", "chain_c", "chain_v")
 _FFD_POINTERS = _FFD_INPUTS + FFD_STATE + FFD_SCRATCH + ("kind", "index", "counters", "work")
 _FFD_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "one_pass")
 _FfdArgs = kernels.make_struct("FfdArgs", _FFD_POINTERS, _FFD_INTS)
@@ -159,10 +166,10 @@ _FfdArgs = kernels.make_struct("FfdArgs", _FFD_POINTERS, _FFD_INTS)
 # the kernel's work counters (csrc/ffd_loop.cu WORK_*), in order
 WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers")
 
-# masks.cuh keeps one key per warp lane, and step.cuh a warp lane's allowed
-# words of one key in one 64-bit mask
-_MAX_KEYS = 32
-_MAX_WORDS = 64
+# rows of the chain commit's per-claim and per-lane scratch (csrc/chain.cuh
+# NCS, NVS)
+_CHAIN_CLAIM_ROWS = 9
+_CHAIN_LANE_ROWS = 2
 
 
 def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = False) -> None:
@@ -194,7 +201,7 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     state = state_back(t, problem.num_lanes)
     iters: Optional[IterCounts] = None
     if not one_pass:
-        iters = IterCounts(narrow=t["counters"][0], sweeps=t["counters"][1])
+        iters = IterCounts(*t["counters"])
     return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])
 
 
@@ -231,9 +238,6 @@ def problem_tensors(problem: SchedulingProblem) -> dict:
     """The problem's tables in the kernels' layout, by struct field name:
     packed lane words, per-row polarities, int32 indices. Shared by the
     ``ffd_loop`` and ``runs_screen`` argument builders."""
-    K, V = problem.num_keys, problem.num_lanes
-    if K > _MAX_KEYS or V > 32 * _MAX_WORDS or V % 32:
-        raise ValueError(f"the kernels support K <= {_MAX_KEYS} keys and V <= {32 * _MAX_WORDS} lanes (multiple of 32); got K={K}, V={V}")
     lv, ln = problem.lane_valid, problem.lane_numeric
     i32 = torch.int32
     t: dict = {}
@@ -253,6 +257,7 @@ def problem_tensors(problem: SchedulingProblem) -> dict:
         ("grp_min_domains", problem.grp_min_domains), ("grp_inverse", problem.grp_inverse),
         ("grp_has_filter", problem.grp_has_filter), ("flt_valid", problem.grp_filter_valid),
         ("host_lane", problem.claim_hostname_lane),
+        ("pod_eqprev_chain", chain_rows(problem)),
     ):
         t[name] = _i32(src)
     _req_tensors("it", problem.it_reqs, lv, ln, t)
@@ -341,7 +346,11 @@ def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None):
         if seed is not None and (seed.shape != (P,) or seed.device != dev):
             raise ValueError(f"{name} must be i32[{P}] on {dev}")
         t[name] = None if seed is None else seed.to(i32).contiguous()
-    t["counters"] = torch.zeros((2,), dtype=i32, device=dev)
+    t["ok_t"] = torch.empty((C, T), dtype=torch.bool, device=dev)
+    t["cap_t"] = torch.empty((C, T), dtype=i32, device=dev)
+    t["chain_c"] = torch.empty((_CHAIN_CLAIM_ROWS, C), dtype=i32, device=dev)
+    t["chain_v"] = torch.empty((_CHAIN_LANE_ROWS, V), dtype=i32, device=dev)
+    t["counters"] = torch.zeros((4,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
 
     dims = dict(P=P, K=K, V=V, W=W, C=C, N=N, T=T, TPL=TPL, R=R,

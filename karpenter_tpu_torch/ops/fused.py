@@ -518,7 +518,7 @@ def solve_ffd_fused_gate(world: World, pod_check, max_claims: int, bounds_free: 
     counts = gdev.launch_gate_counts_fused(t, pod_check)
     result = FFDResult(
         kind=t["kind"], index=t["index"], state=state_back(t, t["ln"].shape[1]),
-        iters=IterCounts(narrow=t["counters"][0], sweeps=t["counters"][1]), work=t["work"],
+        iters=IterCounts(*t["counters"]), work=t["work"],
     )
     return result, counts
 

@@ -214,3 +214,33 @@ def has_offering(state_admitted, zone_key: int, ct_key: int, offer_zone, offer_c
     zone_adm = state_admitted[zone_key][offer_zone.long()]
     ct_adm = state_admitted[ct_key][offer_ct.long()]
     return (offer_ok & zone_adm & ct_adm).any(dim=-1)
+
+
+def family_bitmask(fails: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """int32[3] (union, blockers, near) gate-attribution byte for ONE
+    candidate class, the tensor twin of obs/explain.encode_family_bits.
+
+    ``fails``: bool[F, E], family f failed on candidate e (F <= 7 families,
+    obs/explain.FAM_*). ``cand``: bool[E], candidate liveness (open claims;
+    real rows of nodes and templates).
+
+      union    bit f: family f failed on >= 1 live candidate
+      blockers bit f: family f failed on EVERY live candidate; bit 7 when the
+               class has no live candidate at all (EMPTY)
+      near     bit f: some live candidate failed ONLY family f, the
+               counterfactual "relax this one gate and the pod schedules"
+    """
+    F = fails.shape[0]
+    present = bool(cand.any())
+    hit = fails & cand[None, :]
+    union = hit.any(dim=-1)
+    blockers = (fails | ~cand[None, :]).all(dim=-1) & present
+    nfail = hit.sum(dim=0)
+    near = (hit & (nfail[None, :] == 1)).any(dim=-1)
+    bits = 1 << torch.arange(F, dtype=torch.int32, device=fails.device)
+    zero = torch.zeros_like(bits)
+    return torch.stack([
+        torch.where(union, bits, zero).sum(),
+        torch.where(blockers, bits, zero).sum() + (0 if present else 1 << 7),
+        torch.where(near, bits, zero).sum(),
+    ]).to(torch.int32)

@@ -269,7 +269,9 @@ def batched_solve(batch: SchedulingProblem, max_claims: int, passes: int = 1) ->
 
 # the shared problem: the ffd_loop tables less the per-lane and seed arrays,
 # plus the run axis
-_RS_SHARED = tuple(n for n in _FFD_INPUTS if n not in ("pod_active", "node_avail", "kind0", "index0")) + (
+_RS_SHARED = tuple(
+    n for n in _FFD_INPUTS if n not in ("pod_active", "pod_eqprev_chain", "node_avail", "kind0", "index0")
+) + (
     "run_start", "run_len", "run_mode",
 )
 # the state every lane starts from (read only)
@@ -328,7 +330,7 @@ def _shared_tensors(problem: SchedulingProblem) -> dict:
     """The tables every lane of one problem reads: the ``ffd_loop`` tables
     less the per-lane and seed arrays, plus the run axis."""
     t = problem_tensors(problem)
-    del t["pod_active"], t["node_avail"]
+    del t["pod_active"], t["node_avail"], t["pod_eqprev_chain"]
     for name in ("run_start", "run_len", "run_mode"):
         t[name] = getattr(problem, name).to(torch.int32).contiguous()
     return t

@@ -41,8 +41,8 @@ class SolveResult:
     node_pods: Dict[str, List[int]] = field(default_factory=dict)
     # failed pod index -> reason
     failures: Dict[int, str] = field(default_factory=dict)
-    # decision provenance; the explain attribution is not ported, so it
-    # stays None
+    # obs/explain.ExplainReport decision provenance (KARPENTER_TPU_EXPLAIN
+    # only; None when the flag is off or the solve left no pod unscheduled)
     explain: Optional[object] = None
     # verify.GateContext stashed by single-pass (sweeps-mode) solves: the
     # padded problem + meta this result decoded from, which the device-side

@@ -13,16 +13,15 @@ interleaves retries within one queue using cycle detection
 (scheduler.go:150-170, queue.go:46-70) — the pass structure reaches the same
 fixed point and both backends implement it identically.
 
-Not ported: the per-pod gate-family attribution of failed pods
-(``KARPENTER_TPU_EXPLAIN``, the JAX package's obs/explain.py hooks). With that
-flag set, a solve that leaves pods unplaced raises instead of returning a
-result without the attribution the caller asked for.
+With ``KARPENTER_TPU_EXPLAIN`` set, the terminal pass's failed pods get the
+host half of the explain pair (``_explain``): a per-family re-run of the
+gates, folded through the same obs/explain.py encode/decode helpers as the
+device attribution, so that both give the same reasons.
 """
 
 from __future__ import annotations
 
 import copy
-import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -53,12 +52,6 @@ from karpenter_tpu_torch.solver.encode import (
     ffd_order,
 )
 from karpenter_tpu_torch.utils import resources as res
-
-
-def explain_enabled() -> bool:
-    """The JAX package's ``KARPENTER_TPU_EXPLAIN`` flag, which asks for the
-    per-pod attribution of failed pods."""
-    return os.environ.get("KARPENTER_TPU_EXPLAIN", "") not in ("", "0")
 
 
 def _fits(requests: Dict[str, float], available: Dict[str, float]) -> bool:
@@ -231,13 +224,15 @@ class OracleSolver(SolverBackend):
                         ),
                         well_known=self.well_known,
                     ) or FAIL_INCOMPATIBLE
-                if explain_enabled():
-                    # the reference attributes every failed pod here; that
-                    # attribution (obs/explain.py) is not ported
-                    raise NotImplementedError(
-                        "KARPENTER_TPU_EXPLAIN is set, but the placement "
-                        "explanation of failed pods is not ported to "
-                        "karpenter_tpu_torch; unset it"
+                from karpenter_tpu_torch.obs import explain as obs_explain
+
+                if obs_explain.enabled():
+                    # the terminal pass committed nothing, so this state is
+                    # exactly what every failed pod was last evaluated against
+                    result.explain = self._explain(
+                        failed, work, pod_requirements_override, pod_volumes,
+                        node_bins, claims, templates, instance_types,
+                        remaining, topo, total_pods=len(work),
                     )
                 break
             queue = failed
@@ -400,3 +395,167 @@ class OracleSolver(SolverBackend):
             if tg.key == wk.LABEL_HOSTNAME and tg.domains.get(hostname) == 0:
                 del tg.domains[hostname]
         return False
+
+    # -- explainability (obs/explain.py): per-family re-run of the gates ------
+    # The host half of the parity pair: the same checks _try_nodes/_try_claims/
+    # _try_templates short-circuit through are evaluated exhaustively per
+    # candidate, then folded through the SAME encode/decode helpers the device
+    # attribution path uses — the parity test compares reasons, and any drift
+    # is a real semantic divergence, not a taxonomy mismatch.
+
+    def _explain(self, failed, work, override, pod_volumes, node_bins, claims,
+                 templates, instance_types, remaining, topo, total_pods):
+        import time
+
+        from karpenter_tpu_torch.obs import explain as ox
+
+        t0 = time.perf_counter()
+        report = ox.ExplainReport(
+            backend=type(self).__name__,
+            total_pods=total_pods,
+            scheduled=total_pods - len(failed),
+        )
+        for pi in failed:
+            pod = work[pi]
+            if override is not None:
+                reqs = strict = override[pi]
+            else:
+                reqs = pod_requirements(pod)
+                strict = (
+                    strict_pod_requirements(pod)
+                    if has_preferred_node_affinity(pod)
+                    else reqs
+                )
+            requests = {**res.pod_requests(pod), res.PODS: 1.0}
+            ports = get_host_ports(pod)
+            vols = pod_volumes[pi] if pod_volumes is not None else None
+            words = ox.pack_words((
+                self._node_families(pod, reqs, strict, requests, ports, vols,
+                                    node_bins, topo),
+                self._claim_families(pod, reqs, strict, requests, ports,
+                                     claims, instance_types, topo),
+                self._template_families(pod, reqs, strict, requests, claims,
+                                        templates, instance_types, remaining,
+                                        topo),
+            ))
+            expl = ox.decode_pod(pi, ox._KIND_FAIL, words)
+            if expl.reason == ox.REASON_RESOURCES:
+                better = ox.resource_hint(requests, instance_types)
+                if better:
+                    expl.hint = better
+            report.pods[pi] = expl
+        report.overhead_s = time.perf_counter() - t0
+        ox.publish(report)
+        return report
+
+    def _topo_fails(self, strict, merged, pod, topo, allow=frozenset()) -> bool:
+        try:
+            topo_reqs = topo.add_requirements(strict, merged, pod, allow)
+        except Exception:
+            return True
+        return topo_reqs is None or not merged.is_compatible(topo_reqs, allow)
+
+    def _node_families(self, pod, reqs, strict, requests, ports, vols,
+                       node_bins, topo):
+        from karpenter_tpu_torch.obs import explain as ox
+
+        fails = [[False] * len(node_bins) for _ in range(ox.NUM_FAMILIES)]
+        for e, nb in enumerate(node_bins):
+            fails[ox.FAM_TAINTS][e] = bool(nb.info.taints.tolerates(pod))
+            fails[ox.FAM_PORTS][e] = _port_conflict(nb.used_ports, ports)
+            fails[ox.FAM_VOLUME][e] = not nb.vol_fits(vols)
+            fails[ox.FAM_RESOURCES][e] = not _fits(
+                res.merge(nb.requests, requests), nb.info.available
+            )
+            compat = nb.requirements.is_compatible(reqs)
+            fails[ox.FAM_REQUIREMENTS][e] = not compat
+            merged = nb.requirements.copy()
+            merged.add(*reqs.values())
+            fails[ox.FAM_TOPOLOGY][e] = self._topo_fails(strict, merged, pod, topo)
+        return ox.encode_family_bits(fails, [True] * len(node_bins))
+
+    def _claim_families(self, pod, reqs, strict, requests, ports, claims,
+                        instance_types, topo):
+        from karpenter_tpu_torch.obs import explain as ox
+
+        fails = [[False] * len(claims) for _ in range(ox.NUM_FAMILIES)]
+        for e, claim in enumerate(claims):
+            fails[ox.FAM_TAINTS][e] = bool(claim.template.taints.tolerates(pod))
+            fails[ox.FAM_PORTS][e] = _port_conflict(claim.used_ports, ports)
+            compat = claim.requirements.is_compatible(reqs, self.well_known)
+            narrowed = claim.requirements.copy()
+            narrowed.add(*reqs.values())
+            topo_fail = self._topo_fails(strict, narrowed, pod, topo, self.well_known)
+            fails[ox.FAM_TOPOLOGY][e] = topo_fail
+            if not topo_fail:
+                topo_reqs = topo.add_requirements(strict, narrowed, pod, self.well_known)
+                narrowed.add(*topo_reqs.values())
+            merged = res.merge(claim.requests, requests)
+            co = [
+                ti for ti in claim.it_indices
+                if not instance_types[ti].requirements.intersects(narrowed)
+                and _has_offering(instance_types[ti], narrowed)
+            ]
+            has_fit = any(
+                _fits(merged, instance_types[ti].allocatable()) for ti in co
+            )
+            has_base = bool(claim.it_indices)
+            fails[ox.FAM_RESOURCES][e] = (bool(co) and not has_fit) or not has_base
+            fails[ox.FAM_REQUIREMENTS][e] = not compat or (has_base and not co)
+        return ox.encode_family_bits(fails, [True] * len(claims))
+
+    def _template_families(self, pod, reqs, strict, requests, claims,
+                           templates, instance_types, remaining, topo):
+        from karpenter_tpu_torch.obs import explain as ox
+
+        # mint the same prospective hostname the terminal _try_templates used
+        hostname = claim_hostname(len(claims))
+        topo.register(wk.LABEL_HOSTNAME, hostname)
+        fails = [[False] * len(templates) for _ in range(ox.NUM_FAMILIES)]
+        try:
+            for e, tpl in enumerate(templates):
+                fails[ox.FAM_TAINTS][e] = bool(tpl.taints.tolerates(pod))
+                compat = tpl.requirements.is_compatible(reqs, self.well_known)
+                narrowed = tpl.requirements.copy()
+                narrowed.add(Requirement(wk.LABEL_HOSTNAME, IN, [hostname]))
+                narrowed.add(*reqs.values())
+                topo_fail = self._topo_fails(strict, narrowed, pod, topo, self.well_known)
+                fails[ox.FAM_TOPOLOGY][e] = topo_fail
+                if not topo_fail:
+                    topo_reqs = topo.add_requirements(strict, narrowed, pod, self.well_known)
+                    narrowed.add(*topo_reqs.values())
+                merged = res.merge(tpl.daemon_overhead, requests)
+                universe = tpl.instance_type_indices
+                has_base = bool(universe)
+                if remaining[e] is not None:
+                    universe = [
+                        t for t in universe
+                        if _fits(
+                            {
+                                name: instance_types[t].capacity.get(name, 0.0)
+                                for name in remaining[e]
+                            },
+                            remaining[e],
+                        )
+                    ]
+                has_cap = bool(universe)
+                fails[ox.FAM_CLAIM_CAPACITY][e] = has_base and not has_cap
+                co = [
+                    t for t in universe
+                    if not instance_types[t].requirements.intersects(narrowed)
+                    and _has_offering(instance_types[t], narrowed)
+                ]
+                has_fit = any(
+                    _fits(merged, instance_types[t].allocatable()) for t in co
+                )
+                fails[ox.FAM_RESOURCES][e] = bool(co) and not has_fit
+                fails[ox.FAM_REQUIREMENTS][e] = (
+                    not compat or not has_base or (has_cap and not co)
+                )
+        finally:
+            for tg in list(topo.topologies.values()) + list(
+                topo.inverse_topologies.values()
+            ):
+                if tg.key == wk.LABEL_HOSTNAME and tg.domains.get(hostname) == 0:
+                    del tg.domains[hostname]
+        return ox.encode_family_bits(fails, [True] * len(templates))

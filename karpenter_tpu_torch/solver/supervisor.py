@@ -262,7 +262,7 @@ class SupervisedSolver(SolverBackend):
             return self._circuit
 
     def status(self) -> Dict:
-        return {
+        out = {
             "primary": type(self.primary).__name__,
             "fallback": type(self.fallback).__name__ if self.fallback else None,
             "tenant": self.tenant,
@@ -273,6 +273,13 @@ class SupervisedSolver(SolverBackend):
             "counters": dict(self.counters),
             "last_failure": self.last_failure,
         }
+        from karpenter_tpu_torch.obs import explain as obs_explain
+
+        if obs_explain.enabled() or len(obs_explain.ring()):
+            # decision provenance of recent solves (the result of a
+            # supervised solve carries its own report unchanged)
+            out["explain"] = obs_explain.summary()
+        return out
 
     # -- circuit transitions --------------------------------------------------
 

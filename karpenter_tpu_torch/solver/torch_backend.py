@@ -37,8 +37,16 @@ new snapshot, and the fresh ``ffd_loop`` and the fused ``gate_counts`` run
 back to back before one fetch. A classified standdown falls through to the
 path above unchanged; an error propagates.
 
+With ``KARPENTER_TPU_EXPLAIN`` set (obs/explain.py; the one environment
+flag the backend reads, as the JAX backend reads it), the terminal pass's
+failed rows go through one ``attribute`` launch against the final state
+(ops/ffd_step.attribute_pods, program 7) and the result carries an
+``ExplainReport``: a reason and a hint per unscheduled pod and the
+winning-candidate rationale of up to ``KARPENTER_TPU_EXPLAIN_MAX`` scheduled
+ones. Placements are the same with the flag on and off.
+
 Not ported: the JAX backend's other flag-gated subsystems (shard, relax2,
-learned order, AOT, program registry, explain, trace and metrics).
+learned order, AOT, program registry, trace and metrics).
 """
 
 from __future__ import annotations
@@ -218,6 +226,9 @@ class TorchSolver(SolverBackend):
         # result); a resident cycle reports encode (the delta encode), patch,
         # relax (0), device (the fused solve and the fetch) and decode
         self.last_timing: Dict[str, float] = {}
+        # the ExplainReport of the LAST solve that attributed failed pods
+        # (KARPENTER_TPU_EXPLAIN); None before any
+        self.last_explain = None
         # the device-resident cycle (module docstring); None when off
         self._device_world = None
         if device_world:
@@ -301,6 +312,90 @@ class TorchSolver(SolverBackend):
                     allow_relax = False
                     continue
             return result
+
+    def _explain(self, out, problem, state, meta, kinds, failed, failed_rows,
+                 pod_kinds, instance_types, total_pods):
+        """The explain pass (the JAX backend's ``_explain``): attribute the
+        failed rows against the final state (one ``attribute`` launch on the
+        card), decode reasons, attach the bounded winning-candidate rationale
+        and publish the ExplainReport (ring and metrics) on ``out``. Returns
+        the raw int32[B, 3] attribution words."""
+        import time
+
+        from karpenter_tpu_torch.obs import explain as obs_explain
+        from karpenter_tpu_torch.obs import trace
+        from karpenter_tpu_torch.ops.ffd_step import attribute_pods
+
+        t0 = time.perf_counter()
+        with trace.span("explain", failed=len(failed)):
+            words = attribute_pods(problem, state, failed_rows).cpu().numpy()
+            report = obs_explain.ExplainReport(
+                backend=type(self).__name__,
+                trace_id=trace.current_trace_id(),
+                total_pods=total_pods,
+                scheduled=total_pods - len(failed),
+            )
+            pod_requests = problem.pod_requests.cpu().numpy()
+            for i, orig in enumerate(failed):
+                row = failed_rows[i]
+                expl = obs_explain.decode_pod(orig, int(kinds[row]), words[i])
+                if expl.reason == obs_explain.REASON_RESOURCES:
+                    requests = {
+                        name: float(pod_requests[row, ri])
+                        for ri, name in enumerate(meta.resource_names)
+                        if ri < pod_requests.shape[1] and pod_requests[row, ri] > 0
+                    }
+                    hint = obs_explain.resource_hint(requests, instance_types)
+                    if hint:
+                        expl.hint = hint
+                report.pods[orig] = expl
+            if pod_kinds:
+                report.nominations = self._nominations(problem, state, meta, pod_kinds)
+            report.overhead_s = time.perf_counter() - t0
+            trace.attr("reasons", report.counts())
+            trace.attr("overhead_s", round(report.overhead_s, 6))
+            obs_explain.publish(report)
+        self.last_explain = report
+        out.explain = report
+        return words
+
+    def _nominations(self, problem, state, meta, pod_kinds):
+        """Winning-candidate rationale for up to KARPENTER_TPU_EXPLAIN_MAX
+        scheduled pods in commit order: the chosen bin and its per-resource
+        slack against the end-of-pass bin state."""
+        import itertools
+
+        from karpenter_tpu_torch.obs import explain as obs_explain
+
+        cap = obs_explain.max_pods()
+        node_requests = state.node_requests.cpu().numpy()
+        claim_requests = state.claim_requests.cpu().numpy()
+        claim_it_ok = state.claim_it_ok.cpu().numpy()
+        node_avail = problem.node_avail.cpu().numpy()
+        it_alloc = problem.it_alloc.cpu().numpy()
+        R = len(meta.resource_names)
+        noms = {}
+        for orig, (kind, index) in itertools.islice(pod_kinds.items(), cap):
+            if kind == KIND_NODE and index < len(node_avail):
+                slack = node_avail[index][:R] - node_requests[index][:R]
+                bin_name = meta.node_names[index]
+            elif index < len(claim_requests):
+                surviving = np.flatnonzero(claim_it_ok[index])
+                best = it_alloc[surviving].max(axis=0) if len(surviving) else np.zeros(it_alloc.shape[1])
+                slack = best[:R] - claim_requests[index][:R]
+                bin_name = int(index)
+            else:
+                continue
+            margins = {meta.resource_names[ri]: round(float(slack[ri]), 6) for ri in range(min(R, len(slack)))}
+            worst = min(margins.items(), key=lambda kv: kv[1]) if margins else (None, 0.0)
+            noms[orig] = {
+                "kind": obs_explain.KIND_NAMES[kind],
+                "bin": bin_name,
+                "margin_basis": "end-of-pass",
+                "margins": margins,
+                "min_margin": {"resource": worst[0], "value": worst[1]},
+            }
+        return noms
 
     def _relax_phase(self, problem, max_claims):
         """Phase 1 over the padded device problem: its RelaxOut, or None when
@@ -419,6 +514,7 @@ class TorchSolver(SolverBackend):
 
             t0 = time.perf_counter()
             failed = []
+            failed_rows = []  # device row per failed orig (the explain pass)
             progress = False
             for row in range(len(meta.pod_order)):
                 orig = queue[meta.pod_order[row]]
@@ -428,6 +524,7 @@ class TorchSolver(SolverBackend):
                     progress = True
                 else:
                     failed.append(orig)
+                    failed_rows.append(row)
             relaxed_any = False
             if not use_sweeps:  # sweeps imply nothing is relaxable
                 for orig in failed:
@@ -455,6 +552,15 @@ class TorchSolver(SolverBackend):
                         ),
                         well_known=self.well_known,
                     ) or FAIL_INCOMPATIBLE
+                # the attribution is a separate pass over the final state:
+                # placements are the same with the flag on or off
+                from karpenter_tpu_torch.obs import explain as obs_explain
+
+                if obs_explain.enabled() and state is not None:
+                    self._explain(
+                        out, problem, state, meta, kinds, failed, failed_rows,
+                        pod_kinds, instance_types, len(pods),
+                    )
                 break
             queue = failed
 

@@ -32,10 +32,12 @@ exception (a kernel build or launch error, a CUDA error, a delta-encode bug)
 is not a standdown: the world is dropped and the exception propagates, so no
 fault of the device path is served quietly by another path.
 
+With ``KARPENTER_TPU_EXPLAIN`` set, the failed rows of a resident cycle are
+attributed against the resident tables (``TorchSolver._explain``).
+
 Not ported: the JAX package's standdowns for subsystems this package does
 not have yet (``runs-mode``, ``shard``, ``order-policy``, ``device-lost``),
-explain attribution on the resident tensors, and the program registry, AOT
-and metrics hooks.
+and the program registry, AOT and metrics hooks.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from karpenter_tpu_torch.ops.fused import (
     patch_world,
     solve_ffd_fused_gate,
     upload_patch,
+    world_problem,
 )
 from karpenter_tpu_torch.ops.padding import pad_problem, pod_axis_bucket, pow2_bucket
 from karpenter_tpu_torch.provisioning.preferences import Preferences
@@ -268,7 +271,7 @@ class DeviceWorld:
             _sync(dev)
         t_dispatch = time.perf_counter()
         state = result.state
-        iters = torch.stack([torch.as_tensor(x, device=dev).reshape(()) for x in result.iters[:2]])
+        iters = torch.stack([torch.as_tensor(x, device=dev).reshape(()) for x in result.iters])
         fetched = _fetch(
             (
                 result.kind, result.index, iters, counts,
@@ -280,7 +283,7 @@ class DeviceWorld:
         )
         t_fetch = time.perf_counter()
         kinds, indices, iters, counts_np, *np_final = fetched
-        backend.last_iters = IterCounts(narrow=int(iters[0]), sweeps=int(iters[1]))
+        backend.last_iters = IterCounts(*(int(x) for x in iters))
         d2h = sum(x.nbytes for x in fetched)
 
         # -- classified post-solve standdowns: reset, legacy serves the cycle --
@@ -300,7 +303,7 @@ class DeviceWorld:
 
         out = SolveResult()
         pod_kinds: Dict[int, tuple] = {}
-        failed = []
+        failed, failed_rows = [], []
         for row in range(len(meta.pod_order)):
             orig = meta.pod_order[row]  # the batch is the full pod list
             kind, index = int(kinds[row]), int(indices[row])
@@ -308,10 +311,19 @@ class DeviceWorld:
                 pod_kinds[orig] = (kind, index)
             else:
                 failed.append(orig)
+                failed_rows.append(row)
         for orig in failed:
             out.failures[orig] = failure_reason(
                 pods[orig], instance_types, templates, well_known=backend.well_known,
             ) or FAIL_INCOMPATIBLE
+        from karpenter_tpu_torch.obs import explain as obs_explain
+
+        if obs_explain.enabled():
+            # attribution reads the resident tables: no host re-upload
+            backend._explain(
+                out, world_problem(self.world.t), state, meta, kinds, failed, failed_rows,
+                pod_kinds, instance_types, len(pods),
+            )
         decode_claim_placements(out, meta, max_claims, np_final, pod_kinds)
         # the composite gate takes the fused counts instead of launching its
         # own; screen, skew and audit still run on the published decode

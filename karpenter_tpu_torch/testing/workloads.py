@@ -23,6 +23,7 @@ from karpenter_tpu_torch.apis.objects import (
     DO_NOT_SCHEDULE,
     GT,
     LT,
+    NOT_IN,
     SCHEDULE_ANYWAY,
     Affinity,
     Container,
@@ -470,6 +471,64 @@ def homogeneous_workload(n: int = 48) -> Workload:
 
 
 # -- the consolidation screen's base pods (tests/test_screen_delta.py shapes) --
+
+
+def _wide_pod(rng: random.Random, i: int, cls: int, selector, requirements) -> Pod:
+    pod = make_pod(i, cpu=[0.25, 0.5, 1.0][cls % 3], mem=1e8, selector=selector, requirements=requirements)
+    pod.metadata.labels = {"grp": f"g{cls % 2}"}
+    if cls % 4 == 1:
+        pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable=DO_NOT_SCHEDULE,
+            label_selector=LabelSelector(match_labels={"grp": "g1"}),
+        )]
+    elif cls % 4 == 3:
+        pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=1, topology_key=wk.LABEL_HOSTNAME, when_unsatisfiable=DO_NOT_SCHEDULE,
+            label_selector=LabelSelector(match_labels={"grp": "g1"}),
+        )]
+    return pod
+
+
+def wide_keys_workload(seed: int = 0, keys: int = 40) -> Workload:
+    """More than 32 label keys: three existing nodes carry ``keys`` custom
+    labels between them, and chains of identical pods select some of them,
+    spread over zones or hostnames, or take any bin."""
+    rng = random.Random(9000 + seed)
+    its = instance_types(8)
+    templates = [simple_template(its, name="a")]
+    per = -(-keys // 3)
+    nodes = [
+        make_node(f"node-{j}", cpu=4.0, zone=ZONES[j],
+                  labels={f"team.example/k{j * per + i}": f"v{rng.randint(0, 2)}" for i in range(per)})
+        for j in range(3)
+    ]
+    pods = []
+    for cls in range(12):
+        selector = {}
+        if cls % 3 == 0:
+            node = nodes[rng.randrange(3)]
+            key = rng.choice(sorted(k for k in node.requirements.keys() if k.startswith("team.example/")))
+            selector[key] = next(iter(node.requirements.get(key).values))
+        for _ in range(rng.randint(1, 6)):
+            pods.append(_wide_pod(rng, len(pods), cls, selector, None))
+    return pods, its, templates, nodes
+
+
+def wide_lanes_workload(seed: int = 0, values: int = 2100) -> Workload:
+    """More than 2,048 value lanes: pods that keep off ``values`` racks
+    (NotIn: the racks enter the vocabulary of one key), beside chains of
+    zone and hostname spread pods and one existing node on a rack."""
+    rng = random.Random(9500 + seed)
+    its = instance_types(8)
+    templates = [simple_template(its, name="a")]
+    racks = [f"rack-{i}" for i in range(values)]
+    nodes = [make_node("node-0", cpu=4.0, labels={"topology.example/rack": racks[7]})]
+    pods = []
+    for cls in range(10):
+        reqs = [("topology.example/rack", NOT_IN, racks[: values - cls])] if cls % 2 == 0 else None
+        for _ in range(rng.randint(1, 6)):
+            pods.append(_wide_pod(rng, len(pods), cls, None, reqs))
+    return pods, its, templates, nodes
 
 
 def _screen_pod(name: str, cpu: float, labels=None, node_selector=None, host_ports=(),

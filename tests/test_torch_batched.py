@@ -25,6 +25,7 @@ from karpenter_tpu.parallel import mesh as j_mesh
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
 from karpenter_tpu_torch.ops.ffd_core import KIND_FAIL
 from karpenter_tpu_torch.parallel import mesh as t_mesh
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 SLOTS = 8
 

@@ -30,6 +30,7 @@ from karpenter_tpu_torch.provisioning.topology import Topology as TTopology
 from karpenter_tpu_torch.solver.encode import Encoder as TEncoder
 from karpenter_tpu_torch.solver.encode import domains_from_instance_types as t_domains
 from karpenter_tpu_torch.testing import workloads as port_workloads
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _reference_workloads():
@@ -59,6 +60,9 @@ WORKLOADS = {
     "chain-2002": lambda m: m.chain_workload(2002),
     "chain-2004": lambda m: m.chain_workload(2004),
     "bounds-1": lambda m: m.bounds_workload(1),
+    # no kernel shape limit: K > 32 label keys, V > 2,048 value lanes
+    "wide-keys": lambda m: m.wide_keys_workload(),
+    "wide-lanes": lambda m: m.wide_lanes_workload(),
     # the two-phase solve's corpora (tests/test_solver_relax_parity.py families)
     "homog-48": lambda m: m.homogeneous_workload(48),
     "bounds-0-free": lambda m: m.bounds_workload(0, with_nodes=False),

@@ -20,6 +20,7 @@ from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 from karpenter_tpu_torch.verify import device as tdev
 from karpenter_tpu_torch.verify import full_gate as t_full_gate
 from tests.test_torch_encode import draw
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 GATE_WORKLOADS = ["fuzz-1", "fuzz-6", "bounds-0", "diverse-280"]
 

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -42,10 +43,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "karpenter_tpu_torch.solver.torch_backend" in report["modules"]
     assert "karpenter_tpu_torch.verify.gate" in report["modules"]
-    # the supervised serve path and what it stands on
+    # the supervised serve path and what it stands on; the chain commits and
+    # the explain pass
     for name in ("metrics.registry", "obs.trace", "obs.slo", "obs.flight", "utils.persist", "testing.faults",
                  "solver.forensics", "solver.oracle", "solver.supervisor", "parallel.mesh", "serve",
-                 "serve.estimator", "serve.pool", "serve.tenant", "serve.batch", "serve.dispatcher"):
+                 "serve.estimator", "serve.pool", "serve.tenant", "serve.batch", "serve.dispatcher",
+                 "ops.ffd_chain", "obs.explain"):
         assert f"karpenter_tpu_torch.{name}" in report["modules"], name
     assert report["bad"] == []
 

@@ -20,7 +20,7 @@ import torch
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, instance_types
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
-from karpenter_tpu_torch.ops import ffd_sweeps, fused, relax
+from karpenter_tpu_torch.ops import ffd_step, ffd_sweeps, fused, relax
 from karpenter_tpu_torch.parallel import mesh
 from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd_plain
@@ -52,6 +52,7 @@ def _c_struct_fields(source: str, struct: str):
         ("relax_place.cu", "RelaxArgs", relax._RELAX_POINTERS, relax._RELAX_INTS),
         ("runs_screen.cu", "RunsArgs", mesh._RS_POINTERS, mesh._RS_INTS),
         ("patch_world.cu", "PatchKernelArgs", fused._PATCH_POINTERS, fused._PATCH_INTS),
+        ("attribute.cu", "AttrArgs", ffd_step._ATTR_POINTERS, ffd_step._ATTR_INTS),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
@@ -75,6 +76,8 @@ def test_launch_wrappers_refuse_cpu_tensors():
         ffd_sweeps.launch_ffd_loop(prob, initial_state(prob, 8), one_pass=False)
     with pytest.raises(ValueError, match="CUDA"):
         relax.launch_relax_place(prob, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffd_step.launch_attribute(prob, initial_state(prob, 8), [0])
     gp = gdev.gate_problem(prob)
     with pytest.raises(ValueError, match="CUDA"):
         gdev.launch_gate_counts(gp, None)
@@ -112,7 +115,7 @@ def _screen_args():
     return init, t, args
 
 
-@pytest.mark.parametrize("kernel", ["ffd_loop", "gate_counts", "runs_screen"])
+@pytest.mark.parametrize("kernel", ["ffd_loop", "gate_counts", "runs_screen", "attribute"])
 def test_args_builders_fill_every_pointer(kernel):
     """One launch's tensors: every struct pointer set from its tensor, the
     carried state copied (a launch leaves its input state alone), scratch
@@ -131,6 +134,12 @@ def test_args_builders_fill_every_pointer(kernel):
         # the lanes' state is the kernel's own: no buffer is shared with init
         assert not any(t[name].data_ptr() in ours for name in state + mesh.RS_INIT if t[name].numel())
         assert all(t[name].shape[0] == 3 for name in state + mesh.RS_LANE_INPUTS + ("kind", "index", "work"))
+    elif kernel == "attribute":
+        prob = problem_to_torch(_encode(W.fuzz_workload(6), 8), "cpu")
+        result = ffd_sweeps.solve_ffd_sweeps(prob, 8)
+        t, args = ffd_step.attribute_args(prob, result.state, torch.arange(4))
+        pointers, state, scratch = ffd_step._ATTR_POINTERS, (), ffd_step.ATTR_SCRATCH
+        assert t["rows"].tolist() == [0, 1, 2, 3] and args.B == 4 and args.NB == 4
     else:
         t, args = gdev.gate_counts_args(*_gate_inputs())
         pointers, state, scratch = gdev._GATE_POINTERS, (), gdev.GATE_SCRATCH
@@ -157,14 +166,17 @@ def test_library_path_tracks_sources_and_flags():
     a = kernels.library_path("ffd_loop")
     assert a == kernels.library_path("ffd_loop")
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
-    assert set(kernels.SOURCES) == {"ffd_loop", "gate_counts", "patch_world", "relax_place", "runs_screen"}
+    assert set(kernels.SOURCES) == {"attribute", "ffd_loop", "gate_counts", "patch_world", "relax_place",
+                                    "runs_screen"}
     assert set(kernels.LAUNCHES) == set(kernels.SOURCES)
 
 
 def test_step_is_shared_by_the_loop_and_the_screen():
     """ffd_loop.cu and runs_screen.cu compile the one per-pod step of
-    step.cuh: neither defines its own, and the loop writes each verdict row
-    from the step's Shared::kind / index right after the call."""
+    step.cuh: neither defines its own. The loop's one-pass mode writes each
+    verdict row from the step's Shared::kind / index right after the call;
+    its sweeps modes write every committed chain member's row after the
+    narrow iteration of chain.cuh, which evaluates through the same step."""
     step = (CSRC / "step.cuh").read_text()
     assert "__device__ void step(const A& a, int p, Shared& s" in step
     assert "a.kind[" not in step and "a.index[" not in step
@@ -174,7 +186,11 @@ def test_step_is_shared_by_the_loop_and_the_screen():
         assert "void step(" not in text and "bool bin_gate(" not in text and "void group_prep(" not in text
     loop = (CSRC / "ffd_loop.cu").read_text()
     assert loop.count("step(a, p, s, s_gmin, s_boot, s_nothing, s_maxcap);\n      if (tid == 0) {\n"
-                      "        a.kind[p] = s.kind;\n        a.index[p] = s.index;") == 2
+                      "        a.kind[p] = s.kind;\n        a.index[p] = s.index;") == 1
+    assert loop.count("narrow_iter(a, p, s, cs, s_gmin, s_boot, s_nothing, s_maxcap);") == 1
+    chain = (CSRC / "chain.cuh").read_text()
+    assert '#include "step.cuh"' in chain and "step_eval(a, p, s" in chain and "step_commit(a, p, s" in chain
+    assert "a.kind[" not in chain and "bool bin_gate(" not in chain
 
 
 @pytest.fixture
@@ -221,12 +237,118 @@ def test_ffd_loop_matches_plain(cuda, name):
     rk = ffd_sweeps.solve_ffd_sweeps(prob, slots)
     rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), bf)
     _assert_same(rk, rp)
-    assert int(rk.iters.sweeps) == rp.iters.sweeps and int(rk.iters.narrow) == rp.iters.narrow
+    assert tuple(int(x) for x in rk.iters) == tuple(rp.iters)
     work = dict(zip(ffd_sweeps.WORK_COUNTERS, rk.work.cpu().tolist()))
     assert work["bin_gates"] >= rp.iters.narrow and work["barriers"] >= 4 * rp.iters.narrow
     init = initial_state(prob, slots)
     rk1 = ffd_sweeps.launch_ffd_loop(prob, init, one_pass=True)
     _assert_same(rk1, solve_ffd_plain(prob, init, bf))
+
+
+# chain-heavy corpora at 128 slots: chain-3000 commits through every branch
+# (waterfill, round, spread mini-scan), chain-3003 most spread commits
+CHAIN_CORPORA = {
+    "chain-3000": (lambda: W.chain_workload(3000), 128),
+    "chain-3003": (lambda: W.chain_workload(3003), 128),
+    "diverse-300": (lambda: W.diverse_workload(300, 40, seed=7), 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CHAIN_CORPORA)
+def test_ffd_loop_chain_commits_match_plain(cuda, name):
+    """The chain commits of ffd_loop's sweeps modes against the plain loop:
+    fresh, carried (seeded with all-FAIL verdict rows) and fused (the
+    resident world's launch), each exact on kind/index, state and all four
+    IterCounts fields."""
+    make, slots = CHAIN_CORPORA[name]
+    padded = _encode(make(), slots)
+    prob = problem_to_torch(padded, cuda)
+    bf = problem_bounds_free(prob)
+    rk = ffd_sweeps.solve_ffd_sweeps(prob, slots)
+    rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), bf)
+    _assert_same(rk, rp)
+    assert tuple(int(x) for x in rk.iters) == tuple(rp.iters) and rp.iters.chain_commits > 0
+    ck = ffd_sweeps.solve_ffd_sweeps_carried(prob, slots, init=ffd_sweeps.fresh_carry(prob, slots))
+    _assert_same(ck, rp)
+    assert tuple(int(x) for x in ck.iters) == tuple(rp.iters)
+    world = fused.adopt_world(padded, slots, cuda)
+    pc = torch.ones((prob.num_pods,), dtype=torch.bool, device=cuda)
+    fk, _ = fused.solve_ffd_fused_gate(world, pc, slots, bf)
+    _assert_same(fk, rp)
+    assert tuple(int(x) for x in fk.iters) == tuple(rp.iters)
+
+
+# no kernel shape limit: K = 64 keys (40 label keys and the well-known ones,
+# bucketed), V = 2,560 value lanes (W = 80 words, two 64-word chunks)
+WIDE_CORPORA = {"wide-keys": W.wide_keys_workload, "wide-lanes": W.wide_lanes_workload}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WIDE_CORPORA)
+def test_wide_shapes_match_plain(cuda, name):
+    """ffd_loop (sweeps and one pass) and runs_screen (stacked, one and three
+    passes) at K > 32 and V > 2,048 against their plain versions."""
+    prob = problem_to_torch(_encode(WIDE_CORPORA[name](), 32), cuda)
+    assert prob.num_keys > 32 or prob.num_lanes > 2048
+    bf = problem_bounds_free(prob)
+    rk = ffd_sweeps.solve_ffd_sweeps(prob, 32)
+    rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, 32), bf)
+    _assert_same(rk, rp)
+    assert tuple(int(x) for x in rk.iters) == tuple(rp.iters)
+    init = initial_state(prob, 32)
+    _assert_same(ffd_sweeps.launch_ffd_loop(prob, init, one_pass=True), solve_ffd_plain(prob, init, bf))
+    batch = mesh.stack_problems([prob, prob])
+    for passes in (1, 3):
+        sk = mesh.batched_screen(batch, 32, passes)
+        sp = mesh.batched_screen_plain(batch, 32, passes)
+        torch.cuda.synchronize()
+        assert torch.equal(sk.kind.cpu(), sp.kind.cpu()) and torch.equal(sk.index.cpu(), sp.index.cpu())
+        a, b = numpy_fields(sk.state), numpy_fields(sp.state)
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+ATTR_CORPORA = ("fuzz-6", "bounds-0", "topology-3", "chain-2001-overflow")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ATTR_CORPORA + tuple(WIDE_CORPORA))
+def test_attribute_matches_plain(cuda, name):
+    """The attribute kernel against attribute_plain: the words of every
+    active row against the final state of the solve, exact."""
+    make, slots = CORPORA[name] if name in CORPORA else (WIDE_CORPORA[name], 32)
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    result = ffd_sweeps.solve_ffd_sweeps(prob, slots)
+    rows = torch.nonzero(prob.pod_active).reshape(-1)
+    aprob, state = _lane_align(prob, result.state)
+    words, work = ffd_step.launch_attribute(aprob, state, rows)
+    plain = ffd_step.attribute_plain(prob, result.state, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(words.cpu(), plain.cpu())
+    work = dict(zip(ffd_step.ATTR_WORK_COUNTERS, work.cpu().tolist()))
+    assert work["bin_gates"] >= rows.numel()
+
+
+@pytest.mark.cuda
+def test_shared_memory_beyond_the_card_is_a_device_error(cuda):
+    """A shape whose dynamic shared memory exceeds what a block of the card
+    may opt into is a launch the runtime refuses: KernelDeviceError, no
+    count, and the next launch runs (the refusal does not linger)."""
+    make, slots = CORPORA["fuzz-6"]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    result = ffd_sweeps.solve_ffd_sweeps(prob, slots)
+    rows = torch.nonzero(prob.pod_active).reshape(-1)
+    aprob, state = _lane_align(prob, result.state)
+    t, args = ffd_step.attribute_args(aprob, state, rows)  # t keeps the pointed-to tensors
+    args.G = 1 << 20  # 3 G ints of dynamic shared memory: 12 MiB a block
+    before = kernels.LAUNCHES["attribute"]
+    with pytest.raises(kernels.KernelDeviceError, match="launch error"):
+        kernels.launch("attribute", args, torch.cuda.current_stream(cuda).cuda_stream)
+    assert kernels.LAUNCHES["attribute"] == before
+    words, _ = ffd_step.launch_attribute(aprob, state, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(words.cpu(), ffd_step.attribute_plain(prob, result.state, rows).cpu())
 
 
 @pytest.mark.cuda
@@ -263,7 +385,7 @@ def test_relax_place_and_carried_loop_match_plain(cuda, name):
     aprob, state = _lane_align(residue, rp.state)
     cp = ffd_sweeps.sweeps_plain(aprob, state, problem_bounds_free(aprob), rp.kind, rp.index)
     _assert_same(ck, cp)
-    assert int(ck.iters.sweeps) == cp.iters.sweeps and int(ck.iters.narrow) == cp.iters.narrow
+    assert tuple(int(x) for x in ck.iters) == tuple(cp.iters)
 
 
 @pytest.mark.cuda

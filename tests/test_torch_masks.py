@@ -13,6 +13,7 @@ from karpenter_tpu.models.problem import GT_NONE, LT_NONE, ReqTensor as JReq
 from karpenter_tpu.ops import masks as jm
 from karpenter_tpu_torch.models.problem import ReqTensor as TReq
 from karpenter_tpu_torch.ops import masks as tm
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 K, V, E, T, O = 4, 64, 9, 11, 5
 SEEDS = (0, 1, 2)

@@ -22,6 +22,7 @@ from karpenter_tpu_torch.models.problem import RUN_ANALYTIC, RUN_TOPO, numpy_fie
 from karpenter_tpu_torch.ops.ffd_core import KIND_FAIL, initial_state
 from karpenter_tpu_torch.ops.ffd_runs import has_topo_runs, max_run_bucket, runs_scan_plain, solve_ffd_runs
 from tests import test_torch_encode as TE
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 TE.WORKLOADS.setdefault("topology-4", lambda m: m.topology_workload(4))
 TE.WORKLOADS.setdefault("rtopo-11", lambda m: m.relax_topology_workload(11))

@@ -29,6 +29,7 @@ from karpenter_tpu_torch.parallel import mesh
 from karpenter_tpu_torch.testing import workloads as W
 from tests.test_screen_delta import verdict_key
 from tests.test_torch_encode import reference_workloads as RW
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 N_CAND = 8
 SUBSETS = [list(range(k + 1)) for k in range(N_CAND)] + [[k] for k in range(N_CAND)] + [[3, 7], [0, 5, 6]]

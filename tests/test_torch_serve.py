@@ -44,6 +44,7 @@ from karpenter_tpu_torch.solver.encode import template_from_nodepool
 from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 from karpenter_tpu_torch.streaming.churn import default_pod_factory
 from karpenter_tpu_torch.testing.workloads import make_pod
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 CPU = "cpu"
 

@@ -16,6 +16,7 @@ from karpenter_tpu.solver.jax_backend import JaxSolver
 from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 from tests.test_solver_parity import _same_requirements
 from tests.test_torch_encode import draw
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 CASES = ["fuzz-1", "fuzz-6", "bounds-0", "diverse-280", "chain-2000", "topology-3"]
 SLOW = ["chain-2003", "topology-8"]
@@ -55,6 +56,7 @@ def test_solver_parity(name):
     assert (ts.last_iters is None) == (js.last_iters is None)
     if ts.last_iters is not None:
         assert ts.last_iters.sweeps == js.last_iters.sweeps
+        assert tuple(ts.last_iters) == tuple(int(x) for x in js.last_iters[:4])
 
 
 @pytest.mark.slow

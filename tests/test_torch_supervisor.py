@@ -29,6 +29,7 @@ import bench
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.testing import workloads as TW
 from tests.test_torch_encode import draw
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _side(root, diverse):
@@ -417,16 +418,24 @@ def test_oracle_placements_equal_the_jax_oracle(corpus):
 
 
 def test_oracle_refuses_explain(monkeypatch):
-    """With KARPENTER_TPU_EXPLAIN set, a solve that leaves pods unplaced
-    raises instead of returning a result without the attribution."""
+    """With KARPENTER_TPU_EXPLAIN set, the oracle no longer refuses: a solve
+    that leaves pods unplaced attributes them (obs/explain.py), as the JAX
+    package's oracle does, and a solve with nothing unplaced has no report."""
+    from karpenter_tpu_torch.obs import explain as obs_explain
+
     pods, its, tpls = small_problem(PORT)
     pods = pods + [PORT.objects.Pod(metadata=PORT.objects.ObjectMeta(name="huge"), spec=PORT.objects.PodSpec(
         containers=[PORT.objects.Container(requests={"cpu": 10000.0})]))]
-    assert PORT.Oracle().solve(pods, its, tpls).failures
+    assert PORT.Oracle().solve(pods, its, tpls).explain is None
     monkeypatch.setenv("KARPENTER_TPU_EXPLAIN", "1")
-    with pytest.raises(NotImplementedError, match="KARPENTER_TPU_EXPLAIN"):
-        PORT.Oracle().solve(pods, its, tpls)
-    assert not PORT.Oracle().solve(pods[:4], its, tpls).failures  # nothing to attribute
+    try:
+        result = PORT.Oracle().solve(pods, its, tpls)
+        huge = len(pods) - 1
+        assert result.explain.pods.keys() == result.failures.keys() == {huge}
+        assert result.explain.pods[huge].reason == obs_explain.REASON_RESOURCES
+        assert PORT.Oracle().solve(pods[:4], its, tpls).explain is None  # nothing to attribute
+    finally:
+        obs_explain.reset_ring()
 
 
 def test_streaming_layer_is_refused(monkeypatch):

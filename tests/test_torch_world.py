@@ -69,6 +69,7 @@ from karpenter_tpu_torch.streaming import churn, device_world
 from karpenter_tpu_torch.streaming.delta import DeltaEncoder
 from karpenter_tpu_torch.verify import device as gdev
 from tests.test_torch_solver import assert_same_results
+import tests.torch_threads  # noqa: F401  (one intra-op thread)
 
 PODS, ITS, NODES, CYCLES, SLOTS = 120, 12, 3, 7, 32
 SEED = 5
@@ -357,9 +358,10 @@ def resident_runs(corpus):
             world = {k: v.clone() for k, v in dw._device_world.world.t.items()}
             runs.append(dict(
                 r=r, outcome=dw.last_world_outcome, world=world, last_cycle=dict(dw._device_world.last_cycle),
+                iters=dw.last_iters,
                 legacy=legacy.solve(c["pods"], corpus["its"], corpus["tpls"], nodes=c["nodes"]),
                 jr=js.solve(c["jpods"], corpus["jits"], corpus["jtpls"], nodes=c["jnodes"]),
-                joutcome=js._device_world.last_outcome,
+                joutcome=js._device_world.last_outcome, jiters=js.last_iters,
             ))
     finally:
         mp.undo()
@@ -379,7 +381,9 @@ def test_device_world_matches_legacy_and_jax(corpus, resident_runs):
                         "patched", "repatched"]
     dw = resident_runs["solver"]
     assert dw._device_world.cold_solves == 2 and dw._device_world.cycles == CYCLES
-    assert dw.last_iters.sweeps >= 1 and dw.last_iters.narrow >= PODS
+    assert dw.last_iters.sweeps >= 1
+    for cycle, run in enumerate(resident_runs["runs"]):
+        assert tuple(run["iters"]) == tuple(int(x) for x in run["jiters"][:4]), cycle
     lc = resident_runs["runs"][-1]["last_cycle"]
     assert lc["h2d_bytes"] < lc["world_bytes"] / 4 and 0.0 <= lc["overlap_frac"] <= 1.0
     assert set(dw.last_timing) == {"encode", "patch", "relax", "device", "decode"}
@@ -552,3 +556,61 @@ def test_churn_batch_slots_match_chip_smoke(monkeypatch):
     result = js.solve(pods, jits, jtpls)
     assert result.num_scheduled() == chip_smoke.CHURN_PODS and len(result.new_claims) == 39
     assert js.claim_slots == chip_smoke.CHURN_SLOTS
+
+
+@pytest.mark.parametrize("limit,expected", [
+    (16.0, {"claim-capacity"}),
+    (None, {"resources", "requirements"}),
+])
+def test_resident_cycles_explain_like_the_ordinary_solve_and_jax(monkeypatch, limit, expected):
+    """With KARPENTER_TPU_EXPLAIN on, a resident cycle attributes its failed
+    rows against the resident tables: on the adopting cycle and on a patched
+    one, the report's pods, reasons and hints equal those of the port's
+    ordinary solve and of the JAX package's resident path. One pod asks for
+    more cpu than any type has, one for a zone that does not exist; a
+    NodePool cpu limit leaves more pods unscheduled (claim-capacity)."""
+    from karpenter_tpu.obs import explain as jox
+    from karpenter_tpu_torch.obs import explain as tox
+
+    monkeypatch.setenv("KARPENTER_TPU_DEVICE_WORLD", "1")
+    monkeypatch.setenv("KARPENTER_TPU_RELAX", "0")
+    resident = []  # the resident hook rebuilds its problem from the world tables
+    real_world_problem = device_world.world_problem
+    monkeypatch.setattr(device_world, "world_problem", lambda t: resident.append(1) or real_world_problem(t))
+    batches = {}
+    for pkg, mod in (("port", churn), ("jax", jchurn)):
+        its, tpls = _catalog(pkg, limit=None if limit is None else {"cpu": limit})
+        rng = random.Random(11)
+        pods = [mod.default_pod_factory(f"p-{i}", rng) for i in range(16)]
+        pods[3].spec.containers[0].requests["cpu"] = 10_000.0
+        pods[7].spec.node_selector = {wk.LABEL_TOPOLOGY_ZONE: "no-such-zone"}
+        batches[pkg] = (pods, its, tpls)
+
+    def report(result):
+        assert result.explain is not None and result.explain.pods.keys() == result.failures.keys()
+        return {k: (e.reason, e.hint) for k, e in result.explain.pods.items()}
+
+    for ox in (jox, tox):
+        ox.set_enabled(True)
+    try:
+        dw = TorchSolver(device="cpu", relax=False, device_world=True)
+        js = JaxSolver()
+        outcomes = []
+        for cycle in range(2):
+            (pods, its, tpls), (jpods, jits, jtpls) = batches["port"], batches["jax"]
+            if cycle:  # one pod leaves: the resident world is patched
+                pods, jpods = pods[1:], jpods[1:]
+            r = dw.solve(pods, its, tpls)
+            jr = js.solve(jpods, jits, jtpls)
+            outcomes.append(dw.last_world_outcome)
+            assert outcomes[-1] == js._device_world.last_outcome, cycle
+            ref = TorchSolver(device="cpu", relax=False).solve(pods, its, tpls)
+            assert _placements(pods, r) == _placements(pods, ref)
+            reasons = report(r)
+            assert reasons == report(ref) == report(jr), cycle
+            assert {reason for reason, _ in reasons.values()} == expected, reasons
+        assert outcomes == ["adopt-first-encode", "patched"] and len(resident) == 2
+    finally:
+        for ox in (jox, tox):
+            ox.set_enabled(None)
+            ox.reset_ring()
