@@ -11,7 +11,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      rounding ladder that demotes pods, relaxable pods in one-pass mode,
      chain-heavy populations whose chains commit through every branch, more
      than 32 label keys and 2,560 value lanes). ``ffd_loop`` (fresh,
-     carried from phase 1, one-pass) and ``relax_place`` must match exactly
+     carried from phase 1, one-pass, and fresh with a scored requeue on
+     SCORED_CORPORA), ``relax_place`` in both modes (the waterfill, and the
+     convex phase 1 with every Relax2Stats field bit for bit) must match exactly
      on kind/index, residue, stats, integer and bool state and all four
      IterCounts fields (narrow iterations, sweeps, chain commits, chain
      pods), and within rtol 1e-5 on float state; ``attribute`` must give the
@@ -19,8 +21,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      every gate family must fail somewhere; ``runs_screen`` (stacked) must
      equal its plain version at the wide shapes; ``gate_counts`` must give
      identical counts on clean results and on results corrupted to trip each
-     invariant. Whole solves with ``relax`` on and off must equal the plain
-     path's ``TorchSolver(device="cpu")``.
+     invariant; ``lane_scores`` must be within 1e-6 of its plain version.
+     Whole solves with ``relax`` on and off, and with
+     ``KARPENTER_TPU_RELAX2`` or ``KARPENTER_TPU_ORDER_POLICY`` on, must equal
+     the plain path's ``TorchSolver(device="cpu")``.
   2. the main path at full width: ``TorchSolver().solve`` (the default
      two-phase solve: ``relax_place``, the carried ``ffd_loop``, the relaxed
      gate) on 10,000 pods of the reference's diverse mix against 400 catalog
@@ -90,14 +94,25 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      state, the report's reasons equal to the plain words' decode; then the
      kernel alone, wrapped and plain on the limited batch's rows, and the
      explain overhead.
-  7. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  7. the flag-gated phase-1 and order paths at full width (the JAX
+     package's flags): ``KARPENTER_TPU_RELAX2=1`` on phase 2's batch and on
+     10,000 pods of homogeneous_workload's five sizes against the 400 types
+     (relax_place's convex mode, program 17, counted as ``relax2_place``),
+     ``KARPENTER_TPU_ORDER_POLICY=1`` on phase 2's batch fresh and carried
+     (``lane_scores``, program 6, and the scored ``ffd_loop``): each solve's
+     launch counts, ``full_gate`` clean, IterCounts, scheduled pods, claims
+     and phase-1 stats equal to the JAX package's (EXPECT_RELAX2,
+     EXPECT_POLICY); then the convex mode and ``lane_scores`` alone, wrapped
+     and plain at those shapes, each equal to plain, the homogeneous carried
+     repair and the scored fresh loop against their plain loops.
+  8. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
      are computed, and for ``ffd_loop`` the latency floor of its barriers and
      its fresh and one-pass modes. Bytes are those of the kernel's own
      arguments. The churn and serve phases' records ride in the same line.
-  8. the card's name and power limit; the last line is the device JSON.
+  9. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -106,6 +121,7 @@ only torch, numpy and karpenter_tpu_torch.
 import ctypes
 import dataclasses
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -127,6 +143,9 @@ FLOAT_ATOL = 1e-6
 MAIN_PODS = 10000  # the north-star batch
 ONE_PASS_PODS = 2500  # the one-pass scan's depth in phase 2 (its plain loop is per pod)
 SOLVE_KERNELS = ("ffd_loop", "gate_counts", "relax_place")
+# phase 1's corpora whose requeue the scored ffd_loop sorts against its plain
+# loop (the scored plain loop is a second plain loop per corpus)
+SCORED_CORPORA = ("chain-2000", "topology-3", "homogeneous-48")
 
 # the consolidation screen's cluster: the bench scorer widened to the screen's
 # 200-candidate basis; the JAX package's counts on these subsets, read on the
@@ -167,6 +186,43 @@ WIDE_ITS = 400
 # the 10,000 pods on the card)
 EXPLAIN_CPU_LIMIT = 8000.0
 
+# the flag-gated phase-1 and order paths (phase 7): the JAX package's own
+# values for each full-width run, read from its JaxSolver(initial_claim_slots
+# =128) on the CPU. KARPENTER_TPU_RELAX2=1 on phase 2's batch and on 10,000
+# pods of homogeneous_workload's five sizes against the 400 catalog types;
+# KARPENTER_TPU_ORDER_POLICY=1 (the committed artifact) on phase 2's batch,
+# fresh (the JAX package's KARPENTER_TPU_RELAX=0) and carried from the
+# waterfill. IterCounts are (narrow, sweeps, chain commits, chain pods).
+FLAG_ENV = ("KARPENTER_TPU_RELAX2", "KARPENTER_TPU_RELAX2_ITERS", "KARPENTER_TPU_RELAX2_STEP",
+            "KARPENTER_TPU_RELAX2_TOL", "KARPENTER_TPU_ORDER_POLICY", "KARPENTER_TPU_ORDER_POLICY_LANES",
+            "KARPENTER_TPU_ORDER_POLICY_WEIGHTS")
+EXPECT_RELAX2 = {
+    "diverse": dict(iters=(1937, 2, 1332, 5112), scheduled=10000, claims=111,
+                    stats=dict(eligible=4288, placed=4288, demoted=0, claims=60, pgd_iterations=24, overflow=0,
+                               round_demoted=0),
+                    residual=0.0013015065342187881, capviol=0.0),
+    "homogeneous": dict(iters=(8, 1, 0, 0), scheduled=10000, claims=18,
+                        stats=dict(eligible=10000, placed=9992, demoted=8, claims=18, pgd_iterations=24, overflow=0,
+                                   round_demoted=7),
+                        residual=0.005609273910522461, capviol=0.008820994757115841),
+}
+EXPECT_POLICY = {
+    "fresh": dict(iters=(2067, 1, 1400, 9333), scheduled=10000, claims=118, relax=None),
+    "carried": dict(iters=(1971, 1, 1313, 5054), scheduled=10000, claims=113,
+                    relax=dict(eligible=4288, placed=4288, demoted=0, claims=30)),
+}
+# the convex phase's two float stats against the JAX package's: the float32
+# adds of the bin loads and the gradient step round in another order there
+# (its CPU build may contract a multiply and an add), by 1.5e-4 relative on
+# the homogeneous bulk's overload (ROADMAP.md, section C)
+STAT_RTOL = 1e-3
+SCORE_ATOL = 1e-6  # lane scores, kernel against plain: log1p may differ by an ulp
+GATE_REPEATS = 20  # phase 7: gate_counts launches on each result, each equal to plain
+# float32 operations per valid (pod, window column) pair and trip of the
+# convex phase: the load's multiply and add, and the update's overload,
+# price, gradient, step, clip, row sum, rescale and change (ops/relax2.py)
+PGD_COLUMN_OPS = 18
+
 
 def log(msg):
     print(msg, flush=True)
@@ -188,7 +244,9 @@ def run(dev) -> int:
     from karpenter_tpu_torch import kernels
     from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
     from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
+    from karpenter_tpu_torch.ops import policy as POL
     from karpenter_tpu_torch.ops import relax as RX
+    from karpenter_tpu_torch.ops import relax2 as R2
     from karpenter_tpu_torch.ops.ffd_core import _lane_align, _pad_lanes_mult32, initial_state, problem_bounds_free
     from karpenter_tpu_torch.ops.ffd_step import attribute_plain, launch_attribute, solve_ffd, solve_ffd_plain
     from karpenter_tpu_torch.ops.ffd_sweeps import (
@@ -203,6 +261,7 @@ def run(dev) -> int:
     from karpenter_tpu_torch.ops.padding import pad_problem
     from karpenter_tpu_torch.parallel import mesh
     from karpenter_tpu_torch.provisioning.topology import Topology
+    from karpenter_tpu_torch.solver import ordering
     from karpenter_tpu_torch.solver.encode import Encoder, domains_from_instance_types
     from karpenter_tpu_torch.solver.torch_backend import TorchSolver
     from karpenter_tpu_torch.testing import workloads as W
@@ -210,6 +269,9 @@ def run(dev) -> int:
     from karpenter_tpu_torch.verify import device as gdev
     from karpenter_tpu_torch.verify.gate import _build_args
 
+    # phases 1-6 run with the flag-gated paths off, as a deployment's default
+    for name in FLAG_ENV:
+        os.environ.pop(name, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -275,6 +337,16 @@ def run(dev) -> int:
             raise AssertionError(f"{tag}: relax_place stats {sk} != plain {sp}")
         return compare_state(f"{tag} relax_place", rk.state, rp.state)
 
+    def compare_relax2(tag, rk, rp):
+        """The convex mode against its plain version: every stat exact (the
+        two float stats bit for bit), then as compare_relax."""
+        sk, sp = R2.host_stats(rk.stats), R2.host_stats(rp.stats)
+        if sk != sp:
+            raise AssertionError(f"{tag}: relax2 stats {sk} != plain {sp}")
+        return compare_relax(f"{tag} convex", rk._replace(stats=()), rp._replace(stats=()))
+
+    weights = ordering.lane_weights_static()  # the committed artifact's lane head
+
     # -- 1. kernel vs plain -------------------------------------------------
     t_phase = time.perf_counter()
     log("phase 1: kernels vs plain PyTorch on the card")
@@ -309,11 +381,12 @@ def run(dev) -> int:
     vol_wl, vol_sets = W.volume_workload(0)
     corpora = [(tag, wl, slots, None) for tag, wl, slots in corpora]
     corpora.append(("volumes-0", vol_wl, 32, vol_sets))
-    ffd_err = relax_err = 0.0
+    ffd_err = relax_err = relax2_err = score_err = 0.0
     attr_err = 0
     saw = {"nodes": False, "bounded": False, "noslot": False, "ports": False, "volumes": False,
            "phase1-bounded": False, "phase1-nodes": False, "ladder-demotes": False, "slot-overflow": False,
-           "chain-commits": False, "keys>32": False, "lanes>2048": False}
+           "chain-commits": False, "keys>32": False, "lanes>2048": False,
+           "convex-placed": False, "convex-demoted": False, "convex-overflow": False, "scored-requeue": False}
     families = 0  # gate families the attribute kernel saw fail, over all corpora
     for tag, wl, slots, vols in corpora:
         host = encode(wl, slots, pod_volumes=vols)
@@ -375,17 +448,59 @@ def run(dev) -> int:
             saw["phase1-nodes"] |= prob.num_nodes > 0
         saw["ladder-demotes"] |= demoted > 0 and claims < slots
         saw["slot-overflow"] |= demoted > 0 and claims == slots
+        # the convex phase 1 (program 17): relax_place's convex mode
+        yk = R2.launch_relax2_place(_pad_lanes_mult32(prob), slots, R2.pgd_iters(), R2.pgd_step())
+        yp = R2.relax2_place_plain(prob, slots)
+        relax2_err = max(relax2_err, compare_relax2(tag, yk, yp))
+        ys = R2.host_stats(yp.stats)
+        saw["convex-placed"] |= ys.placed > 0
+        saw["convex-demoted"] |= ys.round_demoted > 0
+        saw["convex-overflow"] |= ys.overflow > 0
+        # the learned order (program 6): lane_scores, then the scored loop
+        sk = POL.launch_lane_scores(_pad_lanes_mult32(prob), weights)[0]
+        sp = POL.lane_scores_plain(prob, weights)
+        torch.cuda.synchronize()
+        score_err = max(score_err, float((sk.cpu() - sp.cpu()).abs().max()))
+        if score_err > SCORE_ATOL:
+            raise AssertionError(f"{tag}: lane_scores differ from plain by {score_err}")
+        if tag in SCORED_CORPORA:
+            rks = solve_ffd_sweeps(prob, slots, order_scores=sk)
+            rps = sweeps_plain(prob, initial_state(prob, slots), bf, order_scores=sk)
+            ffd_err = max(ffd_err, compare_results(f"{tag} scored", rks, rps))
+            saw["scored-requeue"] |= int(rks.iters.sweeps) > 1
         log(f"  {tag}: pods={len(wl[0])} P={prob.num_pods} C={slots} N={prob.num_nodes} "
             f"K={prob.num_keys} V={prob.num_lanes} G={prob.num_groups} "
             f"bounds_free={bf} iters={tuple(int(x) for x in rk.iters)} "
             f"kinds={np.bincount(rk.kind.cpu().numpy(), minlength=5).tolist()} "
-            f"phase1 eligible/placed/demoted/claims={eligible}/{placed}/{demoted}/{claims} ok")
+            f"phase1 eligible/placed/demoted/claims={eligible}/{placed}/{demoted}/{claims} "
+            f"convex placed/round-demoted/overflow={ys.placed}/{ys.round_demoted}/{ys.overflow} ok")
     missing = [k for k, v in saw.items() if not v]
     if missing:
         raise AssertionError(f"phase 1 corpora do not cover: {missing}")
     if families != 0x7F:
         raise AssertionError(f"attribute: the corpora make only families {families:#x} of 0x7f fail")
     log("  attribute == plain on every corpus; every gate family failed somewhere")
+    log(f"  relax_place convex mode == plain on every corpus; lane_scores within {score_err:.3g} of plain; "
+        f"scored ffd_loop == plain on {', '.join(SCORED_CORPORA)}")
+
+    # whole solves with each flag on: the kernel path against the plain CPU path
+    for tag, wl in (("homogeneous-48", W.homogeneous_workload(48)), ("fuzz-1", W.fuzz_workload(1))):
+        for env in ({"KARPENTER_TPU_RELAX2": "1"}, {"KARPENTER_TPU_ORDER_POLICY": "1"}):
+            os.environ.update(env)
+            try:
+                sg = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=dev, relax=False)
+                rg = sg.solve(*wl)
+                sc = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", relax=False)
+                rc = sc.solve(*wl)
+            finally:
+                for name in env:
+                    os.environ.pop(name, None)
+            drop = lambda d: d and {k: v for k, v in d.items() if k != "phase_s"}  # noqa: E731
+            if (rg.new_claims, rg.node_pods, rg.failures) != (rc.new_claims, rc.node_pods, rc.failures) \
+                    or drop(sg.last_relax2) != drop(sc.last_relax2) or sg.last_iters != sc.last_iters:
+                raise AssertionError(f"{tag} {env}: TorchSolver on cuda differs from the plain CPU path")
+            log(f"  solve {tag} {env}: cuda == cpu ({rg.num_scheduled()}/{len(wl[0])} scheduled, "
+                f"convex {drop(sg.last_relax2)}, iters {sg.last_iters})")
 
     # whole solves: the kernel path against the plain CPU path, with the
     # two-phase solve on (the default) and off
@@ -520,6 +635,8 @@ def run(dev) -> int:
     for name in SOLVE_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
+    if launches["relax2_place"] or launches["lane_scores"]:
+        raise AssertionError(f"main path launched a flag-gated kernel with its flag off: {launches}")
     if solver.relax_fallbacks != 0 or solver.last_relax is None or solver.last_relax["placed"] <= 0:
         raise AssertionError(f"main path: phase 1 did not place or was rejected: {solver.last_relax}, "
                              f"fallbacks {solver.relax_fallbacks}")
@@ -529,8 +646,7 @@ def run(dev) -> int:
     for relax in (True, False):
         drive(relax)
     # the relax=False solve runs no phase 1 and gates nothing itself
-    if launches_off != {"attribute": 0, "ffd_loop": launches_off["ffd_loop"], "gate_counts": 0, "patch_world": 0,
-                        "relax_place": 0, "runs_screen": 0} \
+    if launches_off != {**{name: 0 for name in kernels.LAUNCHES}, "ffd_loop": launches_off["ffd_loop"]} \
             or launches_off["ffd_loop"] <= 0 or launches["runs_screen"] != 0 or launches["attribute"] != 0:
         raise AssertionError(f"relax=False path launched {launches_off}")
     if sched != len(pods) or sched < result_off.num_scheduled():
@@ -728,6 +844,8 @@ def run(dev) -> int:
     churn_entries, churn = churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
     stacked = serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, (pods, its, tpls, nodes), result)
     attr_entry = explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_err)
+    relax2_entry, lane_entry = flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results,
+                                           compare_relax2, relax2_err, score_err)
 
     line = {
         "kernels": [
@@ -794,6 +912,8 @@ def run(dev) -> int:
                 "stats": stats,
                 "launches_relax_off": launches_off["relax_place"],
             },
+            relax2_entry,
+            lane_entry,
             rs,
             *churn_entries,
             stacked,
@@ -810,6 +930,270 @@ def run(dev) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results, compare_relax2,
+                relax2_err, score_err):
+    """Phase 7: the flag-gated phase-1 and order paths at full width, each
+    through ``TorchSolver.solve`` with the launch counts read around it,
+    ``full_gate`` of the result, and IterCounts and phase-1 stats equal to
+    the JAX package's (EXPECT_*): ``KARPENTER_TPU_RELAX2=1`` on phase 2's
+    batch and on a 10,000-pod homogeneous bulk (relax_place's convex mode,
+    program 17, then the carried ffd_loop); ``KARPENTER_TPU_ORDER_POLICY=1``
+    on phase 2's batch fresh and carried (lane_scores, program 6, then the
+    scored ffd_loop). Then the convex mode and lane_scores alone, through
+    their wrappers and plain, at those shapes, each equal to its plain
+    version, and the scored fresh loop against its plain loop once. Returns
+    the ``relax2_place`` and ``lane_scores`` entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.ops import policy as POL
+    from karpenter_tpu_torch.ops import relax as RX
+    from karpenter_tpu_torch.ops import relax2 as R2
+    from karpenter_tpu_torch.ops.ffd_core import _lane_align, _pad_lanes_mult32, initial_state, problem_bounds_free
+    from karpenter_tpu_torch.ops.ffd_sweeps import (
+        ffd_loop_args,
+        solve_ffd_sweeps,
+        solve_ffd_sweeps_carried,
+        sweeps_plain,
+    )
+    from karpenter_tpu_torch.solver import ordering
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.testing import workloads as W
+    from karpenter_tpu_torch.ops.relax_common import ordered_sum
+    from karpenter_tpu_torch.verify import device as gdev
+    from karpenter_tpu_torch.verify import full_gate
+    from karpenter_tpu_torch.verify.gate import _build_args
+
+    t_phase = time.perf_counter()
+    log("phase 7: convex phase 1 and the learned order at full width")
+    diverse = W.diverse_workload(MAIN_PODS, 400, seed=42)
+    homogeneous = W.homogeneous_workload(MAIN_PODS, 400)
+
+    def drive(tag, workload, env, relax, expect):
+        """One solve through the entry point with ``env`` set, the launch
+        counts set to 0 just before it and read just after; then
+        ``full_gate`` and the JAX package's IterCounts, scheduled pods and
+        claims."""
+        os.environ.update(env)
+        ordering.reset_for_tests()
+        try:
+            solver = TorchSolver(initial_claim_slots=128, device=dev, relax=relax)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = solver.solve(*workload)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            for name in env:
+                os.environ.pop(name, None)
+        outcome = full_gate(result, *workload)
+        torch.cuda.synchronize()
+        gp, ga, gbf = _build_args(result.verify_ctx, result, workload[0], None)
+        if outcome is None or outcome.violations or outcome.counts or outcome.mode != "device":
+            raise AssertionError(f"{tag}: gate rejected or could not run: {outcome}; {claims_over(gp, ga)}")
+        got = (tuple(solver.last_iters), result.num_scheduled(), len(result.new_claims))
+        if got != (expect["iters"], expect["scheduled"], expect["claims"]):
+            raise AssertionError(f"{tag}: iters/scheduled/claims {got} != the JAX package's {expect}")
+        # the gate's per-bin sums are taken in pod order: repeated launches
+        # on the result give the plain version's sums bit for bit, and its
+        # counts (all zero)
+        C = ga.claim_tpl.shape[0]
+        pb = ga.pod_bin.long()
+        want_sum = ordered_sum(torch.where((pb >= 0) & (pb < C), pb, C), gp.pod_requests, C)
+        want_counts = gdev.gate_counts_plain(gp, ga, gbf)
+        gsets = [gdev.gate_counts_args(gp, ga) for _ in range(GATE_REPEATS)]
+        time_launches("gate_counts", gsets)
+        if want_counts.any() or any(not (torch.equal(t["summed"], want_sum) and torch.equal(t["counts"], want_counts))
+                                    for t, _ in gsets):
+            raise AssertionError(f"{tag}: a repeated gate_counts launch differs from plain ({want_counts.tolist()})")
+        log(f"  {tag}: scheduled {got[1]}/{len(workload[0])} claims={got[2]} iters={got[0]} (== JAX) "
+            f"wall {wall * 1e3:.1f} ms {({k: round(v * 1e3, 1) for k, v in solver.last_timing.items()})} "
+            f"launches {launches}; gate clean ({outcome.mode}); {GATE_REPEATS} more gate_counts launches: "
+            f"sums bit-equal to plain, counts 0; {claims_over(gp, ga, margin=True)}")
+        return solver, result, launches, wall
+
+    def claims_over(gp, ga, margin=False):
+        """The claims whose pod-order float32 load fits none of their listed
+        types (with ``margin``: the tightest claim instead), each with its
+        load on the binding resource against the best listed type's
+        capacity + eps, in float32 and float64, and the relative slack."""
+        C = ga.claim_tpl.shape[0]
+        pb = ga.pod_bin.long()
+        idx = torch.where((pb >= 0) & (pb < C), pb, C)
+        tpl = ga.claim_tpl.long().clamp(0, gp.tpl_overhead.shape[0] - 1)
+        load32 = ordered_sum(idx, gp.pod_requests, C) + gp.tpl_overhead[tpl]
+        load64 = torch.zeros((C + 1, gp.pod_requests.shape[1]), dtype=torch.float64, device=dev)
+        load64 = load64.index_add_(0, idx, gp.pod_requests.double())[:C] + gp.tpl_overhead[tpl].double()
+        cap = gp.it_alloc.double() + 1e-6 + 1e-6 * gp.it_alloc.double().abs()  # [T, R] what fits admits
+        rel = ((load32.double()[:, None, :] - cap[None]) / cap[None]).amax(-1)  # [C, T] > 0: does not fit
+        best = torch.where(ga.claim_its, rel, torch.inf).amin(-1)
+        best = torch.where(ga.claim_active & ga.claim_its.any(-1), best, -torch.inf)
+        pick = [int(best.argmax())] if margin else torch.nonzero(best > 0).flatten().tolist()[:5]
+        rows = []
+        for c in pick:
+            t = int(torch.where(ga.claim_its[c], rel[c], torch.inf).argmin())
+            r = int(((load32[c].double() - cap[t]) / cap[t]).argmax())
+            rows.append(f"claim {c} ({int((idx == c).sum())} pods) type {t} resource {r}: load f32 "
+                        f"{float(load32[c, r])!r} f64 {float(load64[c, r])!r}, capacity + eps "
+                        f"{float(cap[t, r])!r}, relative slack {float(best[c])!r}")
+        return ("tightest " if margin else "over: ") + ("; ".join(rows) or "none")
+
+    def full_problem(result, n):
+        """The solve's padded device problem with every pod active (its
+        context holds the repair pass's residue)."""
+        prob = result.verify_ctx.device_problem
+        active = torch.arange(prob.num_pods, device=dev) < n
+        return _pad_lanes_mult32(dataclasses.replace(prob, pod_active=active))
+
+    def want_launches(tag, launches, **want):
+        expected = {**{name: 0 for name in kernels.LAUNCHES}, **want}
+        if launches != expected:
+            raise AssertionError(f"{tag}: launched {launches}, not {expected}")
+
+    iters, step = R2.pgd_iters(), R2.pgd_step()
+    runs = {}
+    for tag, workload in (("diverse", diverse), ("homogeneous", homogeneous)):
+        expect = EXPECT_RELAX2[tag]
+        solver, result, launches, wall = drive(f"relax2 {tag}", workload, {"KARPENTER_TPU_RELAX2": "1"}, True, expect)
+        want_launches(f"relax2 {tag}", launches, relax2_place=1, ffd_loop=1, gate_counts=1)
+        info = solver.last_relax2
+        if info["reason"] is not None or solver.relax_fallbacks or solver.last_relax is not None:
+            raise AssertionError(f"relax2 {tag}: the convex phase did not serve: {info}")
+        stats = {k: info[k] for k in ("eligible", "placed", "demoted", "claims", "pgd_iterations")}
+        stats.update(overflow=info["rounding"]["overflow"], round_demoted=info["rounding"]["demoted"])
+        if stats != expect["stats"] or not np.allclose([info["residual"], info["capviol"]],
+                                                       [expect["residual"], expect["capviol"]],
+                                                       rtol=STAT_RTOL, atol=FLOAT_ATOL):
+            raise AssertionError(f"relax2 {tag}: phase-1 stats {info} != the JAX package's {expect}")
+        prob = full_problem(result, len(workload[0]))
+        C = result.verify_ctx.max_claims
+        yk = R2.relax2_place(prob, C)
+        if R2.host_stats(yk.stats)._asdict() != {**stats, "residual": info["residual"], "capviol": info["capviol"]}:
+            raise AssertionError(f"relax2 {tag}: the kernel on the rebuilt problem gives {R2.host_stats(yk.stats)}")
+        sets = [(t, a) for t, _, a in (RX.relax_place_args(prob, C, convex=(iters, step)) for _ in range(5))]
+        k_ms, k_all = time_launches("relax_place", sets)
+        for t, _ in sets:
+            if not (torch.equal(t["kind"], yk.kind) and torch.equal(t["index"], yk.index)
+                    and R2.host_stats(R2.stats_of(t["stats"])) == R2.host_stats(yk.stats)):
+                raise AssertionError(f"relax2 {tag}: a timed launch differs from the wrapper's")
+        wrap_ms, _ = time_ms(lambda: R2.relax2_place(prob, C), 5)
+        yp, p_ms = plain_ms(lambda: R2.relax2_place_plain(prob, C))
+        relax2_err = max(relax2_err, compare_relax2(f"relax2 {tag}", yk, yp))
+        work = dict(zip(RX.WORK_COUNTERS, sets[0][0]["work"].cpu().tolist()))
+        # the carried repair from the convex phase: IterCounts as the JAX
+        # package's (checked in drive); kernel against plain on the bulk
+        residue, astate = _lane_align(dataclasses.replace(prob, pod_active=yk.residue_active), yk.state)
+        ck = solve_ffd_sweeps_carried(residue, C, (yk.state, yk.kind, yk.index))
+        if tuple(int(x) for x in ck.iters) != expect["iters"]:
+            raise AssertionError(f"relax2 {tag}: carried loop iters {tuple(ck.iters)} != {expect['iters']}")
+        if tag == "homogeneous":
+            cp = sweeps_plain(residue, astate, problem_bounds_free(residue), yk.kind, yk.index)
+            compare_results(f"relax2 {tag} carried", ck, cp)
+        # bound: relax_place's operation count (type tests, record lanes,
+        # the per-pod screen) plus the convex trips' float32 operations
+        K, V, R, O = prob.num_keys, prob.num_lanes, prob.num_resources, prob.offer_ok.shape[1]
+        P, N, G, TPL = prob.num_pods, prob.num_nodes, prob.num_groups, prob.num_templates
+        Wd, PT, D = V // 32, prob.pod_ports.shape[1], prob.pod_vol_counts.shape[1]
+        nbytes = io_bytes(sets[0][0], RX.RELAX_STATE, RX.RELAX_SCRATCH)
+        int_ops = (work["type_tests"] * (K * Wd + O) + work["record_lanes"] * 2
+                   + P * (2 * PT + 3 * G + 2 + (K * Wd + 4 * K + TPL) + N * (K * Wd + D + 2)))
+        flt_ops = work["type_tests"] * 2 * R + P * R * 6 + P * N * 2 * R + work["pgd_columns"] * PGD_COLUMN_OPS
+        b_ms, b_by = bound(nbytes, int_ops, flt_ops)
+        runs[tag] = dict(ms=k_ms, wrapper_ms=wrap_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, work=work,
+                         bytes=nbytes, int_ops=int_ops, float_ops=flt_ops, launches=launches["relax2_place"],
+                         solve_ms=wall * 1e3, phase1=info, iters=expect["iters"])
+        log(f"  relax2 {tag}: kernel {k_ms:.4f} ms median of {[round(x, 4) for x in k_all]}, wrapper {wrap_ms:.4f} ms, "
+            f"plain {p_ms:.1f} ms, kernel == plain; work {work}; bytes {nbytes}, int ops {int_ops:.4g}, "
+            f"float ops {flt_ops:.4g}; bound {b_ms:.5f} ms ({b_by})")
+
+    # the learned order: fresh (relax off) and carried from the waterfill
+    pol = {}
+    for tag, relax in (("fresh", False), ("carried", True)):
+        expect = EXPECT_POLICY[tag]
+        solver, result, launches, wall = drive(f"order-policy {tag}", diverse, {"KARPENTER_TPU_ORDER_POLICY": "1"},
+                                               relax, expect)
+        want = dict(lane_scores=1, ffd_loop=1)
+        if relax:
+            want.update(relax_place=1, gate_counts=1)
+        want_launches(f"order-policy {tag}", launches, **want)
+        if solver.last_relax != expect["relax"]:
+            raise AssertionError(f"order-policy {tag}: phase 1 {solver.last_relax} != the JAX package's")
+        pol[tag] = dict(launches=launches["lane_scores"], solve_ms=wall * 1e3, iters=expect["iters"], result=result)
+
+    # lane_scores and the scored fresh loop at the fresh solve's problem
+    result = pol["fresh"].pop("result")
+    pol["carried"].pop("result")
+    prob = full_problem(result, MAIN_PODS)
+    C = result.verify_ctx.max_claims
+    lane_w = ordering.lane_weights_static()
+    scores = POL.lane_scores(prob, lane_w)
+    sets = [POL.lane_scores_args(prob, lane_w) for _ in range(10)]
+    s_ms, s_all = time_launches("lane_scores", sets)
+    if any(not torch.equal(t["scores"], scores) for t, _ in sets):
+        raise AssertionError("lane_scores: a timed launch differs from the wrapper's")
+    s_wrap_ms, _ = time_ms(lambda: POL.lane_scores(prob, lane_w), 5)
+    sp, s_plain_ms = plain_ms(lambda: POL.lane_scores_plain(prob, lane_w))
+    err = float((scores - sp).abs().max())
+    score_err = max(score_err, err)
+    if err > SCORE_ATOL:
+        raise AssertionError(f"lane_scores at full width: {err} from plain")
+    rf = solve_ffd_sweeps(prob, C, order_scores=scores)
+    if tuple(int(x) for x in rf.iters) != EXPECT_POLICY["fresh"]["iters"]:
+        raise AssertionError(f"scored fresh loop iters {tuple(rf.iters)}")
+    loop_sets = [ffd_loop_args(prob, initial_state(prob, C), False, order_scores=scores) for _ in range(2)]
+    l_ms, _ = time_launches("ffd_loop", loop_sets)
+    rp, l_plain_ms = plain_ms(lambda: sweeps_plain(prob, initial_state(prob, C), problem_bounds_free(prob),
+                                                   order_scores=scores))
+    compare_results("scored fresh loop", rf, rp)
+    K, V, R, P = prob.num_keys, prob.num_lanes, prob.num_resources, prob.num_pods
+    nbytes = io_bytes(sets[0][0])
+    int_ops = P * (2 * K * (V // 32) + K + prob.pod_ports.shape[1] + prob.num_templates + 2 * prob.num_groups)
+    flt_ops = P * (2 * R + 2 * POL.N_LANE_FEATURES + 8)
+    b_ms, b_by = bound(nbytes, int_ops, flt_ops)
+    log(f"  lane_scores: kernel {s_ms:.4f} ms median of {[round(x, 4) for x in s_all]}, wrapper {s_wrap_ms:.4f} ms, "
+        f"plain {s_plain_ms:.1f} ms, max |kernel - plain| {err:.3g}; bytes {nbytes}, bound {b_ms:.5f} ms ({b_by}); "
+        f"scored fresh ffd_loop {l_ms:.3f} ms, plain {l_plain_ms:.1f} ms, kernel == plain, iters "
+        f"{tuple(int(x) for x in rf.iters)}")
+    log(f"  flags phase wall {time.perf_counter() - t_phase:.1f}s")
+    relax2_entry = {
+        "name": "relax2_place",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/relax_place.cu",
+        "replaces": "karpenter_tpu/ops/relax2.py:314",
+        "launches": runs["diverse"]["launches"],
+        "max_abs_err": relax2_err,
+        "ms": runs["diverse"]["ms"],
+        "plain_ms": runs["diverse"]["plain_ms"],
+        "bound_ms": runs["diverse"]["bound_ms"],
+        "bound_by": runs["diverse"]["bound_by"],
+        "library_ms": None,
+        "wrapper_ms": runs["diverse"]["wrapper_ms"],
+        "mode": "relax_place convex (mode 1)",
+        "runs": runs,
+    }
+    lane_entry = {
+        "name": "lane_scores",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/lane_scores.cu",
+        "replaces": "karpenter_tpu/ops/policy.py:102",
+        "also_replaces": ["karpenter_tpu/ops/ffd_sweeps.py:2002", "karpenter_tpu/ops/ffd_sweeps.py:2024"],
+        "launches": pol["fresh"]["launches"],
+        "max_abs_err": score_err,
+        "ms": s_ms,
+        "plain_ms": s_plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "wrapper_ms": s_wrap_ms,
+        "scored_loop_ms": l_ms,
+        "scored_loop_plain_ms": l_plain_ms,
+        "runs": pol,
+    }
+    return relax2_entry, lane_entry
 
 
 def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_err):

@@ -4,6 +4,8 @@
 //   ops/ffd_sweeps.py:1910 _solve_ffd_sweeps_fresh_jit (_sweeps_impl :1632)
 //   ops/ffd_sweeps.py:1922 _solve_ffd_sweeps_carried_jit (seeded with kind0/index0)
 //   ops/ffd_step.py:483/:506 _solve_ffd_jit / _solve_ffd_fresh_jit (one-pass mode)
+//   ops/ffd_sweeps.py:2002/:2024 the learned-order twins of the two sweeps
+//   programs (program 6, with order_scores from lane_scores.cu)
 // In the sweeps modes each iteration evaluates the pod at the queue cursor
 // and commits its chain of chain-identical successors (csrc/chain.cuh, the
 // JAX package's narrow_iter); the one-pass mode steps one pod at a time
@@ -38,6 +40,14 @@
 // lanes of matched groups, instance-type tests, block barriers) into ``work``,
 // so a run's operation and latency bounds are read from what this data
 // needed, not estimated from shapes.
+//
+// With ``order_scores`` (the learned order) the queue of the next sweep is
+// sorted at each sweep boundary, stably by descending score
+// (ops/ffd_sweeps.py:1843-1850): each entry's rank is the number of entries
+// with a higher score or an equal one earlier in the queue (threads over
+// entries; -0.0 equals +0.0), so the sort costs n^2 / THREADS compares, each
+// with two indirect loads, for a requeue of n rows. Its time at a requeue of
+// thousands of rows has not been measured (PERF.md, open questions).
 //
 // This uses one SM of the card's 132. Keeping the claim and instance-type
 // tables resident in shared memory and splitting the claims x types test
@@ -117,6 +127,8 @@ struct FfdArgs {
   // verdict seeds (carried repair pass): null for a fresh solve
   const int* kind0;   // [P]
   const int* index0;  // [P]
+  // the learned order's per-row scores: null without the policy
+  const float* order_scores;  // [P]
   // carried state (updated in place)
   int* claim_adm;
   uint8_t* claim_comp;
@@ -252,9 +264,24 @@ __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
       s.qlen = s.nqlen;
       s.sweeps += 1;
     }
-    int* tmp = q;
-    q = nq;
-    nq = tmp;
+    if (a.order_scores) {
+      // the next queue, sorted into the spent one
+      block_sync();
+      const int n = s.qlen;
+      for (int i = tid; i < n; i += THREADS) {
+        const float si = a.order_scores[nq[i]];
+        int r = 0;
+        for (int k = 0; k < n; ++k) {
+          const float sk = a.order_scores[nq[k]];
+          r += (sk > si) || (sk == si && k < i);
+        }
+        q[r] = nq[i];
+      }
+    } else {
+      int* tmp = q;
+      q = nq;
+      nq = tmp;
+    }
     block_sync();
   }
   if (tid == 0) {

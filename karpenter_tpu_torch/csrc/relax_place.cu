@@ -1,13 +1,18 @@
-// relax_place: phase 1 of the two-phase solve, the dense waterfill, in one launch.
+// relax_place: phase 1 of the two-phase solve in one launch: the dense
+// waterfill, or (mode 1) the convex projected-gradient solve.
 //
-// Replaces the JAX package's device program
+// Replaces the JAX package's device programs
 //   ops/relax.py:162 _relax_place_jit (_relax_impl :124, over
 //   ops/relax_common.py eligibility :70, plan_groups :168, commit_assignment :299)
-// and computes what ops/relax.relax_place_plain computes: the eligibility
-// screen, bin-groups over adjacent byte-equal eligible pods, the template
-// pick, the best-packing instance type and normalised demand, the waterfill
-// slots, the real-gate rounding ladder, and the commit of claims, verdicts
-// and topology counts.
+//   ops/relax2.py:314 _relax2_place_jit (_relax2_impl :226, _pgd_step_op :179,
+//   _round_lff :197; program 17), in mode 1
+// and computes what ops/relax.relax_place_plain (mode 0) and
+// ops/relax2.relax2_place_plain (mode 1) compute: the eligibility screen,
+// bin-groups over adjacent byte-equal eligible pods, the template pick, the
+// best-packing instance type and normalised demand, the slots (the waterfill's,
+// or the convex mode's windows, trips and largest-fraction-first rounding),
+// the real-gate rounding ladder, and the commit of claims, verdicts and
+// topology counts.
 //
 // What bounds it on an H100: little. The work is a few hundred thousand
 // instance-type tests (groups x templates x types, then claims x types per
@@ -25,6 +30,19 @@
 // reductions use atomics, whose order does not matter. So the kernel and the
 // plain version agree bit for bit. Using more blocks for the type tests is
 // later work; at the 10k shape this phase is small beside the repair loop.
+//
+// The convex mode (stage 9c) replaces the waterfill's stage 9. Its
+// fractional assignment X (P x 16 floats, 655 KB at 10k) lives in the
+// workspace. Each trip takes every bin's load with one warp per bin,
+// adding its contributing pods in pod order (a bin's contributors are a
+// contiguous run of its group's pods, whose preferred bins never decrease;
+// the lanes read 32 of them at once and each lane adds the 32 products in
+// order), then updates the rows with one thread per pod (a row's 16 columns
+// summed in order), with block barriers between the two. The rounding compacts each bin's candidates in pod order
+// (a warp per bin), ranks each by descending share then pod index (a
+// thread per candidate, counting over its bin), and admits them in rank
+// order while the bin's running load stays within 1 + 1e-6. These are the
+// plain version's orders, so the two agree bit for bit.
 //
 // The kernel counts its instance-type tests and the topology lanes it
 // records (WORK_*) into ``work``, so a run's operation bound is read from
@@ -45,6 +63,7 @@ using namespace kt;
 namespace {
 
 constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
 constexpr int KIND_CLAIM = 1;
 constexpr int KIND_NEW_CLAIM = 2;
 constexpr int KIND_FAIL = 3;
@@ -52,7 +71,18 @@ constexpr int TYPE_ANTI_AFFINITY = 2;
 
 constexpr int WORK_TYPE_TESTS = 0;    // (row, instance type) survival tests
 constexpr int WORK_RECORD_LANES = 1;  // (claim, group, lane) record tests
-constexpr int NWORK = 2;
+constexpr int WORK_PGD_COLUMNS = 2;   // mode 1: valid (pod, window column) pairs times trips
+constexpr int NWORK = 3;
+
+// the convex mode's constants (ops/relax2.py)
+constexpr int WINDOW = 16;
+constexpr float RHO = 8.0f;
+constexpr float GAMMA = 0.02f;
+constexpr float BETA = 0.05f;
+constexpr float MIN_REL_MASS = 0.9999f;
+constexpr float SCAN_TOL = 0.001f;
+constexpr float ADMIT = 1.000001f;
+constexpr int NSTATS = 9;
 
 }  // namespace
 
@@ -144,11 +174,14 @@ struct RelaxArgs {
   int* kind;                 // [P]
   int* index;                // [P]
   uint8_t* residue;          // [P] pods the repair pass steps
-  int* stats;                // [4] eligible, placed, demoted, claims
+  int* stats;                // [NSTATS] eligible, placed, demoted, claims; mode 1 also
+                             // pgd_iterations, residual and capviol (float bits),
+                             // overflow, round_demoted
   unsigned long long* work;  // [NWORK]: WORK_* counters
   void* workspace;           // relax_place_workspace_bytes() bytes
   // dims
-  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, n_passes;
+  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, n_passes, mode, iters;
+  float step;  // mode 1: the gradient step
 };
 
 // The kernel's working arrays, carved out of RelaxArgs::workspace.
@@ -195,6 +228,22 @@ struct Workspace {
   uint8_t* r_neg;
   float* sums;  // [C, R]
   int* selcnt;  // [C, G] assigned pods selecting each recording group
+  // the convex mode
+  float* X;      // [P, WINDOW] fractional assignment
+  int* pref;     // [P] preferred (warm-start) bin
+  int* lo;       // [P] first slot of the pod's group
+  int* vmask;    // [P] valid window columns
+  int* key_bin;  // [P] rounded bin (C when repaired)
+  float* frac;   // [P] best share
+  int* border;   // [P] candidates by bin, in pod order
+  float* cfrac;  // [P] their best shares
+  int* sorted;   // [P] candidates by bin, then descending share
+  float* gw;     // [C] group mass
+  float* load;   // [C] bin load
+  int* bfirst;   // [C] first / last pod whose window covers the bin
+  int* blast;
+  int* bcount;   // [C] candidates per bin
+  int* bbase;    // [C] first border entry of the bin
 };
 
 namespace {
@@ -252,6 +301,23 @@ size_t carve(const RelaxArgs& a, char* base, Workspace* s) {
   take(s->r_neg, C * K);
   take(s->sums, C * a.R);
   take(s->selcnt, C * a.G);
+  if (a.mode == 1) {
+    take(s->X, P * WINDOW);
+    take(s->pref, P);
+    take(s->lo, P);
+    take(s->vmask, P);
+    take(s->key_bin, P);
+    take(s->frac, P);
+    take(s->border, P);
+    take(s->cfrac, P);
+    take(s->sorted, P);
+    take(s->gw, C);
+    take(s->load, C);
+    take(s->bfirst, C);
+    take(s->blast, C);
+    take(s->bcount, C);
+    take(s->bbase, C);
+  }
   return off;
 }
 
@@ -329,10 +395,238 @@ __device__ void claim_sums(const RelaxArgs& a, const Workspace& s) {
   __syncthreads();
 }
 
+// -- 9c. the convex mode's slots (ops/relax2.relax2_place_plain): each
+// group's bins, the warm start and windows, the projected-gradient trips,
+// and the largest-fraction-first rounding. Called by every thread.
+__device__ void convex_slots(const RelaxArgs& a, const Workspace& s, int* s_stats, unsigned long long* s_work) {
+  __shared__ unsigned s_dmax;  // the trip's max |dX| (float bits; nonnegative)
+  __shared__ unsigned s_cmax;  // the final max overload (float bits)
+  __shared__ int s_conv;
+  __shared__ float s_delta;
+  __shared__ int s_ncand;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int P = a.P, C = a.C;
+
+  // each group's mass (its pods in order) and bins: ceil(mass) + 1
+  for (int g = tid; g < C; g += THREADS) {
+    float m = 0.f;
+    if (s.gvalid[g])
+      for (int p = s.hp[g]; p <= s.glast[g]; ++p)
+        if (s.elig[p]) m += s.w[p];
+    s.gw[g] = m;
+    s.nbins[g] = (s.gvalid[g] && m > 0.f) ? min((int)ceilf(m) + 1, C) : 0;
+  }
+  if (tid == 0) {
+    s_conv = -1;
+    s_dmax = 0;
+    s_cmax = 0;
+    s_delta = INFINITY;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int base = 0;
+    for (int g = 0; g < C; ++g) {
+      s.slotbase[g] = base;
+      base += s.nbins[g];
+    }
+  }
+  __syncthreads();
+
+  // the warm start at the waterfill bin (the float64 prefix sum of stage 9),
+  // the window's valid columns, and each bin's range of covering pods
+  unsigned long long cols = 0;
+  int overflow = 0;
+  for (int p = tid; p < P; p += THREADS) {
+    float* x = s.X + (long)p * WINDOW;
+    int vm = 0;
+    if (s.elig[p]) {
+      const int g = s.gid[p];
+      const int lo = s.slotbase[g], hi = lo + s.nbins[g];
+      const double level = s.start[p] - s.start[s.hp[g]];
+      const int pref = min(lo + max((int)floor(level + 1e-6), 0), max(hi - 1, lo));
+      for (int j = 0; j < WINDOW; ++j) {
+        const int c = pref + j - WINDOW / 2;
+        const bool v = c >= lo && c < hi && c < C;
+        if (v) {
+          vm |= 1 << j;
+          atomicMin(&s.bfirst[c], p);
+          atomicMax(&s.blast[c], p);
+        }
+        x[j] = (v && c == pref) ? 1.f : 0.f;
+      }
+      s.pref[p] = pref;
+      s.lo[p] = lo;
+      if (!vm) ++overflow;
+    } else {
+      for (int j = 0; j < WINDOW; ++j) x[j] = 0.f;
+    }
+    s.vmask[p] = vm;
+    cols += __popc(vm);
+  }
+  if (overflow) atomicAdd(&s_stats[7], overflow);
+  atomicAdd(&s_work[WORK_PGD_COLUMNS], cols * (unsigned long long)(a.iters + 1));
+  __syncthreads();
+
+  // the trips; the last pass (t == iters) takes the final loads only
+  for (int t = 0; t <= a.iters; ++t) {
+    // each bin's load, its covering pods added in pod order: a warp per
+    // bin, its lanes reading 32 pods at once, lane 0 adding their products
+    // in order (a pod that does not cover the bin adds +0, which changes
+    // no sum of nonnegative terms)
+    for (int c = warp; c < C; c += NWARPS) {
+      float l = 0.f;
+      const int last = s.blast[c];
+      for (int base = s.bfirst[c]; base <= last; base += 32) {
+        const int p = base + lane;
+        float v = 0.f;
+        if (p <= last) {
+          const int j = c - s.pref[p] + WINDOW / 2;
+          if (j >= 0 && j < WINDOW && ((s.vmask[p] >> j) & 1)) v = s.X[(long)p * WINDOW + j] * s.w[p];
+        }
+        for (int k = 0; k < 32; ++k) l += __shfl_sync(0xffffffffu, v, k);
+      }
+      if (lane == 0) {
+        s.load[c] = l;
+        if (t == a.iters) atomicMax(&s_cmax, __float_as_uint(fmaxf(l - 1.f, 0.f)));
+      }
+    }
+    __syncthreads();
+    if (t == a.iters) break;
+    // each row: the gradient step, the clip to [0, 1], the rescale of a row
+    // whose mass (its columns added in order) exceeds 1
+    float dmax = 0.f;
+    for (int p = tid; p < P; p += THREADS) {
+      const int vm = s.vmask[p];
+      if (!vm) continue;
+      float* x = s.X + (long)p * WINDOW;
+      const int pref = s.pref[p], lo = s.lo[p];
+      const float w = s.w[p];
+      float xn[WINDOW];
+      float rowsum = 0.f;
+      for (int j = 0; j < WINDOW; ++j) {
+        float v = 0.f;
+        if ((vm >> j) & 1) {
+          const int c = pref + j - WINDOW / 2;
+          const float over = fmaxf(s.load[c] - 1.f, 0.f);
+          const float price = GAMMA * (float)(c - lo) + BETA * (float)abs(c - pref);
+          const float grad = w * ((price - 1.f) + RHO * over);
+          v = fminf(fmaxf(x[j] - a.step * grad, 0.f), 1.f);
+        }
+        xn[j] = v;
+        rowsum += v;
+      }
+      const float d = fmaxf(rowsum, 1.f);
+      for (int j = 0; j < WINDOW; ++j) {
+        const float v = xn[j] / d;
+        dmax = fmaxf(dmax, fabsf(v - x[j]));
+        x[j] = v;
+      }
+    }
+    if (dmax > 0.f) atomicMax(&s_dmax, __float_as_uint(dmax));
+    __syncthreads();
+    if (tid == 0) {
+      s_delta = __uint_as_float(s_dmax);
+      if (s_conv < 0 && s_delta < SCAN_TOL) s_conv = t + 1;
+      s_dmax = 0;
+    }
+    __syncthreads();
+  }
+
+  // rounding: each pod's heaviest column (the first of equal ones) names its
+  // bin; a pod whose best share times its valid columns is below
+  // MIN_REL_MASS is repaired
+  for (int p = tid; p < P; p += THREADS) {
+    const int vm = s.vmask[p];
+    const float* x = s.X + (long)p * WINDOW;
+    int best = 0;
+    float fr = (vm & 1) ? x[0] : -1.f;
+    for (int j = 1; j < WINDOW; ++j) {
+      const float v = ((vm >> j) & 1) ? x[j] : -1.f;
+      if (v > fr) {
+        fr = v;
+        best = j;
+      }
+    }
+    const int slot = vm ? s.pref[p] + best - WINDOW / 2 : -1;
+    const bool cand = vm && fr * (float)__popc(vm) >= MIN_REL_MASS;
+    s.key_bin[p] = cand ? slot : C;
+    s.frac[p] = fr;
+    s.slot[p] = slot;
+    s.assigned[p] = 0;
+    if (cand) atomicAdd(&s.bcount[slot], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int base = 0;
+    for (int c = 0; c < C; ++c) {
+      s.bbase[c] = base;
+      base += s.bcount[c];
+    }
+    s_ncand = base;
+  }
+  __syncthreads();
+  // each bin's candidates in pod order (a warp per bin compacts its range)
+  for (int c = warp; c < C; c += NWARPS) {
+    const int last = s.blast[c];
+    int n = s.bbase[c];
+    for (int base = s.bfirst[c]; base <= last; base += 32) {
+      const int p = base + lane;
+      const bool is = p <= last && s.key_bin[p] == c;
+      const unsigned m = __ballot_sync(0xffffffffu, is);
+      if (is) {
+        const int i = n + __popc(m & ((1u << lane) - 1u));
+        s.border[i] = p;
+        s.cfrac[i] = s.frac[p];
+      }
+      n += __popc(m);
+    }
+  }
+  __syncthreads();
+  // each candidate's rank in its bin: descending share, then pod index
+  for (int i = tid; i < s_ncand; i += THREADS) {
+    const int c = s.key_bin[s.border[i]];
+    const int lo = s.bbase[c], hi = lo + s.bcount[c];
+    const float f = s.cfrac[i];
+    int r = 0;
+    for (int k = lo; k < hi; ++k) r += s.cfrac[k] > f || (s.cfrac[k] == f && k < i);
+    s.sorted[lo + r] = s.border[i];
+  }
+  __syncthreads();
+  // each bin admits its candidates in that order while its running load
+  // stays within ADMIT
+  for (int c = tid; c < C; c += THREADS) {
+    float l = 0.f;
+    for (int i = s.bbase[c]; i < s.bbase[c] + s.bcount[c]; ++i) {
+      l += s.w[s.sorted[i]];
+      s.assigned[s.sorted[i]] = l <= ADMIT;
+    }
+  }
+  __syncthreads();
+  int round_demoted = 0;
+  for (int p = tid; p < P; p += THREADS) {
+    const bool as = s.elig[p] && s.assigned[p];
+    s.assigned[p] = as;
+    if (s.elig[p] && !as) ++round_demoted;
+    if (as) {
+      const int sl = s.slot[p];
+      atomicMax(&s.g_of_c[sl], s.gid[p]);
+      atomicMin(&s.cfirst[sl], p);
+      atomicMax(&s.clast[sl], p);
+    }
+  }
+  if (round_demoted) atomicAdd(&s_stats[8], round_demoted);
+  if (tid == 0) {
+    s_stats[4] = s_conv >= 0 ? s_conv : a.iters;
+    s_stats[5] = __float_as_int(s_delta);
+    s_stats[6] = (int)s_cmax;
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Workspace s) {
   __shared__ int s_scan[THREADS];
   __shared__ int s_all_inf;
-  __shared__ int s_stats[4];
+  __shared__ int s_stats[NSTATS];
   __shared__ unsigned long long s_work[NWORK];
   const int tid = threadIdx.x;
   const int P = a.P, K = a.K, W = a.W, C = a.C, T = a.T, TPL = a.TPL, R = a.R, G = a.G, V = a.V;
@@ -346,7 +640,7 @@ __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Wo
     for (int i = 0; i < a.TPL * R; ++i) all_inf &= isinf(a.remaining[i]) ? 1 : 0;
     s_all_inf = all_inf;
   }
-  if (tid < 4) s_stats[tid] = 0;
+  if (tid < NSTATS) s_stats[tid] = 0;
   if (tid < NWORK) s_work[tid] = 0;
   for (int c = tid; c < C; c += THREADS) {
     s.hp[c] = 0;
@@ -359,6 +653,11 @@ __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Wo
     s.firstp[c] = P;
     s.npods[c] = 0;
     s.open[c] = 0;
+    if (a.mode == 1) {
+      s.bfirst[c] = P;
+      s.blast[c] = -1;
+      s.bcount[c] = 0;
+    }
   }
   __syncthreads();
 
@@ -541,7 +840,8 @@ __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Wo
   // -- 9. the waterfill: one float64 prefix sum in pod order
   // (ops/relax.waterfill_bins); a pod's bin is floor(level + 1e-6) with level
   // the demand of its group's earlier pods; a group takes as many slots as
-  // its highest bin, in group order
+  // its highest bin, in group order. The convex mode takes its warm start
+  // from the same sum (stage 9c).
   if (tid == 0) {
     double acc = 0.0;
     for (int p = 0; p < P; ++p) {
@@ -550,39 +850,42 @@ __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Wo
     }
   }
   __syncthreads();
-  for (int p = tid; p < P; p += THREADS) {
-    if (!s.elig[p]) continue;
-    const int g = s.gid[p];
-    const double level = s.start[p] - s.start[s.hp[g]];
-    const int b = max((int)floor(level + 1e-6), 0);
-    s.binp[p] = b;
-    atomicMax(&s.nbins[g], b);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int base = 0;
-    for (int g = 0; g < C; ++g) {
-      s.slotbase[g] = base;
-      base += s.gvalid[g] ? s.nbins[g] + 1 : 0;
+  if (a.mode == 1) convex_slots(a, s, s_stats, s_work);
+  if (a.mode == 0) {
+    for (int p = tid; p < P; p += THREADS) {
+      if (!s.elig[p]) continue;
+      const int g = s.gid[p];
+      const double level = s.start[p] - s.start[s.hp[g]];
+      const int b = max((int)floor(level + 1e-6), 0);
+      s.binp[p] = b;
+      atomicMax(&s.nbins[g], b);
     }
-  }
-  __syncthreads();
-  // slots beyond C overflow to the repair pass
-  for (int p = tid; p < P; p += THREADS) {
-    bool as = false;
-    if (s.elig[p]) {
-      const int sl = s.slotbase[s.gid[p]] + s.binp[p];
-      s.slot[p] = sl;
-      as = sl < C;
-      if (as) {
-        atomicMax(&s.g_of_c[sl], s.gid[p]);
-        atomicMin(&s.cfirst[sl], p);
-        atomicMax(&s.clast[sl], p);
+    __syncthreads();
+    if (tid == 0) {
+      int base = 0;
+      for (int g = 0; g < C; ++g) {
+        s.slotbase[g] = base;
+        base += s.gvalid[g] ? s.nbins[g] + 1 : 0;
       }
     }
-    s.assigned[p] = as;
-  }
-  __syncthreads();
+    __syncthreads();
+    // slots beyond C overflow to the repair pass
+    for (int p = tid; p < P; p += THREADS) {
+      bool as = false;
+      if (s.elig[p]) {
+        const int sl = s.slotbase[s.gid[p]] + s.binp[p];
+        s.slot[p] = sl;
+        as = sl < C;
+        if (as) {
+          atomicMax(&s.g_of_c[sl], s.gid[p]);
+          atomicMin(&s.cfirst[sl], p);
+          atomicMax(&s.clast[sl], p);
+        }
+      }
+      s.assigned[p] = as;
+    }
+    __syncthreads();
+  }  // mode 0
 
   // -- 10. claim rows: the owning group's merged template row, pinned to the
   // slot's minted hostname (ffd_core._pin_hostname)
@@ -741,7 +1044,7 @@ __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Wo
   }
   atomicAdd(&s_work[WORK_TYPE_TESTS], tests);
   __syncthreads();
-  if (tid < 4) a.stats[tid] = s_stats[tid];
+  if (tid < NSTATS) a.stats[tid] = s_stats[tid];
   if (tid < NWORK) a.work[tid] = s_work[tid];
 }
 

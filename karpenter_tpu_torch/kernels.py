@@ -39,6 +39,7 @@ SOURCES = {
     "attribute": "attribute.cu",
     "ffd_loop": "ffd_loop.cu",
     "gate_counts": "gate_counts.cu",
+    "lane_scores": "lane_scores.cu",
     "patch_world": "patch_world.cu",
     "relax_place": "relax_place.cu",
     "runs_screen": "runs_screen.cu",
@@ -48,6 +49,7 @@ _SYMBOLS = {
     "attribute": ("attribute_launch", "attribute_args_size"),
     "ffd_loop": ("ffd_loop_launch", "ffd_loop_args_size"),
     "gate_counts": ("gate_counts_launch", "gate_args_size"),
+    "lane_scores": ("lane_scores_launch", "lane_scores_args_size"),
     "patch_world": ("patch_world_launch", "patch_world_args_size"),
     "relax_place": ("relax_place_launch", "relax_place_args_size"),
     "runs_screen": ("runs_screen_launch", "runs_screen_args_size"),
@@ -59,7 +61,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# launches per kernel; a mode with a program of its own counts under its own
+# name (relax_place's convex mode as relax2_place)
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, "relax2_place")}
 
 
 class KernelCompileError(RuntimeError):
@@ -141,9 +145,10 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, args: ctypes.Structure, stream: int) -> None:
+def launch(name: str, args: ctypes.Structure, stream: int, counter: Optional[str] = None) -> None:
     """Launch kernel ``name`` with its argument struct on a CUDA stream
-    handle; raises KernelDeviceError on a launch error. Counts the launch."""
+    handle; raises KernelDeviceError on a launch error. Counts the launch
+    under ``counter`` (default ``name``)."""
     lib = library(name)
     launch_sym, size_sym = _SYMBOLS[name]
     expected = getattr(lib, size_sym)()
@@ -154,11 +159,14 @@ def launch(name: str, args: ctypes.Structure, stream: int) -> None:
     rc = getattr(lib, launch_sym)(ctypes.addressof(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise KernelDeviceError(f"{name}: CUDA launch error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
 
 
-def make_struct(name: str, pointer_fields: Iterable[str], int_fields: Iterable[str]):
+def make_struct(name: str, pointer_fields: Iterable[str], int_fields: Iterable[str],
+                float_fields: Iterable[str] = ()):
     """A ctypes.Structure class with the given pointer fields, then int32
-    fields — the layout of the C argument structs in csrc/."""
-    fields = [(f, ctypes.c_void_p) for f in pointer_fields] + [(f, ctypes.c_int) for f in int_fields]
+    fields, then float32 fields — the layout of the C argument structs in
+    csrc/."""
+    fields = ([(f, ctypes.c_void_p) for f in pointer_fields] + [(f, ctypes.c_int) for f in int_fields]
+              + [(f, ctypes.c_float) for f in float_fields])
     return type(name, (ctypes.Structure,), {"_fields_": fields})

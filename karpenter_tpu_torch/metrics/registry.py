@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``metrics/registry.py``: the same counter,
 gauge and histogram classes under the ``karpenter`` namespace, the same
 duration buckets, and the same bounded tenant label. Only the series the
 ported layers write are registered here: the solver supervisor's
-(solver/supervisor.py), the serve layer's (serve/), and those of the
-observability hooks they call (obs/). Names, labels and buckets equal the
+(solver/supervisor.py), the serve layer's (serve/), those of the
+observability hooks they call (obs/), the phase-1 fallbacks of the backend
+(solver/torch_backend.py) and the learned order's (solver/ordering.py). Names, labels and buckets equal the
 JAX package's.
 """
 
@@ -182,6 +183,36 @@ VALIDATOR_REJECTIONS = REGISTRY.counter(
 SOLVE_DEADLINE_EXCEEDED = REGISTRY.counter(
     "solve_deadline_exceeded_total",
     "Solves abandoned by the wall-clock watchdog",
+)
+
+RELAX_FALLBACK = REGISTRY.counter(
+    "solver_relax_fallback_total",
+    "Phase-1 relaxation fallbacks, by classified reason: gate-rejected "
+    "covers both phase-1 solvers' validator re-solves (KARPENTER_TPU_RELAX "
+    "waterfill and KARPENTER_TPU_RELAX2 convex solve); the convex solve "
+    "additionally classifies its standdowns (finite-pool, ports, topology, "
+    "no-eligible, non-convergence, rounding-overflow, error) before falling "
+    "through to the waterfill",
+)
+
+# -- learned ordering policy series (solver/ordering.py, ops/policy.py) -------
+ORDER_POLICY_LOADS = REGISTRY.counter(
+    "solver_order_policy_loads_total",
+    "Ordering-policy weight artifact load resolutions, by outcome (loaded, "
+    "or the classified degrade to built-in zero weights: missing, truncated, "
+    "corrupt, checksum, version-skew) — a bad artifact costs nothing, not "
+    "even iterations",
+)
+ORDER_POLICY_SOLVES = REGISTRY.counter(
+    "solver_order_policy_solves_total",
+    "Learned-ordering score evaluations, by part (host = FFD tie-break over "
+    "Pod objects, lane = policy sweeps solve dispatched with the requeue "
+    "scorer)",
+)
+ORDER_POLICY_SCORE_SECONDS = REGISTRY.histogram(
+    "solver_order_policy_score_seconds",
+    "Wall time of the host-side ordering-policy score pass (feature "
+    "extraction + scorer head) per ffd_order call",
 )
 
 # -- solve-cycle tracing (obs/trace.py) ----------------------------------------

@@ -4,13 +4,20 @@ The reference's Solve loop requeues failed pods and retries while any
 placement makes progress (scheduler.go:150-170): a pod whose required
 pod-affinity peers were placed later in the queue succeeds on the next sweep.
 This is the JAX package's ``ops/ffd_sweeps._sweeps_impl`` without its
-flag-gated branches: a compact queue of the active rows in FFD order; each
+wavefront branch: a compact queue of the active rows in FFD order; each
 sweep walks the queue in narrow iterations (ops/ffd_chain.py: one pod
 evaluated, its chain of chain-identical successors committed in closed form)
 and queues the KIND_FAIL rows for the next sweep; the loop stops when a sweep
 makes no progress or a pod hit KIND_NO_SLOT (the backend then retries with
 more claim slots, at the same sweep boundary as the JAX package).
 ``IterCounts`` counts as the JAX package does.
+
+The learned order (``KARPENTER_TPU_ORDER_POLICY``, program 6; the JAX
+package's policy sweeps entries): given ``order_scores`` (one score per row,
+ops/policy.lane_scores over the weights of solver/ordering.py), the loop
+sorts the next sweep's queue at each sweep boundary stably by descending
+score (equal scores, -0.0 and +0.0 among them, keep their queue order, so
+identical adjacent rows stay adjacent for the chain commits).
 
 Two implementations of the same function:
   * ``sweeps_plain`` — plain PyTorch, one ``ffd_chain`` narrow iteration at a
@@ -47,10 +54,11 @@ from karpenter_tpu_torch.ops.ffd_step import clone_state
 
 
 def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
-                 kind0=None, index0=None) -> FFDResult:
+                 kind0=None, index0=None, order_scores=None) -> FFDResult:
     """Plain PyTorch requeue loop (see module docstring). ``kind0``/``index0``
     seed the verdict rows of pods the loop does not step (the carried repair
-    pass: phase 1's placements); unseeded rows start KIND_FAIL / -1."""
+    pass: phase 1's placements); unseeded rows start KIND_FAIL / -1.
+    ``order_scores`` (f32[P]) sorts each sweep's requeue by descending score."""
     P = problem.num_pods
     C = init.claim_open.shape[0]
     dev = problem.lane_valid.device
@@ -59,6 +67,7 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
     chain = chain_flags(problem)
     xs = _pod_xs(problem, bounds_free)
     active = problem.pod_active.cpu().tolist()
+    score = None if order_scores is None else order_scores.cpu().tolist()
     queue = [p for p in range(P) if active[p]]
     kinds = [KIND_FAIL] * P if kind0 is None else kind0.cpu().tolist()
     idxs = [-1] * P if index0 is None else index0.cpu().tolist()
@@ -81,6 +90,8 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
                 chain_pods += k
             i += k
         progress = len(nq) < len(queue)
+        if score is not None:
+            nq.sort(key=lambda row: -score[row])  # stable; -0.0 == 0.0
         queue = nq
         sweeps += 1
     return FFDResult(
@@ -91,30 +102,33 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
     )
 
 
-def solve_ffd_sweeps(problem: SchedulingProblem, max_claims: int) -> FFDResult:
+def solve_ffd_sweeps(problem: SchedulingProblem, max_claims: int, order_scores=None) -> FFDResult:
     """Run all retry sweeps of a solve from a fresh state: one ``ffd_loop``
-    launch for CUDA tensors, the plain version for CPU tensors."""
+    launch for CUDA tensors, the plain version for CPU tensors.
+    ``order_scores`` as in ``sweeps_plain``."""
     problem = _pad_lanes_mult32(problem)
     init = initial_state(problem, max_claims)
     if problem.lane_valid.is_cuda:
-        return launch_ffd_loop(problem, init, one_pass=False)
-    return sweeps_plain(problem, init, problem_bounds_free(problem))
+        return launch_ffd_loop(problem, init, one_pass=False, order_scores=order_scores)
+    return sweeps_plain(problem, init, problem_bounds_free(problem), order_scores=order_scores)
 
 
-def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init) -> FFDResult:
+def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init, order_scores=None) -> FFDResult:
     """The repair pass of the two-phase solve (ops/relax.py): ``init`` is
     (state, kind, index) from phase 1, ``problem.pod_active`` holds only the
     residue. The loop starts from phase 1's claim landscape, and phase 1's
     verdict rows ride through untouched because their pods are never stepped.
     One ``ffd_loop`` launch for CUDA tensors, the plain version for CPU
-    tensors. ``max_claims`` must equal the carried state's claim axis."""
+    tensors. ``max_claims`` must equal the carried state's claim axis.
+    ``order_scores`` as in ``sweeps_plain``."""
     state, kind0, index0 = init
     if state.claim_open.shape[0] != max_claims:
         raise ValueError(f"carried state has {state.claim_open.shape[0]} claim slots, not {max_claims}")
     problem, state = _lane_align(problem, state)
     if problem.lane_valid.is_cuda:
-        return launch_ffd_loop(problem, state, one_pass=False, kind0=kind0, index0=index0)
-    return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0)
+        return launch_ffd_loop(problem, state, one_pass=False, kind0=kind0, index0=index0,
+                               order_scores=order_scores)
+    return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0, order_scores)
 
 
 def fresh_carry(problem: SchedulingProblem, max_claims: int):
@@ -146,7 +160,7 @@ _FFD_INPUTS = (
     "node_avail", "node_vol_limits",
     "grp_type", "grp_key", "grp_max_skew", "grp_min_domains", "grp_inverse", "grp_has_filter",
     "flt_adm", "flt_comp", "flt_def", "flt_gt", "flt_lt", "flt_neg", "flt_valid",
-    "host_lane", "kind0", "index0",
+    "host_lane", "kind0", "index0", "order_scores",
 )
 # the carried state, read and updated in place
 FFD_STATE = (
@@ -184,18 +198,18 @@ def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = Fal
 
 
 def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
-                    kind0=None, index0=None) -> FFDResult:
+                    kind0=None, index0=None, order_scores=None) -> FFDResult:
     """Run the ``ffd_loop`` kernel on CUDA tensors: the requeue loop, or with
     ``one_pass`` a single scan over every row (the backend's per-pass mode).
     ``kind0``/``index0`` (i32[P], both or neither) seed the verdict rows, as
     in ``sweeps_plain``. ``init`` is not modified. The kernel evaluates the
     general (bounded) arm of the mask algebra, which equals the bounds-free
     arm on problems without Gt/Lt bounds, so there is no separate bounds-free
-    kernel path."""
+    kernel path. ``order_scores`` (f32[P]) sorts each sweep's requeue."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_ffd_loop needs CUDA tensors")
-    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0)
+    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0, order_scores)
     kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream)
 
     state = state_back(t, problem.num_lanes)
@@ -306,17 +320,18 @@ def state_back(t: dict, V: int) -> FFDState:
     )
 
 
-def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None):
+def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None,
+                  order_scores=None):
     """The kernel's tensors by struct field name (inputs in its layout, a
     copy of the carried state to update in place, scratch, outputs) and its
     argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
     t = problem_tensors(problem)
     # the carried state, copied into the kernel's layout (updated in place)
     t.update(state_tensors(init, problem.lane_valid, problem.lane_numeric))
-    return loop_args_from(t, one_pass, kind0, index0)
+    return loop_args_from(t, one_pass, kind0, index0, order_scores)
 
 
-def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None):
+def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order_scores=None):
     """``ffd_loop_args`` over tables already in the kernel's layout: the
     problem's (``problem_tensors``, or a device-resident world holding them,
     ops/fused.py) and a state the launch may update in place
@@ -346,6 +361,9 @@ def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None):
         if seed is not None and (seed.shape != (P,) or seed.device != dev):
             raise ValueError(f"{name} must be i32[{P}] on {dev}")
         t[name] = None if seed is None else seed.to(i32).contiguous()
+    if order_scores is not None and (order_scores.shape != (P,) or order_scores.device != dev):
+        raise ValueError(f"order_scores must be f32[{P}] on {dev}")
+    t["order_scores"] = None if order_scores is None else order_scores.to(torch.float32).contiguous()
     t["ok_t"] = torch.empty((C, T), dtype=torch.bool, device=dev)
     t["cap_t"] = torch.empty((C, T), dtype=i32, device=dev)
     t["chain_c"] = torch.empty((_CHAIN_CLAIM_ROWS, C), dtype=i32, device=dev)

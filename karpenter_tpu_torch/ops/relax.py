@@ -156,19 +156,25 @@ RELAX_STATE = (
 # the kernel's own working memory, sized by relax_place_workspace_bytes
 RELAX_SCRATCH = ("workspace",)
 _RELAX_POINTERS = _RELAX_INPUTS + RELAX_STATE + ("kind", "index", "residue", "stats", "work") + RELAX_SCRATCH
-_RELAX_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "n_passes")
-_RelaxArgs = kernels.make_struct("RelaxArgs", _RELAX_POINTERS, _RELAX_INTS)
+_RELAX_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "n_passes",
+               "mode", "iters")
+_RELAX_FLOATS = ("step",)
+_RelaxArgs = kernels.make_struct("RelaxArgs", _RELAX_POINTERS, _RELAX_INTS, _RELAX_FLOATS)
+# the stats word: RelaxStats' four counts, then (convex mode) the rest of
+# ops/relax2.Relax2Stats, its two floats as float32 bits
+N_STATS = 9
 
 # the kernel's work counters (csrc/relax_place.cu WORK_*), in order
-WORK_COUNTERS = ("type_tests", "record_lanes")
+WORK_COUNTERS = ("type_tests", "record_lanes", "pgd_columns")
 
 
-def relax_place_args(problem: SchedulingProblem, C: int):
+def relax_place_args(problem: SchedulingProblem, C: int, convex=None):
     """The kernel's tensors by struct field name (inputs in its layout, the
     initial state to be committed in place, outputs, its workspace), the
     initial state, and its argument struct: one launch's worth, as
     ``launch_relax_place`` passes it. ``problem`` holds CUDA tensors with
-    lanes padded to a multiple of 32."""
+    lanes padded to a multiple of 32. ``convex`` = (iters, step) selects the
+    convex mode (ops/relax2.py); None the waterfill."""
     dev = problem.lane_valid.device
     K, V = problem.num_keys, problem.num_lanes
     if V % 32:
@@ -215,13 +221,14 @@ def relax_place_args(problem: SchedulingProblem, C: int):
     t["kind"] = torch.empty((P,), dtype=i32, device=dev)
     t["index"] = torch.empty((P,), dtype=i32, device=dev)
     t["residue"] = torch.empty((P,), dtype=torch.bool, device=dev)
-    t["stats"] = torch.zeros((4,), dtype=i32, device=dev)
+    t["stats"] = torch.zeros((N_STATS,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
     dims = dict(P=P, K=K, V=V, W=V // 32, C=C, N=problem.num_nodes, T=problem.num_instance_types,
                 TPL=problem.num_templates, R=problem.num_resources, O=problem.offer_ok.shape[1],
                 PT=problem.pod_ports.shape[1], D=problem.pod_vol_counts.shape[1], G=problem.num_groups,
                 F=problem.grp_filter_valid.shape[1], CH=problem.claim_hostname_lane.shape[0],
-                n_passes=RELAX_PASSES)
+                n_passes=RELAX_PASSES, mode=0 if convex is None else 1,
+                iters=0 if convex is None else int(convex[0]), step=0.0 if convex is None else float(convex[1]))
     t["workspace"] = None
     args = _RelaxArgs(**{n: (t[n].data_ptr() if t[n] is not None else None) for n in _RELAX_POINTERS}, **dims)
     lib = kernels.library("relax_place")
@@ -233,14 +240,17 @@ def relax_place_args(problem: SchedulingProblem, C: int):
     return t, state0, args
 
 
-def launch_relax_place(problem: SchedulingProblem, C: int) -> RelaxOut:
+def launch_relax_place(problem: SchedulingProblem, C: int, convex=None) -> RelaxOut:
     """Run the ``relax_place`` kernel on CUDA tensors (lanes padded to a
-    multiple of 32)."""
+    multiple of 32). With ``convex`` = (iters, step) it runs the convex mode
+    (counted as ``relax2_place``) and ``stats`` is the raw int32[9] word that
+    ops/relax2.stats_of reads."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_relax_place needs CUDA tensors")
-    t, state0, args = relax_place_args(problem, C)
-    kernels.launch("relax_place", args, torch.cuda.current_stream(dev).cuda_stream)
+    t, state0, args = relax_place_args(problem, C, convex)
+    kernels.launch("relax_place", args, torch.cuda.current_stream(dev).cuda_stream,
+                   counter="relax_place" if convex is None else "relax2_place")
     state = dataclasses.replace(
         state0,
         claim_req=ReqTensor(admitted=masks.unpack_lanes(t["claim_adm"], problem.num_lanes), comp=t["claim_comp"],
@@ -249,5 +259,6 @@ def launch_relax_place(problem: SchedulingProblem, C: int) -> RelaxOut:
         claim_npods=t["claim_npods"], claim_tpl=t["claim_tpl"],
         grp_counts=t["grp_counts"], grp_registered=t["grp_registered"],
     )
+    stats = RelaxStats(*t["stats"][:4]) if convex is None else t["stats"]
     return RelaxOut(state=state, kind=t["kind"], index=t["index"], residue_active=t["residue"],
-                    stats=RelaxStats(*t["stats"]), work=t["work"])
+                    stats=stats, work=t["work"])

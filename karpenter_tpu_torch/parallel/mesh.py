@@ -270,7 +270,8 @@ def batched_solve(batch: SchedulingProblem, max_claims: int, passes: int = 1) ->
 # the shared problem: the ffd_loop tables less the per-lane and seed arrays,
 # plus the run axis
 _RS_SHARED = tuple(
-    n for n in _FFD_INPUTS if n not in ("pod_active", "pod_eqprev_chain", "node_avail", "kind0", "index0")
+    n for n in _FFD_INPUTS
+    if n not in ("pod_active", "pod_eqprev_chain", "node_avail", "kind0", "index0", "order_scores")
 ) + (
     "run_start", "run_len", "run_mode",
 )

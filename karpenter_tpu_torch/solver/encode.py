@@ -148,10 +148,16 @@ def ffd_order(pods: Sequence[Pod], requests_of=None) -> List[int]:
     ``requests_of`` lets callers share a memoized pod_requests (the encoder
     computes requests for several tensors; pods are immutable within a call).
 
-    The learned-order policy (KARPENTER_TPU_ORDER_POLICY in the JAX package)
-    is not ported: this is its flag-off ordering, key for key."""
+    ``KARPENTER_TPU_ORDER_POLICY`` inserts the learned score
+    (solver/ordering.py) between the resource keys and the signature: it
+    reorders pod classes within a resource tier, while the resource order
+    and the adjacency of identical pods (identical features, then the
+    signature) survive. Flag off, the keys are the static ones."""
     if requests_of is None:
         requests_of = res.pod_requests
+    from karpenter_tpu_torch.solver import ordering
+
+    scores = ordering.order_scores(pods, requests_of) if ordering.enabled() else None
     keys = []
     for i, p in enumerate(pods):
         requests = requests_of(p)
@@ -159,6 +165,8 @@ def ffd_order(pods: Sequence[Pod], requests_of=None) -> List[int]:
             -requests.get(res.CPU, 0.0),
             -requests.get(res.MEMORY, 0.0),
         ]
+        if scores is not None:
+            key.append(-float(scores[i]))
         key.extend(
             (
                 constraint_signature(p),

@@ -279,6 +279,12 @@ class SupervisedSolver(SolverBackend):
             # decision provenance of recent solves (the result of a
             # supervised solve carries its own report unchanged)
             out["explain"] = obs_explain.summary()
+        last_relax2 = getattr(self.primary, "last_relax2", None)
+        if last_relax2 is not None:
+            # the convex phase 1 of the last supervised solve
+            # (KARPENTER_TPU_RELAX2): reason None when its result served,
+            # else the classified standdown
+            out["relax2"] = last_relax2
         return out
 
     # -- circuit transitions --------------------------------------------------

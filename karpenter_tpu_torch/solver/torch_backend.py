@@ -37,22 +37,42 @@ new snapshot, and the fresh ``ffd_loop`` and the fused ``gate_counts`` run
 back to back before one fetch. A classified standdown falls through to the
 path above unchanged; an error propagates.
 
-With ``KARPENTER_TPU_EXPLAIN`` set (obs/explain.py; the one environment
-flag the backend reads, as the JAX backend reads it), the terminal pass's
+With ``KARPENTER_TPU_RELAX2=1`` (the JAX package's flag and knobs, off by
+default there too) a sweeps solve tries the convex phase 1 first
+(ops/relax2.py, program 17: ``relax_place`` in its convex mode), whether
+``relax`` is on or not. A classified standdown (``last_relax2["reason"]``,
+``solver_relax_fallback_total{reason}``) falls through to the waterfill (if
+``relax``) or the plain sweeps solve; a convex result is gated like a
+waterfill one, and a gate violation re-solves with the convex phase off
+(``gate-rejected``). An error of the kernels or of the CUDA runtime inside
+the phase propagates; only a host-side exception becomes the ``error``
+standdown.
+
+With ``KARPENTER_TPU_ORDER_POLICY`` set (solver/ordering.py), the FFD order
+takes the learned host tie-break (solver/encode.ffd_order) and, unless
+``KARPENTER_TPU_ORDER_POLICY_LANES=0``, the sweeps solves take the learned
+requeue order (program 6: one ``lane_scores`` launch, then ``ffd_loop``
+sorting each sweep's requeue by the scores), counted in
+``solver_order_policy_solves_total{part="lane"}`` as the JAX backend counts
+them.
+
+With ``KARPENTER_TPU_EXPLAIN`` set (obs/explain.py), the terminal pass's
 failed rows go through one ``attribute`` launch against the final state
 (ops/ffd_step.attribute_pods, program 7) and the result carries an
 ``ExplainReport``: a reason and a hint per unscheduled pod and the
 winning-candidate rationale of up to ``KARPENTER_TPU_EXPLAIN_MAX`` scheduled
 ones. Placements are the same with the flag on and off.
 
-Not ported: the JAX backend's other flag-gated subsystems (shard, relax2,
-learned order, AOT, program registry, trace and metrics).
+These are the environment flags the backend reads, as the JAX backend
+reads them. Not ported: the JAX backend's other flag-gated subsystems
+(shard, wavefront, runs mode, AOT, program registry, its trace spans).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -61,11 +81,13 @@ import torch
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.apis.objects import Pod
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
+from karpenter_tpu_torch.metrics.registry import ORDER_POLICY_SOLVES, RELAX_FALLBACK
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, problem_to_torch
 from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd
 from karpenter_tpu_torch.ops.ffd_sweeps import solve_ffd_sweeps, solve_ffd_sweeps_carried
 from karpenter_tpu_torch.ops.padding import claim_axis_bucket, pad_problem
+from karpenter_tpu_torch.ops.policy import lane_scores
 from karpenter_tpu_torch.ops.relax import relax_applicable, relax_place
 from karpenter_tpu_torch.provisioning.preferences import Preferences
 from karpenter_tpu_torch.provisioning.topology import Topology
@@ -76,6 +98,7 @@ from karpenter_tpu_torch.solver.backend import (
     SolveResult,
     SolverBackend,
 )
+from karpenter_tpu_torch.solver import ordering
 from karpenter_tpu_torch.solver.encode import (
     Encoder,
     NodeInfo,
@@ -211,7 +234,12 @@ class TorchSolver(SolverBackend):
         # phase 1's counts (eligible/placed/demoted/claims) of the LAST solve
         # attempt; None when phase 1 did not run or placed nothing
         self.last_relax: Optional[Dict[str, int]] = None
-        # two-phase results the gate rejected (each re-solved with relax off)
+        # the convex phase 1's record of the LAST solve (KARPENTER_TPU_RELAX2):
+        # {"reason": None, counts, pgd stats, ...} when its result served,
+        # {"reason": <standdown>, ...} otherwise; None when it did not run
+        self.last_relax2: Optional[Dict] = None
+        # two-phase results the gate rejected (each re-solved with that
+        # phase 1 off)
         self.relax_fallbacks = 0
         # IterCounts of the LAST sweeps-mode solve; None before any, and after
         # a per-pass solve
@@ -270,6 +298,7 @@ class TorchSolver(SolverBackend):
         if domains is None:
             domains = domains_from_instance_types(instance_types, templates)
         max_claims = min(self.claim_slots, claim_axis_bucket(len(pods)))
+        self.last_relax2 = None  # never report a prior solve's convex phase 1
         if self._device_world is not None:
             resident = self._device_world.try_solve(
                 pods, instance_types, templates, nodes, pod_requirements_override,
@@ -278,11 +307,13 @@ class TorchSolver(SolverBackend):
             if resident is not None:
                 return resident
         allow_relax = self.relax
+        allow_relax2 = True
         while True:
             try:
                 result = self._solve_with_slots(
                     pods, instance_types, templates, nodes, pod_requirements_override,
                     topology, cluster_pods, domains, max_claims, pod_volumes, allow_relax,
+                    allow_relax2,
                 )
             except _SlotOverflow:
                 if max_claims >= len(pods):
@@ -293,10 +324,12 @@ class TorchSolver(SolverBackend):
                 self.claim_slots = max(self.claim_slots, max_claims)
                 self.claim_escalations += 1
                 continue
-            if self.last_relax is not None:
-                # the two-phase contract: gate every relaxed result; a
-                # violation re-solves with relaxation off
-                # (the JAX package's solver/jax_backend.py:414-447)
+            relax2_used = self.last_relax2 is not None and self.last_relax2.get("reason") is None
+            if self.last_relax is not None or relax2_used:
+                # the two-phase contract: gate every relaxed result, the
+                # waterfill's and the convex phase's alike; a violation
+                # re-solves with that phase off (the JAX package's
+                # solver/jax_backend.py:414-447)
                 import time
 
                 from karpenter_tpu_torch.verify import gate_relaxed
@@ -308,8 +341,13 @@ class TorchSolver(SolverBackend):
                 )
                 self.last_timing["gate"] = time.perf_counter() - t0
                 if violations:
+                    RELAX_FALLBACK.inc({"reason": "gate-rejected"})
                     self.relax_fallbacks += 1
-                    allow_relax = False
+                    if relax2_used:
+                        allow_relax2 = False
+                        self.last_relax2 = {"reason": "gate-rejected"}
+                    else:
+                        allow_relax = False
                     continue
             return result
 
@@ -408,9 +446,65 @@ class TorchSolver(SolverBackend):
             return None
         return rout
 
+    def _relax2_standdown(self, reason, **info):
+        """A classified standdown of the convex phase 1: counted, recorded in
+        ``last_relax2``, and None so that the solve goes on as with the flag
+        off."""
+        RELAX_FALLBACK.inc({"reason": reason})
+        self.last_relax2 = {"reason": reason, **info}
+        return None
+
+    def _relax2_phase(self, problem, max_claims):
+        """Convex phase 1 (``KARPENTER_TPU_RELAX2``) over the padded device
+        problem: its RelaxOut, or None on a classified standdown. Errors of
+        the kernels or of the CUDA runtime propagate (the supervisor raises
+        them after its retries); any other exception is the ``error``
+        standdown, as in the JAX backend."""
+        import time
+
+        from karpenter_tpu_torch.ops import relax2
+        from karpenter_tpu_torch.solver.supervisor import device_fault
+
+        t_phase = time.perf_counter()
+        try:
+            if not relax2.relax_applicable(problem):
+                return self._relax2_standdown("finite-pool")
+            rout = relax2.relax2_place(problem, max_claims)
+            stats = relax2.host_stats(rout.stats)
+            if stats.eligible <= 0:
+                return self._relax2_standdown(relax2.classify_ineligible(problem))
+            if not relax2.converged(stats.residual, stats.capviol):
+                return self._relax2_standdown(
+                    "non-convergence", residual=stats.residual, capviol=stats.capviol,
+                    pgd_iterations=stats.pgd_iterations,
+                )
+            if stats.placed <= 0:
+                return self._relax2_standdown(
+                    "rounding-overflow", eligible=stats.eligible, overflow=stats.overflow,
+                    round_demoted=stats.round_demoted,
+                )
+            self.last_relax2 = {
+                "reason": None,
+                "eligible": stats.eligible,
+                "placed": stats.placed,
+                "demoted": stats.demoted,
+                "claims": stats.claims,
+                "pgd_iterations": stats.pgd_iterations,
+                "residual": stats.residual,
+                "capviol": stats.capviol,
+                "rounding": {"overflow": stats.overflow, "demoted": stats.round_demoted},
+                "phase_s": round(time.perf_counter() - t_phase, 6),
+            }
+            return rout
+        except Exception as exc:
+            if device_fault(exc):
+                raise
+            return self._relax2_standdown("error", error=repr(exc))
+
     def _solve_with_slots(
         self, pods, instance_types, templates, nodes, pod_requirements_override,
         topology, cluster_pods, domains, max_claims, pod_volumes=None, allow_relax=False,
+        allow_relax2=True,
     ) -> SolveResult:
         import time
 
@@ -476,8 +570,17 @@ class TorchSolver(SolverBackend):
             problem = problem_to_torch(host_problem, self.device)
             timing["encode"] += time.perf_counter() - t0
 
+            lanes = use_sweeps and ordering.lanes_enabled()
+            if lanes:
+                ORDER_POLICY_SOLVES.inc({"part": "lane"})
             rout = None
-            if use_sweeps and allow_relax and state is None and relax_applicable(host_problem):
+            if use_sweeps and allow_relax2 and state is None and os.environ.get("KARPENTER_TPU_RELAX2", "0") == "1":
+                # convex phase 1 first; None is a classified standdown and
+                # the solve goes on as with the flag off
+                t0 = time.perf_counter()
+                rout = self._relax2_phase(problem, max_claims)
+                timing["relax"] += time.perf_counter() - t0
+            if rout is None and use_sweeps and allow_relax and state is None and relax_applicable(host_problem):
                 # phase 1 places the eligible bulk; the SAME sweeps loop then
                 # repairs the residue carrying phase 1's claims and verdicts.
                 # Sweeps mode runs one pass, so this only ever sees a fresh
@@ -487,16 +590,21 @@ class TorchSolver(SolverBackend):
                 timing["relax"] += time.perf_counter() - t0
 
             t0 = time.perf_counter()
+            # the learned requeue order: one score per row (the rows'
+            # features do not depend on which are active), read by the
+            # fresh or the carried loop
+            scores = lane_scores(problem, ordering.lane_weights_static()) if lanes else None
             if rout is not None:
                 problem = dataclasses.replace(problem, pod_active=rout.residue_active)
                 host_problem = dataclasses.replace(
                     host_problem, pod_active=rout.residue_active.cpu().numpy()
                 )
-                result = solve_ffd_sweeps_carried(
-                    problem, max_claims, init=(rout.state, rout.kind, rout.index)
-                )
+                if lanes:
+                    ORDER_POLICY_SOLVES.inc({"part": "lane"})
+                result = solve_ffd_sweeps_carried(problem, max_claims, init=(rout.state, rout.kind, rout.index),
+                                                  order_scores=scores)
             elif use_sweeps:
-                result = solve_ffd_sweeps(problem, max_claims)
+                result = solve_ffd_sweeps(problem, max_claims, order_scores=scores)
             else:
                 result = solve_ffd(problem, max_claims, init=state)
             state = result.state

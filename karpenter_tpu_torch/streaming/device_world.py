@@ -35,9 +35,14 @@ fault of the device path is served quietly by another path.
 With ``KARPENTER_TPU_EXPLAIN`` set, the failed rows of a resident cycle are
 attributed against the resident tables (``TorchSolver._explain``).
 
+With the learned order's device half on (``KARPENTER_TPU_ORDER_POLICY``,
+solver/ordering.lanes_enabled), every cycle stands down with
+``order-policy``, as in the JAX package: the resident loop has no requeue
+scorer.
+
 Not ported: the JAX package's standdowns for subsystems this package does
-not have yet (``runs-mode``, ``shard``, ``order-policy``, ``device-lost``),
-and the program registry, AOT and metrics hooks.
+not have yet (``runs-mode``, ``shard``, ``device-lost``), and the program
+registry, AOT and metrics hooks.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from karpenter_tpu_torch.ops.fused import (
 from karpenter_tpu_torch.ops.padding import pad_problem, pod_axis_bucket, pow2_bucket
 from karpenter_tpu_torch.provisioning.preferences import Preferences
 from karpenter_tpu_torch.solver.backend import FAIL_INCOMPATIBLE, SolveResult
+from karpenter_tpu_torch.solver import ordering
 from karpenter_tpu_torch.streaming.delta import DeltaEncoder, pod_digest
 
 
@@ -195,6 +201,8 @@ class DeviceWorld:
             or pod_volumes is not None
         ):
             return self._standdown("unsupported-args")
+        if ordering.lanes_enabled():
+            return self._standdown("order-policy")
         if any(
             t.effect == "PreferNoSchedule" for tpl in templates for t in tpl.taints
         ) or any(Preferences.is_relaxable(p) for p in pods):

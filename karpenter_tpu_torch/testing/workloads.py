@@ -462,11 +462,60 @@ def relax_topology_workload(seed: int) -> Workload:
     return pods, its, templates, nodes
 
 
-def homogeneous_workload(n: int = 48) -> Workload:
+def homogeneous_workload(n: int = 48, num_its: int = 8) -> Workload:
     """tests/test_solver_relax_parity.py ``test_phase1_places_bulk_and_shrinks
-    _repair``: a bulk of unconstrained pods of five sizes, phase 1's target."""
-    its = instance_types(8)
+    _repair``: a bulk of unconstrained pods of five sizes, phase 1's target
+    (``num_its`` catalog types; 8 there)."""
+    its = instance_types(num_its)
     pods = [make_pod(i, cpu=0.3 + 0.2 * (i % 5)) for i in range(n)]
+    return pods, its, [simple_template(its)], []
+
+
+def relax2_fuzz_workload(seed: int) -> Workload:
+    """tests/test_relax2.py ``TestRelax2FuzzGeneric.test_fuzz(seed)``:
+    zone selectors, host ports, a NodePool limit on some seeds, existing
+    nodes."""
+    rng = random.Random(22000 + seed)
+    its = instance_types(rng.randint(2, 10))
+    templates = [simple_template(its, name="a")]
+    if rng.random() < 0.3:
+        templates[0].remaining_resources = {"cpu": float(rng.randint(4, 40))}
+    pods = []
+    for i in range(rng.randint(5, 24)):
+        selector = {}
+        if rng.random() < 0.3:
+            selector[wk.LABEL_TOPOLOGY_ZONE] = rng.choice(ZONES)
+        pod = make_pod(
+            i,
+            cpu=rng.choice([0.1, 0.25, 0.5, 1.0, 1.5, 3.0]),
+            mem=rng.choice([1e8, 2.5e8, 1e9, 4e9]),
+            selector=selector,
+        )
+        if rng.random() < 0.25:
+            pod.spec.containers[0].ports.append(
+                ContainerPort(host_port=rng.choice([80, 443, 8080]), protocol=rng.choice(["TCP", "UDP"]))
+            )
+        pods.append(pod)
+    nodes = [make_node(f"node-{n}", cpu=rng.choice([2.0, 4.0, 8.0])) for n in range(rng.randint(0, 2))]
+    return pods, its, templates, nodes
+
+
+def relax2_topology_workload(seed: int) -> Workload:
+    """tests/test_relax2.py ``TestRelax2FuzzTopology.test_fuzz_topology(seed)``:
+    spread, affinity and anti-affinity mixes, all repaired."""
+    rng = random.Random(23000 + seed)
+    its = instance_types(rng.choice([6, 10]))
+    n = rng.randint(10, 40)
+    pods = [_topology_pod(rng, i) for i in range(n)]
+    return pods, its, [simple_template(its, name="a")], []
+
+
+def accounting_workload() -> Workload:
+    """tests/test_relax2.py ``test_eligible_pods_accounted_exactly_once``:
+    32 pods of three sizes, the first with a host port."""
+    its = instance_types(8)
+    pods = [make_pod(i, cpu=0.4 + 0.3 * (i % 3)) for i in range(32)]
+    pods[0].spec.containers[0].ports.append(ContainerPort(host_port=9090, protocol="TCP"))
     return pods, its, [simple_template(its)], []
 
 

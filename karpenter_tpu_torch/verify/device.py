@@ -32,6 +32,7 @@ from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, ReqTensor, SchedulingProblem
 from karpenter_tpu_torch.ops import masks
 from karpenter_tpu_torch.ops.ffd_core import _make_it_gate, _statics
+from karpenter_tpu_torch.ops.relax_common import ordered_sum
 
 # Count-vector lane order; gate.py maps nonzero lanes back to host Violation
 # invariant names when building the reject report.
@@ -113,10 +114,9 @@ def gate_counts_plain(gp: GateProblem, ga: GateArgs, bounds_free: bool) -> torch
     ci_safe = torch.clamp(ci, 0, max(C - 1, 0))
 
     # claim-requests: published requests equal template overhead plus the
-    # placed pods' request rows
-    summed = torch.zeros((C + 1, R), dtype=torch.float32, device=dev)
-    summed.index_add_(0, ci, gp.pod_requests)
-    summed = summed[:C]
+    # placed pods' request rows, added in pod order (as the kernel and the
+    # JAX package's CPU scatter add them)
+    summed = ordered_sum(ci, gp.pod_requests, C)
     tpl_safe = torch.clamp(ga.claim_tpl.long(), 0, max(TPL - 1, 0))
     expected = summed + torch.where(
         ga.claim_active[:, None], gp.tpl_overhead[tpl_safe], torch.zeros_like(summed)
@@ -179,11 +179,10 @@ def gate_counts_plain(gp: GateProblem, ga: GateArgs, bounds_free: bool) -> torch
 
     # node-capacity: overhead plus landed pods fits, on nodes that got pods
     if N:
-        nsum = torch.zeros((N + 1, R), dtype=torch.float32, device=dev)
-        nsum.index_add_(0, ni, gp.pod_requests)
+        nsum = ordered_sum(ni, gp.pod_requests, N)
         got = torch.zeros((N + 1,), dtype=torch.int32, device=dev)
         got.index_add_(0, ni, torch.ones_like(ni, dtype=torch.int32))
-        bad_node = (got[:N] > 0) & ~masks.fits(gp.node_overhead + nsum[:N], gp.node_avail)
+        bad_node = (got[:N] > 0) & ~masks.fits(gp.node_overhead + nsum, gp.node_avail)
         node_count = bad_node.sum()
     else:
         node_count = torch.zeros((), dtype=torch.int64, device=dev)

@@ -20,11 +20,12 @@ import torch
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, instance_types
 from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
-from karpenter_tpu_torch.ops import ffd_step, ffd_sweeps, fused, relax
+from karpenter_tpu_torch.ops import ffd_step, ffd_sweeps, fused, policy, relax, relax2
 from karpenter_tpu_torch.parallel import mesh
 from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd_plain
 from karpenter_tpu_torch.ops.padding import pad_problem
+from karpenter_tpu_torch.ops.relax_common import ordered_sum
 from karpenter_tpu_torch.provisioning.topology import Topology
 from karpenter_tpu_torch.solver.encode import Encoder, domains_from_instance_types
 from karpenter_tpu_torch.solver.torch_backend import TorchSolver
@@ -53,12 +54,20 @@ def _c_struct_fields(source: str, struct: str):
         ("runs_screen.cu", "RunsArgs", mesh._RS_POINTERS, mesh._RS_INTS),
         ("patch_world.cu", "PatchKernelArgs", fused._PATCH_POINTERS, fused._PATCH_INTS),
         ("attribute.cu", "AttrArgs", ffd_step._ATTR_POINTERS, ffd_step._ATTR_INTS),
+        ("lane_scores.cu", "LaneArgs", policy._LANE_POINTERS, policy._LANE_INTS),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
     c_pointers, c_ints = _c_struct_fields(source, struct)
     assert c_pointers == list(pointers)
     assert c_ints == list(ints)
+
+
+def test_relax_args_float_fields_match_c_struct():
+    text = (CSRC / "relax_place.cu").read_text()
+    body = text[text.index("struct RelaxArgs {"):]
+    body = re.sub(r"//.*", "", body[: body.index("};")])
+    assert re.findall(r"\bfloat\s+(\w+)\s*;", body) == list(relax._RELAX_FLOATS)
 
 
 def _encode(workload, slots):
@@ -76,6 +85,10 @@ def test_launch_wrappers_refuse_cpu_tensors():
         ffd_sweeps.launch_ffd_loop(prob, initial_state(prob, 8), one_pass=False)
     with pytest.raises(ValueError, match="CUDA"):
         relax.launch_relax_place(prob, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        relax2.launch_relax2_place(prob, 8, 24, 0.3)
+    with pytest.raises(ValueError, match="CUDA"):
+        policy.launch_lane_scores(prob, policy_weights())
     with pytest.raises(ValueError, match="CUDA"):
         ffd_step.launch_attribute(prob, initial_state(prob, 8), [0])
     gp = gdev.gate_problem(prob)
@@ -166,9 +179,10 @@ def test_library_path_tracks_sources_and_flags():
     a = kernels.library_path("ffd_loop")
     assert a == kernels.library_path("ffd_loop")
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
-    assert set(kernels.SOURCES) == {"attribute", "ffd_loop", "gate_counts", "patch_world", "relax_place",
-                                    "runs_screen"}
-    assert set(kernels.LAUNCHES) == set(kernels.SOURCES)
+    assert set(kernels.SOURCES) == {"attribute", "ffd_loop", "gate_counts", "lane_scores", "patch_world",
+                                    "relax_place", "runs_screen"}
+    # relax_place's convex mode (program 17) counts its launches apart
+    assert set(kernels.LAUNCHES) == set(kernels.SOURCES) | {"relax2_place"}
 
 
 def test_step_is_shared_by_the_loop_and_the_screen():
@@ -360,6 +374,17 @@ def test_gate_counts_matches_plain(cuda, name):
     ck = gdev.launch_gate_counts(gp, ga).cpu()
     assert torch.equal(ck, gdev.gate_counts_plain(gp, ga, bf).cpu())
     assert not ck.any()
+    # the per-bin sums are the pod-order sums, bit for bit, on every launch
+    C, N = ga.claim_tpl.shape[0], gp.node_avail.shape[0]
+    pb = ga.pod_bin.long()
+    ci = torch.where((pb >= 0) & (pb < C), pb, C)
+    ni = torch.where((pb >= C) & (pb < C + N), pb - C, N)
+    for _ in range(3):
+        t, args = gdev.gate_counts_args(gp, ga)
+        kernels.launch("gate_counts", args, torch.cuda.current_stream(cuda).cuda_stream)
+        assert torch.equal(t["summed"].cpu(), ordered_sum(ci, gp.pod_requests, C).cpu())
+        assert torch.equal(t["nsum"].cpu(), ordered_sum(ni, gp.pod_requests, N).cpu())
+        assert torch.equal(t["ngot"].cpu(), torch.bincount(ni, minlength=N + 1)[:N].to(torch.int32).cpu())
     rep = ga.claim_reported.clone()
     rep[0, 0] += 1.0
     bad = ga._replace(claim_reported=rep)
@@ -718,3 +743,91 @@ def test_stacked_screen_matches_plain(cuda, name, passes):
     for key in sp:
         np.testing.assert_array_equal(sk[key], sp[key], err_msg=key)
     assert kernels.LAUNCHES["runs_screen"] > 0
+
+
+# -- convex phase 1 (program 17), lane scores and the scored loop (program 6) --
+
+
+def policy_weights(seed=None, hidden=0):
+    """The committed lane head, or a seeded random head (an MLP with
+    ``hidden`` units), as solver/ordering's static tuple."""
+    from karpenter_tpu_torch.solver import ordering
+
+    if seed is None:
+        ordering.reset_for_tests()
+        return ordering.lane_weights_static()
+    rng = np.random.default_rng(seed)
+    rows = tuple(tuple(float(x) for x in rng.normal(size=policy.N_LANE_FEATURES)) for _ in range(hidden))
+    w = tuple(float(x) for x in rng.normal(size=hidden or policy.N_LANE_FEATURES))
+    return ("mlp" if hidden else "linear", w, float(rng.normal()),
+            (rows, tuple(float(x) for x in rng.normal(size=hidden))) if hidden else None)
+
+
+RELAX2_CORPORA = ("homogeneous-48", "diverse-300-overflow", "bounds-0-free", "fuzz-6")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [(24, 0.3), (1, 50.0)])
+@pytest.mark.parametrize("name", RELAX2_CORPORA)
+def test_relax2_place_matches_plain(cuda, name, knobs):
+    """relax_place's convex mode against relax2_place_plain: kind, index,
+    residue, integer and bool state and every stat exact (the residual and
+    the overload bit for bit), float state within rtol 1e-5."""
+    make, slots = CORPORA[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    iters, step = knobs
+    before = kernels.LAUNCHES["relax2_place"]
+    rk = relax2.launch_relax2_place(prob, slots, iters, step)
+    assert kernels.LAUNCHES["relax2_place"] == before + 1
+    rp = relax2.relax2_place_plain(prob, slots, iters, step)
+    for key in ("kind", "index", "residue_active"):
+        assert torch.equal(getattr(rk, key).cpu(), getattr(rp, key).cpu()), key
+    assert relax2.host_stats(rk.stats) == relax2.host_stats(rp.stats)
+    _assert_same(rk, rp)
+    work = dict(zip(relax.WORK_COUNTERS, rk.work.cpu().tolist()))
+    assert work["pgd_columns"] > 0 or relax2.host_stats(rp.stats).eligible == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["committed", "linear", "mlp"])
+@pytest.mark.parametrize("name", ["fuzz-6", "topology-3", "chain-2000", "diverse-300-overflow"])
+def test_lane_scores_matches_plain(cuda, name, head):
+    make, slots = CORPORA[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    weights = {"committed": policy_weights(), "linear": policy_weights(5), "mlp": policy_weights(6, hidden=4)}[head]
+    scores, feats = policy.launch_lane_scores(prob, weights, with_features=True)
+    torch.testing.assert_close(feats.cpu(), policy.lane_features(prob).cpu(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(scores.cpu(), policy.lane_scores_plain(prob, weights).cpu(), rtol=0, atol=1e-6)
+    # the solve's launch writes the scores alone, the same ones
+    bare, none = policy.launch_lane_scores(prob, weights)
+    assert none is None and torch.equal(bare, scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", ["lane", "ties"])
+@pytest.mark.parametrize("name", ["topology-3", "chain-2000", "homogeneous-48", "diverse-300-overflow"])
+def test_ffd_loop_order_scores_match_plain(cuda, name, scores):
+    """The scored requeue: ffd_loop fresh and carried (from phase 1) with
+    order scores against the plain loop with the same scores; kind, index,
+    state and all four IterCounts exact. ``ties`` scores take three values,
+    signed zeros among them, so the stable order decides most of the sort."""
+    make, slots = CORPORA[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    if scores == "lane":
+        sc = policy.lane_scores(prob, policy_weights())
+    else:
+        rng = np.random.default_rng(7)
+        sc = torch.from_numpy(rng.choice(np.array([-0.0, 0.0, 1.5], np.float32), size=prob.num_pods)).to(cuda)
+    bf = problem_bounds_free(prob)
+    rk = ffd_sweeps.solve_ffd_sweeps(prob, slots, order_scores=sc)
+    rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), bf, order_scores=sc)
+    _assert_same(rk, rp)
+    assert tuple(int(x) for x in rk.iters) == tuple(rp.iters)
+    xp = relax.relax_place_plain(prob, slots)
+    if int(xp.stats.placed) > 0:
+        residue = dataclasses.replace(prob, pod_active=xp.residue_active)
+        ck = ffd_sweeps.solve_ffd_sweeps_carried(residue, slots, init=(xp.state, xp.kind, xp.index), order_scores=sc)
+        aprob, state = _lane_align(residue, xp.state)
+        cp = ffd_sweeps.sweeps_plain(aprob, state, problem_bounds_free(aprob), xp.kind, xp.index, sc)
+        _assert_same(ck, cp)
+        assert tuple(int(x) for x in ck.iters) == tuple(cp.iters)
