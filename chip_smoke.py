@@ -105,14 +105,33 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      EXPECT_POLICY); then the convex mode and ``lane_scores`` alone, wrapped
      and plain at those shapes, each equal to plain, the homogeneous carried
      repair and the scored fresh loop against their plain loops.
-  8. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  8. the partitioned solve (the JAX package's ``KARPENTER_TPU_SHARD`` with
+     ``_MIN_DEVICES=1`` and ``_PARTITIONS=8``, programs 13-14) and mesh
+     health (program 18) at full width: 100,000 pods of the JAX bench's
+     fleet corpus (``make_fleet_pods``, 32 neighborhoods) against 400 types,
+     sharded into 8 lanes of one ``ffd_loop`` launch (one block each),
+     served, every partition's ``gate_counts`` clean, every pod the
+     unsharded FFD control schedules scheduled, and each pod scheduled
+     beyond them one with a required pod affinity; the recorded stack's lanes
+     launch equal to 8 single-lane launches bit for bit (kinds, indices,
+     state, IterCounts) and to the plain twin on two lanes; the same
+     with ``KARPENTER_TPU_RELAX2=1`` (``relax_place``'s convex lanes mode,
+     then the seeded lanes loop); the 10,000-pod fleet, fresh and relax2,
+     equal to the JAX package's (EXPECT_SHARD); ``device[0].loss@1`` under
+     ``KARPENTER_TPU_MESH_HEALTH=1`` standing the shard path down
+     ``single-device`` (recarves 1) while the unsharded path serves, two
+     forced probes (``probe`` kernel launches) bringing the card back, the
+     next sharded solve serving; the ``probe`` kernel against its plain sum.
+     Then each lanes mode and the probe alone, wrapped and plain.
+  9. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
      are computed, and for ``ffd_loop`` the latency floor of its barriers and
      its fresh and one-pass modes. Bytes are those of the kernel's own
-     arguments. The churn and serve phases' records ride in the same line.
-  9. the card's name and power limit; the last line is the device JSON.
+     arguments. The churn, serve and shard phases' records ride in the same
+     line.
+ 10. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -211,6 +230,29 @@ EXPECT_POLICY = {
     "carried": dict(iters=(1971, 1, 1313, 5054), scheduled=10000, claims=113,
                     relax=dict(eligible=4288, placed=4288, demoted=0, claims=30)),
 }
+# the partitioned solve (phase 8): the JAX bench's fleet rows
+# (bench.py:1345-1356, run_shard_child): make_fleet_pods(n, Random(42),
+# neighborhoods=32) against the 400 catalog types and one default NodePool,
+# in the 8 partitions of its 8-device mesh, here 8 lanes on one card. The
+# fresh and the relax2 lanes are held against their plain twins on two lanes
+# (the plain loops step every chain in Python). EXPECT_SHARD: the JAX
+# package's own sharded solve of the 10,000-pod fleet on the CPU (8 host
+# devices, the same knobs, EXPLAIN off).
+SHARD_PODS = 100000
+SHARD_CHECK_PODS = 10000
+SHARD_NEIGHBORHOODS = 32
+SHARD_PARTITIONS = 8
+SHARD_PLAIN_LANES = (0, SHARD_PARTITIONS - 1)
+SHARD_ENV = {"KARPENTER_TPU_SHARD": "1", "KARPENTER_TPU_SHARD_MIN_DEVICES": "1",
+             "KARPENTER_TPU_SHARD_PARTITIONS": str(SHARD_PARTITIONS), "KARPENTER_TPU_EXPLAIN": "0"}
+EXPECT_SHARD = {
+    "fresh": dict(scheduled=9862, claims=31, merged_claims=0, part_pods=[1250] * 8, reason=None, max_claims=32,
+                  narrow_iters=1732, sweep_iters=31),
+    "relax2": dict(scheduled=9851, claims=127, merged_claims=1, part_pods=[1250] * 8, reason=None, max_claims=32,
+                   narrow_iters=1636, sweep_iters=32,
+                   relax2=dict(eligible=9216, placed=2406, demoted=6810, claims=128, pgd_iterations=24,
+                               overflow=4337, round_demoted=4337, residual=0.0013015065342187881, capviol=0.0)),
+}
 # the convex phase's two float stats against the JAX package's: the float32
 # adds of the bin loads and the gradient step round in another order there
 # (its CPU build may contract a multiply and an add), by 1.5e-4 relative on
@@ -254,6 +296,7 @@ def run(dev) -> int:
         FFD_STATE,
         WORK_COUNTERS,
         ffd_loop_args,
+        ffd_loop_lanes_args,
         solve_ffd_sweeps,
         solve_ffd_sweeps_carried,
         sweeps_plain,
@@ -704,6 +747,13 @@ def run(dev) -> int:
     rx_ms, rx_all = time_launches("relax_place", rx_sets)
     same_verdicts("relax_place", rx_sets, rxk)
     rx_wrap_ms, _ = time_ms(lambda: RX.relax_place(prob, C), 5)
+    # the same launch through the lanes mode's kernel at one lane (why the
+    # single-lane kernel stays: PERF.md section 6)
+    rx_lane_sets = [(lambda x: ((x[0], x[1]), x[2]))(RX.relax_place_lanes_args([prob], C, None)) for _ in range(5)]
+    rx_lane_ms, _ = time_launches("relax2_place_lanes", rx_lane_sets)
+    for (lanes_t, _), _ in rx_lane_sets:
+        if not (torch.equal(lanes_t[0][0]["kind"], rxk.kind) and torch.equal(lanes_t[0][0]["index"], rxk.index)):
+            raise AssertionError("relax_place: the one-lane lanes launch differs from the single launch")
     rx_work = dict(zip(RX.WORK_COUNTERS, rxk.work.cpu().tolist()))
     rxp, rx_plain_ms = plain_ms(lambda: RX.relax_place_plain(prob, C))
     relax_err = max(relax_err, compare_relax("main path", rxk, rxp))
@@ -711,7 +761,8 @@ def run(dev) -> int:
     if stats != solver.last_relax:
         raise AssertionError(f"main path: phase 1 {stats} != the solve's {solver.last_relax}")
     log(f"  relax_place: kernel {rx_ms:.4f} ms median of {[round(t, 4) for t in rx_all]}; wrapper {rx_wrap_ms:.4f} ms; "
-        f"plain {rx_plain_ms:.1f} ms; kernel == plain; {stats}; work {rx_work}")
+        f"plain {rx_plain_ms:.1f} ms; kernel == plain; {stats}; work {rx_work}; the lanes kernel at one lane "
+        f"{rx_lane_ms:.4f} ms")
 
     # ffd_loop in each mode at the main path's shapes, each against its
     # plain loop on the same inputs: the carried repair pass (the main
@@ -722,13 +773,22 @@ def run(dev) -> int:
     k1_ms, k1_all = time_launches("ffd_loop", k1_sets)
     same_verdicts("ffd_loop carried", k1_sets, rc_main)
     k1_wrap_ms, _ = time_ms(lambda: solve_ffd_sweeps_carried(residue, C, (rxk.state, rxk.kind, rxk.index)), 2)
+    # the same loop through the lanes mode's kernel at one lane (why the
+    # single-lane kernel stays: PERF.md section 6)
+    k1_lane_sets = [(lambda x: ((x[0], x[1]), x[2]))(ffd_loop_lanes_args([residue], [astate], [rxk.kind], [rxk.index]))
+                    for _ in range(3)]
+    k1_lane_ms, k1_lane_all = time_launches("ffd_loop_lanes", k1_lane_sets)
+    for (lanes_t, _), _ in k1_lane_sets:
+        if not (torch.equal(lanes_t[0]["kind"], rc_main.kind) and torch.equal(lanes_t[0]["index"], rc_main.index)):
+            raise AssertionError("ffd_loop carried: the one-lane lanes launch differs from the single launch")
     work = dict(zip(WORK_COUNTERS, rc_main.work.cpu().tolist()))
     rc_plain, k1_plain_ms = plain_ms(lambda: sweeps_plain(residue, astate, problem_bounds_free(residue),
                                                           rxk.kind, rxk.index))
     ffd_err = max(ffd_err, compare_results("main path carried", rc_main, rc_plain))
     log(f"  ffd_loop carried: kernel {k1_ms:.3f} ms median of {[round(t, 3) for t in k1_all]}, wrapper "
         f"{k1_wrap_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, kernel == plain; IterCounts {iters_of(rc_main)} "
-        f"(narrow, sweeps, chain commits, chain pods), work {work}")
+        f"(narrow, sweeps, chain commits, chain pods), work {work}; the lanes kernel at one lane {k1_lane_ms:.3f} ms "
+        f"median of {[round(t, 3) for t in k1_lane_all]}")
 
     bf = problem_bounds_free(prob)
     rf_main = solve_ffd_sweeps(prob, C)
@@ -846,6 +906,8 @@ def run(dev) -> int:
     attr_entry = explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_err)
     relax2_entry, lane_entry = flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results,
                                            compare_relax2, relax2_err, score_err)
+    shard_entries, shard = shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results,
+                                       compare_relax2)
 
     line = {
         "kernels": [
@@ -863,6 +925,7 @@ def run(dev) -> int:
                 "bound_by": k1_by,
                 "library_ms": None,
                 "wrapper_ms": k1_wrap_ms,
+                "one_lane_lanes_ms": k1_lane_ms,
                 "latency_bound_ms": k1_latency,
                 "work": work,
                 "fresh_ms": fresh_ms,
@@ -908,6 +971,7 @@ def run(dev) -> int:
                 "bound_by": rx_by,
                 "library_ms": None,
                 "wrapper_ms": rx_wrap_ms,
+                "one_lane_lanes_ms": rx_lane_ms,
                 "work": rx_work,
                 "stats": stats,
                 "launches_relax_off": launches_off["relax_place"],
@@ -917,8 +981,10 @@ def run(dev) -> int:
             rs,
             *churn_entries,
             stacked,
+            *shard_entries,
         ],
         "churn": churn,
+        "shard": shard,
     }
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
@@ -930,6 +996,432 @@ def run(dev) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results, compare_relax2):
+    """Phase 8: the partitioned solve (KARPENTER_TPU_SHARD, programs 13-14)
+    and mesh health with its probe (program 18), with SHARD_ENV: the 100k
+    fleet sharded against its unsharded control; the recorded stacks' lanes
+    launches against single-lane launches bit for bit and against their
+    plain twins on SHARD_PLAIN_LANES; the 10k fleet against the JAX
+    package's EXPECT_SHARD; a device loss on the first sharded dispatch,
+    recovered through the probe kernel. Returns the ``ffd_loop_lanes``,
+    ``relax2_place_lanes`` and ``probe`` entries of the kernels line and the
+    phase's summary."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.models.problem import numpy_fields
+    from karpenter_tpu_torch.ops import relax as RX
+    from karpenter_tpu_torch.ops import relax2 as R2
+    from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state
+    from karpenter_tpu_torch.ops.padding import claim_axis_bucket
+    from karpenter_tpu_torch.ops.ffd_sweeps import (
+        FFD_SCRATCH,
+        FFD_STATE,
+        WORK_COUNTERS,
+        ffd_loop_args,
+        ffd_loop_lanes_args,
+        launch_ffd_loop,
+    )
+    from karpenter_tpu_torch.parallel import mesh as M
+    from karpenter_tpu_torch.solver import mesh_health
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.testing import faults
+    from karpenter_tpu_torch.testing import workloads as W
+    from karpenter_tpu_torch.verify import device as gdev
+
+    t_phase = time.perf_counter()
+    log(f"phase 8: the partitioned solve, {SHARD_PODS} fleet pods x 400 types in {SHARD_PARTITIONS} lanes, "
+        f"and mesh health")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def solve(workload, env, entry=None, **solver_args):
+        """One solve through the entry point with ``env`` set, the launch
+        counts set to 0 just before it and read just after; with ``entry``
+        (a parallel.mesh program) its dispatches' arguments are recorded."""
+        seen = []
+        orig = getattr(M, entry) if entry else None
+        if entry:
+            def recording(*args):
+                seen.append(args)
+                return orig(*args)
+            setattr(M, entry, recording)
+        os.environ.update(env)
+        try:
+            solver = TorchSolver(device=dev, **solver_args)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = solver.solve(*workload)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            for name in env:
+                os.environ.pop(name, None)
+            if entry:
+                setattr(M, entry, orig)
+        if result.num_scheduled() + len(result.failures) != len(workload[0]):
+            raise AssertionError(f"{entry or 'control'}: pod accounting broken")
+        return solver, result, wall, launches, seen
+
+    def want_launches(tag, launches, **want):
+        expected = {**{name: 0 for name in kernels.LAUNCHES}, **want}
+        if launches != expected:
+            raise AssertionError(f"{tag}: launched {launches}, not {expected}")
+
+    def served(tag, solver, dispatches, launches, relax2_on):
+        info = solver.last_shard
+        if info is None or info["reason"] is not None or info["partitions"] != SHARD_PARTITIONS \
+                or info["gate_rejections"] or info["lanes"] != SHARD_PARTITIONS:
+            raise AssertionError(f"{tag}: the sharded solve did not serve: {info}")
+        # every dispatch (the claim ladder's re-dispatches included) one
+        # lanes launch of each program, and one gate_counts per partition
+        want = dict(ffd_loop_lanes=len(dispatches), gate_counts=SHARD_PARTITIONS)
+        if relax2_on:
+            want["relax2_place_lanes"] = len(dispatches)
+        want_launches(tag, launches, **want)
+        return info
+
+    def bits(tag, ra, rb):
+        """Two results of the kernel equal bit for bit: verdicts, every state
+        leaf, IterCounts. (Not the work counters: the claims x types test
+        skips a claim that another warp's survivor already beat, so how many
+        type tests run depends on the warps' timing.)"""
+        if not (torch.equal(ra.kind, rb.kind) and torch.equal(ra.index, rb.index)):
+            raise AssertionError(f"{tag}: kind/index differ")
+        sa, sb = numpy_fields(ra.state), numpy_fields(rb.state)
+        for key in sb:
+            if not np.array_equal(sa[key].view(np.uint8), sb[key].view(np.uint8)):
+                raise AssertionError(f"{tag}: state {key} differs")
+        ia, ib = getattr(ra, "iters", None), getattr(rb, "iters", None)
+        if ia is not None and tuple(int(x) for x in ia) != tuple(int(x) for x in ib):
+            raise AssertionError(f"{tag}: IterCounts differ")
+
+    def lanes_bound(ts, works, prob):
+        """The lanes launch's bound: every lane's arguments (each read once,
+        the state read and written) and the operations every lane's work
+        counters record, as phase 2 counts them for ffd_loop."""
+        K, R, O = prob.num_keys, prob.num_resources, prob.offer_ok.shape[1]
+        Wd = prob.num_lanes // 32
+        nbytes = sum(io_bytes(t, FFD_STATE, FFD_SCRATCH) for t in ts)
+        w = {k: sum(x[k] for x in works) for k in WORK_COUNTERS}
+        int_ops = w["bin_gates"] * 2 * K * Wd + w["topo_lanes"] * 2 + w["type_tests"] * (K * Wd + O)
+        flt_ops = w["type_tests"] * 2 * R
+        return (*bound(nbytes, int_ops, flt_ops), nbytes, int_ops, flt_ops, w)
+
+    # -- 8.1 the fleet at full width: sharded and its unsharded control ------
+    fleet = W.fleet_workload(SHARD_PODS, 400, seed=42, neighborhoods=SHARD_NEIGHBORHOODS)
+    solver, result, wall, launches, seen = solve(fleet, SHARD_ENV, "shard_sweeps")
+    info = served("fleet", solver, seen, launches, False)
+    split = dict(solver.last_timing)
+    # the control: the unsharded FFD solve (relax off, the JAX package's
+    # parity suite's control), starting at the claim bucket of the sharded
+    # result's claims, the bucket a warm solver holds (the JAX bench measures
+    # both sides after a warm-up solve); a cold start climbs the ladder one
+    # re-encode of the whole batch a rung
+    ctrl, cres, cwall, claunches, _ = solve(fleet, {"KARPENTER_TPU_EXPLAIN": "0"}, relax=False,
+                                            initial_claim_slots=claim_axis_bucket(len(result.new_claims)))
+    if ctrl.last_shard is not None:
+        raise AssertionError("the control took the shard path")
+    # scheduled-set parity where it holds: the partitions share no node,
+    # group or finite budget, but a pod with a required pod affinity must
+    # join the claim its peers landed in, whose room the unsharded solve
+    # shares with every other partition's pods; so the sharded solve keeps
+    # every pod the control schedules, and any pod it schedules beyond them
+    # carries a required pod affinity (the JAX package's own 10k fleet:
+    # 9,862 sharded, 9,829 with its FFD control, 33 affinity pods apart)
+    def placed(r):
+        return {i for c in r.new_claims for i in c.pod_indices} | {i for v in r.node_pods.values() for i in v}
+
+    def affinity(i):
+        a = fleet[0][i].spec.affinity
+        return a is not None and a.pod_affinity is not None and bool(a.pod_affinity.required)
+
+    lost, gained = placed(cres) - placed(result), placed(result) - placed(cres)
+    if lost or any(not affinity(i) for i in gained):
+        raise AssertionError(f"fleet: the sharded solve lost {len(lost)} of the control's pods or gained "
+                             f"{sum(not affinity(i) for i in gained)} without a required pod affinity")
+    summary = {
+        "pods": SHARD_PODS, "partitions": info["partitions"], "part_pods": info["part_pods"],
+        "bucket_pods": info["bucket_pods"], "pad_frac": info["pad_frac"], "max_claims": info["max_claims"],
+        "dispatches": len(seen), "merged_claims": info["merged_claims"], "narrow_iters": info["narrow_iters"],
+        "sweep_iters": info["sweep_iters"], "scheduled": result.num_scheduled(), "claims": len(result.new_claims),
+        "wall_s": wall, "split_s": split, "control_wall_s": cwall, "control_split_s": dict(ctrl.last_timing),
+        "control_scheduled": cres.num_scheduled(), "affinity_gained": len(gained),
+        "control_escalations": ctrl.claim_escalations, "control_claims": len(cres.new_claims),
+        "control_launches": claunches, "speedup_vs_control": cwall / wall,
+    }
+    log(f"  fleet sharded: {result.num_scheduled()}/{SHARD_PODS} scheduled (control {cres.num_scheduled()}: every "
+        f"control pod kept, {len(gained)} more, each with a required pod affinity), "
+        f"claims {len(result.new_claims)} (control {len(cres.new_claims)}), merged {info['merged_claims']}, "
+        f"parts {info['part_pods']}, bucket {info['bucket_pods']}, pad_frac {info['pad_frac']}, max_claims "
+        f"{info['max_claims']}, {len(seen)} dispatch(es), narrow {info['narrow_iters']}, sweeps {info['sweep_iters']}; "
+        f"launches {launches}")
+    log(f"  fleet sharded wall {wall * 1e3:.1f} ms = " + " + ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items())
+        + f"; control wall {cwall * 1e3:.1f} ms ({({k: round(v * 1e3, 1) for k, v in ctrl.last_timing.items()})}, "
+        f"{ctrl.claim_escalations} escalations, launches {claunches}); speedup_vs_control "
+        f"{summary['speedup_vs_control']:.3f}")
+
+    # -- 8.2 the lanes launch held: single-lane launches, plain twins ----------
+    batch, C = seen[-1][:2]
+    problems = M._shard_lanes(batch)
+    lanes = M.shard_sweeps(batch, C)
+    singles = [launch_ffd_loop(p, initial_state(p, C), one_pass=False) for p in problems]
+    for b, (rk, rs) in enumerate(zip(lanes, singles)):
+        bits(f"fleet lane {b}", rk, rs)
+    plain, lanes_plain_ms = plain_ms(lambda: M.shard_sweeps_plain(batch, C, lanes=SHARD_PLAIN_LANES))
+    lanes_err = 0.0
+    for b, rp in zip(SHARD_PLAIN_LANES, plain):
+        lanes_err = max(lanes_err, compare_results(f"fleet lane {b} plain", lanes[b], rp))
+    sets = []
+    for _ in range(3):
+        ts, buf, args = ffd_loop_lanes_args(problems, [initial_state(p, C) for p in problems])
+        sets.append(((ts, buf), args))
+    lanes_ms, lanes_all = time_launches("ffd_loop_lanes", sets)
+    for (ts, _), _ in sets:
+        if any(not (torch.equal(t["kind"], r.kind) and torch.equal(t["index"], r.index)) for t, r in zip(ts, lanes)):
+            raise AssertionError("ffd_loop_lanes: a timed launch differs from the wrapper's")
+    lanes_wrap_ms, _ = time_ms(lambda: M.shard_sweeps(batch, C), 2)
+    iters = [dict(zip(("narrow", "sweeps", "chain_commits", "chain_pods"), (int(x) for x in r.iters))) for r in lanes]
+    deepest = max(range(len(lanes)), key=lambda b: iters[b]["narrow"])
+    one = [ffd_loop_lanes_args([problems[deepest]], [initial_state(problems[deepest], C)]) for _ in range(3)]
+    deep_ms, _ = time_launches("ffd_loop_lanes", [((ts, buf), a) for ts, buf, a in one])
+    # the same lane through the single-lane kernel
+    deep_sets = [ffd_loop_args(problems[deepest], initial_state(problems[deepest], C), False) for _ in range(3)]
+    deep_single_ms, _ = time_launches("ffd_loop", deep_sets)
+    for t, _ in deep_sets:
+        if not (torch.equal(t["kind"], lanes[deepest].kind) and torch.equal(t["index"], lanes[deepest].index)):
+            raise AssertionError("ffd_loop: the deepest lane's single launch differs from its lane")
+    works = [dict(zip(WORK_COUNTERS, r.work.cpu().tolist())) for r in lanes]
+    l_bound, l_by, l_bytes, l_int, l_flt, l_work = lanes_bound(sets[0][0][0], works, problems[0])
+    log(f"  ffd_loop lanes ({len(problems)} x {problems[0].num_pods} rows, C={C}): kernel {lanes_ms:.3f} ms median of "
+        f"{[round(x, 3) for x in lanes_all]}, wrapper {lanes_wrap_ms:.3f} ms; its deepest lane ({deepest}, "
+        f"{iters[deepest]['narrow']} narrow iterations) alone in a one-lane launch {deep_ms:.3f} ms, in the single-lane "
+        f"kernel {deep_single_ms:.3f} ms; control device "
+        f"stage {ctrl.last_timing['device'] * 1e3:.1f} ms; == {len(singles)} single-lane launches bit for bit, == plain "
+        f"on lanes {list(SHARD_PLAIN_LANES)} ({lanes_plain_ms:.1f} ms); IterCounts {iters}; work {l_work}; bytes "
+        f"{l_bytes}, int ops {l_int:.4g}, float ops {l_flt:.4g}; bound {l_bound:.5f} ms ({l_by})")
+
+    # -- 8.3 program 14 on the fleet -----------------------------------------
+    r2_env = {**SHARD_ENV, "KARPENTER_TPU_RELAX2": "1"}
+    s2, res2, wall2, launches2, seen2 = solve(fleet, r2_env, "shard_relax2_sweeps")
+    info2 = served("fleet relax2", s2, seen2, launches2, True)
+    r2 = s2.last_relax2
+    if r2 is None or r2["reason"] is not None or not r2["sharded"] or r2["lanes"] != SHARD_PARTITIONS:
+        raise AssertionError(f"fleet relax2: the convex phase did not serve: {r2}")
+    batch2, C2, iters2, step2 = seen2[-1][:4]
+    probs2 = M._shard_lanes(batch2)
+    outs = R2.launch_relax2_place_lanes(probs2, C2, iters2, step2)
+    results2, stats2 = M.shard_relax2_sweeps(batch2, C2, iters2, step2)
+    r2_err = 0.0
+    for b, p in enumerate(probs2):
+        single = R2.launch_relax2_place(p, C2, iters2, step2)
+        for key in ("kind", "index", "residue_active"):
+            if not torch.equal(getattr(outs[b], key), getattr(single, key)):
+                raise AssertionError(f"fleet relax2 lane {b}: convex {key} differs from a single launch")
+        bits(f"fleet relax2 lane {b} convex", outs[b], single)
+        if not R2.host_stats(outs[b].stats) == R2.host_stats(single.stats) == R2.host_stats(stats2[b]):
+            raise AssertionError(f"fleet relax2 lane {b}: stats differ from a single launch")
+        residue, state = _lane_align(dataclasses.replace(p, pod_active=single.residue_active), single.state)
+        carried = launch_ffd_loop(residue, state, one_pass=False, kind0=single.kind, index0=single.index)
+        bits(f"fleet relax2 lane {b} carried", results2[b], carried)
+    (plain2, pstats2), r2_plain_ms = plain_ms(
+        lambda: M.shard_relax2_sweeps_plain(batch2, C2, iters2, step2, lanes=SHARD_PLAIN_LANES))
+    for b, rp, sp in zip(SHARD_PLAIN_LANES, plain2, pstats2):
+        r2_err = max(r2_err, compare_relax2(f"fleet relax2 lane {b}", outs[b], R2.relax2_place_plain(
+            probs2[b], C2, iters2, step2)))
+        r2_err = max(r2_err, compare_results(f"fleet relax2 lane {b} carried plain", results2[b], rp))
+        if R2.host_stats(sp) != R2.host_stats(stats2[b]):
+            raise AssertionError(f"fleet relax2 lane {b}: stats {R2.host_stats(stats2[b])} != plain")
+    r2_sets = [(lambda x: ((x[0], x[1]), x[2]))(RX.relax_place_lanes_args(probs2, C2, (iters2, step2)))
+               for _ in range(3)]
+    r2_ms, r2_all = time_launches("relax2_place_lanes", r2_sets)
+    r2_wrap_ms, _ = time_ms(lambda: R2.launch_relax2_place_lanes(probs2, C2, iters2, step2), 3)
+    # lane ``deepest`` alone: a one-lane lanes launch and the single launch
+    cv = (iters2, step2)
+    r2_one_ms, _ = time_launches("relax2_place_lanes", [
+        (lambda x: ((x[0], x[1]), x[2]))(RX.relax_place_lanes_args([probs2[deepest]], C2, cv)) for _ in range(5)])
+    r2_single_ms, _ = time_launches("relax_place", [
+        (t, a) for t, _, a in (RX.relax_place_args(probs2[deepest], C2, cv) for _ in range(5))])
+    c_sets = []
+    for _ in range(2):
+        al = [_lane_align(dataclasses.replace(p, pod_active=o.residue_active), o.state) for p, o in zip(probs2, outs)]
+        ts, buf, args = ffd_loop_lanes_args([a for a, _ in al], [s for _, s in al], [o.kind for o in outs],
+                                            [o.index for o in outs])
+        c_sets.append(((ts, buf), args))
+    c_ms, _ = time_launches("ffd_loop_lanes", c_sets)
+    r2_work = {k: sum(int(t["work"][i]) for (t, _) in r2_sets[0][0][0]) for i, k in enumerate(RX.WORK_COUNTERS)}
+    K, R, O = probs2[0].num_keys, probs2[0].num_resources, probs2[0].offer_ok.shape[1]
+    Wd, P2 = probs2[0].num_lanes // 32, probs2[0].num_pods
+    r2_bytes = sum(io_bytes(t, RX.RELAX_STATE, RX.RELAX_SCRATCH) for t, _ in r2_sets[0][0][0])
+    r2_int = r2_work["type_tests"] * (K * Wd + O) + r2_work["record_lanes"] * 2
+    r2_flt = r2_work["type_tests"] * 2 * R + len(probs2) * P2 * R * 6 + r2_work["pgd_columns"] * PGD_COLUMN_OPS
+    r2_bound, r2_by = bound(r2_bytes, r2_int, r2_flt)
+    summary["relax2"] = {"wall_s": wall2, "split_s": dict(s2.last_timing), "scheduled": res2.num_scheduled(),
+                         "claims": len(res2.new_claims), "merged_claims": info2["merged_claims"],
+                         "dispatches": len(seen2), "relax2": r2, "carried_ms": c_ms,
+                         "narrow_iters": info2["narrow_iters"], "sweep_iters": info2["sweep_iters"]}
+    log(f"  fleet relax2 sharded: {res2.num_scheduled()}/{SHARD_PODS} scheduled, claims {len(res2.new_claims)}, "
+        f"merged {info2['merged_claims']}, wall {wall2 * 1e3:.1f} ms {({k: round(v * 1e3, 1) for k, v in s2.last_timing.items()})}, "
+        f"launches {launches2}; summed Relax2Stats {r2}")
+    log(f"  relax_place convex lanes: kernel {r2_ms:.4f} ms median of {[round(x, 4) for x in r2_all]}, wrapper "
+        f"{r2_wrap_ms:.4f} ms, lane {deepest} alone {r2_one_ms:.4f} ms (single-lane kernel {r2_single_ms:.4f} ms), "
+        f"== single convex launches and their carried loops bit for bit, == plain on lanes "
+        f"{list(SHARD_PLAIN_LANES)} (convex + carried {r2_plain_ms:.1f} ms); carried lanes launch {c_ms:.3f} ms; "
+        f"work {r2_work}; bytes {r2_bytes}; bound {r2_bound:.5f} ms ({r2_by})")
+
+    # -- 8.4 the 10k fleet against the JAX package ----------------------------
+    small = W.fleet_workload(SHARD_CHECK_PODS, 400, seed=42, neighborhoods=SHARD_NEIGHBORHOODS)
+    for tag, env in (("fresh", SHARD_ENV), ("relax2", r2_env)):
+        s, r, w, ln, disp = solve(small, env, "shard_relax2_sweeps" if tag == "relax2" else "shard_sweeps")
+        served(f"10k {tag}", s, disp, ln, tag == "relax2")
+        ls = s.last_shard
+        got = {"scheduled": r.num_scheduled(), "claims": len(r.new_claims), "merged_claims": ls["merged_claims"],
+               "part_pods": sorted(ls["part_pods"]), "reason": ls["reason"], "max_claims": ls["max_claims"],
+               "narrow_iters": ls["narrow_iters"], "sweep_iters": ls["sweep_iters"]}
+        want = {k: v for k, v in EXPECT_SHARD[tag].items() if k != "relax2"}
+        if got != want:
+            raise AssertionError(f"10k fleet {tag}: {got} != the JAX package's {want}")
+        if tag == "relax2":
+            exp, info = EXPECT_SHARD["relax2"]["relax2"], s.last_relax2
+            ints = {k: info[k] for k in ("eligible", "placed", "demoted", "claims", "pgd_iterations")}
+            ints.update(overflow=info["rounding"]["overflow"], round_demoted=info["rounding"]["demoted"])
+            if ints != {k: v for k, v in exp.items() if k not in ("residual", "capviol")} or not np.allclose(
+                    [info["residual"], info["capviol"]], [exp["residual"], exp["capviol"]], rtol=STAT_RTOL,
+                    atol=FLOAT_ATOL):
+                raise AssertionError(f"10k fleet relax2: stats {info} != the JAX package's {exp}")
+        summary[f"check_{tag}"] = {**got, "wall_s": w}
+        log(f"  10k fleet {tag}: {got} == the JAX package's; wall {w * 1e3:.1f} ms")
+
+    # -- 8.5 mesh health: a lost device, recovered through the probe ---------
+    _, ctrl_small, _, _, _ = solve(small, {"KARPENTER_TPU_EXPLAIN": "0"})
+    health_env = {**SHARD_ENV, "KARPENTER_TPU_MESH_HEALTH": "1", "KARPENTER_TPU_FAULTS": "device[0].loss@1"}
+    mesh_health.reset()
+    faults.clear()
+    try:
+        s, r, w, ln, _ = solve(small, health_env)
+        if s.last_shard != {"reason": "single-device", "recarves": 1}:
+            raise AssertionError(f"mesh health: the lost device did not stand the shard path down: {s.last_shard}")
+        if r.num_scheduled() != ctrl_small.num_scheduled():
+            raise AssertionError(f"mesh health: the unsharded path scheduled {r.num_scheduled()}, "
+                                 f"the control {ctrl_small.num_scheduled()}")
+        tr = mesh_health.tracker()
+        os.environ["KARPENTER_TPU_MESH_HEALTH"] = "1"
+        kernels.reset_launches()
+        states = [tr.probe(force=True), tr.probe(force=True)]
+        torch.cuda.synchronize()
+        probe_launches = kernels.LAUNCHES["probe"]
+        if states != [{0: mesh_health.STATE_PROBATION}, {0: mesh_health.STATE_HEALTHY}] or probe_launches != 2:
+            raise AssertionError(f"mesh health: the probes gave {states}, {probe_launches} probe launches")
+        reasons = [x["reason"] for x in tr.snapshot()["recarves"]]
+        if reasons != [mesh_health.REASON_DEVICE_LOST, mesh_health.REASON_RECOVERED]:
+            raise AssertionError(f"mesh health: recarves {reasons}")
+        s2h, r2h, w2h, ln2h, disp = solve(small, {**SHARD_ENV, "KARPENTER_TPU_MESH_HEALTH": "1"}, "shard_sweeps")
+        served("mesh health recovered", s2h, disp, ln2h, False)
+        recovery_s = tr.last_recovery_s
+        if recovery_s is None or tr.snapshot()["recovery_pending"]:
+            raise AssertionError("mesh health: the recovery clock did not close")
+    finally:
+        os.environ.pop("KARPENTER_TPU_MESH_HEALTH", None)
+        os.environ.pop("KARPENTER_TPU_FAULTS", None)
+        faults.clear()
+        mesh_health.reset()
+    summary["mesh_recovery_s"] = recovery_s
+    log(f"  mesh health: device[0].loss@1 -> standdown single-device, recarves 1, unsharded served "
+        f"{r.num_scheduled()} (== control); 2 forced probes (2 probe launches) -> probation, healthy; the next "
+        f"sharded solve served; mesh_recovery_s {recovery_s:.3f}")
+
+    # the probe kernel alone, against its plain sum
+    x = torch.arange(gdev.PROBE_VALUES, dtype=torch.float32, device=dev)
+    pk = gdev.launch_probe(x)
+    pp = gdev.probe_sum_plain(x)
+    if not (float(pk.cpu()[0]) == float(pp.cpu()[0]) == 120.0):
+        raise AssertionError(f"probe: kernel {pk} plain {pp}")
+    p_err = abs(float(pk.cpu()[0]) - float(pp.cpu()[0]))
+    rng = np.random.default_rng(18)
+    for n in (1, 16, 32):
+        v = torch.from_numpy((rng.standard_normal(n) * 1e3).astype(np.float32)).to(dev)
+        vk, vp = gdev.launch_probe(v).cpu(), gdev.probe_sum_plain(v).cpu()
+        if vk.view(torch.int32).item() != vp.view(torch.int32).item():
+            raise AssertionError(f"probe: kernel != plain on {n} values")
+        p_err = max(p_err, abs(float(vk[0]) - float(vp[0])))
+    if gdev.probe_device(dev, torch.arange(16, dtype=torch.float32) + 1):
+        raise AssertionError("probe: a wrong sum passed the probe")
+    p_sets = [gdev.probe_args(x) for _ in range(20)]
+    p_ms, _ = time_launches("probe", p_sets)
+    p_wrap_ms, _ = time_ms(lambda: gdev.probe_sum(x), 20)
+    _, p_plain_ms = plain_ms(lambda: gdev.probe_sum_plain(x))
+    # the library's reduction of the same tensor (timed only: the probe
+    # never calls it)
+    p_lib_ms, _ = time_ms(lambda: torch.sum(x), 20)
+    p_bound, p_by = bound(io_bytes(p_sets[0][0]), 0, gdev.PROBE_VALUES - 1)
+    log(f"  probe: kernel {p_ms:.4f} ms, wrapper {p_wrap_ms:.4f} ms, plain {p_plain_ms:.3f} ms, torch.sum "
+        f"{p_lib_ms:.4f} ms, == plain bit for bit (max abs err {p_err}); a wrong sum fails the probe; bound "
+        f"{p_bound:.7f} ms ({p_by})")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"  shard phase wall {summary['phase_s']:.1f}s")
+    entries = [
+        {
+            "name": "ffd_loop_lanes",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/ffd_loop.cu",
+            "replaces": "karpenter_tpu/parallel/mesh.py:468",
+            "launches": launches["ffd_loop_lanes"],
+            "max_abs_err": lanes_err,
+            "ms": lanes_ms,
+            "plain_ms": lanes_plain_ms,
+            "plain_lanes": len(SHARD_PLAIN_LANES),
+            "bound_ms": l_bound,
+            "bound_by": l_by,
+            "library_ms": None,
+            "wrapper_ms": lanes_wrap_ms,
+            "mode": f"ffd_loop lanes, grid {len(problems)}",
+            "deepest_lane_alone_ms": deep_ms,
+            "deepest_lane_single_ms": deep_single_ms,
+            "control_device_ms": ctrl.last_timing["device"] * 1e3,
+            "iters": iters,
+            "work": l_work,
+            "carried_lanes_ms": c_ms,
+            "launches_relax2": launches2["ffd_loop_lanes"],
+        },
+        {
+            "name": "relax2_place_lanes",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/relax_place.cu",
+            "replaces": "karpenter_tpu/parallel/mesh.py:517",
+            "launches": launches2["relax2_place_lanes"],
+            "max_abs_err": r2_err,
+            "ms": r2_ms,
+            "plain_ms": r2_plain_ms,
+            "plain_lanes": len(SHARD_PLAIN_LANES),
+            "bound_ms": r2_bound,
+            "bound_by": r2_by,
+            "library_ms": None,
+            "wrapper_ms": r2_wrap_ms,
+            "mode": f"relax_place convex lanes, grid {len(probs2)}, then ffd_loop lanes seeded",
+            "deepest_lane_alone_ms": r2_one_ms,
+            "deepest_lane_single_ms": r2_single_ms,
+            "work": r2_work,
+            "carried_lanes_ms": c_ms,
+        },
+        {
+            "name": "probe",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/probe.cu",
+            "replaces": "karpenter_tpu/verify/device.py:316",
+            "launches": probe_launches,
+            "max_abs_err": p_err,
+            "ms": p_ms,
+            "plain_ms": p_plain_ms,
+            "bound_ms": p_bound,
+            "bound_by": p_by,
+            "library_ms": p_lib_ms,
+            "wrapper_ms": p_wrap_ms,
+        },
+    ]
+    return entries, summary
 
 
 def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results, compare_relax2,

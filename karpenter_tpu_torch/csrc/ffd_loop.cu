@@ -6,6 +6,9 @@
 //   ops/ffd_step.py:483/:506 _solve_ffd_jit / _solve_ffd_fresh_jit (one-pass mode)
 //   ops/ffd_sweeps.py:2002/:2024 the learned-order twins of the two sweeps
 //   programs (program 6, with order_scores from lane_scores.cu)
+//   parallel/mesh.py:468 shard_sweeps_program (program 13) and the carried
+//   half of :517 shard_relax2_sweeps_program (program 14), in the lanes mode
+//   (ffd_loop_lanes_launch: grid L, one lane's loop per block)
 // In the sweeps modes each iteration evaluates the pod at the queue cursor
 // and commits its chain of chain-identical successors (csrc/chain.cuh, the
 // JAX package's narrow_iter); the one-pass mode steps one pod at a time
@@ -51,7 +54,8 @@
 //
 // This uses one SM of the card's 132. Keeping the claim and instance-type
 // tables resident in shared memory and splitting the claims x types test
-// across blocks are later work.
+// across blocks are later work. The lanes mode (the partitioned solve,
+// parallel/mesh.shard_sweeps) runs one such loop per block, a lane per SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // masks.cuh for why FMA contraction must stay off).
@@ -175,9 +179,21 @@ struct FfdArgs {
   int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, one_pass;
 };
 
+// The lanes mode's launch: one FfdArgs per lane in device memory. Every
+// lane has the same G and R (one vocabulary, one bucket), from which the
+// dynamic shared memory is sized. Mirrored by FfdLanesArgs in
+// karpenter_tpu_torch/ops/ffd_sweeps.py.
+struct FfdLanesArgs {
+  const FfdArgs* lanes;  // [L], device memory
+  int L, G, R;
+};
+
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
+// The per-block state of the loop sits in static shared memory declared in
+// this function, so each block (one solve, or one lane of the lanes mode)
+// has its own. Inlined into both kernels below.
+__device__ __forceinline__ void loop_body(const FfdArgs& a) {
   __shared__ Shared s;
   __shared__ ChainShared cs;
   extern __shared__ int dyn[];
@@ -293,6 +309,20 @@ __global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) {
   if (tid < NWORK) a.work[tid] = s_work[tid];
 }
 
+__global__ void __launch_bounds__(THREADS, 1) ffd_loop_kernel(FfdArgs a) { loop_body(a); }
+
+// The lanes mode (the JAX package's partitioned sweeps, programs 13 and 14's
+// repair): block b runs lane b's whole loop from its own argument struct,
+// which points at the lane's own problem rows, state, scratch, verdicts,
+// counters and work counters (nothing is shared between lanes but the
+// launch), and exits when its own loop converges.
+__global__ void __launch_bounds__(THREADS, 1) ffd_loop_lanes_kernel(const FfdArgs* lanes) {
+  __shared__ FfdArgs a;
+  if (threadIdx.x == 0) a = lanes[blockIdx.x];
+  __syncthreads();
+  loop_body(a);
+}
+
 // Measures the cost of one counted block barrier (block_sync) in a block of
 // the loop's size: ``n`` barriers, nothing else. Not part of the solve.
 __global__ void __launch_bounds__(THREADS, 1) sync_probe_kernel(int n) {
@@ -316,6 +346,24 @@ extern "C" int ffd_loop_launch(const FfdArgs* args, void* stream) {
     if (e != cudaSuccess) return (int)cudaGetLastError();
   }
   ffd_loop_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ffd_loop_lanes_args_size() { return (int)sizeof(FfdLanesArgs); }
+
+// The lanes mode: grid L, one block per lane. With one block an SM
+// (__launch_bounds__(THREADS, 1)), up to 132 lanes run in one wave on an
+// H100; more lanes queue behind the first wave's blocks (each waits for an
+// SM to free, correct but no longer concurrent).
+extern "C" int ffd_loop_lanes_launch(const FfdLanesArgs* args, void* stream) {
+  if (args->L <= 0) return 0;
+  const size_t smem = (size_t)(3 * args->G + args->R) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(ffd_loop_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)cudaGetLastError();
+  }
+  ffd_loop_lanes_kernel<<<args->L, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args->lanes);
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,8 @@
 //   ops/relax_common.py eligibility :70, plan_groups :168, commit_assignment :299)
 //   ops/relax2.py:314 _relax2_place_jit (_relax2_impl :226, _pgd_step_op :179,
 //   _round_lff :197; program 17), in mode 1
+//   parallel/mesh.py:517 shard_relax2_sweeps_program's phase 1 (program 14),
+//   in mode 1 with one block per partition (relax_place_lanes_launch)
 // and computes what ops/relax.relax_place_plain (mode 0) and
 // ops/relax2.relax2_place_plain (mode 1) compute: the eligibility screen,
 // bin-groups over adjacent byte-equal eligible pods, the template pick, the
@@ -248,75 +250,78 @@ struct Workspace {
 
 namespace {
 
+// One array of ``n`` T at the next 16-byte boundary after ``off``.
+template <class T>
+__host__ __device__ __forceinline__ void take_n(T*& ptr, size_t n, char* base, size_t& off) {
+  off = (off + 15) & ~size_t(15);
+  ptr = base ? reinterpret_cast<T*>(base + off) : nullptr;
+  off += n * sizeof(T);
+}
+
 // Lay the workspace arrays out from ``base`` (16-byte aligned); returns the
-// bytes needed. With base == nullptr only the size is computed.
-size_t carve(const RelaxArgs& a, char* base, Workspace* s) {
+// bytes needed. With base == nullptr only the size is computed. Host and
+// device: the lanes mode carves each lane's workspace in its own block.
+__host__ __device__ size_t carve(const RelaxArgs& a, char* base, Workspace* s) {
   size_t off = 0;
-  auto take = [&](auto& ptr, size_t n) {
-    using T = std::remove_pointer_t<std::remove_reference_t<decltype(ptr)>>;
-    off = (off + 15) & ~size_t(15);
-    ptr = base ? reinterpret_cast<T*>(base + off) : nullptr;
-    off += n * sizeof(T);
-  };
   const size_t P = a.P, C = a.C, CT = (size_t)a.C * a.TPL, K = a.K, W = a.W;
-  take(s->elig0, P);
-  take(s->head, P);
-  take(s->elig, P);
-  take(s->assigned, P);
-  take(s->gid, P);
-  take(s->binp, P);
-  take(s->slot, P);
-  take(s->w, P);
-  take(s->start, P);
-  take(s->hp, C);
-  take(s->glast, C);
-  take(s->gvalid, C);
-  take(s->tpick, C);
-  take(s->nbins, C);
-  take(s->slotbase, C);
-  take(s->gmax, C * a.R);
-  take(s->gsum, C * a.R);
-  take(s->capvec, C * a.R);
-  take(s->m_adm, CT * K * W);
-  take(s->m_comp, CT * K);
-  take(s->m_def, CT * K);
-  take(s->m_gt, CT * K);
-  take(s->m_lt, CT * K);
-  take(s->m_neg, CT * K);
-  take(s->tpl_compat, CT);
-  take(s->it_ok_max, CT * a.T);
-  take(s->g_of_c, C);
-  take(s->cfirst, C);
-  take(s->clast, C);
-  take(s->lastp, C);
-  take(s->firstp, C);
-  take(s->npods, C);
-  take(s->feas, C);
-  take(s->open, C);
-  take(s->r_adm, C * K * W);
-  take(s->r_comp, C * K);
-  take(s->r_def, C * K);
-  take(s->r_gt, C * K);
-  take(s->r_lt, C * K);
-  take(s->r_neg, C * K);
-  take(s->sums, C * a.R);
-  take(s->selcnt, C * a.G);
+  take_n(s->elig0, P, base, off);
+  take_n(s->head, P, base, off);
+  take_n(s->elig, P, base, off);
+  take_n(s->assigned, P, base, off);
+  take_n(s->gid, P, base, off);
+  take_n(s->binp, P, base, off);
+  take_n(s->slot, P, base, off);
+  take_n(s->w, P, base, off);
+  take_n(s->start, P, base, off);
+  take_n(s->hp, C, base, off);
+  take_n(s->glast, C, base, off);
+  take_n(s->gvalid, C, base, off);
+  take_n(s->tpick, C, base, off);
+  take_n(s->nbins, C, base, off);
+  take_n(s->slotbase, C, base, off);
+  take_n(s->gmax, C * a.R, base, off);
+  take_n(s->gsum, C * a.R, base, off);
+  take_n(s->capvec, C * a.R, base, off);
+  take_n(s->m_adm, CT * K * W, base, off);
+  take_n(s->m_comp, CT * K, base, off);
+  take_n(s->m_def, CT * K, base, off);
+  take_n(s->m_gt, CT * K, base, off);
+  take_n(s->m_lt, CT * K, base, off);
+  take_n(s->m_neg, CT * K, base, off);
+  take_n(s->tpl_compat, CT, base, off);
+  take_n(s->it_ok_max, CT * a.T, base, off);
+  take_n(s->g_of_c, C, base, off);
+  take_n(s->cfirst, C, base, off);
+  take_n(s->clast, C, base, off);
+  take_n(s->lastp, C, base, off);
+  take_n(s->firstp, C, base, off);
+  take_n(s->npods, C, base, off);
+  take_n(s->feas, C, base, off);
+  take_n(s->open, C, base, off);
+  take_n(s->r_adm, C * K * W, base, off);
+  take_n(s->r_comp, C * K, base, off);
+  take_n(s->r_def, C * K, base, off);
+  take_n(s->r_gt, C * K, base, off);
+  take_n(s->r_lt, C * K, base, off);
+  take_n(s->r_neg, C * K, base, off);
+  take_n(s->sums, C * a.R, base, off);
+  take_n(s->selcnt, C * a.G, base, off);
   if (a.mode == 1) {
-    take(s->X, P * WINDOW);
-    take(s->pref, P);
-    take(s->lo, P);
-    take(s->vmask, P);
-    take(s->key_bin, P);
-    take(s->frac, P);
-    take(s->border, P);
-    take(s->cfrac, P);
-    take(s->sorted, P);
-    take(s->gw, C);
-    take(s->load, C);
-    take(s->bfirst, C);
-    take(s->blast, C);
-    take(s->bcount, C);
-    take(s->bbase, C);
+    take_n(s->X, P * WINDOW, base, off);
+    take_n(s->pref, P, base, off);
+    take_n(s->lo, P, base, off);
+    take_n(s->vmask, P, base, off);
+    take_n(s->key_bin, P, base, off);
+    take_n(s->frac, P, base, off);
+    take_n(s->border, P, base, off);
+    take_n(s->cfrac, P, base, off);
+    take_n(s->sorted, P, base, off);
+    take_n(s->gw, C, base, off);
+    take_n(s->load, C, base, off);
+    take_n(s->bfirst, C, base, off);
+    take_n(s->blast, C, base, off);
+    take_n(s->bcount, C, base, off);
+    take_n(s->bbase, C, base, off);
   }
   return off;
 }
@@ -623,7 +628,9 @@ __device__ void convex_slots(const RelaxArgs& a, const Workspace& s, int* s_stat
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Workspace s) {
+// The whole phase, inlined into both kernels below; its per-block state is
+// static shared memory declared here and in the stages it calls.
+__device__ __forceinline__ void relax_body(const RelaxArgs& a, const Workspace& s) {
   __shared__ int s_scan[THREADS];
   __shared__ int s_all_inf;
   __shared__ int s_stats[NSTATS];
@@ -1048,6 +1055,23 @@ __global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Wo
   if (tid < NWORK) a.work[tid] = s_work[tid];
 }
 
+__global__ void __launch_bounds__(THREADS, 1) relax_place_kernel(RelaxArgs a, Workspace s) { relax_body(a, s); }
+
+// The lanes mode (program 14's convex phase 1 per partition): block b runs
+// lane b's whole phase from its own argument struct, with its own
+// workspace carved in the block, and its own verdicts, state, stats and
+// work counters.
+__global__ void __launch_bounds__(THREADS, 1) relax_place_lanes_kernel(const RelaxArgs* lanes) {
+  __shared__ RelaxArgs a;
+  __shared__ Workspace s;
+  if (threadIdx.x == 0) {
+    a = lanes[blockIdx.x];
+    carve(a, static_cast<char*>(a.workspace), &s);
+  }
+  __syncthreads();
+  relax_body(a, s);
+}
+
 }  // namespace
 
 extern "C" int relax_place_args_size() { return (int)sizeof(RelaxArgs); }
@@ -1063,5 +1087,23 @@ extern "C" int relax_place_launch(const RelaxArgs* args, void* stream) {
   Workspace s;
   carve(*args, static_cast<char*>(args->workspace), &s);
   relax_place_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*args, s);
+  return (int)cudaGetLastError();
+}
+
+// The lanes mode's launch: one RelaxArgs per lane in device memory, each
+// with its own workspace of relax_place_workspace_bytes for its dims.
+// Mirrored by RelaxLanesArgs in karpenter_tpu_torch/ops/relax.py.
+struct RelaxLanesArgs {
+  const RelaxArgs* lanes;  // [L], device memory
+  int L;
+};
+
+extern "C" int relax_place_lanes_args_size() { return (int)sizeof(RelaxLanesArgs); }
+
+// Grid L, one block per lane (one block an SM: up to 132 lanes in one wave
+// on an H100, more queue behind it).
+extern "C" int relax_place_lanes_launch(const RelaxLanesArgs* args, void* stream) {
+  if (args->L <= 0) return 0;
+  relax_place_lanes_kernel<<<args->L, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(args->lanes);
   return (int)cudaGetLastError();
 }

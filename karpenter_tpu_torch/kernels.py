@@ -41,19 +41,27 @@ SOURCES = {
     "gate_counts": "gate_counts.cu",
     "lane_scores": "lane_scores.cu",
     "patch_world": "patch_world.cu",
+    "probe": "probe.cu",
     "relax_place": "relax_place.cu",
     "runs_screen": "runs_screen.cu",
 }
-# each library's exported (launch, args-size) symbols
+# each entry's library and its exported (launch, args-size) symbols: one
+# entry per library under its own name, plus the lanes modes, which are
+# launch functions of their own in the same library
 _SYMBOLS = {
     "attribute": ("attribute_launch", "attribute_args_size"),
     "ffd_loop": ("ffd_loop_launch", "ffd_loop_args_size"),
     "gate_counts": ("gate_counts_launch", "gate_args_size"),
     "lane_scores": ("lane_scores_launch", "lane_scores_args_size"),
     "patch_world": ("patch_world_launch", "patch_world_args_size"),
+    "probe": ("probe_launch", "probe_args_size"),
     "relax_place": ("relax_place_launch", "relax_place_args_size"),
     "runs_screen": ("runs_screen_launch", "runs_screen_args_size"),
+    "ffd_loop_lanes": ("ffd_loop_lanes_launch", "ffd_loop_lanes_args_size"),
+    "relax2_place_lanes": ("relax_place_lanes_launch", "relax_place_lanes_args_size"),
 }
+# the library of each lanes mode
+_LIBRARY_OF = {"ffd_loop_lanes": "ffd_loop", "relax2_place_lanes": "relax_place"}
 
 # -fmad=false: masks.cuh's fits() must round like the plain PyTorch version
 NVCC_FLAGS = (
@@ -62,8 +70,11 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel; a mode with a program of its own counts under its own
-# name (relax_place's convex mode as relax2_place)
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, "relax2_place")}
+# name (relax_place's convex mode as relax2_place; the lanes modes of the
+# partitioned solve as ffd_loop_lanes and relax2_place_lanes)
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in (*SOURCES, "relax2_place", "ffd_loop_lanes", "relax2_place_lanes")
+}
 
 
 class KernelCompileError(RuntimeError):
@@ -136,20 +147,22 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build([name])[name]
             lib = ctypes.CDLL(str(path))
-            launch, size = _SYMBOLS[name]
-            getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            getattr(lib, launch).restype = ctypes.c_int
-            getattr(lib, size).argtypes = []
-            getattr(lib, size).restype = ctypes.c_int
+            for entry, (launch, size) in _SYMBOLS.items():
+                if _LIBRARY_OF.get(entry, entry) != name:
+                    continue
+                getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                getattr(lib, launch).restype = ctypes.c_int
+                getattr(lib, size).argtypes = []
+                getattr(lib, size).restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
 
 def launch(name: str, args: ctypes.Structure, stream: int, counter: Optional[str] = None) -> None:
-    """Launch kernel ``name`` with its argument struct on a CUDA stream
-    handle; raises KernelDeviceError on a launch error. Counts the launch
-    under ``counter`` (default ``name``)."""
-    lib = library(name)
+    """Launch kernel ``name`` (a library, or a lanes mode of one) with its
+    argument struct on a CUDA stream handle; raises KernelDeviceError on a
+    launch error. Counts the launch under ``counter`` (default ``name``)."""
+    lib = library(_LIBRARY_OF.get(name, name))
     launch_sym, size_sym = _SYMBOLS[name]
     expected = getattr(lib, size_sym)()
     if expected != ctypes.sizeof(args):

@@ -195,6 +195,53 @@ RELAX_FALLBACK = REGISTRY.counter(
     "through to the waterfill",
 )
 
+# -- mesh-sharded partitioned solve series (shard/, KARPENTER_TPU_SHARD) ------
+SHARD_PARTITIONS = REGISTRY.gauge(
+    "solver_shard_partitions",
+    "Independent sub-problems the last partitioned solve distributed over "
+    "the device mesh (0 until a solve takes the shard path)",
+)
+SHARD_PAD_FRACTION = REGISTRY.gauge(
+    "solver_shard_pad_fraction",
+    "Fraction of the last partitioned solve's stacked pod rows that were "
+    "padding (bucket waste + inert mesh-alignment lanes)",
+)
+SHARD_MERGE_REJECTIONS = REGISTRY.counter(
+    "solver_shard_merge_rejections_total",
+    "Partitioned solves stood down after a per-partition device gate or a "
+    "cross-partition claim-merge check rejected the result",
+)
+SHARD_FALLBACK = REGISTRY.counter(
+    "solver_shard_fallback_total",
+    "Partitioned solves that stood down to the unsharded path, by "
+    "classified reason (single-device, small-batch, relaxable, "
+    "unsupported-args, single-partition, cross-partition-claims, "
+    "shape-mismatch, slot-overflow, merge-rejected, error)",
+)
+
+# -- degraded-mesh resilience series (solver/mesh_health.py,
+# KARPENTER_TPU_MESH_HEALTH) ---------------------------------------------------
+MESH_DEVICES = REGISTRY.gauge(
+    "solver_mesh_devices",
+    "Local devices by mesh-health state (healthy, degraded, lost, "
+    "probation); written on every recarve and probe pass "
+    "(KARPENTER_TPU_MESH_HEALTH)",
+)
+MESH_RECARVE = REGISTRY.counter(
+    "solver_mesh_recarve_total",
+    "Mesh recarve events by classified reason: device-lost / "
+    "device-degraded (a dispatch failure excluded the device), probe-failed "
+    "(an excluded device failed its re-entry probe), recovered (a device "
+    "cleared probation and rejoined) — an unclassified recarve never "
+    "happens",
+)
+MESH_RECOVERY_SECONDS = REGISTRY.histogram(
+    "solver_mesh_recovery_seconds",
+    "Wall time from a device failure to the first green solve on the "
+    "recarved (shrunken) mesh — the degraded-mesh latency cost the "
+    "resilience contract trades for correctness",
+)
+
 # -- learned ordering policy series (solver/ordering.py, ops/policy.py) -------
 ORDER_POLICY_LOADS = REGISTRY.counter(
     "solver_order_policy_loads_total",

@@ -34,8 +34,8 @@ DUMP_VERSION = 1
 # -- the bounded event vocabulary ---------------------------------------------
 # One kind per instrumented decision point. record() raises on anything else:
 # an unclassified flight event is a bug. The JAX package's kinds whose
-# emitters are not ported (streaming cycles, mesh health, shard stand-downs,
-# the gate audit) join when their emitters do.
+# emitters are not ported (streaming cycles, the gate audit) join when their
+# emitters do.
 KIND_SOLVE_CYCLE = "solve-cycle"
 KIND_SOLVE_RETRY = "solve-retry"
 KIND_SOLVE_FALLBACK = "solve-fallback"
@@ -45,18 +45,23 @@ KIND_VALIDATOR_REJECT = "validator-reject"
 KIND_QUARANTINE = "quarantine"
 KIND_ADMISSION = "admission"
 KIND_SERVE_COMPLETE = "serve-complete"
+KIND_MESH_FAULT = "mesh-fault"
+KIND_MESH_RECARVE = "mesh-recarve"
+KIND_MESH_RECOVERED = "mesh-recovered"
+KIND_SHARD_STANDDOWN = "shard-standdown"
 KIND_SLO_BREACH = "slo-breach"
 KIND_DUMP = "flight-dump"
 
 KINDS = frozenset({
     KIND_SOLVE_CYCLE, KIND_SOLVE_RETRY, KIND_SOLVE_FALLBACK,
     KIND_SOLVE_SALVAGE, KIND_CIRCUIT, KIND_VALIDATOR_REJECT, KIND_QUARANTINE,
-    KIND_ADMISSION, KIND_SERVE_COMPLETE, KIND_SLO_BREACH, KIND_DUMP,
+    KIND_ADMISSION, KIND_SERVE_COMPLETE, KIND_MESH_FAULT, KIND_MESH_RECARVE,
+    KIND_MESH_RECOVERED, KIND_SHARD_STANDDOWN, KIND_SLO_BREACH, KIND_DUMP,
 })
 
 # What may trigger a dump — the incident classes, not the event kinds.
 DUMP_REASONS = frozenset({
-    "slo-breach", "circuit-open", "validator-reject", "manual",
+    "slo-breach", "circuit-open", "recarve", "validator-reject", "manual",
 })
 
 _enabled_override: Optional[bool] = None

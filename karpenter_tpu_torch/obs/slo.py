@@ -297,6 +297,9 @@ class SloEngine:
                 float(scheduled), float(failed),
             )
 
+    def record_recovery(self, seconds: float) -> None:
+        self._record_latency(self._objectives["mesh-recovery"], seconds)
+
     def record_gate(self, ok: bool) -> None:
         self._record(
             self._objectives["gate-integrity"],
@@ -342,6 +345,12 @@ def on_solve_cycle(duration_s: float, scheduled: int, failed: int) -> None:
     if not enabled():
         return
     engine().record_solve(duration_s, scheduled, failed)
+
+
+def on_recovery(seconds: float) -> None:
+    if not enabled():
+        return
+    engine().record_recovery(seconds)
 
 
 def on_gate(ok: bool) -> None:

@@ -24,11 +24,17 @@ Two implementations of the same function:
     time. Taken for CPU tensors (the tests) and as the yardstick on the card.
   * the ``ffd_loop`` CUDA kernel (csrc/ffd_loop.cu) — the whole loop in one
     launch, taken for CUDA tensors. There is no fallback between the two.
+
+The lanes mode (``launch_ffd_loop_lanes``; the partitioned solve's
+programs 13 and 14, parallel/mesh.py) runs L independent loops in one
+launch, one block per lane, each lane from its own argument struct with its
+own scratch, verdicts, IterCounts and work counters, each exiting its loop
+when it converges. Its plain version is ``sweeps_plain`` per lane.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -217,6 +223,61 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     if not one_pass:
         iters = IterCounts(*t["counters"])
     return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])
+
+
+# the lanes mode's launch struct (csrc/ffd_loop.cu FfdLanesArgs): the device
+# array of per-lane FfdArgs, the lane count, and the dims the shared memory is
+# sized from
+_FFD_LANES_INTS = ("L", "G", "R")
+_FfdLanesArgs = kernels.make_struct("FfdLanesArgs", ("lanes",), _FFD_LANES_INTS)
+
+
+def lane_structs(structs: Sequence, dev) -> torch.Tensor:
+    """The argument structs of the lanes, in order, copied into one device
+    buffer (the array a lanes-mode kernel's block b reads entry b of)."""
+    raw = b"".join(bytes(a) for a in structs)
+    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+
+
+def ffd_loop_lanes_args(problems: Sequence[SchedulingProblem], inits: Sequence[FFDState],
+                        kind0s=None, index0s=None):
+    """One ``ffd_loop_args`` per lane (fresh, or seeded with ``kind0s`` /
+    ``index0s``, one i32[P] each), their structs in one device buffer, and
+    the lanes-mode struct: (per-lane tensors, buffer, struct). Every lane
+    must have the same G and R (one vocabulary, one bucket)."""
+    if not problems or len(problems) != len(inits):
+        raise ValueError("the lanes mode needs one initial state per lane, and at least one lane")
+    if (kind0s is None) != (index0s is None):
+        raise ValueError("kind0s and index0s seed the verdict rows together")
+    lanes = [ffd_loop_args(p, init, False,
+                           None if kind0s is None else kind0s[b], None if index0s is None else index0s[b])
+             for b, (p, init) in enumerate(zip(problems, inits))]
+    dims = {(a.G, a.R) for _, a in lanes}
+    if len(dims) != 1:
+        raise ValueError(f"the lanes differ in their topology groups or resources: {sorted(dims)}")
+    (G, R), = dims
+    buf = lane_structs([a for _, a in lanes], problems[0].lane_valid.device)
+    args = _FfdLanesArgs(lanes=buf.data_ptr(), L=len(lanes), G=G, R=R)
+    return [t for t, _ in lanes], buf, args
+
+
+def launch_ffd_loop_lanes(problems: Sequence[SchedulingProblem], inits: Sequence[FFDState],
+                          kind0s=None, index0s=None) -> List[FFDResult]:
+    """Run the ``ffd_loop`` kernel's lanes mode on CUDA tensors: lane b's
+    requeue loop from ``inits[b]`` over ``problems[b]`` (seeded like
+    ``solve_ffd_sweeps_carried`` when ``kind0s``/``index0s`` are given), all
+    lanes in one launch, grid L. One FFDResult per lane; counted as
+    ``ffd_loop_lanes`` in kernels.LAUNCHES."""
+    dev = problems[0].lane_valid.device if problems else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError("launch_ffd_loop_lanes needs CUDA tensors")
+    # the struct buffer may be freed once the launch is queued: the caching
+    # allocator hands its memory out again only in stream order
+    ts, _buf, args = ffd_loop_lanes_args(problems, inits, kind0s, index0s)
+    kernels.launch("ffd_loop_lanes", args, torch.cuda.current_stream(dev).cuda_stream)
+    return [FFDResult(kind=t["kind"], index=t["index"], state=state_back(t, p.num_lanes),
+                      iters=IterCounts(*t["counters"]), work=t["work"])
+            for t, p in zip(ts, problems)]
 
 
 # the pod-axis tables in the kernels' layout: struct field <- problem field

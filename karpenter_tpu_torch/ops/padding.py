@@ -123,19 +123,24 @@ def _pad_reqs(r: ReqTensor, e: int, k: int, v: int) -> ReqTensor:
     )
 
 
-def pad_problem(p: SchedulingProblem, min_pods: int = 0) -> SchedulingProblem:
+def pad_problem(p: SchedulingProblem, min_pods: int = 0, min_nodes: int = 0,
+                min_runs: int = 0) -> SchedulingProblem:
     """Pad every axis of ``p`` to its bucket. Padded pod rows tolerate
     nothing, so they resolve to KIND_FAIL without touching state.
     ``min_pods`` raises the pod-axis bucket floor, so that problems stacked
-    into one batch (parallel/mesh.stack_problems) line up; it keeps the JAX
-    package's signature, whose sharded solve sets it (the serve layer's
-    lanes need no floor: it stacks only lanes whose shapes already match)."""
+    into one batch (parallel/mesh.stack_problems) line up; ``min_nodes`` /
+    ``min_runs`` extend the same floor to the node and run axes for problems
+    stacked with DIFFERENT node sets and run segmentations (shard/solve.py
+    pads every partition to the widest partition's buckets). The N=0
+    elision is kept only when both the problem and the floor are node-free.
+    The serve layer's lanes need no floor: it stacks only lanes whose shapes
+    already match."""
     P = pod_axis_bucket(max(p.num_pods, min_pods))
     T = pow2_bucket(p.num_instance_types)
     # N=0 stays 0: provisioning batches without existing nodes skip the
     # whole node branch statically instead of scanning 8 inert rows
-    N = pow2_bucket(p.num_nodes, lo=8) if p.num_nodes else 0
-    RN = pow2_bucket(p.num_runs, lo=4)
+    N = pow2_bucket(max(p.num_nodes, min_nodes), lo=8) if (p.num_nodes or min_nodes) else 0
+    RN = pow2_bucket(max(p.num_runs, min_runs), lo=4)
     TPL = pow2_bucket(p.num_templates, lo=4)
     K = pow2_bucket(p.num_keys, lo=4)
     # V must stay a multiple of 32: the solver bitpacks value lanes into

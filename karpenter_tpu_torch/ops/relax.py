@@ -47,7 +47,7 @@ from karpenter_tpu_torch.ops.ffd_core import (
     initial_state,
     problem_bounds_free,
 )
-from karpenter_tpu_torch.ops.ffd_sweeps import _req_tensors
+from karpenter_tpu_torch.ops.ffd_sweeps import _req_tensors, lane_structs
 from karpenter_tpu_torch.ops.relax_common import (
     _scatter,
     commit_assignment,
@@ -240,6 +240,49 @@ def relax_place_args(problem: SchedulingProblem, C: int, convex=None):
     return t, state0, args
 
 
+# the lanes mode's launch struct (csrc/relax_place.cu RelaxLanesArgs)
+_RelaxLanesArgs = kernels.make_struct("RelaxLanesArgs", ("lanes",), ("L",))
+
+
+def _relax_out(t: dict, state0: FFDState, V: int, convex) -> RelaxOut:
+    """The RelaxOut of one launch's (or lane's) tensors: the committed claim
+    and topology state over ``state0``'s untouched leaves."""
+    state = dataclasses.replace(
+        state0,
+        claim_req=ReqTensor(admitted=masks.unpack_lanes(t["claim_adm"], V), comp=t["claim_comp"],
+                            gt=t["claim_gt"], lt=t["claim_lt"], defined=t["claim_def"]),
+        claim_requests=t["claim_requests"], claim_it_ok=t["claim_it_ok"], claim_open=t["claim_open"],
+        claim_npods=t["claim_npods"], claim_tpl=t["claim_tpl"],
+        grp_counts=t["grp_counts"], grp_registered=t["grp_registered"],
+    )
+    stats = RelaxStats(*t["stats"][:4]) if convex is None else t["stats"]
+    return RelaxOut(state=state, kind=t["kind"], index=t["index"], residue_active=t["residue"],
+                    stats=stats, work=t["work"])
+
+
+def relax_place_lanes_args(problems, C: int, convex):
+    """One ``relax_place_args`` per lane in the convex mode (``convex`` =
+    (iters, step)), their structs in one device buffer, and the lanes-mode
+    struct: (per-lane (tensors, initial state), buffer, struct)."""
+    lanes = [relax_place_args(p, C, convex) for p in problems]
+    buf = lane_structs([a for _, _, a in lanes], problems[0].lane_valid.device)
+    return [(t, st) for t, st, _ in lanes], buf, _RelaxLanesArgs(lanes=buf.data_ptr(), L=len(lanes))
+
+
+def launch_relax_place_lanes(problems, C: int, convex):
+    """Run ``relax_place``'s convex mode in its lanes mode on CUDA tensors
+    (program 14's phase 1): lane b over ``problems[b]`` (lanes padded to a
+    multiple of 32), all lanes in one launch, grid L, each with its own
+    workspace. One RelaxOut per lane, its stats the raw int32[9] word;
+    counted as ``relax2_place_lanes``."""
+    dev = problems[0].lane_valid.device if problems else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError("launch_relax_place_lanes needs CUDA tensors")
+    lanes, _buf, args = relax_place_lanes_args(problems, C, convex)
+    kernels.launch("relax2_place_lanes", args, torch.cuda.current_stream(dev).cuda_stream)
+    return [_relax_out(t, st, p.num_lanes, convex) for (t, st), p in zip(lanes, problems)]
+
+
 def launch_relax_place(problem: SchedulingProblem, C: int, convex=None) -> RelaxOut:
     """Run the ``relax_place`` kernel on CUDA tensors (lanes padded to a
     multiple of 32). With ``convex`` = (iters, step) it runs the convex mode
@@ -251,14 +294,4 @@ def launch_relax_place(problem: SchedulingProblem, C: int, convex=None) -> Relax
     t, state0, args = relax_place_args(problem, C, convex)
     kernels.launch("relax_place", args, torch.cuda.current_stream(dev).cuda_stream,
                    counter="relax_place" if convex is None else "relax2_place")
-    state = dataclasses.replace(
-        state0,
-        claim_req=ReqTensor(admitted=masks.unpack_lanes(t["claim_adm"], problem.num_lanes), comp=t["claim_comp"],
-                            gt=t["claim_gt"], lt=t["claim_lt"], defined=t["claim_def"]),
-        claim_requests=t["claim_requests"], claim_it_ok=t["claim_it_ok"], claim_open=t["claim_open"],
-        claim_npods=t["claim_npods"], claim_tpl=t["claim_tpl"],
-        grp_counts=t["grp_counts"], grp_registered=t["grp_registered"],
-    )
-    stats = RelaxStats(*t["stats"][:4]) if convex is None else t["stats"]
-    return RelaxOut(state=state, kind=t["kind"], index=t["index"], residue_active=t["residue"],
-                    stats=stats, work=t["work"])
+    return _relax_out(t, state0, problem.num_lanes, convex)

@@ -62,6 +62,7 @@ from karpenter_tpu_torch.ops.relax import (
     RELAX_PASSES,
     RelaxOut,
     launch_relax_place,
+    launch_relax_place_lanes,
     waterfill_bins,
 )
 from karpenter_tpu_torch.ops.relax_common import (
@@ -296,6 +297,16 @@ def launch_relax2_place(problem: SchedulingProblem, C: int, iters: int, step: fl
     to a multiple of 32); counted as ``relax2_place`` in kernels.LAUNCHES."""
     out = launch_relax_place(problem, C, convex=(int(iters), float(step)))
     return out._replace(stats=stats_of(out.stats))
+
+
+def launch_relax2_place_lanes(problems, C: int, iters: int, step: float):
+    """The convex mode's lanes mode on CUDA tensors (program 14's phase 1):
+    one ``relax_place`` launch, grid L, lane b over ``problems[b]``; one
+    RelaxOut per lane with its Relax2Stats. Counted as
+    ``relax2_place_lanes`` in kernels.LAUNCHES."""
+    outs = launch_relax_place_lanes([_pad_lanes_mult32(p) for p in problems], int(C),
+                                    (int(iters), float(step)))
+    return [out._replace(stats=stats_of(out.stats)) for out in outs]
 
 
 def host_stats(stats: Relax2Stats) -> Relax2Stats:

@@ -29,6 +29,18 @@ first placement kept. The serve layer's cross-tenant stacking
 its stacked mode (every problem table and the start state offset per lane
 too); on CPU tensors ``batched_solve_plain`` / ``batched_screen_plain`` loop
 the runs scan over the lanes.
+
+The partitioned solve's programs (shard/solve.py, ``KARPENTER_TPU_SHARD``):
+``shard_sweeps`` (program 13, the JAX package's ``shard_sweeps_program``
+:468) and ``shard_relax2_sweeps`` (program 14, ``shard_relax2_sweeps_program``
+:517) run every partition of a stacked batch as one lane of a grid, one
+block each: ``ffd_loop`` in its lanes mode, after ``relax_place``'s convex
+lanes mode for program 14. Each lane exits its loop when it converges,
+which is ``shard_map``'s per-device semantics (the JAX package's vmap
+lockstep gives the same per-lane results). ``healthy_devices`` and
+``default_mesh`` give the device list the JAX package carves its mesh from;
+the lanes all run on the solver's device. ``carve_meshes`` (the serve
+replicas) is not ported.
 """
 
 from __future__ import annotations
@@ -45,17 +57,21 @@ from karpenter_tpu_torch.ops.ffd_core import (
     KIND_FAIL,
     FFDResult,
     FFDState,
+    _lane_align,
     _pad_lanes_mult32,
     initial_state,
+    problem_bounds_free,
 )
 from karpenter_tpu_torch.ops.ffd_runs import check_run_modes, has_topo_runs, max_run_bucket, runs_scan_plain
 from karpenter_tpu_torch.ops.ffd_sweeps import (
     FFD_STATE,
     _FFD_INPUTS,
     WORK_COUNTERS,
+    launch_ffd_loop_lanes,
     problem_tensors,
     state_back,
     state_tensors,
+    sweeps_plain,
 )
 
 
@@ -263,6 +279,101 @@ def batched_solve(batch: SchedulingProblem, max_claims: int, passes: int = 1) ->
     """The JAX package's ``batched_solve``: ``batched_screen`` with one pass
     by default."""
     return batched_screen(batch, max_claims, passes=passes)
+
+
+# -- the partitioned solve (KARPENTER_TPU_SHARD, shard/) ----------------------
+
+
+def healthy_devices(device=None) -> list:
+    """The devices the partitioned solve counts (the JAX package's
+    ``healthy_devices``): every CUDA device, or a CPU solver's own device
+    (solver/mesh_health.local_devices), minus whatever the mesh-health
+    tracker excludes when ``KARPENTER_TPU_MESH_HEALTH`` is on."""
+    from karpenter_tpu_torch.solver import mesh_health
+
+    devices = mesh_health.local_devices(device)
+    if mesh_health.enabled() and mesh_health.has_tracker():
+        devices = mesh_health.tracker().healthy_devices(devices)
+    return list(devices)
+
+
+def default_mesh(min_devices: int = 2, device=None) -> Optional[list]:
+    """The healthy devices (``healthy_devices(device)``), or None below
+    ``min_devices``. There is no device mesh object: the partitioned solve
+    runs its lanes as blocks of one launch on the solver's device, and the
+    list sets the default partition count and the ``single-device``
+    standdown, as the JAX package's mesh does."""
+    devices = healthy_devices(device)
+    if len(devices) < min_devices:
+        return None
+    return devices
+
+
+def _shard_lanes(batch: SchedulingProblem) -> list:
+    return [_pad_lanes_mult32(lane_problem(batch, b)) for b in range(batch.pod_active.shape[0])]
+
+
+def shard_sweeps_plain(batch: SchedulingProblem, max_claims: int,
+                       lanes: Optional[Sequence[int]] = None) -> list:
+    """Plain PyTorch program 13: the fresh sweeps of each lane in ``lanes``
+    (default all) from its own initial state, in the arm of the whole
+    stack's ``problem_bounds_free``, one FFDResult per lane."""
+    bounds_free = problem_bounds_free(batch)
+    out = []
+    for b in _lanes(batch.pod_active.shape[0], lanes):
+        p = _pad_lanes_mult32(lane_problem(batch, b))
+        out.append(sweeps_plain(p, initial_state(p, max_claims), bounds_free))
+    return out
+
+
+def shard_sweeps(batch: SchedulingProblem, max_claims: int) -> list:
+    """Program 13 (the JAX package's ``shard_sweeps_program``): every lane of
+    the stacked batch runs its own requeue loop from a fresh state to its own
+    convergence. One ``ffd_loop`` launch in its lanes mode (one block per
+    lane) on CUDA tensors, ``shard_sweeps_plain`` on CPU tensors. One
+    FFDResult per lane, in lane order."""
+    if batch.lane_valid.is_cuda:
+        problems = _shard_lanes(batch)
+        return launch_ffd_loop_lanes(problems, [initial_state(p, max_claims) for p in problems])
+    return shard_sweeps_plain(batch, max_claims)
+
+
+def shard_relax2_sweeps_plain(batch: SchedulingProblem, max_claims: int, iters: int, step: float,
+                              lanes: Optional[Sequence[int]] = None):
+    """Plain PyTorch program 14: per lane in ``lanes`` (default all) the
+    convex phase 1, then the carried repair of its residue from phase 1's
+    (state, kind, index). Returns (one FFDResult per lane, one Relax2Stats
+    per lane)."""
+    from karpenter_tpu_torch.ops.relax2 import relax2_place_plain
+
+    bounds_free = problem_bounds_free(batch)
+    results, stats = [], []
+    for b in _lanes(batch.pod_active.shape[0], lanes):
+        p = _pad_lanes_mult32(lane_problem(batch, b))
+        r = relax2_place_plain(p, max_claims, iters, step)
+        residue, state = _lane_align(dataclasses.replace(p, pod_active=r.residue_active), r.state)
+        results.append(sweeps_plain(residue, state, bounds_free, r.kind, r.index))
+        stats.append(r.stats)
+    return results, stats
+
+
+def shard_relax2_sweeps(batch: SchedulingProblem, max_claims: int, iters: int, step: float):
+    """Program 14 (the JAX package's ``shard_relax2_sweeps_program``): per
+    lane the convex phase 1, then the carried sweeps repair from its
+    (state, kind, index) with ``pod_active = residue_active``, and per-lane
+    Relax2Stats. On CUDA tensors two launches: ``relax_place`` in its convex
+    lanes mode, then ``ffd_loop`` in its lanes mode seeded with phase 1's
+    verdicts; ``shard_relax2_sweeps_plain`` on CPU tensors."""
+    if not batch.lane_valid.is_cuda:
+        return shard_relax2_sweeps_plain(batch, max_claims, iters, step)
+    from karpenter_tpu_torch.ops.relax2 import launch_relax2_place_lanes
+
+    problems = _shard_lanes(batch)
+    outs = launch_relax2_place_lanes(problems, max_claims, iters, step)
+    residues, states = zip(*(_lane_align(dataclasses.replace(p, pod_active=o.residue_active), o.state)
+                             for p, o in zip(problems, outs)))
+    results = launch_ffd_loop_lanes(list(residues), list(states), [o.kind for o in outs], [o.index for o in outs])
+    return results, [o.stats for o in outs]
 
 
 # -- the runs_screen kernel's argument struct (csrc/runs_screen.cu RunsArgs) --

@@ -63,9 +63,20 @@ failed rows go through one ``attribute`` launch against the final state
 winning-candidate rationale of up to ``KARPENTER_TPU_EXPLAIN_MAX`` scheduled
 ones. Placements are the same with the flag on and off.
 
+With ``KARPENTER_TPU_SHARD`` set (the JAX package's flag and knobs, off by
+default there too), a solve first tries the partitioned path (shard/, after
+the resident world and before the slot ladder, as in the JAX backend): the
+batch splits into independent partitions that run as the lanes of one
+``ffd_loop`` launch (programs 13-14, parallel/mesh.shard_sweeps), each lane
+gated on the device; ``last_shard`` records what happened. A classified
+standdown falls through to the path above unchanged. On one card it needs
+``KARPENTER_TPU_SHARD_MIN_DEVICES=1`` (the default 2 stands down
+``single-device``, as the JAX package does on one chip) and
+``KARPENTER_TPU_SHARD_PARTITIONS=N`` for N lanes.
+
 These are the environment flags the backend reads, as the JAX backend
 reads them. Not ported: the JAX backend's other flag-gated subsystems
-(shard, wavefront, runs mode, AOT, program registry, its trace spans).
+(wavefront, runs mode, AOT, program registry, its trace spans).
 """
 
 from __future__ import annotations
@@ -257,6 +268,11 @@ class TorchSolver(SolverBackend):
         # the ExplainReport of the LAST solve that attributed failed pods
         # (KARPENTER_TPU_EXPLAIN); None before any
         self.last_explain = None
+        # the partitioned solve's record of the LAST solve
+        # (KARPENTER_TPU_SHARD): {"reason": None, partitions, lanes, ...} when
+        # it served, {"reason": <standdown>, ...} otherwise; None when the
+        # flag is off
+        self.last_shard: Optional[Dict] = None
         # the device-resident cycle (module docstring); None when off
         self._device_world = None
         if device_world:
@@ -306,6 +322,20 @@ class TorchSolver(SolverBackend):
             )
             if resident is not None:
                 return resident
+        if os.environ.get("KARPENTER_TPU_SHARD", "0") not in ("", "0"):
+            # the partitioned fleet-scale path (shard/): split the batch into
+            # independent sub-problems and run them as one lane grid. None =
+            # classified standdown (solver_shard_fallback_total): fall through
+            # unchanged. Flag off, the subsystem is never imported.
+            from karpenter_tpu_torch.shard import try_shard_solve
+
+            sharded = try_shard_solve(
+                self, pods, instance_types, templates, nodes,
+                pod_requirements_override, topology, cluster_pods,
+                domains, pod_volumes,
+            )
+            if sharded is not None:
+                return sharded
         allow_relax = self.relax
         allow_relax2 = True
         while True:

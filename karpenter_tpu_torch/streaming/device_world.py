@@ -40,13 +40,20 @@ solver/ordering.lanes_enabled), every cycle stands down with
 ``order-policy``, as in the JAX package: the resident loop has no requeue
 scorer.
 
-Not ported: the JAX package's standdowns for subsystems this package does
-not have yet (``runs-mode``, ``shard``, ``device-lost``), and the program
-registry, AOT and metrics hooks.
+With the partitioned solve on (``KARPENTER_TPU_SHARD``), every cycle stands
+down with ``shard``, as in the JAX package. A device failure classified by
+solver/mesh_health.py (an injected ``device[n]`` fault at the cycle's
+dispatch hook, or the CUDA runtime's lost-device error) drops the world and
+stands down with ``device-lost``: the legacy path serves the cycle and a
+later cycle re-adopts from scratch.
+
+Not ported: the JAX package's ``runs-mode`` standdown (this package has no
+runs mode), and the program registry, AOT and metrics hooks.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -201,6 +208,8 @@ class DeviceWorld:
             or pod_volumes is not None
         ):
             return self._standdown("unsupported-args")
+        if os.environ.get("KARPENTER_TPU_SHARD", "0") not in ("", "0"):
+            return self._standdown("shard")
         if ordering.lanes_enabled():
             return self._standdown("order-policy")
         if any(
@@ -214,8 +223,25 @@ class DeviceWorld:
             return self._standdown("topology")
         if self.backend.relax and _relax_would_fire(templates):
             return self._standdown("relax-applicable")
+        from karpenter_tpu_torch.solver import mesh_health
+        from karpenter_tpu_torch.testing import faults
+
         try:
+            if faults.active() is not None:
+                # fault-injection hook: the resident world lives on the
+                # solver's device; a device rule targeting it fires here,
+                # before any launch touches the world (no world yet: every
+                # local device participates)
+                mesh_health.dispatch_check([self.backend.device] if self.world is not None else None)
             return self._cycle(pods, instance_types, templates, nodes, max_claims)
+        except Exception as exc:
+            self.reset()
+            if mesh_health.handle_dispatch_failure(exc) is None:
+                raise
+            # the device died WITH the resident world: a later cycle
+            # re-adopts from scratch on whatever devices stay healthy
+            self._record("standdown-device-lost")
+            return None
         except BaseException:
             self.reset()
             raise

@@ -24,8 +24,9 @@ Grammar — ``;``-separated entries, optional leading ``seed=N``:
             | *       fire on every call
 
 Every site of the grammar parses, so a spec written for the JAX package
-parses here too; only the solve site is drawn by this package (the cloud,
-process and mesh-device sites belong to layers not ported yet). The optional
+parses here too; this package draws the solve site and the mesh-device
+site (solver/mesh_health.py: one draw per health-hooked dispatch or probe;
+the cloud and process sites belong to layers not ported yet). The optional
 ``[tenant]`` selector scopes a rule to one tenant stream of the serve layer:
 it matches only while that tenant's scope is active (``tenant_scope``) and
 counts that tenant's visits to the site. Probabilistic draws hash
@@ -41,6 +42,7 @@ import contextlib
 import contextvars
 import os
 import random
+import time
 import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -48,10 +50,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 SITES = ("solve", "create", "delete", "cloud", "proc", "device")
 SOLVE_KINDS = ("compile", "device", "encode", "nan", "hang")
 CLOUD_KINDS = ("ice", "ratelimit", "timeout")
-# the sites below parse as in the JAX package, which draws them; this package
-# draws only 'solve'. 'device' models one mesh device failing (its selector
-# is the device index), 'cloud' provider-initiated events, 'proc' process
-# death.
+# the sites below parse as in the JAX package. 'device' models one mesh
+# device failing (its selector is the device index; drawn by
+# solver/mesh_health.py), 'cloud' provider-initiated events and 'proc'
+# process death (not drawn by this package).
 DEVICE_KINDS = ("loss", "degraded")
 RECLAIM_KINDS = ("reclaim",)
 PROC_KINDS = ("crash",)
@@ -71,6 +73,24 @@ class FaultDeviceError(InjectedFault):
 
 class FaultEncodeError(InjectedFault):
     """Injected host-side encode failure (classified 'encode')."""
+
+
+class FaultDeviceLost(FaultDeviceError):
+    """Injected loss of ONE mesh device (``device[n].loss``): buffers and
+    in-flight launches on that device are gone. Subclasses FaultDeviceError
+    so the supervisor's retry classification ('device', retryable) applies
+    unchanged; ``.device`` carries the lost index so the mesh-health layer
+    knows what to exclude."""
+
+    def __init__(self, message: str, device: int = 0):
+        super().__init__(message)
+        self.device = int(device)
+
+
+class FaultDeviceDegraded(FaultDeviceLost):
+    """Injected degraded mesh device (``device[n].degraded``): the dispatch
+    wall time was inflated before this raised, a limping card rather than a
+    dead one. Classified device-degraded by the mesh-health layer."""
 
 
 @dataclass
@@ -259,6 +279,28 @@ def raise_solve_fault(rule: FaultRule) -> None:
         raise FaultDeviceError(f"injected device failure (call schedule {rule})")
     if rule.kind == "encode":
         raise FaultEncodeError(f"injected encode failure (call schedule {rule})")
+
+
+def device_index(rule: FaultRule) -> int:
+    """The mesh-device index a ``device``-site rule targets (the bracket
+    selector; parse_spec guarantees it is an integer)."""
+    return int(rule.tenant or 0)
+
+
+def realize_device_fault(rule: FaultRule) -> None:
+    """Raise the typed exception for a device-site rule. ``degraded``
+    inflates the dispatch's wall time first (``param`` seconds, default
+    0.02), the limping-card signature, then raises so the mesh-health layer
+    classifies and recarves exactly like a loss."""
+    dev = device_index(rule)
+    if rule.kind == "degraded":
+        time.sleep(rule.param if rule.param > 0 else 0.02)
+        raise FaultDeviceDegraded(
+            f"injected degraded device {dev} (call schedule {rule})", device=dev
+        )
+    raise FaultDeviceLost(
+        f"injected loss of device {dev} (call schedule {rule})", device=dev
+    )
 
 
 def corrupt_result(result) -> None:

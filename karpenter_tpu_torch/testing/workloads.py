@@ -43,7 +43,7 @@ from karpenter_tpu_torch.apis.objects import (
     TopologySpreadConstraint,
     WeightedPodAffinityTerm,
 )
-from karpenter_tpu_torch.cloudprovider.fake import GI, instance_types
+from karpenter_tpu_torch.cloudprovider.fake import GI, instance_types, make_instance_type
 from karpenter_tpu_torch.scheduling import Requirements, Taints
 from karpenter_tpu_torch.solver.encode import NodeInfo, TemplateInfo, template_from_nodepool
 from karpenter_tpu_torch.utils import resources as res
@@ -176,6 +176,43 @@ def make_diverse_pods(count: int, rng: random.Random, ns: str = "") -> List[Pod]
     pods += [affine(len(pods) + i, wk.LABEL_TOPOLOGY_ZONE) for i in range(n)]
     pods += [generic(len(pods) + i) for i in range(count - len(pods))]
     return pods
+
+
+def make_fleet_pods(count: int, rng: random.Random, neighborhoods: int = 32,
+                    constrained_frac: float = 0.15) -> List[Pod]:
+    """The fleet-scale corpus (``bench.make_fleet_pods``, draw for draw): the
+    diverse constrained mix replicated across ``neighborhoods`` independent
+    label namespaces, plus a bulk of unconstrained service pods, shuffled.
+    Most pods carry no topology constraint, and the constrained ones scope
+    to their own namespace's alphabet: the independence the partitioned
+    solve exploits."""
+    constrained = int(count * constrained_frac)
+    pods: List[Pod] = []
+    base = max(constrained // max(neighborhoods, 1), 1)
+    nb = 0
+    while len(pods) < constrained:
+        n = min(base, constrained - len(pods)) if nb < neighborhoods - 1 else constrained - len(pods)
+        pods += make_diverse_pods(n, rng, ns=f"t{nb}-")
+        nb += 1
+    while len(pods) < count:
+        pods.append(Pod(
+            metadata=ObjectMeta(name=f"pod-bulk-{len(pods)}", labels={"app": f"svc-{rng.randrange(64)}"}),
+            spec=PodSpec(containers=[Container(requests={
+                "cpu": rng.choice([0.1, 0.25, 0.5, 1.0]),
+                "memory": rng.choice([128, 256, 512, 1024]) * 1024.0**2,
+            })]),
+        ))
+    rng.shuffle(pods)
+    return pods
+
+
+def fleet_workload(pods_n: int, num_its: int = 400, seed: int = 42, neighborhoods: int = 32) -> Workload:
+    """``make_fleet_pods`` against ``num_its`` catalog types and one default
+    NodePool: the JAX bench's partitioned-solve rows (``run_shard_child``)."""
+    its = instance_types(num_its)
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    tpl = template_from_nodepool(pool, its, range(len(its)))
+    return make_fleet_pods(pods_n, random.Random(seed), neighborhoods=neighborhoods), its, [tpl], []
 
 
 def diverse_workload(pods_n: int, num_its: int = 400, seed: int = 42) -> Workload:
@@ -629,3 +666,98 @@ def tiny_base_pods(n: int = 2, cpu: float = 0.05) -> List[Pod]:
     sort after the residents (the resident-order standdown)."""
     return [_screen_pod(f"tiny-{i}", cpu, node_selector={wk.LABEL_HOSTNAME: f"big-node-{i}"})
             for i in range(n)]
+
+
+# -- the partitioned solve's corpora (tests/test_shard_parity.py) -------------
+
+
+def shard_port_pod(i, host_port, cpu=0.5, selector=None) -> Pod:
+    return Pod(
+        metadata=ObjectMeta(name=f"pp{i}"),
+        spec=PodSpec(
+            containers=[Container(requests={"cpu": cpu, "memory": 1e8},
+                                  ports=[ContainerPort(host_port=host_port)])],
+            node_selector=selector or {},
+        ),
+    )
+
+
+def shard_spread_pod(i, letter, max_skew=1, when=DO_NOT_SCHEDULE, cpu=0.5) -> Pod:
+    return Pod(
+        metadata=ObjectMeta(name=f"sp{i}", labels={"my-label": letter}),
+        spec=PodSpec(
+            containers=[Container(requests={"cpu": cpu, "memory": 1e8})],
+            topology_spread_constraints=[
+                TopologySpreadConstraint(
+                    max_skew=max_skew,
+                    topology_key=wk.LABEL_TOPOLOGY_ZONE,
+                    when_unsatisfiable=when,
+                    label_selector=LabelSelector(match_labels={"my-label": letter}),
+                )
+            ],
+        ),
+    )
+
+
+def shard_plain_workload(seed: int) -> Workload:
+    """test_shard_parity's plain fuzz: 24-48 pods with zone and capacity-type
+    selectors and tolerations over 3-8 types, one or two templates."""
+    rng = random.Random(seed)
+    its = instance_types(rng.randint(3, 8))
+    templates = [simple_template(its, name="a")]
+    if rng.random() < 0.5:
+        taint = Taint(key="team", value="x", effect="NoSchedule")
+        templates.append(simple_template(its, name="b", taints=[taint]))
+    pods = []
+    for i in range(rng.randint(24, 48)):
+        selector = {}
+        if rng.random() < 0.3:
+            selector[wk.LABEL_TOPOLOGY_ZONE] = rng.choice(ZONES)
+        if rng.random() < 0.15:
+            selector[wk.CAPACITY_TYPE_LABEL_KEY] = rng.choice(["spot", "on-demand"])
+        tols = [Toleration(key="team", operator="Exists")] if rng.random() < 0.3 else []
+        pods.append(make_pod(i, cpu=rng.choice([0.1, 0.25, 0.5, 1.0, 1.5, 3.0]),
+                             mem=rng.choice([1e8, 2.5e8, 1e9]), selector=selector, tolerations=tols))
+    return pods, its, templates, []
+
+
+def shard_topology_workload(seed: int) -> Workload:
+    """test_shard_parity's topology fuzz: 36 hard zone-spread pods over six
+    disjoint label families."""
+    rng = random.Random(100 + seed)
+    its = instance_types(6)
+    pods = []
+    for i in range(36):
+        letter = rng.choice("abcdef")
+        pods.append(shard_spread_pod(i, letter, max_skew=rng.choice([1, 1, 2]), cpu=rng.choice([0.25, 0.5, 1.0])))
+    return pods, its, [simple_template(its)], []
+
+
+def shard_ports_workload(seed: int) -> Workload:
+    """test_shard_parity's ports fuzz: 28 zone-pinned pods, 40% with a host
+    port, over two existing nodes in two zones."""
+    rng = random.Random(200 + seed)
+    its = instance_types(6)
+    pods, nodes = [], [make_node("n1", cpu=6.0), make_node("n2", cpu=6.0, zone="test-zone-2")]
+    for i in range(28):
+        zone = rng.choice(["test-zone-1", "test-zone-2"])
+        selector = {wk.LABEL_TOPOLOGY_ZONE: zone}
+        if rng.random() < 0.4:
+            pods.append(shard_port_pod(i, host_port=rng.choice([80, 443, 8080]), selector=selector))
+        else:
+            pods.append(make_pod(i, cpu=rng.choice([0.25, 0.5, 1.0]), selector=selector))
+    return pods, its, [simple_template(its)], nodes
+
+
+def shard_claims_workload() -> Workload:
+    """test_shard_parity's claim-heavy batch: 40 free pods of three sizes,
+    whose per-partition claims the merge re-joins."""
+    its = instance_types(4)
+    return [make_pod(i, cpu=0.5 + (i % 3) * 0.25) for i in range(40)], its, [simple_template(its)], []
+
+
+def shard_relax2_workload() -> Workload:
+    """test_shard_parity's sharded convex corpus: 160 fleet pods (seed 13)
+    over 12 types, one template, a phase-1 residue in every lane."""
+    its = instance_types(12)
+    return make_fleet_pods(160, random.Random(13)), its, [simple_template(its)], []

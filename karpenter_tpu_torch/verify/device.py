@@ -389,3 +389,62 @@ def gate_args_to(ga: GateArgs, device) -> GateArgs:
         claim_req=ReqTensor(*(_tensor(x, device) for x in (req.admitted, req.comp, req.gt, req.lt, req.defined))),
         **{f: _tensor(getattr(ga, f), device) for f in GateArgs._fields if f != "claim_req"},
     )
+
+
+# -- the mesh-health probe (program 18) ---------------------------------------
+
+# the probe kernel's argument struct (csrc/probe.cu ProbeArgs)
+_PROBE_POINTERS = ("x", "out")
+_PROBE_INTS = ("n",)
+_ProbeArgs = kernels.make_struct("ProbeArgs", _PROBE_POINTERS, _PROBE_INTS)
+PROBE_VALUES = 16  # the probe sums arange(16): exactly 120.0 in float32
+
+
+def probe_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of ``x`` added in index order, x[0] + x[1] + ..., one
+    float32 add at a time (the kernel's order)."""
+    total = x[0].to(torch.float32)
+    for i in range(1, x.shape[0]):
+        total = total + x[i].to(torch.float32)
+    return total.reshape(1)
+
+
+def probe_args(x: torch.Tensor):
+    """The kernel's tensors and argument struct for a sum over ``x``
+    (float32[n], 1 <= n <= 32, on one CUDA device)."""
+    if x.dtype != torch.float32 or x.dim() != 1 or not 1 <= x.shape[0] <= 32:
+        raise ValueError(f"the probe sums 1..32 float32 values, got {x.dtype}{list(x.shape)}")
+    t = {"x": x.contiguous(), "out": torch.empty((1,), dtype=torch.float32, device=x.device)}
+    return t, _ProbeArgs(x=t["x"].data_ptr(), out=t["out"].data_ptr(), n=int(x.shape[0]))
+
+
+def launch_probe(x: torch.Tensor) -> torch.Tensor:
+    """The ``probe`` kernel on a CUDA tensor: float32[1], the sum of ``x`` in
+    index order."""
+    if x.device.type != "cuda":
+        raise ValueError("launch_probe needs a CUDA tensor")
+    t, args = probe_args(x)
+    kernels.launch("probe", args, torch.cuda.current_stream(x.device).cuda_stream)
+    return t["out"]
+
+
+def probe_sum(x: torch.Tensor) -> torch.Tensor:
+    """The probe's sum: the ``probe`` kernel for a CUDA tensor, the plain
+    version for a CPU tensor. There is no fallback between the two."""
+    return launch_probe(x) if x.device.type == "cuda" else probe_sum_plain(x)
+
+
+def probe_device(dev, values: Optional[torch.Tensor] = None) -> bool:
+    """Health probe for ONE device (solver/mesh_health.py re-entry checks),
+    the JAX package's ``probe_device`` (program 18): the ``probe`` kernel
+    sums arange(16, float32) on ``dev``, a result exact in float32, so a pass
+    means the device ran a kernel and returned correct arithmetic, not merely
+    that the runtime still lists it. Any exception or a sum other than 120.0
+    is a failed probe; the caller classifies. ``values`` replaces the
+    arange (tests: a wrong input must fail the probe)."""
+    try:
+        x = torch.arange(PROBE_VALUES, dtype=torch.float32) if values is None else values
+        total = float(probe_sum(x.to(dev)).cpu()[0])
+    except Exception:  # noqa: BLE001 — a dead device raises; that IS the signal
+        return False
+    return total == 120.0

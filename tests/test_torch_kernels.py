@@ -55,6 +55,9 @@ def _c_struct_fields(source: str, struct: str):
         ("patch_world.cu", "PatchKernelArgs", fused._PATCH_POINTERS, fused._PATCH_INTS),
         ("attribute.cu", "AttrArgs", ffd_step._ATTR_POINTERS, ffd_step._ATTR_INTS),
         ("lane_scores.cu", "LaneArgs", policy._LANE_POINTERS, policy._LANE_INTS),
+        ("probe.cu", "ProbeArgs", gdev._PROBE_POINTERS, gdev._PROBE_INTS),
+        ("ffd_loop.cu", "FfdLanesArgs", ("lanes",), ffd_sweeps._FFD_LANES_INTS),
+        ("relax_place.cu", "RelaxLanesArgs", ("lanes",), ("L",)),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
@@ -180,9 +183,10 @@ def test_library_path_tracks_sources_and_flags():
     assert a == kernels.library_path("ffd_loop")
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
     assert set(kernels.SOURCES) == {"attribute", "ffd_loop", "gate_counts", "lane_scores", "patch_world",
-                                    "relax_place", "runs_screen"}
-    # relax_place's convex mode (program 17) counts its launches apart
-    assert set(kernels.LAUNCHES) == set(kernels.SOURCES) | {"relax2_place"}
+                                    "probe", "relax_place", "runs_screen"}
+    # relax_place's convex mode (program 17) and the lanes modes of the
+    # partitioned solve (programs 13-14) count their launches apart
+    assert set(kernels.LAUNCHES) == set(kernels.SOURCES) | {"relax2_place", "ffd_loop_lanes", "relax2_place_lanes"}
 
 
 def test_step_is_shared_by_the_loop_and_the_screen():
@@ -831,3 +835,124 @@ def test_ffd_loop_order_scores_match_plain(cuda, name, scores):
         cp = ffd_sweeps.sweeps_plain(aprob, state, problem_bounds_free(aprob), xp.kind, xp.index, sc)
         _assert_same(ck, cp)
         assert tuple(int(x) for x in ck.iters) == tuple(cp.iters)
+
+
+def test_lanes_and_probe_wrappers_refuse_cpu_tensors():
+    prob = problem_to_torch(_encode(W.fuzz_workload(1), 8), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ffd_sweeps.launch_ffd_loop_lanes([prob], [initial_state(prob, 8)])
+    with pytest.raises(ValueError, match="CUDA"):
+        relax.launch_relax_place_lanes([prob], 8, (24, 0.3))
+    with pytest.raises(ValueError, match="CUDA"):
+        gdev.launch_probe(torch.arange(16, dtype=torch.float32))
+
+
+# -- the partitioned solve's lane grids (programs 13-14) and the probe (18) ---
+
+SHARD_CORPORA = {
+    "plain-0": (lambda: W.shard_plain_workload(0), {}),
+    "ports-1": (lambda: W.shard_ports_workload(1), {}),
+    "topology-0": (lambda: W.shard_topology_workload(0), {}),
+    "relax2-fleet-160": (lambda: W.shard_relax2_workload(), {"KARPENTER_TPU_RELAX2": "1",
+                                                              "KARPENTER_TPU_SHARD_MIN_PODS": "20"}),
+}
+
+
+def _shard_batch(device, monkeypatch, name):
+    """The stacked batch and claim bucket a sharded solve of corpus ``name``
+    dispatches, recorded at its dispatch (8 partitions, one device)."""
+    make, env = SHARD_CORPORA[name]
+    for k, v in {"KARPENTER_TPU_SHARD": "1", "KARPENTER_TPU_SHARD_MIN_PODS": "2",
+                 "KARPENTER_TPU_SHARD_MIN_DEVICES": "1", "KARPENTER_TPU_SHARD_PARTITIONS": "8", **env}.items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+    entry = "shard_relax2_sweeps" if env.get("KARPENTER_TPU_RELAX2") else "shard_sweeps"
+    orig = getattr(mesh, entry)
+
+    def recording(batch, max_claims, *args):
+        seen["batch"], seen["C"] = batch, max_claims
+        return orig(batch, max_claims, *args)
+
+    monkeypatch.setattr(mesh, entry, recording)
+    solver = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=device)
+    solver.solve(*make())
+    assert solver.last_shard["reason"] is None, solver.last_shard
+    return seen["batch"], seen["C"]
+
+
+def _assert_bitwise(ra, rb):
+    """Two kernel results equal bit for bit: verdicts, every state leaf
+    (float leaves as their bits) and IterCounts. The work counters may
+    differ: the claims x types test skips a claim another warp's survivor
+    already beat, so the type tests counted depend on the warps' timing."""
+    assert torch.equal(ra.kind, rb.kind) and torch.equal(ra.index, rb.index)
+    sa, sb = numpy_fields(ra.state), numpy_fields(rb.state)
+    for key in sb:
+        np.testing.assert_array_equal(sa[key].view(np.uint8), sb[key].view(np.uint8), err_msg=key)
+    assert tuple(int(x) for x in ra.iters) == tuple(int(x) for x in rb.iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["plain-0", "ports-1", "topology-0"])
+def test_ffd_loop_lanes_match_single_launches_and_plain(cuda, monkeypatch, name):
+    """Program 13: the lanes mode's launch equals one single-lane launch per
+    lane bit for bit, and the plain loop per lane."""
+    batch, C = _shard_batch(cuda, monkeypatch, name)
+    before = kernels.LAUNCHES["ffd_loop_lanes"]
+    lanes = mesh.shard_sweeps(batch, C)
+    assert kernels.LAUNCHES["ffd_loop_lanes"] == before + 1
+    plain = mesh.shard_sweeps_plain(batch, C)
+    problems = mesh._shard_lanes(batch)
+    assert len(lanes) == len(plain) == len(problems) == batch.pod_active.shape[0]
+    for p, rk, rp in zip(problems, lanes, plain):
+        _assert_bitwise(rk, ffd_sweeps.launch_ffd_loop(p, initial_state(p, C), one_pass=False))
+        _assert_same(rk, rp)
+        assert tuple(int(x) for x in rk.iters) == tuple(rp.iters)
+
+
+@pytest.mark.cuda
+def test_relax_place_convex_lanes_match_single_launches_and_plain(cuda, monkeypatch):
+    """Program 14: the convex lanes launch equals one convex launch per lane
+    bit for bit and the plain phase 1 per lane; then the seeded ffd_loop
+    lanes launch equals single carried launches and the plain carried loop."""
+    batch, C = _shard_batch(cuda, monkeypatch, "relax2-fleet-160")
+    iters, step = relax2.pgd_iters(), relax2.pgd_step()
+    problems = mesh._shard_lanes(batch)
+    before = kernels.LAUNCHES["relax2_place_lanes"]
+    outs = relax2.launch_relax2_place_lanes(problems, C, iters, step)
+    assert kernels.LAUNCHES["relax2_place_lanes"] == before + 1
+    results, stats = mesh.shard_relax2_sweeps(batch, C, iters, step)
+    plain, plain_stats = mesh.shard_relax2_sweeps_plain(batch, C, iters, step)
+    for b, p in enumerate(problems):
+        one = relax2.launch_relax2_place(p, C, iters, step)
+        for key in ("kind", "index", "residue_active"):
+            assert torch.equal(getattr(outs[b], key), getattr(one, key)), key
+        assert relax2.host_stats(outs[b].stats) == relax2.host_stats(one.stats) == relax2.host_stats(stats[b])
+        rp = relax2.relax2_place_plain(p, C, iters, step)
+        _assert_same(outs[b], rp)
+        ks, ps = relax2.host_stats(outs[b].stats), relax2.host_stats(plain_stats[b])
+        assert ks._replace(residual=0.0, capviol=0.0) == ps._replace(residual=0.0, capviol=0.0)
+        np.testing.assert_allclose([ks.residual, ks.capviol], [ps.residual, ps.capviol], rtol=1e-5, atol=1e-6)
+        residue, state = _lane_align(dataclasses.replace(p, pod_active=one.residue_active), one.state)
+        single = ffd_sweeps.launch_ffd_loop(residue, state, one_pass=False, kind0=one.kind, index0=one.index)
+        _assert_bitwise(results[b], single)
+        _assert_same(results[b], plain[b])
+        assert tuple(int(x) for x in results[b].iters) == tuple(plain[b].iters)
+
+
+@pytest.mark.cuda
+def test_probe_kernel_matches_plain(cuda):
+    """Program 18: the probe kernel's index-order float32 sum equals the
+    plain sum bit for bit; arange(16) passes the probe, a wrong input fails
+    it, and a count outside 1..32 is refused."""
+    x = torch.arange(16, dtype=torch.float32, device=cuda)
+    assert float(gdev.launch_probe(x).cpu()[0]) == 120.0
+    rng = np.random.default_rng(18)
+    for n in (1, 7, 16, 32):
+        v = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 1e3)
+        got = gdev.launch_probe(v.to(cuda)).cpu()
+        assert got.view(torch.int32).item() == gdev.probe_sum_plain(v).view(torch.int32).item()
+    assert gdev.probe_device(cuda)
+    assert not gdev.probe_device(cuda, torch.arange(16, dtype=torch.float32) + 1)
+    with pytest.raises(ValueError):
+        gdev.launch_probe(torch.zeros(33, dtype=torch.float32, device=cuda))
