@@ -24,7 +24,13 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      invariant; ``lane_scores`` must be within 1e-6 of its plain version.
      Whole solves with ``relax`` on and off, and with
      ``KARPENTER_TPU_RELAX2`` or ``KARPENTER_TPU_ORDER_POLICY`` on, must equal
-     the plain path's ``TorchSolver(device="cpu")``.
+     the plain path's ``TorchSolver(device="cpu")``. The wavefront corpora
+     (tests/test_wavefront_parity.py's seeds 4000-4002, chain-3003, fuzz-3
+     and topology-8 with existing nodes): ``ffd_loop`` with the wavefront on
+     (csrc/wave.cuh) at W = 4 and W = 2, fresh, carried (from all-FAIL seeds
+     and from phase 1), scored, in the lanes mode on two lanes and in the
+     fused launch, each bit-equal to ``sweeps_plain`` with the wavefront in
+     kinds, indices, the 7 IterCounts fields and ``wave_hist``.
   2. the main path at full width: ``TorchSolver().solve`` (the default
      two-phase solve: ``relax_place``, the carried ``ffd_loop``, the relaxed
      gate) on 10,000 pods of the reference's diverse mix against 400 catalog
@@ -123,15 +129,32 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      forced probes (``probe`` kernel launches) bringing the card back, the
      next sharded solve serving; the ``probe`` kernel against its plain sum.
      Then each lanes mode and the probe alone, wrapped and plain.
-  9. a ``kernels`` JSON line: per kernel its launches on the main path, its
+  9. the wavefront at full width (``KARPENTER_TPU_WAVEFRONT=1``, W = 4):
+     phase 2's batch through ``TorchSolver.solve`` fresh (``relax=False``)
+     and carried (``relax=True``), each one ``ffd_loop_wavefront`` launch
+     (the counts set to 0 just before the solve and read just after), the
+     gate clean, IterCounts and ``wave_hist`` equal to the JAX package's
+     (EXPECT_WAVE) and placements equal to phase 2's flag-off solves; then
+     the mode alone, through its wrapper and plain at phase 2's inputs, each
+     beside the flag-off loop's times on the same run.
+ 10. the entry point at the 10k shape: ``Provisioner.reconcile()`` over a
+     ``FakeCloudProvider`` with the 400 catalog types, one ``default``
+     NodePool and 10,000 makeDiversePods pods in the ``KubeClient``, through
+     ``SupervisedSolver(TorchSolver(), fallback=OracleSolver())``, with the
+     wavefront off and on: the created NodeClaims (pool, instance-type
+     values, pods, in creation order) equal to the JAX package's Provisioner
+     over JaxSolver (EXPECT_PROVISION), IterCounts as the JAX package's, the
+     circuit closed and no fallback; the split build_inputs / solve
+     (``last_timing``) / create_node_claims / wall.
+ 11. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
      are computed, and for ``ffd_loop`` the latency floor of its barriers and
      its fresh and one-pass modes. Bytes are those of the kernel's own
-     arguments. The churn, serve and shard phases' records ride in the same
-     line.
- 10. the card's name and power limit; the last line is the device JSON.
+     arguments. The churn, serve, shard and provisioning phases' records
+     ride in the same line; the wavefront mode is an entry of its own.
+ 12. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -211,23 +234,24 @@ EXPLAIN_CPU_LIMIT = 8000.0
 # pods of homogeneous_workload's five sizes against the 400 catalog types;
 # KARPENTER_TPU_ORDER_POLICY=1 (the committed artifact) on phase 2's batch,
 # fresh (the JAX package's KARPENTER_TPU_RELAX=0) and carried from the
-# waterfill. IterCounts are (narrow, sweeps, chain commits, chain pods).
+# waterfill. IterCounts are (narrow, sweeps, chain commits, chain pods, and
+# the wavefront's wave commits, wave pods, retry lanes: 0 with it off).
 FLAG_ENV = ("KARPENTER_TPU_RELAX2", "KARPENTER_TPU_RELAX2_ITERS", "KARPENTER_TPU_RELAX2_STEP",
             "KARPENTER_TPU_RELAX2_TOL", "KARPENTER_TPU_ORDER_POLICY", "KARPENTER_TPU_ORDER_POLICY_LANES",
             "KARPENTER_TPU_ORDER_POLICY_WEIGHTS")
 EXPECT_RELAX2 = {
-    "diverse": dict(iters=(1937, 2, 1332, 5112), scheduled=10000, claims=111,
+    "diverse": dict(iters=(1937, 2, 1332, 5112, 0, 0, 0), scheduled=10000, claims=111,
                     stats=dict(eligible=4288, placed=4288, demoted=0, claims=60, pgd_iterations=24, overflow=0,
                                round_demoted=0),
                     residual=0.0013015065342187881, capviol=0.0),
-    "homogeneous": dict(iters=(8, 1, 0, 0), scheduled=10000, claims=18,
+    "homogeneous": dict(iters=(8, 1, 0, 0, 0, 0, 0), scheduled=10000, claims=18,
                         stats=dict(eligible=10000, placed=9992, demoted=8, claims=18, pgd_iterations=24, overflow=0,
                                    round_demoted=7),
                         residual=0.005609273910522461, capviol=0.008820994757115841),
 }
 EXPECT_POLICY = {
-    "fresh": dict(iters=(2067, 1, 1400, 9333), scheduled=10000, claims=118, relax=None),
-    "carried": dict(iters=(1971, 1, 1313, 5054), scheduled=10000, claims=113,
+    "fresh": dict(iters=(2067, 1, 1400, 9333, 0, 0, 0), scheduled=10000, claims=118, relax=None),
+    "carried": dict(iters=(1971, 1, 1313, 5054, 0, 0, 0), scheduled=10000, claims=113,
                     relax=dict(eligible=4288, placed=4288, demoted=0, claims=30)),
 }
 # the partitioned solve (phase 8): the JAX bench's fleet rows
@@ -252,6 +276,32 @@ EXPECT_SHARD = {
                    narrow_iters=1636, sweep_iters=32,
                    relax2=dict(eligible=9216, placed=2406, demoted=6810, claims=128, pgd_iterations=24,
                                overflow=4337, round_demoted=4337, residual=0.0013015065342187881, capviol=0.0)),
+}
+# the wavefront (phase 9, KARPENTER_TPU_WAVEFRONT=1 at the JAX package's
+# default width 4): phase 2's batch through the JAX package's
+# JaxSolver(initial_claim_slots=128) on the CPU, fresh (its
+# KARPENTER_TPU_RELAX=0) and carried from the waterfill. Round 8 recorded the
+# fresh solve's numbers (docs/PERF_NOTES.md:660-663); they hold today.
+WAVE_WIDTH = 4
+EXPECT_WAVE = {
+    "fresh": dict(iters=(1436, 2, 940, 7183, 1397, 2321, 1), wave_hist=[0, 136, 1209, 84, 7], scheduled=10000,
+                  claims=97),
+    "carried": dict(iters=(1365, 2, 909, 3418, 1429, 1838, 1), wave_hist=[0, 72, 1161, 127, 5], scheduled=10000,
+                    claims=111),
+}
+# the entry point (phase 10): the JAX package's Provisioner over
+# JaxSolver(FAKE_WELL_KNOWN_LABELS, initial_claim_slots=128) on the CPU, one
+# reconcile of 10,000 makeDiversePods pods against FakeCloudProvider with the
+# 400 catalog types and one default NodePool: ``provision_digest`` of the
+# pass (per created claim in order its pool, instance-type values and pods;
+# nominations; failures), with the wavefront off ("0") and on ("1")
+EXPECT_PROVISION = {
+    "0": dict(claims=111, on_claims=10000, failed=0,
+              sha256="9b8fe3a915a36c0fd7855d7538e682b65e31df6fcb43b667f8610d3f43d5b92b",
+              iters=(1937, 2, 1332, 5112, 0, 0, 0), wave_hist=None),
+    "1": dict(claims=111, on_claims=10000, failed=0,
+              sha256="9b8fe3a915a36c0fd7855d7538e682b65e31df6fcb43b667f8610d3f43d5b92b",
+              iters=(1365, 2, 909, 3418, 1429, 1838, 1), wave_hist=[0, 72, 1161, 127, 5]),
 }
 # the convex phase's two float stats against the JAX package's: the float32
 # adds of the bin loads and the gradient step round in another order there
@@ -289,7 +339,13 @@ def run(dev) -> int:
     from karpenter_tpu_torch.ops import policy as POL
     from karpenter_tpu_torch.ops import relax as RX
     from karpenter_tpu_torch.ops import relax2 as R2
-    from karpenter_tpu_torch.ops.ffd_core import _lane_align, _pad_lanes_mult32, initial_state, problem_bounds_free
+    from karpenter_tpu_torch.ops.ffd_core import (
+        IterCounts,
+        _lane_align,
+        _pad_lanes_mult32,
+        initial_state,
+        problem_bounds_free,
+    )
     from karpenter_tpu_torch.ops.ffd_step import attribute_plain, launch_attribute, solve_ffd, solve_ffd_plain
     from karpenter_tpu_torch.ops.ffd_sweeps import (
         FFD_SCRATCH,
@@ -369,7 +425,7 @@ def run(dev) -> int:
         return max_err
 
     def iters_of(result):
-        return dict(zip(("narrow", "sweeps", "chain_commits", "chain_pods"), (int(x) for x in result.iters)))
+        return dict(zip(IterCounts._fields, (int(x) for x in result.iters)))
 
     def compare_relax(tag, rk, rp):
         for key in ("kind", "index", "residue_active"):
@@ -517,6 +573,7 @@ def run(dev) -> int:
             f"kinds={np.bincount(rk.kind.cpu().numpy(), minlength=5).tolist()} "
             f"phase1 eligible/placed/demoted/claims={eligible}/{placed}/{demoted}/{claims} "
             f"convex placed/round-demoted/overflow={ys.placed}/{ys.round_demoted}/{ys.overflow} ok")
+    ffd_err = max(ffd_err, wave_kernels_phase(dev, encode, compare_results, weights))
     missing = [k for k, v in saw.items() if not v]
     if missing:
         raise AssertionError(f"phase 1 corpora do not cover: {missing}")
@@ -908,6 +965,10 @@ def run(dev) -> int:
                                            compare_relax2, relax2_err, score_err)
     shard_entries, shard = shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results,
                                        compare_relax2)
+    main = dict(workload=(pods, its, tpls, nodes), result=result, result_off=result_off, prob=prob, C=C, rxk=rxk,
+                residue=residue, astate=astate)
+    wave_entry = wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, compare_results)
+    provision = provision_phase(dev)
 
     line = {
         "kernels": [
@@ -982,9 +1043,11 @@ def run(dev) -> int:
             *churn_entries,
             stacked,
             *shard_entries,
+            wave_entry,
         ],
         "churn": churn,
         "shard": shard,
+        "provision": provision,
     }
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
@@ -1044,9 +1107,9 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         seen = []
         orig = getattr(M, entry) if entry else None
         if entry:
-            def recording(*args):
+            def recording(*args, **kwargs):
                 seen.append(args)
-                return orig(*args)
+                return orig(*args, **kwargs)
             setattr(M, entry, recording)
         os.environ.update(env)
         try:
@@ -2545,6 +2608,381 @@ def serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, main_wor
         "serve": scenario,
         "supervised": supervised,
     }
+
+
+def wave_hist_of(result):
+    return None if result.wave_hist is None else [int(x) for x in result.wave_hist.cpu().tolist()]
+
+
+def same_placements(tag, result, ref):
+    """Raise unless ``result`` places every pod as ``ref`` does: the same
+    claims (pool, template, pods, instance types) in order, node pods and
+    failures; the claims' requests within FLOAT_RTOL (a chain the flag-off
+    loop commits in two iterations rounds twice). Returns the largest
+    relative request difference."""
+    if (len(result.new_claims), result.node_pods, result.failures) != (len(ref.new_claims), ref.node_pods,
+                                                                        ref.failures):
+        raise AssertionError(f"{tag}: placements differ from the reference solve's")
+    worst = 0.0
+    for a, b in zip(result.new_claims, ref.new_claims):
+        if (a.nodepool_name, a.template_index, a.pod_indices, a.instance_type_indices) != \
+                (b.nodepool_name, b.template_index, b.pod_indices, b.instance_type_indices) \
+                or a.requests.keys() != b.requests.keys():
+            raise AssertionError(f"{tag}: placements differ from the reference solve's")
+        for key, value in b.requests.items():
+            diff = abs(a.requests[key] - value) / max(abs(value), 1e-30)
+            if diff > FLOAT_RTOL:
+                raise AssertionError(f"{tag}: claim requests {key} differ by {diff}")
+            worst = max(worst, diff)
+    return worst
+
+
+def wave_kernels_phase(dev, encode, compare_results, weights):
+    """Phase 1's wavefront corpora: ``ffd_loop`` with the wavefront on
+    (csrc/wave.cuh) against ``sweeps_plain`` with it, at W = 4 and W = 2
+    (3 and 1 extra lanes), in every sweeps mode: fresh, carried (from all-FAIL
+    seeds, and from the waterfill's phase 1 where it places), scored (the
+    committed weights), the lanes mode on two lanes and the fused launch.
+    Kinds, indices, the 7 IterCounts fields and wave_hist bit-equal, the
+    state as compare_results holds it. Returns the largest float state
+    difference."""
+    import torch
+
+    from karpenter_tpu_torch.models.problem import problem_to_torch
+    from karpenter_tpu_torch.ops import fused
+    from karpenter_tpu_torch.ops import policy as POL
+    from karpenter_tpu_torch.ops import relax as RX
+    from karpenter_tpu_torch.ops.ffd_core import _lane_align, initial_state, problem_bounds_free
+    from karpenter_tpu_torch.ops.ffd_sweeps import (
+        fresh_carry,
+        launch_ffd_loop_lanes,
+        solve_ffd_sweeps,
+        solve_ffd_sweeps_carried,
+        sweeps_plain,
+    )
+    from karpenter_tpu_torch.testing import workloads as W
+
+    t_phase = time.perf_counter()
+    err = 0.0
+    saw = {"commits": False, "retries": False, "node-lanes": False, "phase1-carried": False, "scored-requeue": False}
+
+    def check(tag, rk, rp):
+        nonlocal err
+        torch.cuda.synchronize()
+        err = max(err, compare_results(tag, rk, rp))
+        if wave_hist_of(rk) != wave_hist_of(rp) or rk.wave_hist is None:
+            raise AssertionError(f"{tag}: wave_hist {wave_hist_of(rk)} != plain {wave_hist_of(rp)}")
+
+    for tag, wl, slots in WAVE_CORPORA(W):
+        padded = encode(wl, slots)
+        prob = problem_to_torch(padded, dev)
+        bf = problem_bounds_free(prob)
+        scores = POL.lane_scores(prob, weights)
+        xp = RX.relax_place_plain(prob, slots)
+        pc = torch.ones((prob.num_pods,), dtype=torch.bool, device=dev)
+        for lanes in (3, 1):
+            name = f"{tag} W={lanes + 1}"
+            rp = sweeps_plain(prob, initial_state(prob, slots), bf, wavefront=lanes)
+            check(f"{name} fresh", solve_ffd_sweeps(prob, slots, wavefront=lanes), rp)
+            check(f"{name} carried", solve_ffd_sweeps_carried(prob, slots, init=fresh_carry(prob, slots),
+                                                              wavefront=lanes), rp)
+            if int(xp.stats[1]) > 0:
+                res = dataclasses.replace(prob, pod_active=xp.residue_active)
+                ares, astate = _lane_align(res, xp.state)
+                cp = sweeps_plain(ares, astate, problem_bounds_free(ares), xp.kind, xp.index, wavefront=lanes)
+                check(f"{name} carried from phase 1",
+                      solve_ffd_sweeps_carried(res, slots, init=(xp.state, xp.kind, xp.index), wavefront=lanes), cp)
+                saw["phase1-carried"] = True
+            sp = sweeps_plain(prob, initial_state(prob, slots), bf, order_scores=scores, wavefront=lanes)
+            check(f"{name} scored", solve_ffd_sweeps(prob, slots, order_scores=scores, wavefront=lanes), sp)
+            saw["scored-requeue"] |= int(sp.iters.sweeps) > 1
+            for b, lk in enumerate(launch_ffd_loop_lanes([prob, prob], [initial_state(prob, slots)] * 2,
+                                                         wavefront=lanes)):
+                check(f"{name} lanes mode, lane {b}", lk, rp)
+            world = fused.adopt_world(padded, slots, dev)
+            fk, _ = fused.solve_ffd_fused_gate(world, pc, slots, bf, wavefront=lanes)
+            check(f"{name} fused", fk, rp)
+            saw["commits"] |= rp.iters.wave_commits > 0
+            saw["retries"] |= rp.iters.retry_lanes > 0
+            saw["node-lanes"] |= prob.num_nodes > 0 and rp.iters.wave_commits > 0
+            log(f"  {name}: P={prob.num_pods} N={prob.num_nodes} G={prob.num_groups} iters {tuple(rp.iters)} "
+                f"wave_hist {wave_hist_of(rp)}: fresh, carried, scored, lanes, fused == plain")
+    missing = [k for k, v in saw.items() if not v]
+    if missing:
+        raise AssertionError(f"the wavefront corpora do not cover: {missing}")
+    log(f"  wavefront corpora wall {time.perf_counter() - t_phase:.1f}s")
+    return err
+
+
+def WAVE_CORPORA(W):
+    """The wavefront's corpora (tests/test_wavefront_parity.py's seeds, a
+    chain-heavy one, and fuzz/topology corpora with existing nodes)."""
+    return [
+        ("wave-4000", W.wave_workload(4000), 128),
+        ("wave-4001", W.wave_workload(4001), 128),
+        ("wave-4002", W.wave_workload(4002), 128),
+        ("chain-3003", W.chain_workload(3003), 128),
+        ("fuzz-3", W.fuzz_workload(3), 32),
+        ("topology-8", W.topology_workload(8), 32),
+    ]
+
+
+def wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, compare_results):
+    """Phase 9: the wavefront at full width. Phase 2's batch through
+    ``TorchSolver.solve`` with ``KARPENTER_TPU_WAVEFRONT=1`` (W = 4), fresh
+    (``relax=False``) and carried (``relax=True``), the launch counts read
+    around each solve: one ``ffd_loop_wavefront`` launch, ``full_gate``
+    clean, IterCounts and wave_hist equal to the JAX package's
+    (EXPECT_WAVE), placements equal to phase 2's flag-off solves. Then the
+    mode alone, through its wrapper and plain at phase 2's inputs, beside the
+    flag-off loop's times on this run. Returns the kernels-line entry."""
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.ops.ffd_core import initial_state, problem_bounds_free
+    from karpenter_tpu_torch.ops.ffd_sweeps import (
+        FFD_SCRATCH,
+        WORK_COUNTERS,
+        ffd_loop_args,
+        solve_ffd_sweeps,
+        solve_ffd_sweeps_carried,
+        sweeps_plain,
+    )
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.verify import full_gate
+
+    t_phase = time.perf_counter()
+    log("phase 9: the wavefront (KARPENTER_TPU_WAVEFRONT=1, W=4) at full width")
+    pods, its, tpls, nodes = main["workload"]
+    lanes = WAVE_WIDTH - 1
+    solves = {}
+    old = {k: os.environ.get(k) for k in ("KARPENTER_TPU_WAVEFRONT", "KARPENTER_TPU_WAVEFRONT_WIDTH")}
+    os.environ["KARPENTER_TPU_WAVEFRONT"] = "1"
+    os.environ["KARPENTER_TPU_WAVEFRONT_WIDTH"] = str(WAVE_WIDTH)
+    try:
+        for tag, relax in (("fresh", False), ("carried", True)):
+            for rep in range(2):  # the second solve is the warm one
+                solver = TorchSolver(initial_claim_slots=128, device=dev, relax=relax)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                result = solver.solve(pods, its, tpls, nodes)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+            outcome = full_gate(result, pods, its, tpls, nodes)
+            torch.cuda.synchronize()
+            if outcome is None or outcome.violations or outcome.counts or outcome.mode != "device":
+                raise AssertionError(f"wavefront {tag}: gate rejected or could not run: {outcome}")
+            want = {"ffd_loop_wavefront": 1, "ffd_loop": 0, "relax_place": int(relax), "gate_counts": int(relax)}
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"wavefront {tag}: launches {launches}, want {want}")
+            expect = EXPECT_WAVE[tag]
+            got = dict(iters=tuple(solver.last_iters), wave_hist=solver.last_wave_hist,
+                       scheduled=result.num_scheduled(), claims=len(result.new_claims))
+            if got != {k: expect[k] for k in got}:
+                raise AssertionError(f"wavefront {tag}: {got} != the JAX package's {expect}")
+            req_err = same_placements(f"wavefront {tag}", result, main["result" if relax else "result_off"])
+            tm = solver.last_timing
+            log(f"  {tag}: scheduled {got['scheduled']}/{len(pods)} claims={got['claims']} iters={got['iters']} "
+                f"wave_hist={got['wave_hist']} == EXPECT_WAVE; placements == flag off (claim requests within "
+                f"{req_err:.3g} relative); launches {launches}; "
+                f"solve wall {wall * 1e3:.1f} ms (encode {tm['encode'] * 1e3:.1f}, device {tm['device'] * 1e3:.1f})")
+            solves[tag] = dict(wall_ms=wall * 1e3, launches=launches["ffd_loop_wavefront"], iters=got["iters"],
+                               wave_hist=got["wave_hist"], device_ms=tm["device"] * 1e3)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # the mode alone, wrapped and plain at phase 2's inputs, beside the
+    # flag-off loop on this run
+    prob, C, rxk, residue, astate = main["prob"], main["C"], main["rxk"], main["residue"], main["astate"]
+    bf = problem_bounds_free(prob)
+    init_c = (rxk.state, rxk.kind, rxk.index)
+    out = {}
+    for tag, run_k, run_p, arg_sets in (
+        ("fresh", lambda w: solve_ffd_sweeps(prob, C, wavefront=w),
+         lambda w: sweeps_plain(prob, initial_state(prob, C), bf, wavefront=w),
+         lambda w: [ffd_loop_args(prob, initial_state(prob, C), False, wavefront=w) for _ in range(3)]),
+        ("carried", lambda w: solve_ffd_sweeps_carried(residue, C, init_c, wavefront=w),
+         lambda w: sweeps_plain(residue, astate, problem_bounds_free(residue), rxk.kind, rxk.index, wavefront=w),
+         lambda w: [ffd_loop_args(residue, astate, False, rxk.kind, rxk.index, wavefront=w) for _ in range(3)]),
+    ):
+        rk = run_k(lanes)
+        sets = arg_sets(lanes)
+        ms, all_ms = time_launches("ffd_loop", sets)
+        for t, _ in sets:
+            if not (torch.equal(t["kind"], rk.kind) and torch.equal(t["index"], rk.index)):
+                raise AssertionError(f"wavefront {tag}: a timed launch differs from the wrapper's")
+        wrap_ms, _ = time_ms(lambda: run_k(lanes), 2)
+        off_ms, off_all = time_launches("ffd_loop", arg_sets(0))
+        off_wrap_ms, _ = time_ms(lambda: run_k(0), 2)
+        rp, p_ms = plain_ms(lambda: run_p(lanes))
+        err = compare_results(f"wavefront {tag} kernel vs plain", rk, rp)
+        if wave_hist_of(rk) != wave_hist_of(rp) or tuple(int(x) for x in rk.iters) != solves[tag]["iters"]:
+            raise AssertionError(f"wavefront {tag}: kernel {tuple(rk.iters)} {wave_hist_of(rk)} vs plain "
+                                 f"{tuple(rp.iters)} {wave_hist_of(rp)}")
+        work = dict(zip(WORK_COUNTERS, rk.work.cpu().tolist()))
+        b_ms, b_by, b_bytes, b_int, b_flt = ffd_bound(work, sets[0][0])
+        out[tag] = dict(ms=ms, all_ms=all_ms, wrap_ms=wrap_ms, off_ms=off_ms, off_all_ms=off_all,
+                        off_wrap_ms=off_wrap_ms, plain_ms=p_ms, err=err, work=work, bound_ms=b_ms, bound_by=b_by,
+                        iters=tuple(int(x) for x in rk.iters), wave_hist=wave_hist_of(rk))
+        log(f"  ffd_loop {tag} with the wavefront: kernel {ms:.3f} ms median of {[round(x, 3) for x in all_ms]}, "
+            f"wrapper {wrap_ms:.3f} ms; flag off on this run: kernel {off_ms:.3f} ms median of "
+            f"{[round(x, 3) for x in off_all]}, wrapper {off_wrap_ms:.3f} ms; plain {p_ms:.1f} ms, kernel == plain; "
+            f"work {work}; bytes {b_bytes}, int ops {b_int:.4g}, float ops {b_flt:.4g}, bound {b_ms:.5f} ms ({b_by})")
+    log(f"  phase 9 wall {time.perf_counter() - t_phase:.1f}s")
+    c = out["carried"]
+    return {
+        "name": "ffd_loop_wavefront",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/wave.cuh",
+        "replaces": "karpenter_tpu/ops/ffd_sweeps.py:473",
+        "launches": solves["carried"]["launches"],
+        "max_abs_err": max(out["fresh"]["err"], c["err"]),
+        "ms": c["ms"],
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": None,
+        "wrapper_ms": c["wrap_ms"],
+        "flag_off_ms": c["off_ms"],
+        "flag_off_wrapper_ms": c["off_wrap_ms"],
+        "work": c["work"],
+        "iters": c["iters"],
+        "wave_hist": c["wave_hist"],
+        "fresh": {k: out["fresh"][k] for k in ("ms", "wrap_ms", "off_ms", "off_wrap_ms", "plain_ms", "bound_ms",
+                                              "work", "iters", "wave_hist")},
+        "launches_fresh_solve": solves["fresh"]["launches"],
+        "solves": solves,
+    }
+
+
+def provision_digest(pass_):
+    """A ProvisioningPass in creation order, with the claims' random names
+    left out: per claim its pool, its instance-type requirement values and
+    its pods; the pods nominated to existing nodes; the failed pods."""
+    import hashlib
+
+    from karpenter_tpu_torch.apis import labels as wk
+
+    rows = []
+    for claim in pass_.created:
+        reqs = {r.key: sorted(r.values) for r in claim.spec.requirements}
+        pods = sorted(pass_.inputs.pods[i].metadata.name for i in pass_.claim_pods[claim.metadata.name])
+        rows.append([claim.metadata.labels[wk.NODEPOOL_LABEL_KEY], reqs.get(wk.LABEL_INSTANCE_TYPE_STABLE, []), pods])
+    nodes = sorted([name, sorted(pass_.inputs.pods[i].metadata.name for i in idx)]
+                   for name, idx in pass_.result.node_pods.items())
+    failed = sorted(pass_.inputs.pods[i].metadata.name for i in pass_.result.failures)
+    blob = json.dumps([rows, nodes, failed], sort_keys=True).encode()
+    return dict(claims=len(rows), on_claims=sum(len(r[2]) for r in rows), failed=len(failed),
+                sha256=hashlib.sha256(blob).hexdigest())
+
+
+def provision_phase(dev):
+    """Phase 10: the entry point at the 10k shape. A FakeCloudProvider over
+    400 catalog types, one ``default`` NodePool and 10,000 makeDiversePods
+    pods created in the KubeClient; one ``Provisioner.reconcile()`` through
+    ``SupervisedSolver(TorchSolver(), fallback=OracleSolver())`` on the card,
+    with the wavefront off and on, the launch counts read around it. The
+    created NodeClaims (pool, instance-type values, pods, in creation order)
+    must equal the JAX package's Provisioner over JaxSolver (EXPECT_PROVISION),
+    the circuit stays closed with no fallback. Prints the split: inputs
+    (build_inputs), the solve (its last_timing), create_node_claims, wall."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.apis.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.events import Recorder
+    from karpenter_tpu_torch.kube import KubeClient
+    from karpenter_tpu_torch.provisioning.provisioner import Provisioner
+    from karpenter_tpu_torch.solver.oracle import OracleSolver
+    from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.state import Cluster
+    from karpenter_tpu_torch.state.informer import start_informers
+    from karpenter_tpu_torch.testing import workloads as W
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    t_phase = time.perf_counter()
+    log(f"phase 10: Provisioner.reconcile() at the 10k shape ({MAIN_PODS} pods, 400 types, 1 NodePool)")
+    catalog = instance_types(400)
+    records = {}
+    old = os.environ.get("KARPENTER_TPU_WAVEFRONT")
+    try:
+        for flag in ("0", "1"):
+            os.environ["KARPENTER_TPU_WAVEFRONT"] = flag
+            clock = FakeClock()
+            kube = KubeClient(clock=clock)
+            cluster = Cluster(kube, clock)
+            start_informers(kube, cluster)
+            cloud = FakeCloudProvider()
+            cloud.instance_types = catalog
+            primary = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, initial_claim_slots=128, device=dev)
+            sup = SupervisedSolver(primary, fallback=OracleSolver())
+            prov = Provisioner(kube, cloud, cluster, clock, Recorder(clock=clock), solver=sup)
+            kube.create(NodePool(metadata=ObjectMeta(name="default", namespace="")))
+            for pod in W.make_diverse_pods(MAIN_PODS, random.Random(42)):
+                kube.create(pod)
+            split = {"inputs": 0.0, "create": 0.0}
+
+            def timed(key, fn):
+                def run(*args, **kwargs):
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        split[key] += time.perf_counter() - t0
+                return run
+
+            prov.build_inputs = timed("inputs", prov.build_inputs)
+            prov.create_node_claims = timed("create", prov.create_node_claims)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            pass_ = prov.reconcile()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            digest = provision_digest(pass_)
+            expect = EXPECT_PROVISION[flag]
+            if digest != {k: expect[k] for k in digest}:
+                raise AssertionError(f"provision wavefront={flag}: {digest} != the JAX package's {expect}")
+            if (tuple(primary.last_iters), primary.last_wave_hist) != (expect["iters"], expect["wave_hist"]):
+                raise AssertionError(f"provision wavefront={flag}: iters {primary.last_iters} "
+                                     f"{primary.last_wave_hist} != {expect['iters']} {expect['wave_hist']}")
+            if sup.circuit_state() != "closed" or any(sup.counters[k] for k in (
+                    "solve_fallbacks", "solve_retries", "validator_rejections")):
+                raise AssertionError(f"provision wavefront={flag}: circuit {sup.circuit_state()}, {sup.counters}")
+            loop = "ffd_loop_wavefront" if flag == "1" else "ffd_loop"
+            # gate_counts twice: the solve's relaxed gate, then the
+            # supervisor's validation of the result (as phase 5's)
+            if launches[loop] != 1 or launches["relax_place"] != 1 or launches["gate_counts"] != 2:
+                raise AssertionError(f"provision wavefront={flag}: launches {launches}")
+            tm = primary.last_timing
+            solve_s = sum(tm.values())
+            log(f"  wavefront={flag}: {digest['claims']} NodeClaims for {digest['on_claims']} pods, {digest['failed']} "
+                f"failed == EXPECT_PROVISION; iters {tuple(primary.last_iters)} wave_hist {primary.last_wave_hist}; "
+                f"circuit closed, no fallback; launches {launches}")
+            log(f"  wavefront={flag}: reconcile wall {wall * 1e3:.1f} ms = build_inputs {split['inputs'] * 1e3:.1f} + "
+                f"solve {solve_s * 1e3:.1f} (" + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in tm.items())
+                + f") + create_node_claims {split['create'] * 1e3:.1f} + the rest "
+                f"{(wall - split['inputs'] - split['create'] - solve_s) * 1e3:.1f}")
+            records[flag] = dict(wall_ms=wall * 1e3, inputs_ms=split["inputs"] * 1e3, solve_ms=solve_s * 1e3,
+                                 create_ms=split["create"] * 1e3, timing_ms={k: v * 1e3 for k, v in tm.items()},
+                                 launches=launches[loop], claims=digest["claims"])
+    finally:
+        if old is None:
+            os.environ.pop("KARPENTER_TPU_WAVEFRONT", None)
+        else:
+            os.environ["KARPENTER_TPU_WAVEFRONT"] = old
+    log(f"  phase 10 wall {time.perf_counter() - t_phase:.1f}s")
+    return records
 
 
 def screen_subsets(n, seed=SCREEN_SEED):

@@ -1,12 +1,16 @@
-"""Deterministic fake instance-type catalogs for tests and benchmarks.
+"""In-memory CloudProvider for tests and benchmarks.
 
-Equivalent of reference pkg/cloudprovider/fake/instancetype.go: the catalog
-generators the solver benchmarks and parity tests build on.
+Equivalent of reference pkg/cloudprovider/fake/{cloudprovider,instancetype}.go —
+the test substrate everything downstream builds on: a provider whose Create
+picks the cheapest compatible instance type, plus deterministic instance-type
+catalog generators.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
+import uuid
 from typing import Dict, List, Optional, Sequence
 
 from karpenter_tpu_torch.apis import labels as wk
@@ -14,10 +18,14 @@ from karpenter_tpu_torch.apis.labels import (
     CAPACITY_TYPE_ON_DEMAND,
     CAPACITY_TYPE_SPOT,
 )
-from karpenter_tpu_torch.apis.objects import DOES_NOT_EXIST, IN
+from karpenter_tpu_torch.apis.nodeclaim import NodeClaim, NodeClaimStatus
+from karpenter_tpu_torch.apis.nodepool import NodePool
+from karpenter_tpu_torch.apis.objects import DOES_NOT_EXIST, IN, ObjectMeta
 from karpenter_tpu_torch.cloudprovider.types import (
+    CloudProvider,
     InstanceType,
     InstanceTypeOverhead,
+    NodeClaimNotFoundError,
     Offering,
     Offerings,
 )
@@ -164,3 +172,137 @@ def default_instance_types() -> List[InstanceType]:
         ),
         make_instance_type("single-pod-instance-type", resources={res.PODS: 1.0}),
     ]
+
+
+def random_provider_id() -> str:
+    return f"fake:///{uuid.uuid4()}"
+
+
+class FakeCloudProvider(CloudProvider):
+    """Launches are bookkeeping: Create picks the cheapest instance type
+    compatible with the claim's requirements/requests and fabricates a
+    provider id (fake/cloudprovider.go:82-143). Error knobs
+    (next_create_error, allowed_create_calls, errors_for_nodepool) drive
+    fault-injection in tests."""
+
+    def __init__(self):
+        self.instance_types: Optional[List[InstanceType]] = None
+        self.instance_types_for_nodepool: Dict[str, List[InstanceType]] = {}
+        self.errors_for_nodepool: Dict[str, Exception] = {}
+        self.create_calls: List[NodeClaim] = []
+        self.delete_calls: List[NodeClaim] = []
+        self.allowed_create_calls: int = 2**31
+        self.next_create_error: Optional[Exception] = None
+        self.created_nodeclaims: Dict[str, NodeClaim] = {}
+        self.drifted: str = "drifted"
+        # per-instance fault injector (testing/faults.py); None falls through
+        # to the ambient/env-installed one so KARPENTER_TPU_FAULTS reaches
+        # the provider without test plumbing
+        self.fault_injector = None
+
+    def reset(self):
+        self.__init__()
+
+    def _draw_fault(self, site: str):
+        from karpenter_tpu_torch.testing import faults
+
+        injector = (
+            self.fault_injector if self.fault_injector is not None else faults.active()
+        )
+        if injector is None:
+            return
+        rule = injector.draw(site)
+        if rule is not None:
+            raise faults.cloud_exception(rule)
+
+    # -- SPI ------------------------------------------------------------------
+
+    def create(self, node_claim: NodeClaim) -> NodeClaim:
+        if self.next_create_error is not None:
+            err, self.next_create_error = self.next_create_error, None
+            raise err
+        self._draw_fault("create")
+        self.create_calls.append(node_claim)
+        if len(self.create_calls) > self.allowed_create_calls:
+            raise RuntimeError("number of allowed create calls exceeded")
+
+        reqs = Requirements.from_node_selector_requirements(*node_claim.spec.requirements)
+        nodepool = NodePool(metadata=ObjectMeta(name=node_claim.nodepool_name or ""))
+        candidates = [
+            it
+            for it in self.get_instance_types(nodepool)
+            if reqs.is_compatible(it.requirements, FAKE_WELL_KNOWN_LABELS)
+            and len(it.offerings.requirements(reqs).available()) > 0
+            and res.fits(node_claim.spec.resource_requests, it.allocatable())
+        ]
+        if not candidates:
+            raise RuntimeError(f"no compatible instance type for claim {node_claim.name}")
+        candidates.sort(
+            key=lambda it: it.offerings.available().requirements(reqs).cheapest().price
+        )
+        instance_type = candidates[0]
+
+        labels = {}
+        for key in instance_type.requirements:
+            requirement = instance_type.requirements.get(key)
+            if requirement.operator() == IN:
+                labels[key] = requirement.sorted_values()[0]
+        for o in instance_type.offerings.available():
+            offering_reqs = Requirements(
+                Requirement(wk.LABEL_TOPOLOGY_ZONE, IN, [o.zone]),
+                Requirement(wk.CAPACITY_TYPE_LABEL_KEY, IN, [o.capacity_type]),
+            )
+            if reqs.is_compatible(offering_reqs, FAKE_WELL_KNOWN_LABELS):
+                labels[wk.LABEL_TOPOLOGY_ZONE] = o.zone
+                labels[wk.CAPACITY_TYPE_LABEL_KEY] = o.capacity_type
+                break
+
+        created = NodeClaim(
+            metadata=ObjectMeta(
+                name=node_claim.name,
+                labels={**labels, **node_claim.metadata.labels},
+                annotations=dict(node_claim.metadata.annotations),
+            ),
+            spec=node_claim.spec,
+            status=NodeClaimStatus(
+                provider_id=random_provider_id(),
+                capacity=res.positive_part(instance_type.capacity),
+                allocatable=res.positive_part(instance_type.allocatable()),
+            ),
+        )
+        self.created_nodeclaims[created.status.provider_id] = created
+        return created
+
+    def get(self, provider_id: str) -> NodeClaim:
+        if provider_id in self.created_nodeclaims:
+            return self.created_nodeclaims[provider_id]
+        raise NodeClaimNotFoundError(f"no nodeclaim exists with id {provider_id!r}")
+
+    def list(self) -> List[NodeClaim]:
+        return list(self.created_nodeclaims.values())
+
+    def get_instance_types(self, nodepool: Optional[NodePool]) -> List[InstanceType]:
+        if nodepool is not None:
+            if nodepool.name in self.errors_for_nodepool:
+                raise self.errors_for_nodepool[nodepool.name]
+            if nodepool.name in self.instance_types_for_nodepool:
+                return self.instance_types_for_nodepool[nodepool.name]
+        if self.instance_types is not None:
+            return self.instance_types
+        return default_instance_types()
+
+    def delete(self, node_claim: NodeClaim) -> None:
+        self._draw_fault("delete")
+        self.delete_calls.append(node_claim)
+        if node_claim.status.provider_id in self.created_nodeclaims:
+            del self.created_nodeclaims[node_claim.status.provider_id]
+            return
+        raise NodeClaimNotFoundError(
+            f"no nodeclaim exists with provider id {node_claim.status.provider_id!r}"
+        )
+
+    def is_drifted(self, node_claim: NodeClaim) -> str:
+        return self.drifted
+
+    def name(self) -> str:
+        return "fake"

@@ -1,16 +1,21 @@
-"""Instance types and offerings.
+"""CloudProvider SPI.
 
-Equivalent of the InstanceType/Offering model of reference
-pkg/cloudprovider/types.go, which feeds the solver. The CloudProvider SPI
-itself (create/delete/get/list/drift) is not part of the solve.
+Equivalent of reference pkg/cloudprovider/types.go: the pluggable seam each
+cloud implements (Create/Delete/Get/List/GetInstanceTypes/IsDrifted/Name), the
+InstanceType/Offering model that feeds the solver, and the typed errors that
+drive lifecycle retry/delete decisions.
 """
 
 from __future__ import annotations
 
+import abc
+import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from karpenter_tpu_torch.apis import labels as wk
+from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+from karpenter_tpu_torch.apis.nodepool import NodePool
 from karpenter_tpu_torch.scheduling import Requirements
 from karpenter_tpu_torch.utils import resources as res
 
@@ -49,6 +54,9 @@ class Offerings(list):
                 or reqs.get(wk.CAPACITY_TYPE_LABEL_KEY).has(o.capacity_type)
             )
         )
+
+    def cheapest(self) -> Optional[Offering]:
+        return min(self, key=lambda o: o.price) if self else None
 
 
 @dataclass
@@ -93,3 +101,80 @@ class InstanceType:
     def __repr__(self):
         return f"InstanceType({self.name})"
 
+
+def order_by_price(
+    instance_types: Sequence[InstanceType], reqs: Requirements
+) -> List[InstanceType]:
+    """Cheapest compatible-offering first, name tiebreak (types.go:62-79)."""
+
+    def price_of(it: InstanceType) -> float:
+        compatible = it.offerings.available().requirements(reqs)
+        cheapest = compatible.cheapest()
+        return cheapest.price if cheapest else math.inf
+
+    return sorted(instance_types, key=lambda it: (price_of(it), it.name))
+
+
+# -- typed errors (types.go:169-256) -----------------------------------------
+
+
+class CloudProviderError(Exception):
+    pass
+
+
+class NodeClaimNotFoundError(CloudProviderError):
+    """The machine behind a NodeClaim no longer exists."""
+
+
+class InsufficientCapacityError(CloudProviderError):
+    """Launch failed for lack of capacity (ICE); the claim is deleted and
+    scheduling retries elsewhere (lifecycle/launch.go:80-96)."""
+
+
+class NodeClassNotReadyError(CloudProviderError):
+    """The referenced NodeClass is not fully resolved yet."""
+
+
+class RateLimitError(CloudProviderError):
+    """The provider API throttled the call. Transient: the lifecycle
+    controller retries the same claim with jittered exponential backoff
+    rather than deleting it."""
+
+
+class CreateTimeoutError(CloudProviderError):
+    """The Create call timed out at the provider. Transient, same backoff
+    treatment as RateLimitError."""
+
+
+class CloudProvider(abc.ABC):
+    """The SPI every cloud implements (types.go:38-58)."""
+
+    @abc.abstractmethod
+    def create(self, node_claim: NodeClaim) -> NodeClaim:
+        """Launch a machine for the claim; returns a hydrated claim with
+        resolved labels, provider id, and capacity."""
+
+    @abc.abstractmethod
+    def delete(self, node_claim: NodeClaim) -> None:
+        """Terminate the machine behind the claim."""
+
+    @abc.abstractmethod
+    def get(self, provider_id: str) -> NodeClaim:
+        """Fetch one machine by provider id."""
+
+    @abc.abstractmethod
+    def list(self) -> List[NodeClaim]:
+        """All machines owned by the framework."""
+
+    @abc.abstractmethod
+    def get_instance_types(self, nodepool: Optional[NodePool]) -> List[InstanceType]:
+        """All instance types (including currently-unavailable offerings)."""
+
+    @abc.abstractmethod
+    def is_drifted(self, node_claim: NodeClaim) -> str:
+        """Non-empty drift reason if the machine no longer matches its
+        provisioning requirements."""
+
+    @abc.abstractmethod
+    def name(self) -> str:
+        ...

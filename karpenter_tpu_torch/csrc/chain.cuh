@@ -137,6 +137,24 @@ __device__ void chain_record(const A& a, int p, int node, const ChainShared& cs,
   }
 }
 
+// Pods like p that node n still takes: resources, volumes, ports (one
+// thread).
+template <class A>
+__device__ int node_fit(const A& a, int p, int n) {
+  const int R = a.R;
+  int fit = capacity(a.node_avail + (long)n * R, a.node_requests + (long)n * R, a.pod_requests + (long)p * R, R);
+  for (int d = 0; d < a.D; ++d) {
+    const int pv = a.pod_vols[(long)p * a.D + d];
+    if (pv <= 0) continue;
+    // an over-limit attach count reads as 0 capacity, not negative
+    const int room = a.node_vol_limits[(long)n * a.D + d] - a.node_vol_used[(long)n * a.D + d];
+    fit = min(fit, room > 0 ? room / pv : 0);
+  }
+  for (int q = 0; q < a.PT; ++q)
+    if (a.pod_ports[(long)p * a.PT + q]) fit = min(fit, 1);
+  return fit;
+}
+
 // One narrow iteration for the pod p heading a chain of cs.kc members (set
 // by the caller before a barrier). Leaves the verdict in s.kind, the members
 // committed in cs.k and their indices in cs.of.
@@ -203,21 +221,7 @@ __device__ void narrow_iter(const A& a, int p, Shared& s, ChainShared& cs, int* 
   block_sync();
 
   if (kind == KIND_NODE) {
-    if (tid == 0) {
-      // the node's integer capacity for the chain: resources, volumes, ports
-      const float* preq = a.pod_requests + (long)p * R;
-      int fit = capacity(a.node_avail + (long)idx * R, a.node_requests + (long)idx * R, preq, R);
-      for (int d = 0; d < a.D; ++d) {
-        const int pv = a.pod_vols[(long)p * a.D + d];
-        if (pv <= 0) continue;
-        // an over-limit attach count reads as 0 capacity, not negative
-        const int room = a.node_vol_limits[(long)idx * a.D + d] - a.node_vol_used[(long)idx * a.D + d];
-        fit = min(fit, room > 0 ? room / pv : 0);
-      }
-      for (int q = 0; q < a.PT; ++q)
-        if (a.pod_ports[(long)p * a.PT + q]) fit = min(fit, 1);
-      cs.k = max(min(kc, cs.stack_safe ? fit : 1), 1);
-    }
+    if (tid == 0) cs.k = max(min(kc, cs.stack_safe ? node_fit(a, p, idx) : 1), 1);
     block_sync();
     const int k = cs.k;
     for (int x = tid; x < k; x += THREADS) cs.of[x] = idx;

@@ -11,8 +11,11 @@
 //   (ffd_loop_lanes_launch: grid L, one lane's loop per block)
 // In the sweeps modes each iteration evaluates the pod at the queue cursor
 // and commits its chain of chain-identical successors (csrc/chain.cuh, the
-// JAX package's narrow_iter); the one-pass mode steps one pod at a time
-// through ops/ffd_step.make_step's logic, as program 2 has no chains.
+// JAX package's narrow_iter), and with ``wavefront`` > 0 acts on up to that
+// many further chain heads (csrc/wave.cuh, the JAX package's _wave_extend
+// :473, KARPENTER_TPU_WAVEFRONT); the one-pass mode steps one pod at a time
+// through ops/ffd_step.make_step's logic, as program 2 has no chains (and no
+// wavefront).
 //
 // What bounds it on an H100: the loop is sequential over pods (a pod's
 // verdict depends on every earlier commit), so one step's latency times the
@@ -61,6 +64,7 @@
 // masks.cuh for why FMA contraction must stay off).
 #include "chain.cuh"
 #include "step.cuh"
+#include "wave.cuh"
 
 // Field order is mirrored by FfdArgs in karpenter_tpu_torch/ops/ffd_sweeps.py
 // (pointers first, then ints); ffd_loop_args_size() lets the wrapper check it.
@@ -170,13 +174,16 @@ struct FfdArgs {
   int* cap_t;     // [C, T] chain commit: per-type capacity
   int* chain_c;   // [NCS, C] chain commit: per-claim scratch
   int* chain_v;   // [NVS, V] chain commit: per-lane scratch
+  int* wave;      // the wavefront's scratch (wave.cuh); null without it
   // outputs
   int* kind;      // [P]
   int* index;     // [P]
-  int* counters;  // [4]: narrow iterations, sweeps, chain commits, chain pods
+  int* counters;  // [7]: narrow iterations, sweeps, chain commits, chain pods,
+                  // wave commits, wave pods, retry lanes
   unsigned long long* work;  // [NWORK]: WORK_* counters
-  // dims
-  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, one_pass;
+  int* wave_hist;  // [wavefront + 2]: iterations by lanes consumed; null without it
+  // dims; ``wavefront``: the extra lanes after each narrow iteration (0: off)
+  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, one_pass, wavefront;
 };
 
 // The lanes mode's launch: one FfdArgs per lane in device memory. Every
@@ -196,6 +203,7 @@ namespace {
 __device__ __forceinline__ void loop_body(const FfdArgs& a) {
   __shared__ Shared s;
   __shared__ ChainShared cs;
+  __shared__ WaveShared ws;
   extern __shared__ int dyn[];
   int* s_gmin = dyn;
   int* s_boot = dyn + a.G;
@@ -210,6 +218,12 @@ __device__ __forceinline__ void loop_body(const FfdArgs& a) {
     a.index[p] = a.index0 ? a.index0[p] : -1;
   }
   if (tid < NWORK) s_work[tid] = 0;
+  for (int x = tid; x < a.wavefront + 2 && a.wave_hist; x += THREADS) a.wave_hist[x] = 0;
+  if (tid == 0) {
+    ws.commits = 0;
+    ws.pods = 0;
+    ws.retries = 0;
+  }
   __syncthreads();
   if (a.one_pass) {
     for (int p = 0; p < a.P; ++p) {
@@ -274,6 +288,15 @@ __device__ __forceinline__ void loop_body(const FfdArgs& a) {
       }
       i += k;
       block_sync();
+      if (a.wavefront > 0) {
+        // further chain heads, after a whole chain that opened no claim
+        const bool cont = k == cs.kc && kind != KIND_NEW_CLAIM && kind != KIND_NO_SLOT;
+        wave_step(a, q, i, qlen, cont, nq, s, ws, s_gmin, s_boot, s_nothing, s_maxcap);
+        block_sync();
+        i += ws.consumed;
+        if (tid == 0) a.wave_hist[1 + ws.n_lanes] += 1;
+        block_sync();
+      }
     }
     if (tid == 0) {
       s.progress = s.nqlen < qlen;
@@ -305,6 +328,9 @@ __device__ __forceinline__ void loop_body(const FfdArgs& a) {
     a.counters[1] = s.sweeps;
     a.counters[2] = s.chains;
     a.counters[3] = s.chain_pods;
+    a.counters[4] = ws.commits;
+    a.counters[5] = ws.pods;
+    a.counters[6] = ws.retries;
   }
   if (tid < NWORK) a.work[tid] = s_work[tid];
 }

@@ -71,9 +71,11 @@ NVCC_FLAGS = (
 
 # launches per kernel; a mode with a program of its own counts under its own
 # name (relax_place's convex mode as relax2_place; the lanes modes of the
-# partitioned solve as ffd_loop_lanes and relax2_place_lanes)
+# partitioned solve as ffd_loop_lanes and relax2_place_lanes; ffd_loop with
+# the wavefront on, csrc/wave.cuh, as ffd_loop_wavefront, in its lanes mode
+# as ffd_loop_lanes)
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in (*SOURCES, "relax2_place", "ffd_loop_lanes", "relax2_place_lanes")
+    name: 0 for name in (*SOURCES, "relax2_place", "ffd_loop_lanes", "relax2_place_lanes", "ffd_loop_wavefront")
 }
 
 

@@ -7,5 +7,6 @@ from karpenter_tpu_torch.metrics.registry import (  # noqa: F401
     Gauge,
     Histogram,
     Registry,
+    measure,
     tenant_label,
 )

@@ -6,15 +6,19 @@ duration buckets, and the same bounded tenant label. Only the series the
 ported layers write are registered here: the solver supervisor's
 (solver/supervisor.py), the serve layer's (serve/), those of the
 observability hooks they call (obs/), the phase-1 fallbacks of the backend
-(solver/torch_backend.py) and the learned order's (solver/ordering.py). Names, labels and buckets equal the
-JAX package's.
+(solver/torch_backend.py), the learned order's (solver/ordering.py) and the
+event recorder's (events/recorder.py); the provisioner registers its own
+(provisioning/provisioner.py), timed with ``measure``. Names, labels and
+buckets equal the JAX package's.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from bisect import bisect_left
+from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Tuple
 
 NAMESPACE = "karpenter"
@@ -344,6 +348,24 @@ EXPLAIN_OVERHEAD = REGISTRY.histogram(
     "Wall time of the post-pass gate-attribution + decode (the explain "
     "feature's whole marginal cost; zero series when the flag is off)",
 )
+
+
+# -- event recorder series (events/recorder.py) --------------------------------
+EVENTS_DEDUPED = REGISTRY.counter(
+    "events_deduped_total",
+    "Event publishes suppressed by the recorder, by cause (duplicate = seen "
+    "within the dedupe TTL, rate-limited = per-key flow control)",
+)
+
+
+@contextmanager
+def measure(histogram: Histogram, labels: Optional[Dict[str, str]] = None):
+    """Time a block into a histogram (reference metrics/constants.go:60-67)."""
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        histogram.observe(time.perf_counter() - start, labels)
 
 
 def tenant_label_max() -> int:

@@ -24,10 +24,17 @@ forms, each equal to stepping the members one at a time:
 The topology record weights one unit delta per committed bin row by the
 members' select/owned rows (``do_record``/``multi_deltas``). The state is
 updated in place. The CUDA kernel csrc/ffd_loop.cu carries the same commit.
+
+The wavefront (``KARPENTER_TPU_WAVEFRONT``; the JAX package's
+``_wave_extend``, :473) is ``narrow.wave``: after an iteration, further chain
+heads judged against the state the iteration left, each committed only
+where its verdict provably equals the sequential one (csrc/wave.cuh on the
+card).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Tuple
 
 import torch
@@ -44,6 +51,7 @@ from karpenter_tpu_torch.ops.ffd_core import (
     KIND_NODE,
     FFDState,
     PodRow,
+    pod_row,
     _add_times,
     _bcast,
     _capacity,
@@ -91,7 +99,10 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
     """``narrow(state, pod, p, k_chain) -> (kind, index_rows, k)``: one
     narrow iteration for pod row ``p`` heading a chain of ``k_chain`` members,
     committed into ``state`` in place; ``index_rows`` holds each of the ``k``
-    committed members' index."""
+    committed members' index. Its two halves are ``narrow.evaluate(state,
+    pod)`` (pure) and ``narrow.commit(state, verdict, pod, p, k_chain)``: the
+    wavefront (``narrow.wave``) evaluates further chain heads against one
+    state before it commits any of them."""
     lv, ln = statics.lv, statics.ln
     wellknown, no_allow = statics.wellknown, statics.no_allow
     bounds_free = statics.bounds_free
@@ -114,7 +125,34 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
     def gated(state, pod_topo, merged, allow, registered):
         return topo_gate(problem, state.grp_counts, registered, pod_topo, merged, allow)
 
-    def narrow(state: FFDState, pod: PodRow, p: int, k_chain: int) -> Tuple[int, List[int], int]:
+    row_fields = ("admitted", "comp", "defined") + (() if bounds_free else ("gt", "lt"))
+    ones_g = torch.ones(G, dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+
+    def set_row(rows: ReqTensor, i: int, row: ReqTensor) -> None:
+        # bounds-free rows keep their gt/lt sentinels
+        for name in row_fields:
+            getattr(rows, name)[i] = getattr(row, name)
+
+    def commit_node(state: FFDState, n: int, row: ReqTensor, pod: PodRow, k: int) -> None:
+        """``k`` members of the pod's chain onto existing node ``n``, whose
+        narrowed row is ``row``."""
+        set_row(state.node_req, n, row)
+        state.node_requests[n] = _add_times(state.node_requests[n], torch.tensor(k, dtype=i32, device=dev),
+                                            pod.requests)
+        state.node_npods[n] += k
+        state.node_used_ports[n] |= pod.ports
+        state.node_vol_used[n] += k * pod.vols
+
+    def unit_record(pod: PodRow, row: ReqTensor, allow) -> torch.Tensor:
+        """bool[G, V]: what one member placed on a bin of final row ``row``
+        records, before its own select/owned weights."""
+        return record_delta(problem, PodTopoStatics(pod.strict.admitted, pod.grp_match, ones_g, ones_g),
+                            row, allow, one, lv, ln)
+
+    def evaluate(state: FFDState, pod: PodRow) -> SimpleNamespace:
+        """The pod's verdict against ``state`` and what a commit reads of it
+        (the gates' rows, capacities and ranks); ``state`` is not changed."""
         topo_pod = PodTopoStatics(pod.strict.admitted, pod.grp_match, pod.grp_selects, pod.grp_owned)
         port_cap = 1 if bool(pod.ports.any()) else _BIG_CAP
 
@@ -187,6 +225,7 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
         free_slot = int(free_slot_t)
         has_slot = free_slot < C
         any_tpl, tpl_pick = False, 0
+        tpl_final = tpl_it_ok2 = tpl_requests2 = host_onehot = None
         active = bool(pod.active)
         if not any_node and not any_claim and has_slot and active:
             tpl_requests2 = problem.tpl_overhead + pod.requests[None, :]
@@ -213,6 +252,28 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
         else:
             kind = KIND_NEW_CLAIM if any_tpl else KIND_FAIL
         index = {KIND_NODE: node_pick, KIND_CLAIM: claim_pick, KIND_NEW_CLAIM: free_slot}.get(kind, -1)
+        return SimpleNamespace(
+            topo_pod=topo_pod, any_node=any_node, node_pick=node_pick, node_static_any=node_static_any,
+            node_fit_count=node_fit_count, node_row=node_row, any_claim=any_claim, claim_merged=claim_merged,
+            claim_final=claim_final, claim_it_ok2=claim_it_ok2, claim_ok_pre=claim_ok_pre,
+            claim_topo_ok=claim_topo_ok, claim_pick=claim_pick, rank2=rank2, cap_ct_all=cap_ct_all,
+            cap_c=cap_c, claim_fit_count=claim_fit_count, claim_npods0=claim_npods0, free_slot=free_slot,
+            has_slot=has_slot, any_tpl=any_tpl, tpl_pick=tpl_pick, tpl_final=tpl_final, tpl_it_ok2=tpl_it_ok2,
+            tpl_requests2=tpl_requests2, host_onehot=host_onehot, active=active, kind=kind, index=index,
+        )
+
+    def commit(state: FFDState, ev: SimpleNamespace, pod: PodRow, p: int, k_chain: int) -> Tuple[int, List[int], int]:
+        """Commit the chain of ``k_chain`` members headed by pod row ``p``
+        into ``state`` in place, from ``evaluate(state, pod)``."""
+        any_node, node_pick, node_static_any = ev.any_node, ev.node_pick, ev.node_static_any
+        node_fit_count, node_row = ev.node_fit_count, ev.node_row
+        claim_merged, claim_final, claim_it_ok2 = ev.claim_merged, ev.claim_final, ev.claim_it_ok2
+        claim_ok_pre, claim_topo_ok, claim_pick, rank2 = ev.claim_ok_pre, ev.claim_topo_ok, ev.claim_pick, ev.rank2
+        cap_ct_all, cap_c = ev.cap_ct_all, ev.cap_c
+        claim_fit_count, claim_npods0, free_slot = ev.claim_fit_count, ev.claim_npods0, ev.free_slot
+        tpl_pick, tpl_final, tpl_it_ok2 = ev.tpl_pick, ev.tpl_final, ev.tpl_it_ok2
+        tpl_requests2, host_onehot = ev.tpl_requests2, ev.host_onehot
+        kind, index = ev.kind, ev.index
         placed = kind < KIND_FAIL
         is_open = kind == KIND_NEW_CLAIM
         is_claim = kind == KIND_CLAIM
@@ -386,21 +447,14 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
             state.claim_npods = state.claim_npods + take
             state.claim_used_ports = state.claim_used_ports | (t2 & pod.ports[None, :])
         if kind == KIND_NODE:
-            n = node_pick
-            for name in ("admitted", "comp", "defined") + (() if bounds_free else ("gt", "lt")):
-                getattr(state.node_req, name)[n] = getattr(node_row, name)
-            state.node_requests[n] = _add_times(state.node_requests[n], torch.tensor(k, dtype=i32), pod.requests)
-            state.node_npods[n] += k
-            state.node_used_ports[n] |= pod.ports
-            state.node_vol_used[n] += k * pod.vols
+            commit_node(state, node_pick, node_row, pod, k)
         slot_req = None
         if is_open:
             slot_req = tpl_final.row(tpl_pick)
             tpl_row_it_ok = tpl_it_ok2[tpl_pick]
             max_cap = torch.where(tpl_row_it_ok[:, None], problem.it_cap, torch.zeros_like(problem.it_cap)).max(dim=0).values
             s = free_slot
-            for name in ("admitted", "comp", "defined") + (() if bounds_free else ("gt", "lt")):
-                getattr(state.claim_req, name)[s] = getattr(slot_req, name)
+            set_row(state.claim_req, s, slot_req)
             state.claim_requests[s] = tpl_requests2[tpl_pick]
             state.claim_it_ok[s] = tpl_row_it_ok
             state.claim_open[s] = True
@@ -416,16 +470,11 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
         if G > 0 and placed:
             sel_mem, own_mem = sel_all[p:p + k], own_all[p:p + k]
             if bool((sel_mem | own_mem).any()):
-                unit_pod = PodTopoStatics(
-                    pod.strict.admitted, pod.grp_match,
-                    torch.ones(G, dtype=torch.bool, device=dev), torch.ones(G, dtype=torch.bool, device=dev),
-                )
-                one = torch.ones((), dtype=torch.bool, device=dev)
                 add = torch.zeros((G, V), dtype=i32, device=dev)
                 reg = torch.zeros((G, V), dtype=torch.bool, device=dev)
                 if multi:
                     for c in sorted(set(claim_of)):
-                        unit = record_delta(problem, unit_pod, committed.row(c), wellknown, one, lv, ln)
+                        unit = unit_record(pod, committed.row(c), wellknown)
                         mem = torch.tensor([x == c for x in claim_of], dtype=torch.bool, device=dev)
                         w = torch.where(problem.grp_inverse, (own_mem & mem[:, None]).sum(dim=0),
                                         (sel_mem & mem[:, None]).sum(dim=0)).to(i32)
@@ -438,7 +487,7 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
                         rec_row, allow = slot_req, wellknown
                     else:
                         rec_row, allow = claim_final.row(claim_pick), wellknown
-                    unit = record_delta(problem, unit_pod, rec_row, allow, one, lv, ln)
+                    unit = unit_record(pod, rec_row, allow)
                     w = torch.where(problem.grp_inverse, own_mem.sum(dim=0), sel_mem.sum(dim=0)).to(i32)
                     add = w[:, None] * unit.to(i32)
                     reg = (w > 0)[:, None] & unit
@@ -448,4 +497,108 @@ def make_narrow(problem: SchedulingProblem, statics, C: int):
         rows = claim_of if is_claim else [index] * k
         return kind, rows, k
 
+    def narrow(state: FFDState, pod: PodRow, p: int, k_chain: int) -> Tuple[int, List[int], int]:
+        return commit(state, evaluate(state, pod), pod, p, k_chain)
+
+    def wave(state: FFDState, xs, queue: List[int], h: int, chain: List[bool], lanes: int, cont: bool,
+             kinds: List[int], idxs: List[int], nq: List[int]) -> Tuple[int, int, int, int, int]:
+        """The wavefront after a narrow iteration (the JAX package's
+        ``_wave_extend``, ops/ffd_sweeps.py:473): up to ``lanes`` further
+        chain heads from queue cursor ``h``, each evaluated against ``state``
+        as the first lane left it, act in queue order while ``cont`` holds.
+        A lane acts only when its verdict provably equals the sequential
+        one: its matched groups are disjoint from those earlier lanes
+        recorded into, and a placement's node is untouched or every claim an
+        earlier lane touched is ineligible to it. A placement stacks up to
+        its bin's fit and fewest-pods rank (one bin); a verdict with no node,
+        no claim and no template sends the whole chain to ``nq``. Only a
+        whole-chain placement or such a failure lets the next lane act.
+        Writes the lanes' verdict rows into ``kinds``/``idxs``, then commits
+        the placements and their summed topology record into ``state``.
+        Returns (pods consumed, lanes acted, placements, pods placed, failed
+        chains)."""
+        qlen = len(queue)
+        touched_c: set = set()
+        touched_n: set = set()
+        eff_acc = torch.zeros(G, dtype=torch.bool, device=dev)
+        placements = []
+        consumed = n_lanes = n_commit = n_pods = n_retry = 0
+        for _ in range(lanes):
+            if not cont or h >= qlen:
+                break
+            p = queue[h]
+            kch = chain_length(queue, h, chain)
+            pod = pod_row(xs, p)
+            ev = evaluate(state, pod)
+            any_node = ev.any_node
+            is_claim = not any_node and ev.any_claim
+            fail = not any_node and not ev.any_claim and ev.has_slot and ev.active and not ev.any_tpl
+            topo_indep = stack_safe = True
+            if G > 0:
+                match = pod.grp_match
+                topo_indep = not bool((match & eff_acc).any())
+                inverse = problem.grp_inverse
+                feedback = match & ((pod.grp_selects & ~inverse) | (pod.grp_owned & inverse))
+                stack_safe = not bool((feedback & ~aff_safe).any())
+            claim_indep = not any(int(ev.cap_c[c]) > 0 for c in touched_c)
+            node_indep = ev.node_pick not in touched_n
+            placed = topo_indep and ((any_node and node_indep) or (is_claim and claim_indep))
+            failed = topo_indep and fail
+            if placed:
+                if is_claim:
+                    j_rank = (ev.rank2 - 1 - ev.claim_pick) // C - ev.claim_npods0 + 1
+                    fitc = ev.claim_fit_count
+                else:
+                    j_rank, fitc = _BIG_CAP, ev.node_fit_count
+                k = max(min(min(fitc, j_rank) if stack_safe else 1, kch), 1)
+                kind, index = (KIND_NODE, ev.node_pick) if any_node else (KIND_CLAIM, ev.claim_pick)
+                placements.append((ev, pod, p, k))
+                (touched_n if any_node else touched_c).add(index)
+                if G > 0:
+                    eff_acc = eff_acc | (sel_all[p:p + kch] | own_all[p:p + kch]).any(dim=0)
+                n_commit += 1
+                n_pods += k
+            elif failed:
+                k, kind, index = kch, KIND_FAIL, -1
+                nq.extend(range(p, p + kch))
+                n_retry += 1
+            else:
+                break
+            for s in range(k):
+                kinds[p + s], idxs[p + s] = kind, index
+            n_lanes += 1
+            consumed += k
+            h += k
+            cont = k == kch
+
+        # -- the placements, each into its own bin, and their records summed
+        add = torch.zeros((G, V), dtype=i32, device=dev)
+        reg = torch.zeros((G, V), dtype=torch.bool, device=dev)
+        for ev, pod, p, k in placements:
+            if ev.any_node:
+                row, allow = ev.node_row, no_allow
+                commit_node(state, ev.node_pick, row, pod, k)
+            else:
+                c, row, allow = ev.claim_pick, ev.claim_final.row(ev.claim_pick), wellknown
+                set_row(state.claim_req, c, row)
+                state.claim_requests[c] = _add_times(state.claim_requests[c], torch.tensor(k, dtype=i32, device=dev),
+                                                     pod.requests)
+                state.claim_it_ok[c] = ev.claim_it_ok2[c] & (ev.cap_ct_all[c] >= k)
+                state.claim_npods[c] += k
+                state.claim_used_ports[c] |= pod.ports
+            if G > 0:
+                w = torch.where(problem.grp_inverse, own_all[p:p + k].sum(dim=0),
+                                sel_all[p:p + k].sum(dim=0)).to(i32)
+                if bool((w > 0).any()):
+                    unit = unit_record(pod, row, allow)
+                    add += w[:, None] * unit.to(i32)
+                    reg |= (w > 0)[:, None] & unit
+        if placements and G > 0:
+            state.grp_counts = state.grp_counts + add
+            state.grp_registered = state.grp_registered | reg
+        return consumed, n_lanes, n_commit, n_pods, n_retry
+
+    narrow.evaluate = evaluate
+    narrow.commit = commit
+    narrow.wave = wave
     return narrow

@@ -59,12 +59,19 @@ class IterCounts(NamedTuple):
     them: ``narrow`` the narrow iterations (each evaluates one pod and
     commits its chain, ops/ffd_chain.py), ``sweeps`` the requeue sweeps,
     ``chain_commits`` the iterations that consumed more than one pod and
-    ``chain_pods`` the pods those iterations consumed."""
+    ``chain_pods`` the pods those iterations consumed (both keyed on the
+    iteration's first lane). The wavefront's (``KARPENTER_TPU_WAVEFRONT``,
+    ops/ffd_chain.py ``wave``; 0 with it off): ``wave_commits`` the extra lanes that
+    committed placements, ``wave_pods`` the pods they placed and
+    ``retry_lanes`` the failed chains they batched into the next sweep."""
 
     narrow: Any
     sweeps: Any
     chain_commits: Any
     chain_pods: Any
+    wave_commits: Any = 0
+    wave_pods: Any = 0
+    retry_lanes: Any = 0
 
 
 @dataclass
@@ -74,6 +81,9 @@ class FFDResult:
     state: FFDState  # final bin state
     iters: Any = None  # IterCounts (sweeps path only)
     work: Any = None  # i64[4] ffd_loop work counters (kernel path only; ffd_sweeps.WORK_COUNTERS)
+    # i32[W + 1] iterations by the lanes they consumed (bin 1 + extra lanes;
+    # bin 0 stays 0); None unless the sweeps loop ran with the wavefront on
+    wave_hist: Any = None
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:

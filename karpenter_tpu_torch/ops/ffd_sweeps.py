@@ -3,14 +3,17 @@
 The reference's Solve loop requeues failed pods and retries while any
 placement makes progress (scheduler.go:150-170): a pod whose required
 pod-affinity peers were placed later in the queue succeeds on the next sweep.
-This is the JAX package's ``ops/ffd_sweeps._sweeps_impl`` without its
-wavefront branch: a compact queue of the active rows in FFD order; each
-sweep walks the queue in narrow iterations (ops/ffd_chain.py: one pod
-evaluated, its chain of chain-identical successors committed in closed form)
-and queues the KIND_FAIL rows for the next sweep; the loop stops when a sweep
-makes no progress or a pod hit KIND_NO_SLOT (the backend then retries with
-more claim slots, at the same sweep boundary as the JAX package).
-``IterCounts`` counts as the JAX package does.
+This is the JAX package's ``ops/ffd_sweeps._sweeps_impl``: a compact queue
+of the active rows in FFD order; each sweep walks the queue in narrow
+iterations (ops/ffd_chain.py: one pod evaluated, its chain of
+chain-identical successors committed in closed form) and queues the
+KIND_FAIL rows for the next sweep; the loop stops when a sweep makes no
+progress or a pod hit KIND_NO_SLOT (the backend then retries with more claim
+slots, at the same sweep boundary as the JAX package). With the wavefront
+(``KARPENTER_TPU_WAVEFRONT``, ``wavefront_lanes``) up to ``wavefront``
+further chain heads act after each narrow iteration (ops/ffd_chain.py
+``wave``), and the result carries ``wave_hist``. ``IterCounts`` counts as
+the JAX package does.
 
 The learned order (``KARPENTER_TPU_ORDER_POLICY``, program 6; the JAX
 package's policy sweeps entries): given ``order_scores`` (one score per row,
@@ -34,6 +37,7 @@ when it converges. Its plain version is ``sweeps_plain`` per lane.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import torch
@@ -43,6 +47,7 @@ from karpenter_tpu_torch.models.problem import ReqTensor, SchedulingProblem
 from karpenter_tpu_torch.ops import masks
 from karpenter_tpu_torch.ops.ffd_core import (
     KIND_FAIL,
+    KIND_NEW_CLAIM,
     KIND_NO_SLOT,
     FFDResult,
     FFDState,
@@ -59,12 +64,29 @@ from karpenter_tpu_torch.ops.ffd_chain import chain_flags, chain_length, chain_r
 from karpenter_tpu_torch.ops.ffd_step import clone_state
 
 
+def wavefront_lanes() -> int:
+    """The extra lanes per narrow iteration that ``KARPENTER_TPU_WAVEFRONT``
+    asks for (the JAX package's ``_wavefront_lanes``, ops/ffd_sweeps.py:74):
+    0 with the flag off (its default), else ``KARPENTER_TPU_WAVEFRONT_WIDTH``
+    (default 4) less one. Read at every call, so one process can solve with
+    the flag on and off."""
+    if os.environ.get("KARPENTER_TPU_WAVEFRONT", "0") == "0":
+        return 0
+    return max(int(os.environ.get("KARPENTER_TPU_WAVEFRONT_WIDTH", "4")) - 1, 0)
+
+
+def _lanes(wavefront: Optional[int]) -> int:
+    return wavefront_lanes() if wavefront is None else int(wavefront)
+
+
 def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
-                 kind0=None, index0=None, order_scores=None) -> FFDResult:
+                 kind0=None, index0=None, order_scores=None, wavefront: int = 0) -> FFDResult:
     """Plain PyTorch requeue loop (see module docstring). ``kind0``/``index0``
     seed the verdict rows of pods the loop does not step (the carried repair
     pass: phase 1's placements); unseeded rows start KIND_FAIL / -1.
-    ``order_scores`` (f32[P]) sorts each sweep's requeue by descending score."""
+    ``order_scores`` (f32[P]) sorts each sweep's requeue by descending score.
+    ``wavefront`` extra lanes follow each narrow iteration
+    (ops/ffd_chain.py ``wave``); the result then carries ``wave_hist``."""
     P = problem.num_pods
     C = init.claim_open.shape[0]
     dev = problem.lane_valid.device
@@ -77,14 +99,16 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
     queue = [p for p in range(P) if active[p]]
     kinds = [KIND_FAIL] * P if kind0 is None else kind0.cpu().tolist()
     idxs = [-1] * P if index0 is None else index0.cpu().tolist()
-    n_narrow = sweeps = chain_commits = chain_pods = 0
+    n_narrow = sweeps = chain_commits = chain_pods = wave_commits = wave_pods = retry_lanes = 0
+    hist = [0] * (wavefront + 2)
     progress, noslot = True, False
     while progress and queue and not noslot:
         nq = []
         i = 0
         while i < len(queue):
             p = queue[i]
-            kind, rows, k = narrow(state, pod_row(xs, p), p, chain_length(queue, i, chain))
+            kc = chain_length(queue, i, chain)
+            kind, rows, k = narrow(state, pod_row(xs, p), p, kc)
             for s in range(k):
                 kinds[p + s], idxs[p + s] = kind, rows[s]
                 if kind == KIND_FAIL:
@@ -94,6 +118,16 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
             if k > 1:
                 chain_commits += 1
                 chain_pods += k
+            if wavefront:
+                # further lanes only after a whole chain that opened no claim
+                cont = k == kc and kind not in (KIND_NEW_CLAIM, KIND_NO_SLOT)
+                extra, n_lanes, n_commit, n_pods, n_retry = narrow.wave(
+                    state, xs, queue, i + k, chain, wavefront, cont, kinds, idxs, nq)
+                k += extra
+                hist[1 + n_lanes] += 1
+                wave_commits += n_commit
+                wave_pods += n_pods
+                retry_lanes += n_retry
             i += k
         progress = len(nq) < len(queue)
         if score is not None:
@@ -104,37 +138,44 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
         kind=torch.tensor(kinds, dtype=torch.int32, device=dev).reshape(P),
         index=torch.tensor(idxs, dtype=torch.int32, device=dev).reshape(P),
         state=state,
-        iters=IterCounts(narrow=n_narrow, sweeps=sweeps, chain_commits=chain_commits, chain_pods=chain_pods),
+        iters=IterCounts(narrow=n_narrow, sweeps=sweeps, chain_commits=chain_commits, chain_pods=chain_pods,
+                         wave_commits=wave_commits, wave_pods=wave_pods, retry_lanes=retry_lanes),
+        wave_hist=torch.tensor(hist, dtype=torch.int32, device=dev) if wavefront else None,
     )
 
 
-def solve_ffd_sweeps(problem: SchedulingProblem, max_claims: int, order_scores=None) -> FFDResult:
+def solve_ffd_sweeps(problem: SchedulingProblem, max_claims: int, order_scores=None,
+                     wavefront: Optional[int] = None) -> FFDResult:
     """Run all retry sweeps of a solve from a fresh state: one ``ffd_loop``
     launch for CUDA tensors, the plain version for CPU tensors.
-    ``order_scores`` as in ``sweeps_plain``."""
+    ``order_scores`` as in ``sweeps_plain``; ``wavefront`` extra lanes, None
+    for what ``KARPENTER_TPU_WAVEFRONT`` asks (``wavefront_lanes``)."""
+    lanes = _lanes(wavefront)
     problem = _pad_lanes_mult32(problem)
     init = initial_state(problem, max_claims)
     if problem.lane_valid.is_cuda:
-        return launch_ffd_loop(problem, init, one_pass=False, order_scores=order_scores)
-    return sweeps_plain(problem, init, problem_bounds_free(problem), order_scores=order_scores)
+        return launch_ffd_loop(problem, init, one_pass=False, order_scores=order_scores, wavefront=lanes)
+    return sweeps_plain(problem, init, problem_bounds_free(problem), order_scores=order_scores, wavefront=lanes)
 
 
-def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init, order_scores=None) -> FFDResult:
+def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init, order_scores=None,
+                             wavefront: Optional[int] = None) -> FFDResult:
     """The repair pass of the two-phase solve (ops/relax.py): ``init`` is
     (state, kind, index) from phase 1, ``problem.pod_active`` holds only the
     residue. The loop starts from phase 1's claim landscape, and phase 1's
     verdict rows ride through untouched because their pods are never stepped.
     One ``ffd_loop`` launch for CUDA tensors, the plain version for CPU
     tensors. ``max_claims`` must equal the carried state's claim axis.
-    ``order_scores`` as in ``sweeps_plain``."""
+    ``order_scores`` and ``wavefront`` as in ``solve_ffd_sweeps``."""
+    lanes = _lanes(wavefront)
     state, kind0, index0 = init
     if state.claim_open.shape[0] != max_claims:
         raise ValueError(f"carried state has {state.claim_open.shape[0]} claim slots, not {max_claims}")
     problem, state = _lane_align(problem, state)
     if problem.lane_valid.is_cuda:
         return launch_ffd_loop(problem, state, one_pass=False, kind0=kind0, index0=index0,
-                               order_scores=order_scores)
-    return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0, order_scores)
+                               order_scores=order_scores, wavefront=lanes)
+    return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0, order_scores, lanes)
 
 
 def fresh_carry(problem: SchedulingProblem, max_claims: int):
@@ -178,9 +219,10 @@ FFD_STATE = (
 )
 # the kernel's own working rows, neither read before nor kept after it
 FFD_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok", "queue",
-               "ok_t", "cap_t", "chain_c", "chain_v")
-_FFD_POINTERS = _FFD_INPUTS + FFD_STATE + FFD_SCRATCH + ("kind", "index", "counters", "work")
-_FFD_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "one_pass")
+               "ok_t", "cap_t", "chain_c", "chain_v", "wave")
+_FFD_POINTERS = _FFD_INPUTS + FFD_STATE + FFD_SCRATCH + ("kind", "index", "counters", "work", "wave_hist")
+_FFD_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "one_pass",
+             "wavefront")
 _FfdArgs = kernels.make_struct("FfdArgs", _FFD_POINTERS, _FFD_INTS)
 
 # the kernel's work counters (csrc/ffd_loop.cu WORK_*), in order
@@ -190,6 +232,18 @@ WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers")
 # NCS, NVS)
 _CHAIN_CLAIM_ROWS = 9
 _CHAIN_LANE_ROWS = 2
+# the loop's counters: IterCounts' seven fields
+_N_COUNTERS = 7
+
+
+def wave_scratch_words(lanes: int, G: int, C: int, N: int, K: int, W: int, T: int) -> int:
+    """int32 words of the wavefront's scratch (csrc/wave.cuh): the groups
+    recorded into, the claims and nodes touched, and one slab per extra lane
+    (4 scalars, the committed row's K x W lane words and its five K-rows, the
+    claim's survivors and capacities over the T types). 0 with no lanes."""
+    if lanes <= 0:
+        return 0
+    return G + C + max(N, 1) + lanes * (4 + K * W + 5 * K + 2 * T)
 
 
 def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = False) -> None:
@@ -204,25 +258,37 @@ def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = Fal
 
 
 def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
-                    kind0=None, index0=None, order_scores=None) -> FFDResult:
+                    kind0=None, index0=None, order_scores=None, wavefront: int = 0) -> FFDResult:
     """Run the ``ffd_loop`` kernel on CUDA tensors: the requeue loop, or with
     ``one_pass`` a single scan over every row (the backend's per-pass mode).
     ``kind0``/``index0`` (i32[P], both or neither) seed the verdict rows, as
     in ``sweeps_plain``. ``init`` is not modified. The kernel evaluates the
     general (bounded) arm of the mask algebra, which equals the bounds-free
     arm on problems without Gt/Lt bounds, so there is no separate bounds-free
-    kernel path. ``order_scores`` (f32[P]) sorts each sweep's requeue."""
+    kernel path. ``order_scores`` (f32[P]) sorts each sweep's requeue;
+    ``wavefront`` extra lanes follow each narrow iteration (csrc/wave.cuh;
+    not in the one-pass mode)."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_ffd_loop needs CUDA tensors")
-    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0, order_scores)
-    kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream)
+    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0, order_scores, wavefront)
+    kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream, counter=loop_counter(args))
+    return result_of(t, problem.num_lanes, one_pass)
 
-    state = state_back(t, problem.num_lanes)
+
+def loop_counter(args) -> str:
+    """The kernels.LAUNCHES entry a single-lane ``ffd_loop`` launch counts
+    under: ``ffd_loop_wavefront`` with the wavefront on."""
+    return "ffd_loop_wavefront" if args.wavefront else "ffd_loop"
+
+
+def result_of(t: dict, V: int, one_pass: bool = False) -> FFDResult:
+    """The FFDResult of a finished launch's tensors ``t`` (ffd_loop_args)."""
     iters: Optional[IterCounts] = None
     if not one_pass:
         iters = IterCounts(*t["counters"])
-    return FFDResult(kind=t["kind"], index=t["index"], state=state, iters=iters, work=t["work"])
+    return FFDResult(kind=t["kind"], index=t["index"], state=state_back(t, V), iters=iters, work=t["work"],
+                     wave_hist=t["wave_hist"])
 
 
 # the lanes mode's launch struct (csrc/ffd_loop.cu FfdLanesArgs): the device
@@ -240,7 +306,7 @@ def lane_structs(structs: Sequence, dev) -> torch.Tensor:
 
 
 def ffd_loop_lanes_args(problems: Sequence[SchedulingProblem], inits: Sequence[FFDState],
-                        kind0s=None, index0s=None):
+                        kind0s=None, index0s=None, wavefront: int = 0):
     """One ``ffd_loop_args`` per lane (fresh, or seeded with ``kind0s`` /
     ``index0s``, one i32[P] each), their structs in one device buffer, and
     the lanes-mode struct: (per-lane tensors, buffer, struct). Every lane
@@ -250,7 +316,8 @@ def ffd_loop_lanes_args(problems: Sequence[SchedulingProblem], inits: Sequence[F
     if (kind0s is None) != (index0s is None):
         raise ValueError("kind0s and index0s seed the verdict rows together")
     lanes = [ffd_loop_args(p, init, False,
-                           None if kind0s is None else kind0s[b], None if index0s is None else index0s[b])
+                           None if kind0s is None else kind0s[b], None if index0s is None else index0s[b],
+                           wavefront=wavefront)
              for b, (p, init) in enumerate(zip(problems, inits))]
     dims = {(a.G, a.R) for _, a in lanes}
     if len(dims) != 1:
@@ -262,22 +329,21 @@ def ffd_loop_lanes_args(problems: Sequence[SchedulingProblem], inits: Sequence[F
 
 
 def launch_ffd_loop_lanes(problems: Sequence[SchedulingProblem], inits: Sequence[FFDState],
-                          kind0s=None, index0s=None) -> List[FFDResult]:
+                          kind0s=None, index0s=None, wavefront: int = 0) -> List[FFDResult]:
     """Run the ``ffd_loop`` kernel's lanes mode on CUDA tensors: lane b's
     requeue loop from ``inits[b]`` over ``problems[b]`` (seeded like
     ``solve_ffd_sweeps_carried`` when ``kind0s``/``index0s`` are given), all
-    lanes in one launch, grid L. One FFDResult per lane; counted as
-    ``ffd_loop_lanes`` in kernels.LAUNCHES."""
+    lanes in one launch, grid L, each with ``wavefront`` extra lanes an
+    iteration. One FFDResult per lane; counted as ``ffd_loop_lanes`` in
+    kernels.LAUNCHES."""
     dev = problems[0].lane_valid.device if problems else None
     if dev is None or dev.type != "cuda":
         raise ValueError("launch_ffd_loop_lanes needs CUDA tensors")
     # the struct buffer may be freed once the launch is queued: the caching
     # allocator hands its memory out again only in stream order
-    ts, _buf, args = ffd_loop_lanes_args(problems, inits, kind0s, index0s)
+    ts, _buf, args = ffd_loop_lanes_args(problems, inits, kind0s, index0s, wavefront)
     kernels.launch("ffd_loop_lanes", args, torch.cuda.current_stream(dev).cuda_stream)
-    return [FFDResult(kind=t["kind"], index=t["index"], state=state_back(t, p.num_lanes),
-                      iters=IterCounts(*t["counters"]), work=t["work"])
-            for t, p in zip(ts, problems)]
+    return [result_of(t, p.num_lanes) for t, p in zip(ts, problems)]
 
 
 # the pod-axis tables in the kernels' layout: struct field <- problem field
@@ -382,17 +448,18 @@ def state_back(t: dict, V: int) -> FFDState:
 
 
 def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None,
-                  order_scores=None):
+                  order_scores=None, wavefront: int = 0):
     """The kernel's tensors by struct field name (inputs in its layout, a
     copy of the carried state to update in place, scratch, outputs) and its
     argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
     t = problem_tensors(problem)
     # the carried state, copied into the kernel's layout (updated in place)
     t.update(state_tensors(init, problem.lane_valid, problem.lane_numeric))
-    return loop_args_from(t, one_pass, kind0, index0, order_scores)
+    return loop_args_from(t, one_pass, kind0, index0, order_scores, wavefront)
 
 
-def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order_scores=None):
+def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order_scores=None,
+                   wavefront: int = 0):
     """``ffd_loop_args`` over tables already in the kernel's layout: the
     problem's (``problem_tensors``, or a device-resident world holding them,
     ops/fused.py) and a state the launch may update in place
@@ -429,13 +496,18 @@ def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order
     t["cap_t"] = torch.empty((C, T), dtype=i32, device=dev)
     t["chain_c"] = torch.empty((_CHAIN_CLAIM_ROWS, C), dtype=i32, device=dev)
     t["chain_v"] = torch.empty((_CHAIN_LANE_ROWS, V), dtype=i32, device=dev)
-    t["counters"] = torch.zeros((4,), dtype=i32, device=dev)
+    t["counters"] = torch.zeros((_N_COUNTERS,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
+    if one_pass or wavefront < 0:
+        wavefront = 0  # the one-pass mode has no wavefront, as in the JAX package
+    words = wave_scratch_words(wavefront, G, C, N, K, W, T)
+    t["wave"] = torch.empty((words,), dtype=i32, device=dev) if words else None
+    t["wave_hist"] = torch.zeros((wavefront + 2,), dtype=i32, device=dev) if wavefront else None
 
     dims = dict(P=P, K=K, V=V, W=W, C=C, N=N, T=T, TPL=TPL, R=R,
                 O=t["offer_ok"].shape[1], PT=t["pod_ports"].shape[1],
                 D=t["pod_vols"].shape[1], G=G, F=F,
-                CH=t["host_lane"].shape[0], one_pass=int(one_pass))
+                CH=t["host_lane"].shape[0], one_pass=int(one_pass), wavefront=int(wavefront))
     args = _FfdArgs(**{name: (t[name].data_ptr() if t[name] is not None else None) for name in _FFD_POINTERS},
                     **dims)
     return t, args

@@ -55,19 +55,15 @@ from karpenter_tpu_torch.models.problem import (
     problem_to_torch,
 )
 from karpenter_tpu_torch.ops import masks
-from karpenter_tpu_torch.ops.ffd_core import (
-    FFDResult,
-    IterCounts,
-    _pad_lanes_mult32,
-    initial_state,
-)
+from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32, initial_state
 from karpenter_tpu_torch.ops.ffd_sweeps import (
     POD_FIELDS,
     _req_tensors,
     loop_args_from,
+    loop_counter,
     pod_tensors,
     problem_tensors,
-    state_back,
+    result_of,
     state_tensors,
     sweeps_plain,
 )
@@ -488,37 +484,36 @@ def fused_gate_counts(problem, kind, index, state, pod_check, max_claims, gate_b
 
 
 def solve_ffd_fused_gate_plain(problem: SchedulingProblem, pod_check, max_claims: int,
-                               bounds_free: bool = False, gate_bf: bool = False):
-    """(FFDResult, i32[7] counts): the plain requeue loop from a fresh state,
-    then ``fused_gate_counts`` over its final state."""
+                               bounds_free: bool = False, gate_bf: bool = False, wavefront: int = 0):
+    """(FFDResult, i32[7] counts): the plain requeue loop from a fresh state
+    (with ``wavefront`` extra lanes an iteration), then ``fused_gate_counts``
+    over its final state."""
     problem = _pad_lanes_mult32(problem)
-    result = sweeps_plain(problem, initial_state(problem, max_claims), bounds_free)
+    result = sweeps_plain(problem, initial_state(problem, max_claims), bounds_free, wavefront=wavefront)
     counts = fused_gate_counts(problem, result.kind, result.index, result.state, pod_check,
                                max_claims, gate_bf)
     return result, counts
 
 
 def solve_ffd_fused_gate(world: World, pod_check, max_claims: int, bounds_free: bool = False,
-                         gate_bf: bool = False):
+                         gate_bf: bool = False, wavefront: int = 0):
     """(FFDResult, i32[7] counts) of the resident world: for a CUDA world the
     fresh ``ffd_loop`` over the resident tables and ``gate_counts`` in its
     fused mode, enqueued back to back (nothing is synchronised; the caller
     fetches); for a CPU world the plain version. ``pod_check`` is bool[P] on
-    the world's device."""
+    the world's device. ``wavefront`` extra lanes follow each narrow
+    iteration of the loop (the JAX package's streaming/device_world.py:330)."""
     if max_claims != world.max_claims:
         raise ValueError(f"the world holds {world.max_claims} claim slots, not {max_claims}")
     if world.device.type != "cuda":
-        return solve_ffd_fused_gate_plain(world_problem(world.t), pod_check, max_claims, bounds_free, gate_bf)
+        return solve_ffd_fused_gate_plain(world_problem(world.t), pod_check, max_claims, bounds_free, gate_bf,
+                                          wavefront)
     from karpenter_tpu_torch.verify import device as gdev
 
     t = dict(world.t)
     t.update({name: x.clone() for name, x in world.init.items()})
-    t, args = loop_args_from(t, one_pass=False)
-    kernels.launch("ffd_loop", args, torch.cuda.current_stream(world.device).cuda_stream)
+    t, args = loop_args_from(t, one_pass=False, wavefront=wavefront)
+    kernels.launch("ffd_loop", args, torch.cuda.current_stream(world.device).cuda_stream, counter=loop_counter(args))
     counts = gdev.launch_gate_counts_fused(t, pod_check)
-    result = FFDResult(
-        kind=t["kind"], index=t["index"], state=state_back(t, t["ln"].shape[1]),
-        iters=IterCounts(*t["counters"]), work=t["work"],
-    )
-    return result, counts
+    return result_of(t, t["ln"].shape[1]), counts
 

@@ -314,32 +314,35 @@ def _shard_lanes(batch: SchedulingProblem) -> list:
 
 
 def shard_sweeps_plain(batch: SchedulingProblem, max_claims: int,
-                       lanes: Optional[Sequence[int]] = None) -> list:
+                       lanes: Optional[Sequence[int]] = None, wavefront: int = 0) -> list:
     """Plain PyTorch program 13: the fresh sweeps of each lane in ``lanes``
     (default all) from its own initial state, in the arm of the whole
-    stack's ``problem_bounds_free``, one FFDResult per lane."""
+    stack's ``problem_bounds_free``, one FFDResult per lane; ``wavefront``
+    extra lanes an iteration (ops/ffd_sweeps.wavefront_lanes)."""
     bounds_free = problem_bounds_free(batch)
     out = []
     for b in _lanes(batch.pod_active.shape[0], lanes):
         p = _pad_lanes_mult32(lane_problem(batch, b))
-        out.append(sweeps_plain(p, initial_state(p, max_claims), bounds_free))
+        out.append(sweeps_plain(p, initial_state(p, max_claims), bounds_free, wavefront=wavefront))
     return out
 
 
-def shard_sweeps(batch: SchedulingProblem, max_claims: int) -> list:
+def shard_sweeps(batch: SchedulingProblem, max_claims: int, wavefront: int = 0) -> list:
     """Program 13 (the JAX package's ``shard_sweeps_program``): every lane of
     the stacked batch runs its own requeue loop from a fresh state to its own
     convergence. One ``ffd_loop`` launch in its lanes mode (one block per
     lane) on CUDA tensors, ``shard_sweeps_plain`` on CPU tensors. One
-    FFDResult per lane, in lane order."""
+    FFDResult per lane, in lane order; ``wavefront`` as in
+    ``shard_sweeps_plain``."""
     if batch.lane_valid.is_cuda:
         problems = _shard_lanes(batch)
-        return launch_ffd_loop_lanes(problems, [initial_state(p, max_claims) for p in problems])
-    return shard_sweeps_plain(batch, max_claims)
+        return launch_ffd_loop_lanes(problems, [initial_state(p, max_claims) for p in problems],
+                                     wavefront=wavefront)
+    return shard_sweeps_plain(batch, max_claims, wavefront=wavefront)
 
 
 def shard_relax2_sweeps_plain(batch: SchedulingProblem, max_claims: int, iters: int, step: float,
-                              lanes: Optional[Sequence[int]] = None):
+                              lanes: Optional[Sequence[int]] = None, wavefront: int = 0):
     """Plain PyTorch program 14: per lane in ``lanes`` (default all) the
     convex phase 1, then the carried repair of its residue from phase 1's
     (state, kind, index). Returns (one FFDResult per lane, one Relax2Stats
@@ -352,27 +355,30 @@ def shard_relax2_sweeps_plain(batch: SchedulingProblem, max_claims: int, iters: 
         p = _pad_lanes_mult32(lane_problem(batch, b))
         r = relax2_place_plain(p, max_claims, iters, step)
         residue, state = _lane_align(dataclasses.replace(p, pod_active=r.residue_active), r.state)
-        results.append(sweeps_plain(residue, state, bounds_free, r.kind, r.index))
+        results.append(sweeps_plain(residue, state, bounds_free, r.kind, r.index, wavefront=wavefront))
         stats.append(r.stats)
     return results, stats
 
 
-def shard_relax2_sweeps(batch: SchedulingProblem, max_claims: int, iters: int, step: float):
+def shard_relax2_sweeps(batch: SchedulingProblem, max_claims: int, iters: int, step: float,
+                        wavefront: int = 0):
     """Program 14 (the JAX package's ``shard_relax2_sweeps_program``): per
     lane the convex phase 1, then the carried sweeps repair from its
     (state, kind, index) with ``pod_active = residue_active``, and per-lane
     Relax2Stats. On CUDA tensors two launches: ``relax_place`` in its convex
     lanes mode, then ``ffd_loop`` in its lanes mode seeded with phase 1's
-    verdicts; ``shard_relax2_sweeps_plain`` on CPU tensors."""
+    verdicts; ``shard_relax2_sweeps_plain`` on CPU tensors. The repair runs
+    ``wavefront`` extra lanes an iteration."""
     if not batch.lane_valid.is_cuda:
-        return shard_relax2_sweeps_plain(batch, max_claims, iters, step)
+        return shard_relax2_sweeps_plain(batch, max_claims, iters, step, wavefront=wavefront)
     from karpenter_tpu_torch.ops.relax2 import launch_relax2_place_lanes
 
     problems = _shard_lanes(batch)
     outs = launch_relax2_place_lanes(problems, max_claims, iters, step)
     residues, states = zip(*(_lane_align(dataclasses.replace(p, pod_active=o.residue_active), o.state)
                              for p, o in zip(problems, outs)))
-    results = launch_ffd_loop_lanes(list(residues), list(states), [o.kind for o in outs], [o.index for o in outs])
+    results = launch_ffd_loop_lanes(list(residues), list(states), [o.kind for o in outs], [o.index for o in outs],
+                                    wavefront)
     return results, [o.stats for o in outs]
 
 

@@ -81,6 +81,7 @@ from karpenter_tpu_torch.metrics.registry import (
 )
 from karpenter_tpu_torch.obs import flight, trace
 from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
+from karpenter_tpu_torch.ops.ffd_sweeps import wavefront_lanes
 from karpenter_tpu_torch.ops.padding import claim_axis_bucket, pad_problem
 from karpenter_tpu_torch.provisioning.preferences import Preferences
 from karpenter_tpu_torch.provisioning.topology import Topology
@@ -380,6 +381,7 @@ def _try_shard_solve(
 
             relax2_on = relax2.relax_applicable(batch)
         program_name = "shard_relax2_sweeps" if relax2_on else "shard_sweeps"
+        wavefront = wavefront_lanes()
 
         t0 = time.perf_counter()
         try:
@@ -388,9 +390,9 @@ def _try_shard_solve(
                 r2_stats = None
                 if relax2_on:
                     results, r2_stats = shard_relax2_sweeps(
-                        dev_batch, max_claims, relax2.pgd_iters(), relax2.pgd_step())
+                        dev_batch, max_claims, relax2.pgd_iters(), relax2.pgd_step(), wavefront=wavefront)
                 else:
-                    results = shard_sweeps(dev_batch, max_claims)
+                    results = shard_sweeps(dev_batch, max_claims, wavefront=wavefront)
                 kinds, indices, claims_np, iters, r2_stats = _fetch_lanes(results, r2_stats)
         except Exception as exc:  # classified below, or re-raised
             if mesh_health.handle_dispatch_failure(exc) is None:
@@ -534,6 +536,7 @@ def _try_shard_solve(
     SHARD_PARTITIONS.set(float(len(plan.parts)))
     SHARD_PAD_FRACTION.set(round(pad_frac, 6))
     solver.last_iters = None
+    solver.last_wave_hist = None
     solver.last_relax = None
     solver.last_relax2 = None
     if r2_stats is not None:
@@ -569,6 +572,7 @@ def _try_shard_solve(
         "gate_rejections": gate_rejections,
         "recarves": recarves,
         "part_pods": [len(pt.pod_idx) for pt in plan.parts],
+        "wavefront": wavefront,
     }
     # first green solve after a device failure closes the recovery clock
     mesh_health.note_green()

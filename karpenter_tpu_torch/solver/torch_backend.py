@@ -74,9 +74,17 @@ standdown falls through to the path above unchanged. On one card it needs
 ``single-device``, as the JAX package does on one chip) and
 ``KARPENTER_TPU_SHARD_PARTITIONS=N`` for N lanes.
 
+With ``KARPENTER_TPU_WAVEFRONT`` set (the JAX package's flag, off by
+default there too; ``_WIDTH`` lanes, default 4), every sweeps loop of the
+solve acts on up to ``_WIDTH - 1`` further chain heads after each narrow
+iteration (ops/ffd_chain.py ``wave``, csrc/wave.cuh): fresh, carried,
+scored, resident and partitioned alike. Placements are those of the flag-off
+solve; ``last_iters`` then counts the extra lanes' work and
+``last_wave_hist`` holds the iterations by lanes consumed.
+
 These are the environment flags the backend reads, as the JAX backend
 reads them. Not ported: the JAX backend's other flag-gated subsystems
-(wavefront, runs mode, AOT, program registry, its trace spans).
+(runs mode, AOT, program registry, its trace spans).
 """
 
 from __future__ import annotations
@@ -96,7 +104,7 @@ from karpenter_tpu_torch.metrics.registry import ORDER_POLICY_SOLVES, RELAX_FALL
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, problem_to_torch
 from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd
-from karpenter_tpu_torch.ops.ffd_sweeps import solve_ffd_sweeps, solve_ffd_sweeps_carried
+from karpenter_tpu_torch.ops.ffd_sweeps import solve_ffd_sweeps, solve_ffd_sweeps_carried, wavefront_lanes
 from karpenter_tpu_torch.ops.padding import claim_axis_bucket, pad_problem
 from karpenter_tpu_torch.ops.policy import lane_scores
 from karpenter_tpu_torch.ops.relax import relax_applicable, relax_place
@@ -253,8 +261,10 @@ class TorchSolver(SolverBackend):
         # phase 1 off)
         self.relax_fallbacks = 0
         # IterCounts of the LAST sweeps-mode solve; None before any, and after
-        # a per-pass solve
+        # a per-pass solve. last_wave_hist is its wavefront-width histogram
+        # (a list of WIDTH + 1 counts), None with KARPENTER_TPU_WAVEFRONT off
         self.last_iters = None
+        self.last_wave_hist = None
         self.well_known = well_known if well_known is not None else wk.WELL_KNOWN_LABELS
         # grows on overflow and persists across solves
         self.claim_slots = claim_axis_bucket(initial_claim_slots)
@@ -620,6 +630,7 @@ class TorchSolver(SolverBackend):
                 timing["relax"] += time.perf_counter() - t0
 
             t0 = time.perf_counter()
+            wavefront = wavefront_lanes()
             # the learned requeue order: one score per row (the rows'
             # features do not depend on which are active), read by the
             # fresh or the carried loop
@@ -632,9 +643,9 @@ class TorchSolver(SolverBackend):
                 if lanes:
                     ORDER_POLICY_SOLVES.inc({"part": "lane"})
                 result = solve_ffd_sweeps_carried(problem, max_claims, init=(rout.state, rout.kind, rout.index),
-                                                  order_scores=scores)
+                                                  order_scores=scores, wavefront=wavefront)
             elif use_sweeps:
-                result = solve_ffd_sweeps(problem, max_claims, order_scores=scores)
+                result = solve_ffd_sweeps(problem, max_claims, order_scores=scores, wavefront=wavefront)
             else:
                 result = solve_ffd(problem, max_claims, init=state)
             state = result.state
@@ -643,9 +654,11 @@ class TorchSolver(SolverBackend):
             if use_sweeps:
                 np_final = fetch_claims(state)
                 self.last_iters = type(result.iters)(*(int(x) for x in result.iters))
+                self.last_wave_hist = None if result.wave_hist is None else result.wave_hist.cpu().tolist()
             else:
                 np_final = None
                 self.last_iters = None
+                self.last_wave_hist = None
             timing["device"] += time.perf_counter() - t0
             if (kinds[: len(queue)] == KIND_NO_SLOT).any():
                 raise _SlotOverflow()

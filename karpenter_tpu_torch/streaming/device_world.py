@@ -80,6 +80,7 @@ from karpenter_tpu_torch.ops.fused import (
     upload_patch,
     world_problem,
 )
+from karpenter_tpu_torch.ops.ffd_sweeps import wavefront_lanes
 from karpenter_tpu_torch.ops.padding import pad_problem, pod_axis_bucket, pow2_bucket
 from karpenter_tpu_torch.provisioning.preferences import Preferences
 from karpenter_tpu_torch.solver.backend import FAIL_INCOMPATIBLE, SolveResult
@@ -293,6 +294,7 @@ class DeviceWorld:
         # -- stage 2 args: built on the host while the device patches ----------
         bf = problem_bounds_free(spliced)
         gbf = self._gate_bounds_free(spliced)
+        wf = wavefront_lanes()
         pod_check = self._pod_check(pods, meta)
         pc = torch.from_numpy(pod_check)
         if dev.type == "cuda":
@@ -300,15 +302,16 @@ class DeviceWorld:
         t_prep = time.perf_counter()
 
         # -- stage 2: fused solve + gate, then one batched fetch ----------------
-        result, counts = solve_ffd_fused_gate(self.world, pc, max_claims, bf, gbf)
+        result, counts = solve_ffd_fused_gate(self.world, pc, max_claims, bf, gbf, wf)
         if not self.pipelined:
             _sync(dev)
         t_dispatch = time.perf_counter()
         state = result.state
         iters = torch.stack([torch.as_tensor(x, device=dev).reshape(()) for x in result.iters])
+        whist = result.wave_hist if result.wave_hist is not None else torch.zeros(0, dtype=torch.int32, device=dev)
         fetched = _fetch(
             (
-                result.kind, result.index, iters, counts,
+                result.kind, result.index, iters, whist, counts,
                 state.claim_open, state.claim_tpl, state.claim_it_ok, state.claim_requests,
                 state.claim_req.admitted, state.claim_req.comp, state.claim_req.gt,
                 state.claim_req.lt, state.claim_req.defined,
@@ -316,8 +319,9 @@ class DeviceWorld:
             dev,
         )
         t_fetch = time.perf_counter()
-        kinds, indices, iters, counts_np, *np_final = fetched
+        kinds, indices, iters, whist, counts_np, *np_final = fetched
         backend.last_iters = IterCounts(*(int(x) for x in iters))
+        backend.last_wave_hist = [int(x) for x in whist] if wf else None
         d2h = sum(x.nbytes for x in fetched)
 
         # -- classified post-solve standdowns: reset, legacy serves the cycle --

@@ -24,9 +24,11 @@ Grammar — ``;``-separated entries, optional leading ``seed=N``:
             | *       fire on every call
 
 Every site of the grammar parses, so a spec written for the JAX package
-parses here too; this package draws the solve site and the mesh-device
-site (solver/mesh_health.py: one draw per health-hooked dispatch or probe;
-the cloud and process sites belong to layers not ported yet). The optional
+parses here too; this package draws the solve site, the mesh-device site
+(solver/mesh_health.py: one draw per health-hooked dispatch or probe) and
+the fake cloud provider's create and delete sites
+(cloudprovider/fake.FakeCloudProvider, raising ``cloud_exception``); the
+cloud and process sites belong to layers not ported yet. The optional
 ``[tenant]`` selector scopes a rule to one tenant stream of the serve layer:
 it matches only while that tenant's scope is active (``tenant_scope``) and
 counts that tenant's visits to the site. Probabilistic draws hash
@@ -309,6 +311,21 @@ def corrupt_result(result) -> None:
     for claim in result.new_claims:
         for key in list(claim.requests):
             claim.requests[key] = float("nan")
+
+
+def cloud_exception(rule: FaultRule) -> Exception:
+    """The typed cloud-provider error for a create/delete-site rule."""
+    from karpenter_tpu_torch.cloudprovider.types import (
+        CreateTimeoutError,
+        InsufficientCapacityError,
+        RateLimitError,
+    )
+
+    if rule.kind == "ice":
+        return InsufficientCapacityError("injected: insufficient capacity")
+    if rule.kind == "ratelimit":
+        return RateLimitError("injected: API rate limit exceeded")
+    return CreateTimeoutError("injected: create timed out")
 
 
 # -- ambient installation -----------------------------------------------------

@@ -281,6 +281,67 @@ def chain_workload(seed: int) -> Workload:
     return [_chain_pod(rng, i) for i in range(n)], its, templates, []
 
 
+def _wave_pod(rng: random.Random, i: int) -> Pod:
+    """One pod of tests/test_wavefront_parity.py's wavefront-stressing
+    population: many small groups so adjacent chains land in different
+    groups (independent lanes act) but collide often enough to cut the
+    wavefront, affinity families that fail whole sweeps (the failed chains
+    the lanes batch), and lumpy sizes that run shared claims out of room
+    mid-chain."""
+    letter = rng.choice("abcdefghij")
+    labels = {"my-label": letter}
+    spec_kw = {}
+    roll = rng.random()
+    if roll < 0.30:
+        spec_kw["topology_spread_constraints"] = [
+            TopologySpreadConstraint(
+                max_skew=rng.choice([1, 1, 2, 3]),
+                topology_key=wk.LABEL_TOPOLOGY_ZONE,
+                when_unsatisfiable=DO_NOT_SCHEDULE if rng.random() < 0.7 else SCHEDULE_ANYWAY,
+                label_selector=LabelSelector(match_labels={"my-label": letter}),
+                min_domains=rng.choice([None, None, 2, 3, 5]),
+            )
+        ]
+    elif roll < 0.45:
+        spec_kw["topology_spread_constraints"] = [
+            TopologySpreadConstraint(
+                max_skew=1,
+                topology_key=wk.LABEL_HOSTNAME,
+                when_unsatisfiable=DO_NOT_SCHEDULE,
+                label_selector=LabelSelector(match_labels={"my-label": rng.choice("abcdefghij")}),
+            )
+        ]
+    elif roll < 0.65:
+        labels = {"my-affinity": letter}
+        spec_kw["affinity"] = Affinity(
+            pod_affinity=PodAffinity(
+                required=[
+                    PodAffinityTerm(
+                        label_selector=LabelSelector(match_labels={"my-affinity": letter}),
+                        topology_key=(
+                            wk.LABEL_TOPOLOGY_ZONE if rng.random() < 0.5 else wk.LABEL_HOSTNAME
+                        ),
+                    )
+                ]
+            )
+        )
+    cpu = rng.choice([0.1, 0.1, 0.5, 1.0, 1.5, 3.0])
+    return Pod(
+        metadata=ObjectMeta(name=f"p{i}", labels=labels),
+        spec=PodSpec(containers=[Container(requests={"cpu": cpu})], **spec_kw),
+    )
+
+
+def wave_workload(seed: int) -> Workload:
+    """tests/test_wavefront_parity.py ``_encode(seed)``'s population: 40-260
+    ``_wave_pod`` pods against 6 or 10 instance types and one template."""
+    rng = random.Random(seed)
+    its = instance_types(rng.choice([6, 10]))
+    templates = [simple_template(its, name="a")]
+    n = rng.randint(40, 140) if seed % 3 else rng.randint(150, 260)
+    return [_wave_pod(rng, i) for i in range(n)], its, templates, []
+
+
 def fuzz_workload(seed: int) -> Workload:
     """tests/test_solver_parity.py ``TestRandomizedParity.test_fuzz(seed)``:
     selectors, taints and tolerations, host ports, NodePool limits and

@@ -66,9 +66,9 @@ def assert_same_result(jr, tr, check_sweeps=True):
 
 
 def same_iters(j_iters, t_iters) -> bool:
-    """All four IterCounts fields equal (the JAX tuple may carry wavefront
-    fields after them)."""
-    return tuple(int(x) for x in j_iters[:4]) == tuple(int(x) for x in t_iters)
+    """All seven IterCounts fields equal (the wavefront's are 0 with it
+    off)."""
+    return tuple(int(x) for x in j_iters) == tuple(int(x) for x in t_iters)
 
 
 def _sweeps_case(name, slots):

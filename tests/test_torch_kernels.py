@@ -184,9 +184,11 @@ def test_library_path_tracks_sources_and_flags():
     assert a.parent == kernels.BUILD_DIR and a != kernels.library_path("gate_counts")
     assert set(kernels.SOURCES) == {"attribute", "ffd_loop", "gate_counts", "lane_scores", "patch_world",
                                     "probe", "relax_place", "runs_screen"}
-    # relax_place's convex mode (program 17) and the lanes modes of the
-    # partitioned solve (programs 13-14) count their launches apart
-    assert set(kernels.LAUNCHES) == set(kernels.SOURCES) | {"relax2_place", "ffd_loop_lanes", "relax2_place_lanes"}
+    # relax_place's convex mode (program 17), the lanes modes of the
+    # partitioned solve (programs 13-14) and ffd_loop's wavefront count their
+    # launches apart
+    assert set(kernels.LAUNCHES) == set(kernels.SOURCES) | {"relax2_place", "ffd_loop_lanes", "relax2_place_lanes",
+                                                            "ffd_loop_wavefront"}
 
 
 def test_step_is_shared_by_the_loop_and_the_screen():
@@ -295,6 +297,53 @@ def test_ffd_loop_chain_commits_match_plain(cuda, name):
     fk, _ = fused.solve_ffd_fused_gate(world, pc, slots, bf)
     _assert_same(fk, rp)
     assert tuple(int(x) for x in fk.iters) == tuple(rp.iters)
+
+
+# the wavefront (csrc/wave.cuh): tests/test_wavefront_parity.py's corpora, a
+# chain-heavy one and fuzz/topology corpora with existing nodes (node lanes)
+WAVE_CORPORA = {
+    "wave-4000": (lambda: W.wave_workload(4000), 128),
+    "wave-4002": (lambda: W.wave_workload(4002), 128),
+    "chain-3003": (lambda: W.chain_workload(3003), 128),
+    "fuzz-3": (lambda: W.fuzz_workload(3), 32),
+    "topology-8": (lambda: W.topology_workload(8), 32),
+}
+
+
+def _assert_same_wave(rk, rp):
+    _assert_same(rk, rp)
+    assert tuple(int(x) for x in rk.iters) == tuple(int(x) for x in rp.iters)
+    assert rk.wave_hist.cpu().tolist() == rp.wave_hist.cpu().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [3, 1])
+@pytest.mark.parametrize("name", WAVE_CORPORA)
+def test_ffd_loop_wavefront_matches_plain(cuda, name, lanes):
+    """ffd_loop's wavefront against the plain loop in every sweeps mode:
+    fresh, carried (all-FAIL seeds), scored (the committed weights), the
+    lanes mode (two lanes) and the fused launch; kind/index, state, all
+    seven IterCounts fields and wave_hist exact."""
+    from karpenter_tpu_torch.solver import ordering
+
+    make, slots = WAVE_CORPORA[name]
+    padded = _encode(make(), slots)
+    prob = problem_to_torch(padded, cuda)
+    bf = problem_bounds_free(prob)
+    rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), bf, wavefront=lanes)
+    assert rp.iters.wave_commits + rp.iters.retry_lanes > 0
+    _assert_same_wave(ffd_sweeps.solve_ffd_sweeps(prob, slots, wavefront=lanes), rp)
+    ck = ffd_sweeps.solve_ffd_sweeps_carried(prob, slots, init=ffd_sweeps.fresh_carry(prob, slots), wavefront=lanes)
+    _assert_same_wave(ck, rp)
+    scores = policy.lane_scores(prob, ordering.lane_weights_static())
+    sp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), bf, order_scores=scores, wavefront=lanes)
+    _assert_same_wave(ffd_sweeps.solve_ffd_sweeps(prob, slots, order_scores=scores, wavefront=lanes), sp)
+    for lk in ffd_sweeps.launch_ffd_loop_lanes([prob, prob], [initial_state(prob, slots)] * 2, wavefront=lanes):
+        _assert_same_wave(lk, rp)
+    world = fused.adopt_world(padded, slots, cuda)
+    pc = torch.ones((prob.num_pods,), dtype=torch.bool, device=cuda)
+    fk, _ = fused.solve_ffd_fused_gate(world, pc, slots, bf, wavefront=lanes)
+    _assert_same_wave(fk, rp)
 
 
 # no kernel shape limit: K = 64 keys (40 label keys and the well-known ones,

@@ -383,7 +383,7 @@ def test_device_world_matches_legacy_and_jax(corpus, resident_runs):
     assert dw._device_world.cold_solves == 2 and dw._device_world.cycles == CYCLES
     assert dw.last_iters.sweeps >= 1
     for cycle, run in enumerate(resident_runs["runs"]):
-        assert tuple(run["iters"]) == tuple(int(x) for x in run["jiters"][:4]), cycle
+        assert tuple(run["iters"]) == tuple(int(x) for x in run["jiters"]), cycle
     lc = resident_runs["runs"][-1]["last_cycle"]
     assert lc["h2d_bytes"] < lc["world_bytes"] / 4 and 0.0 <= lc["overlap_frac"] <= 1.0
     assert set(dw.last_timing) == {"encode", "patch", "relax", "device", "decode"}
