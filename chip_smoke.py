@@ -43,7 +43,13 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      which it must equal: ``relax_place``, ``ffd_loop`` carried and fresh
      (with their IterCounts) and one-pass (over the batch's first
      ONE_PASS_PODS rows, the depth cut so the whole smoke keeps its time),
-     ``gate_counts``.
+     ``gate_counts``. The main path's ``ffd_loop`` must have run on a
+     cluster of more than one block; each of its three modes is then timed
+     on clusters of CLUSTER_SIZES blocks (16 where the card schedules it),
+     each launch equal to the plain loop bit for bit (verdicts, IterCounts,
+     every state leaf's bits), with the split of its leader
+     block's cycles by section (share and ms, csrc/step.cuh ``SEC_*``), and
+     the sync probe times a block barrier and a cluster barrier of each size.
   3. the consolidation screen at full width: ``UnionScorer.score_subsets``
      over the bench cluster widened to 200 candidates (the 100 prefixes, the
      200 singletons and 20 seeded random subsets of 150-200 candidates: 320
@@ -115,7 +121,7 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      ``_MIN_DEVICES=1`` and ``_PARTITIONS=8``, programs 13-14) and mesh
      health (program 18) at full width: 100,000 pods of the JAX bench's
      fleet corpus (``make_fleet_pods``, 32 neighborhoods) against 400 types,
-     sharded into 8 lanes of one ``ffd_loop`` launch (one block each),
+     sharded into 8 lanes of one ``ffd_loop`` launch (one cluster each),
      served, every partition's ``gate_counts`` clean, every pod the
      unsharded FFD control schedules scheduled, and each pod scheduled
      beyond them one with a required pod affinity; the recorded stack's lanes
@@ -150,8 +156,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
-     are computed, and for ``ffd_loop`` the latency floor of its barriers and
-     its fresh and one-pass modes. Bytes are those of the kernel's own
+     are computed, and for ``ffd_loop`` the latency floor of its barriers
+     (block barriers x a block barrier's cost + cluster barriers x a cluster
+     barrier's cost), its cluster, residency and times at each cluster size
+     with their section splits, and its fresh and one-pass modes. Bytes are those of the kernel's own
      arguments. The churn, serve, shard and provisioning phases' records
      ride in the same line; the wavefront mode is an entry of its own.
  12. the card's name and power limit; the last line is the device JSON.
@@ -183,6 +191,10 @@ FLOAT_RTOL = 1e-5  # float state: same adds in the same order, FMA off
 FLOAT_ATOL = 1e-6
 
 MAIN_PODS = 10000  # the north-star batch
+# phase 2 times ffd_loop at each cluster size (16, non-portable, where the
+# card schedules it); a lone solve on the main path runs on the planner's
+# SOLO_CLUSTER (16), the lanes of the partitioned solve on 8
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
 ONE_PASS_PODS = 2500  # the one-pass scan's depth in phase 2 (its plain loop is per pod)
 SOLVE_KERNELS = ("ffd_loop", "gate_counts", "relax_place")
 # phase 1's corpora whose requeue the scored ffd_loop sorts against its plain
@@ -353,6 +365,10 @@ def run(dev) -> int:
         WORK_COUNTERS,
         ffd_loop_args,
         ffd_loop_lanes_args,
+        forced_cluster,
+        result_of,
+        section_split,
+        smem_bytes,
         solve_ffd_sweeps,
         solve_ffd_sweeps_carried,
         sweeps_plain,
@@ -872,6 +888,73 @@ def run(dev) -> int:
     ffd_err = max(ffd_err, compare_results("main path one-pass", ro_main, ro_plain, check_iters=False))
     log(f"  ffd_loop one-pass over the first {ONE_PASS_PODS} rows: kernel {op_ms:.3f} ms median of "
         f"{[round(t, 3) for t in op_all]}, plain {op_plain_ms:.1f} ms, kernel == plain; work {work_one_pass}")
+    plan = k1_sets[0][0]["plan"].cpu().tolist()
+    if plan[0] <= 1:
+        raise AssertionError(f"ffd_loop: the main path's launch ran on {plan[0]} block(s), not a cluster")
+
+    # each mode at each cluster size, held to its plain loop bit for bit, and
+    # the split of the leader's cycles by section (share x kernel ms); where
+    # the plan keeps the type tables resident, the same launches again with
+    # them streamed from device memory, to show what residency buys
+    def split_of(t, ms):
+        return {n: (round(share, 4), round(x, 3)) for n, (share, x) in section_split(t["sections"].cpu(), ms).items()}
+
+    def check_mode(tag, sets, ref, one_pass):
+        rk = result_of(sets[0][0], prob.num_lanes, one_pass)
+        err = compare_results(tag, rk, ref, check_iters=not one_pass)
+        sk, sp = numpy_fields(rk.state), numpy_fields(ref.state)
+        for name in sp:  # bit for bit: the same adds in the same order at every cluster size
+            if not np.array_equal(sk[name].view(np.uint8), sp[name].view(np.uint8)):
+                raise AssertionError(f"{tag}: state {name} differs from plain in its bits")
+        same_verdicts(tag, sets, rk)
+        return err
+
+    def streamed(sets, cl):
+        for _, a in sets:
+            dims = {k: getattr(a, k) for k in ("G", "R", "C", "TPL", "K", "W", "O", "T")}
+            a.resident, a.smem = 0, smem_bytes(dims, cl, False)
+        return sets
+
+    modes = {
+        "carried": (lambda: ffd_loop_args(residue, astate, False, rxk.kind, rxk.index), rc_plain, 3),
+        "fresh": (lambda: ffd_loop_args(prob, initial_state(prob, C), False), rf_plain, 3),
+        "one_pass": (lambda: ffd_loop_args(op_prob, initial_state(op_prob, C), True), ro_plain, 2),
+    }
+    by_cluster, sections = {}, {}
+    for cl in CLUSTER_SIZES:
+        row = {}
+        for mode, (make, ref, reps) in modes.items():
+            try:
+                with forced_cluster(cl):
+                    sets = [make() for _ in range(reps)]
+                ms, all_ms = time_launches("ffd_loop", sets)
+            except kernels.KernelDeviceError as e:
+                if cl <= 8:
+                    raise
+                log(f"  ffd_loop at a cluster of {cl}: refused by the card ({e})")
+                row = None
+                break
+            t = sets[0][0]
+            ffd_err = max(ffd_err, check_mode(f"ffd_loop {mode} cluster {cl}", sets, ref, mode == "one_pass"))
+            row[mode] = {"ms": ms, "plan": t["plan"].cpu().tolist(),
+                         "work": dict(zip(WORK_COUNTERS, t["work"].cpu().tolist()))}
+            sections[f"{mode}@{cl}"] = split_of(t, ms)
+            log(f"  ffd_loop {mode} cluster {cl} (plan {row[mode]['plan']}): {ms:.3f} ms median of "
+                f"{[round(x, 3) for x in all_ms]}, == plain; cluster barriers {row[mode]['work']['cluster_barriers']}; "
+                f"sections {sections[f'{mode}@{cl}']}")
+            if row[mode]["plan"][1]:
+                with forced_cluster(cl):
+                    ssets = streamed([make() for _ in range(reps)], cl)
+                s_ms, s_all = time_launches("ffd_loop", ssets)
+                if ssets[0][0]["plan"].cpu().tolist()[1] != 0:
+                    raise AssertionError(f"ffd_loop {mode} cluster {cl}: the streamed launch ran resident")
+                ffd_err = max(ffd_err, check_mode(f"ffd_loop {mode} cluster {cl} streamed", ssets, ref,
+                                                  mode == "one_pass"))
+                row[mode]["streamed_ms"] = s_ms
+                log(f"  ffd_loop {mode} cluster {cl} streamed: {s_ms:.3f} ms median of "
+                    f"{[round(x, 3) for x in s_all]}, == plain (resident {ms:.3f} ms)")
+        if row is not None:
+            by_cluster[cl] = row
 
     gp, ga, gbf = _build_args(ctx, result, pods, None)
     ck = gdev.launch_gate_counts(gp, ga).cpu().numpy()
@@ -920,23 +1003,31 @@ def run(dev) -> int:
     k1_bound, k1_by, k1_bytes, k1_int_ops, k1_flt_ops = ffd_bound(work, k1_sets[0][0])
     fresh_bound, fresh_by, _, _, _ = ffd_bound(work_fresh, fresh_sets[0][0])
     op_bound, op_by, _, _, _ = ffd_bound(work_one_pass, op_sets[0][0])
-    # the latency floor of the one-block design: its barriers, each at the
-    # cost of a barrier alone in a block of the loop's size
+    # the latency floor of the cluster design: the leader block's block
+    # barriers, each at the cost of a block barrier alone in a block of the
+    # loop's size, and its cluster barriers, each at the cost of a cluster
+    # barrier alone in a cluster of the loop's size
     probe = kernels.library("ffd_loop").ffd_sync_probe_launch
-    probe.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     probe.restype = ctypes.c_int
     n_sync = 100000
 
-    def run_probe(n):
-        if probe(n, ctypes.c_void_p(stream)) != 0:
+    def run_probe(n, cl):
+        if probe(n, cl, ctypes.c_void_p(stream)) != 0:
             raise RuntimeError("sync probe: CUDA launch error")
 
-    run_probe(n_sync)
-    sync_ms = (time_ms(lambda: run_probe(n_sync), 5)[0] - time_ms(lambda: run_probe(0), 5)[0]) / n_sync
-    k1_latency = work["barriers"] * sync_ms
+    def barrier_ms(cl):
+        run_probe(n_sync, cl)
+        return (time_ms(lambda: run_probe(n_sync, cl), 5)[0] - time_ms(lambda: run_probe(0, cl), 5)[0]) / n_sync
+
+    sync_ms = barrier_ms(0)
+    cluster_sync_ms = {cl: barrier_ms(cl) for cl in by_cluster}
+    k1_latency = work["barriers"] * sync_ms + work["cluster_barriers"] * cluster_sync_ms[plan[0]]
     log(f"  ffd_loop carried: bytes {k1_bytes}, int ops {k1_int_ops:.4g}, float ops {k1_flt_ops:.4g}; "
-        f"bound {k1_bound:.5f} ms ({k1_by}); one barrier {sync_ms * 1e6:.2f} ns -> latency floor "
-        f"{k1_latency:.3f} ms; fresh bound {fresh_bound:.5f} ms ({fresh_by}), one-pass bound {op_bound:.5f} ms ({op_by})")
+        f"bound {k1_bound:.5f} ms ({k1_by}); one block barrier {sync_ms * 1e6:.2f} ns, one cluster barrier "
+        f"{ {cl: round(x * 1e6, 2) for cl, x in cluster_sync_ms.items()} } ns -> latency floor {k1_latency:.3f} ms "
+        f"({work['barriers']} + {work['cluster_barriers']} barriers); fresh bound {fresh_bound:.5f} ms ({fresh_by}), "
+        f"one-pass bound {op_bound:.5f} ms ({op_by})")
     # relax_place: operations from its counted instance-type tests (K x W
     # compat words and O offerings in int32, an add and a compare per
     # resource in float32) and record lanes (a test and an add), plus the
@@ -988,6 +1079,13 @@ def run(dev) -> int:
                 "wrapper_ms": k1_wrap_ms,
                 "one_lane_lanes_ms": k1_lane_ms,
                 "latency_bound_ms": k1_latency,
+                "cluster": plan[0],
+                "resident": plan[1],
+                "type_slice": plan[2],
+                "block_barrier_ns": sync_ms * 1e6,
+                "cluster_barrier_ns": {cl: x * 1e6 for cl, x in cluster_sync_ms.items()},
+                "by_cluster": by_cluster,
+                "sections": sections,
                 "work": work,
                 "fresh_ms": fresh_ms,
                 "fresh_plain_ms": fresh_plain_ms,
@@ -2460,7 +2558,7 @@ def serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, main_wor
         b_ms, b_by = bound(nbytes, int_ops, flt_ops)
         dims = {f: getattr(a0, f) for f in ("B", "P", "C", "T", "V", "W", "K", "N", "G", "R", "TPL", "RN", "MR")}
         # the launch's dynamic shared memory, as runs_screen_launch sizes it
-        dims["dyn_smem_bytes"] = 4 * (3 * a0.G + a0.R + 4 * a0.MR + 2 * a0.N + 5 * a0.C + 2 * a0.TPL)
+        dims["dyn_smem_bytes"] = 4 * (5 * a0.G + a0.R + 4 * a0.MR + 2 * a0.N + 9 * a0.C + 4 * a0.TPL + 1)
         shapes[tag] = dict(lanes=len(lanes), answered=len(answered), reasons=stats["reasons"], dims=dims,
                            wall_ms=wall * 1e3, split_ms=stats["timing"], ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
                            plain_lanes=len(checked), solve_ms=k1_ms, solve_plain_ms=p1_ms, bound_ms=b_ms,

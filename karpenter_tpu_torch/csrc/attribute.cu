@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(THREADS, 1) attribute_kernel(AttrArgs args) {
         as.present[c] = 0;
       }
     }
-    group_prep(a, p, -1, s_gmin, s_boot, s_nothing);
+    group_prep(lone_block(), a, p, -1, group_mem(s_gmin, s_boot, s_nothing));
     block_sync();
     for (int c = tid; c < C; c += THREADS)
       if (!a.claim_open[c]) atomicMin(&as.free_slot, c);
@@ -260,7 +260,7 @@ __global__ void __launch_bounds__(THREADS, 1) attribute_kernel(AttrArgs args) {
     // -- fresh templates, with the prospective slot's hostname minted, pinned
     // and registered as the step mints it
     const int host = a.CH > 0 ? a.host_lane[min(as.free_slot, a.CH - 1)] : -1;
-    group_prep(a, p, host, s_gmin, s_boot, s_nothing);
+    group_prep(lone_block(), a, p, host, group_mem(s_gmin, s_boot, s_nothing));
     block_sync();
     for (int j = warp; j < TPL; j += NWARPS) {
       // padded template rows admit no type (ops/padding.py): no candidates

@@ -237,6 +237,8 @@ struct Dyn {
   int* newcum;   // [C]
   int* tcompat;  // [TPL]
   int* qt;       // [TPL]
+  StepMem sm;    // the step's arrays: gmin, boot, nothing, maxcap and its own
+  Red* red;      // the step's reduction targets
 };
 
 // instance type t against a merged bin row: compatible and offered (the
@@ -664,7 +666,7 @@ __device__ void topo_commit(const RunsArgs& a, int p, int start, int len, Shared
   for (int i = 0; i < min(len, a.MR); ++i) {
     if (!a.pod_active[start + i]) continue;
     tr.psel = start + i;
-    step(a, p, s, d.gmin, d.boot, d.nothing, d.maxcap, &tr);
+    step(block_scope(a), a, p, s, *d.red, d.sm, &tr);
     if (tid == 0) {
       d.krow[i] = s.kind;
       d.irow[i] = s.index;
@@ -834,6 +836,7 @@ __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) 
   __shared__ RunsArgs a;
   __shared__ Shared s;
   __shared__ RunShared rs;
+  __shared__ Red red;
   extern __shared__ int dyn[];
   const int tid = threadIdx.x;
   if (tid == 0) lane_view(args, a, blockIdx.x);
@@ -859,7 +862,18 @@ __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) 
   d.newtake = x; x += C;
   d.newcum = x; x += C;
   d.tcompat = x; x += TPL;
-  d.qt = x;
+  d.qt = x; x += TPL;
+  d.sm = group_mem(d.gmin, d.boot, d.nothing, d.maxcap);
+  d.sm.mg = x; x += G;
+  d.sm.mk = x; x += G;
+  d.sm.any = x; x += C;
+  d.sm.best = x; x += C;
+  d.sm.fs = x; x += C;
+  d.sm.cand = x; x += C;
+  d.sm.tok = x; x += TPL;
+  d.sm.tfs = x; x += TPL;
+  d.sm.nm = x;
+  d.red = &red;
 
   // the lane's state: a copy of the start state, with the lane's census in
   // full mode
@@ -900,7 +914,7 @@ __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) 
       if (mode == RUN_SINGLE) {
         // an inactive row fails without touching state
         if (a.pod_active[start]) {
-          step(a, start, s, d.gmin, d.boot, d.nothing, d.maxcap);
+          step(block_scope(a), a, start, s, *d.red, d.sm);
           if (tid == 0) {
             a.kind[start] = s.kind;
             a.index[start] = s.index;
@@ -937,7 +951,7 @@ extern "C" int runs_screen_args_size() { return (int)sizeof(RunsArgs); }
 // Launch on ``stream`` (one block per lane); returns cudaGetLastError().
 extern "C" int runs_screen_launch(const RunsArgs* args, void* stream) {
   const RunsArgs& a = *args;
-  const size_t smem = (size_t)(3 * a.G + a.R + 4 * a.MR + 2 * a.N + 5 * a.C + 2 * a.TPL) * sizeof(int);
+  const size_t smem = (size_t)(5 * a.G + a.R + 4 * a.MR + 2 * a.N + 9 * a.C + 4 * a.TPL + 1) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(runs_screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -2,20 +2,32 @@
 // (ffd_loop.cu) and the consolidation screen kernel (runs_screen.cu).
 //
 // Device counterpart of karpenter_tpu_torch/ops/ffd_step.make_step (the JAX
-// package's ops/ffd_step._make_step): one block places one pod in the
-// reference's priority order (scheduler.go:238-285) against the state its
-// argument struct points at. The functions are templates over that struct:
-// any struct with ffd_loop.cu FfdArgs' field names works, so a kernel that
-// keeps one state per block hands each block a struct whose state pointers
-// are offset to its own slot. The caller writes the verdict rows from
-// Shared::kind / Shared::index after the call.
+// package's ops/ffd_step._make_step): places one pod in the reference's
+// priority order (scheduler.go:238-285) against the state its argument struct
+// points at. The functions are templates over that struct: any struct with
+// ffd_loop.cu FfdArgs' field names works, so a kernel that keeps one state
+// per block hands each block a struct whose state pointers are offset to its
+// own slot. The caller writes the verdict rows from Shared::kind /
+// Shared::index after the call.
 //
-// Threads: THREADS per block. Inside a step the threads split the work — a
-// warp per bin (existing node, open claim, template) for the merge and the
-// topology gate, a warp per candidate claim for the instance-type survival
-// test, threads over types for the committed row — and block-wide atomicMin
-// picks the winner. Every barrier is block-wide: callers keep the control
-// flow around a step uniform across the block.
+// They are templates over a Scope too: who runs the step. ``BlockScope`` is
+// one block alone (the screen's lanes, the explain pass): every barrier is a
+// block barrier and the block owns every instance type. ``ClusterScope`` is
+// one block of a thread-block cluster that runs one solve (ffd_loop): the
+// bins' gates and the topology groups go to the cluster's warps round-robin,
+// each block owns a slice of the instance types (its TypeSlice, resident in
+// its shared memory or read from device memory), the cross-block results
+// meet in the leader block's shared memory through distributed shared memory
+// with integer atomics (the same answer in any order), and a cluster barrier
+// orders every block's writes before any block reads them. Scalar decisions
+// run the same way in every block, each on its own copy (Shared, the chain's
+// per-block scratch), so the cluster's control flow is uniform. Both scopes
+// run the same step: a lone block is a cluster of one, whose atomics land in
+// its own shared memory.
+//
+// Threads: THREADS per block. A warp per bin (existing node, open claim,
+// template) merges and gates the bin; the survival tests go a warp per
+// (claim, 32 types); integer atomicMin/Max/Or pick the winners.
 //
 // No shape limit: the per-key work loops over keys in strides of 32 (a warp
 // lane per key), and the topology gate folds its allowed-lane masks over the
@@ -25,6 +37,7 @@
 
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "topology.cuh"
 
 using namespace kt;
@@ -43,11 +56,12 @@ constexpr int KIND_FAIL = 3;
 constexpr int KIND_NO_SLOT = 4;
 
 // work counters, written to FfdArgs::work at the end of a launch
-constexpr int WORK_BIN_GATES = 0;    // bin rows merged + gated against a pod
-constexpr int WORK_TOPO_LANES = 1;   // value lanes of matched topology groups read
-constexpr int WORK_TYPE_TESTS = 2;   // (bin, instance type) survival tests
-constexpr int WORK_BARRIERS = 3;     // block-wide barriers
-constexpr int NWORK = 4;
+constexpr int WORK_BIN_GATES = 0;         // bin rows merged + gated against a pod
+constexpr int WORK_TOPO_LANES = 1;        // value lanes of matched topology groups read
+constexpr int WORK_TYPE_TESTS = 2;        // (bin, instance type) survival tests a scan in rank order needs
+constexpr int WORK_BARRIERS = 3;          // block-wide barriers (the leader block's)
+constexpr int WORK_CLUSTER_BARRIERS = 4;  // cluster-wide barriers
+constexpr int NWORK = 5;
 
 __shared__ unsigned long long s_work[NWORK];
 
@@ -59,23 +73,176 @@ __device__ __forceinline__ void block_sync() {
   __syncthreads();
 }
 
+// section counters (FfdArgs::sections): clock64 cycles of the loop by
+// section, read by thread 0 right after the barrier that ends a section.
+// sec_to(x) closes the section in progress and opens x.
+constexpr int SEC_GROUP_PREP = 0;  // group_prep (TopologyGroup.Get's per-pod part)
+constexpr int SEC_BIN_GATES = 1;   // node and claim gates
+constexpr int SEC_TABLE = 2;       // the claims x types table of a chain head
+constexpr int SEC_FIRST = 3;       // the first-survivor test
+constexpr int SEC_TEMPLATE = 4;    // template gates and their type test
+constexpr int SEC_CHAIN = 5;       // stack/fill safety, the spread shape
+constexpr int SEC_FILL = 6;
+constexpr int SEC_ROUND = 7;
+constexpr int SEC_SPREAD = 8;
+constexpr int SEC_SINGLE = 9;
+constexpr int SEC_COMMIT = 10;     // state rows of a commit
+constexpr int SEC_RECORD = 11;     // topology records
+constexpr int SEC_QUEUE = 12;      // chain scan, verdict, verdict rows, requeue
+constexpr int SEC_WAVE = 13;       // the wavefront's own bookkeeping
+constexpr int NSEC = 14;
+
+// [NSEC] cycles, then the clock of the last mark and the open section
+__shared__ long long s_sec[NSEC + 2];
+
+__device__ __forceinline__ void sec_to(int next) {
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    s_sec[s_sec[NSEC + 1]] += now - s_sec[NSEC];
+    s_sec[NSEC] = now;
+    s_sec[NSEC + 1] = next;
+  }
+}
+
+__device__ __forceinline__ void sec_start() {
+  if (threadIdx.x < NSEC) s_sec[threadIdx.x] = 0;
+  if (threadIdx.x == 0) {
+    s_sec[NSEC] = clock64();
+    s_sec[NSEC + 1] = SEC_QUEUE;
+  }
+}
+
 struct Shared {
   int node_pick, claim_rank, tpl_pick, free_slot;
   int kind, index, bin, host_lane;
   int qlen, nqlen, noslot, progress, cur, stepped, sweeps, chains, chain_pods;
   int rank2, node_static;  // second-best claim rank; a node passes its static gates
+  int ncand;               // candidate claims (StepMem::cand)
 };
 
-// What a chain commit (chain.cuh) reads of the evaluation beyond the verdict:
-// the surviving types and per-type capacity of every claim that passes its
-// gates, against the pre-commit state, and every open claim's gates before
-// and of the topology.
+// The cross-block reduction targets of a step: the leader block's copy
+// receives every block's atomics (a lone block's, its own).
+struct Red {
+  int node_pick, node_static, insensitive;
+};
+
+// A step's per-block shared arrays (dynamic shared memory, carved by the
+// kernel). gmin/boot/nothing are written into every block's copy; maxcap,
+// any/best/fs and tok/tfs receive the cluster's atomics in the leader's copy.
+struct StepMem {
+  int* gmin;     // [G] spread global minimum
+  int* boot;     // [G] affinity bootstrap's best rank
+  int* nothing;  // [G] nothing placed yet
+  int* mg;       // [G] the pod's matched groups (group_prep), or null
+  int* mk;       // [G] their keys
+  int* nm;       // [1] how many
+  int* maxcap;   // [R] a fresh claim's largest surviving capacity (float bits)
+  int* any;      // [C] the claim keeps a type (chain table)
+  int* best;     // [C] its best capacity
+  int* fs;       // [C] its first surviving type
+  int* cand;     // [C] this block's list of candidate claims
+  int* tok;      // [TPL] the template passes its gates
+  int* tfs;      // [TPL] its first surviving type
+};
+
+// A block's instance types [t0, t1) and its tables, every pointer indexed by
+// the global type t: resident slices in shared memory (offset by -t0, row
+// stride tstride = the slice width) or the tables in device memory (stride T).
+struct TypeSlice {
+  int t0, t1, tstride;
+  ITs its;
+  const float* cap;       // it_cap [t * R]
+  const uint8_t* tpl_ok;  // tpl_it_ok [j * tstride + t]
+  uint8_t* cio;           // claim_it_ok [c * tstride + t]
+  uint8_t* ok_t;          // the chain head's survivors [c * tstride + t]
+  uint8_t* cap_t;         // their capacities, saturated at 255 (chain.cuh)
+};
+
+template <bool CL>
+struct Scope {
+  int rank, size;
+  TypeSlice ts;
+  __device__ __forceinline__ bool leader() const { return rank == 0; }
+  __device__ __forceinline__ int gwarp() const { return rank * NWARPS + (int)(threadIdx.x >> 5); }
+  __device__ __forceinline__ int nwarps() const { return size * NWARPS; }
+  // the copy of a shared-memory object in block r / in the leader
+  template <class T>
+  __device__ __forceinline__ T* at(T* p, int r) const {
+    if constexpr (CL)
+      return map_rank(p, r);
+    else
+      return p;
+  }
+  template <class T>
+  __device__ __forceinline__ T* lead(T* p) const {
+    return at(p, 0);
+  }
+  // a section mark (sec_to) of the cluster's loop; a lone block marks none
+  __device__ __forceinline__ void mark(int next) const {
+    if constexpr (CL) sec_to(next);
+  }
+  // the barrier that orders cross-block results: cluster-wide (counted as a
+  // cluster barrier), or the block's own
+  __device__ __forceinline__ void sync() const {
+    if constexpr (CL) {
+      if (threadIdx.x == 0) s_work[WORK_CLUSTER_BARRIERS] += 1;
+      cluster_barrier();
+    } else {
+      block_sync();
+    }
+  }
+};
+using BlockScope = Scope<false>;
+using ClusterScope = Scope<true>;
+
+// A lone block owning every instance type of ``a``'s tables.
+template <class A>
+__device__ __forceinline__ BlockScope block_scope(const A& a) {
+  BlockScope sc;
+  sc.rank = 0;
+  sc.size = 1;
+  sc.ts.t0 = 0;
+  sc.ts.t1 = a.T;
+  sc.ts.tstride = a.T;
+  sc.ts.its = its_of(a);
+  sc.ts.cap = a.it_cap;
+  sc.ts.tpl_ok = a.tpl_it_ok;
+  sc.ts.cio = a.claim_it_ok;
+  sc.ts.ok_t = nullptr;
+  sc.ts.cap_t = nullptr;
+  return sc;
+}
+
+// A block alone without a type slice, and the group scratch of a kernel
+// that calls group_prep and bin_gate without the step (attribute.cu).
+__device__ __forceinline__ BlockScope lone_block() {
+  BlockScope sc{};
+  sc.rank = 0;
+  sc.size = 1;
+  return sc;
+}
+
+__device__ __forceinline__ StepMem group_mem(int* gmin, int* boot, int* nothing, int* maxcap = nullptr) {
+  StepMem m{};
+  m.gmin = gmin;
+  m.boot = boot;
+  m.nothing = nothing;
+  m.maxcap = maxcap;
+  return m;
+}
+
+// What a chain commit (chain.cuh) reads of the evaluation beyond the verdict,
+// in the block's own scratch rows: each claim's capacity for the chain (0
+// unless it passes its gates and keeps a type), its gates before and of the
+// topology, and whether it passes all of them. ``stride``: the distance
+// between two blocks' rows (the gates write pre/topo into every block's).
+// The surviving types and per-type capacities are TypeSlice::ok_t / cap_t.
 struct ChainEval {
-  uint8_t* ok_t;  // [C, T] claim_it_ok2 (rows of claims that pass their gates)
-  int* cap_t;     // [C, T] more pods of this kind each type takes
-  int* capc;      // [C] the claim's capacity for the chain, 0 unless it passes
-  int* pre;       // [C] claim_ok_pre: open, tolerated, ports, compatible
-  int* topo;      // [C] the topology gate passed
+  int* capc;  // [C]
+  int* pre;   // [C] claim_ok_pre: open, tolerated, ports, compatible
+  int* topo;  // [C] the topology gate passed
+  int* cok;   // [C] open, gates passed and a type kept
+  long stride;
 };
 
 __device__ __forceinline__ int warp_min(int x) {
@@ -130,6 +297,33 @@ __device__ int water_level(const int* lvl, const int* cap, int n, int units) {
   return lo;
 }
 
+// The same level with one warp: the same bisection, each step's sum over the
+// n claims a warp_sum (integer, so the order does not change it). A lane
+// keeps its first four claims' levels and caps in registers for the 22 steps.
+__device__ int warp_water_level(const int* lvl, const int* cap, int n, int units) {
+  const int lane = threadIdx.x & 31;
+  int lv[4], cp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = lane + 32 * i;
+    lv[i] = c < n ? lvl[c] : 0;
+    cp[i] = c < n ? cap[c] : 0;
+  }
+  int lo = 0, hi = 2 * BIG_CAP;
+  for (int it = 0; it < 22; ++it) {
+    const int mid = (lo + hi + 1) / 2;
+    int used = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) used += min(max(mid - lv[i], 0), cp[i]);
+    for (int c = lane + 128; c < n; c += 32) used += min(max(mid - lvl[c], 0), cap[c]);
+    used = warp_sum(used);
+    if (used <= units)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
 
 template <class A>
 __device__ __forceinline__ bool registered_at(const A& a, int g, int kg, int v, int extra_lane) {
@@ -138,13 +332,15 @@ __device__ __forceinline__ bool registered_at(const A& a, int g, int kg, int v, 
 
 // Per-group quantities of TopologyGroup.Get that depend on the pod but not on
 // the bin: the spread global minimum, the affinity bootstrap's best rank and
-// whether anything is placed yet (ops/topology_kernels.allowed_domains).
-// ``extra_lane`` registers the fresh claim's minted hostname lane.
-template <class A>
-__device__ void group_prep(const A& a, int p, int extra_lane, int* s_gmin, int* s_boot,
-                           int* s_nothing) {
+// whether anything is placed yet (ops/topology_kernels.allowed_domains), a
+// warp per group over the scope's warps, written into every block's copy.
+// ``extra_lane`` registers the fresh claim's minted hostname lane. With
+// m.mg, each block also lists the pod's matched groups and their keys for
+// bin_gate.
+template <class S, class A>
+__device__ void group_prep(const S& sc, const A& a, int p, int extra_lane, const StepMem& m) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int g = warp; g < a.G; g += NWARPS) {
+  for (int g = sc.gwarp(); g < a.G; g += sc.nwarps()) {
     const int kg = a.grp_key[g];
     const int* pdw = a.pod_strict_adm + ((long)p * a.K + kg) * a.W;
     if (lane == 0 && a.pod_match[(long)p * a.G + g]) count_work(WORK_TOPO_LANES, a.V);
@@ -162,15 +358,32 @@ __device__ void group_prep(const A& a, int p, int extra_lane, int* s_gmin, int* 
     lmin = warp_min(lmin);
     nsup = warp_sum(nsup);
     pos = __any_sync(FULL, pos);
-    if (lane == 0) {
+    if (lane < sc.size) {
       int gmin = cmin;
       const int md = a.grp_min_domains[g];
       if (md >= 0 && nsup < md) gmin = 0;
       if (kg == HOSTNAME_KEY) gmin = 0;
-      s_gmin[g] = gmin;
-      s_boot[g] = lmin;
-      s_nothing[g] = !pos;
+      sc.at(m.gmin, lane)[g] = gmin;
+      sc.at(m.boot, lane)[g] = lmin;
+      sc.at(m.nothing, lane)[g] = !pos;
     }
+  }
+  if (m.mg && warp == NWARPS - 1) {
+    // the pod's matched groups in group order, by the last warp of each block
+    const uint8_t* match = a.pod_match + (long)p * a.G;
+    int n = 0;
+    for (int g0 = 0; g0 < a.G; g0 += 32) {
+      const int g = g0 + lane;
+      const bool on = g < a.G && match[g];
+      const unsigned word = __ballot_sync(FULL, on);
+      if (on) {
+        const int at = n + __popc(word & ((1u << lane) - 1u));
+        m.mg[at] = g;
+        m.mk[at] = a.grp_key[g];
+      }
+      n += __popc(word);
+    }
+    if (lane == 0) *m.nm = n;
   }
 }
 
@@ -179,10 +392,13 @@ __device__ void group_prep(const A& a, int p, int extra_lane, int* s_gmin, int* 
 // write the narrowed row to the fin_* scratch of bin ``b``. Returns
 // Compatible(base, pod) && topology-ok, uniform across the warp; ``parts``
 // (optional) receives the two halves apart: [0] compatible, [1] topology.
-template <class A>
+// With LIST, ``m`` carries the pod's matched groups from group_prep (the
+// step); without, the warp finds them in the pod's match row.
+template <bool LIST = false, class A>
 __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base_neg, int b,
                          const uint8_t* allow, int pin_lane, int extra_lane, const int* s_gmin,
-                         const int* s_boot, const int* s_nothing, bool* parts = nullptr) {
+                         const int* s_boot, const int* s_nothing, bool* parts = nullptr,
+                         const StepMem* m = nullptr) {
   const int lane = threadIdx.x & 31;
   const int K = a.K, W = a.W, V = a.V;
   const Row pod = row_at(a.pod_adm, a.pod_comp, a.pod_def, a.pod_gt, a.pod_lt, p, K, W);
@@ -228,11 +444,26 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
     __syncwarp();
   }
 
+  // the keys the pod's matched groups touch, each once: from the list, the
+  // first entry of each key; without it, every key with a matched group
   const uint8_t* match = a.pod_match + (long)p * a.G;
-  for (int k = 0; k < K && a.G > 0; ++k) {
-    bool touched = false;
-    for (int g = 0; g < a.G; ++g) touched |= match[g] && a.grp_key[g] == k;
-    if (!touched) continue;
+  const int nm = LIST ? *m->nm : 0;
+  const int nkeys = LIST ? nm : (a.G > 0 ? K : 0);
+  for (int i = 0; i < nkeys; ++i) {
+    int k;
+    if constexpr (LIST) {
+      k = m->mk[i];
+      bool seen = false;
+      for (int j = 0; j < i && !seen; ++j) seen = m->mk[j] == k;
+      if (seen) continue;
+    } else {
+      k = i;
+      bool touched = false;
+      for (int g = 0; g < a.G; ++g) touched |= match[g] && a.grp_key[g] == k;
+      if (!touched) continue;
+    }
+    // the matched groups of key k: list entries from i, or every group
+    const int j_first = LIST ? i : 0, j_end = LIST ? nm : a.G;
     // the merged row's lanes on key k (node_dom), read from the inputs: the
     // narrowed words below overwrite fadm chunk by chunk
     const int* bw = base.adm + k * W;
@@ -246,8 +477,14 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
     for (int j0 = 0; j0 < W; j0 += 64) {
       const int j1 = min(W, j0 + 64);
       unsigned long long lim = ~0ull;
-      for (int g = 0; g < a.G; ++g) {
-        if (!match[g] || a.grp_key[g] != k) continue;
+      for (int jg = j_first; jg < j_end; ++jg) {
+        int g = jg;
+        if constexpr (LIST) {
+          g = m->mg[jg];
+          if (m->mk[jg] != k) continue;
+        } else if (!match[g] || a.grp_key[g] != k) {
+          continue;
+        }
         if (lane == 0 && j0 == 0) count_work(WORK_TOPO_LANES, V);
         const int type = a.grp_type[g];
         const int sel = a.pod_selects[(long)p * a.G + g];
@@ -258,15 +495,17 @@ __device__ bool bin_gate(const A& a, int p, const Row& base, const uint8_t* base
           // lexicographically-first value on ties
           for (int j = 0; j < W; ++j) {
             const int v = 32 * j + lane;
-            const int self = cnt[v] + sel;
-            if (registered_at(a, g, k, v, extra_lane) && nd_bit(v) && self - s_gmin[g] <= a.grp_max_skew[g])
-              best = min(best, self * V + min(lexk[v], V - 1));
+            const int self = cnt[v] + sel, lx = lexk[v];
+            const bool reg = registered_at(a, g, k, v, extra_lane);
+            if (reg && nd_bit(v) && self - s_gmin[g] <= a.grp_max_skew[g]) best = min(best, self * V + min(lx, V - 1));
           }
           best = warp_min(best);
         } else if (type == 1) {
           for (int j = 0; j < W; ++j) {
             const int v = 32 * j + lane;
-            if (registered_at(a, g, k, v, extra_lane) && bit_of(pdw, v) && nd_bit(v)) best = min(best, lexk[v]);
+            const int lx = lexk[v];
+            const bool reg = registered_at(a, g, k, v, extra_lane);
+            if (reg && bit_of(pdw, v) && nd_bit(v)) best = min(best, lx);
           }
           best = warp_min(best);
         }
@@ -330,20 +569,23 @@ __device__ __forceinline__ Row fin_row(const A& a, int b) {
   return row_at(a.fin_adm, a.fin_comp, a.fin_def, a.fin_gt, a.fin_lt, b, a.K, a.W);
 }
 
+// NodePool limits (template j's pessimistic capacity of type t fits its
+// remaining headroom), then the survival test of the template's row
 template <class A>
-__device__ __forceinline__ bool tpl_type_ok(const A& a, const ITs& its, int p, int j, int t) {
+__device__ __forceinline__ bool tpl_type_ok(const TypeSlice& ts, const A& a, int p, int j, int t) {
   const int b = a.N + a.C + j;
-  return a.tpl_it_ok[(long)j * a.T + t] && within_limits(a, j, t) &&
+  return ts.tpl_ok[(long)j * ts.tstride + t] &&
+         fits_add(ts.cap + (long)t * a.R, nullptr, a.remaining + (long)j * a.R, a.R) &&
          it_gate(fin_row(a, b), a.fin_neg + (long)b * a.K, a.tpl_overhead + (long)j * a.R,
-                 a.pod_requests + (long)p * a.R, its, t, a.K, a.W, a.R, a.O);
+                 a.pod_requests + (long)p * a.R, ts.its, t, a.K, a.W, a.R, a.O);
 }
 
 template <class A>
-__device__ __forceinline__ bool claim_type_ok(const A& a, const ITs& its, int p, int c, int t) {
+__device__ __forceinline__ bool claim_type_ok(const TypeSlice& ts, const A& a, int p, int c, int t) {
   const int b = a.N + c;
-  return a.claim_it_ok[(long)c * a.T + t] &&
+  return ts.cio[(long)c * ts.tstride + t] &&
          it_gate(fin_row(a, b), a.fin_neg + (long)b * a.K, a.claim_requests + (long)c * a.R,
-                 a.pod_requests + (long)p * a.R, its, t, a.K, a.W, a.R, a.O);
+                 a.pod_requests + (long)p * a.R, ts.its, t, a.K, a.W, a.R, a.O);
 }
 
 template <class A>
@@ -370,19 +612,68 @@ struct TopoRun {
   int* taken;
 };
 
+// This block's list of the claims that are open and pass their gates
+// (bin_ok), in slot order, into m.cand / s.ncand (one warp, then a barrier).
+template <class A>
+__device__ void candidate_claims(const A& a, Shared& s, const StepMem& m) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    int n = 0;
+    for (int c0 = 0; c0 < a.C; c0 += 32) {
+      const int c = c0 + lane;
+      const bool on = c < a.C && a.claim_open[c] && a.bin_ok[a.N + c];
+      const unsigned word = __ballot_sync(FULL, on);
+      if (on) m.cand[n + __popc(word & ((1u << lane) - 1u))] = c;
+      n += __popc(word);
+    }
+    if (lane == 0) s.ncand = n;
+  }
+  block_sync();
+}
+
+// The first surviving type of claim c (template j) in the block's slice, a
+// warp over 32 types at a time from t0 (MAXI if none); the lanes agree.
+template <class A>
+__device__ int first_claim_type(const TypeSlice& ts, const A& a, int p, int c) {
+  const int lane = threadIdx.x & 31;
+  for (int t0 = ts.t0; t0 < ts.t1; t0 += 32) {
+    const int t = t0 + lane;
+    const unsigned word = __ballot_sync(FULL, t < ts.t1 && claim_type_ok(ts, a, p, c, t));
+    if (word) return t0 + __ffs(word) - 1;
+  }
+  return MAXI;
+}
+
+template <class A>
+__device__ int first_tpl_type(const TypeSlice& ts, const A& a, int p, int j) {
+  const int lane = threadIdx.x & 31;
+  for (int t0 = ts.t0; t0 < ts.t1; t0 += 32) {
+    const int t = t0 + lane;
+    const unsigned word = __ballot_sync(FULL, t < ts.t1 && tpl_type_ok(ts, a, p, j, t));
+    if (word) return t0 + __ffs(word) - 1;
+  }
+  return MAXI;
+}
+
+// The type tests a block alone needs to meet the first survivor ``fs``, 32
+// types a round from type 0 (all T when none survives).
+__device__ __forceinline__ long first_tests(int fs, int T) { return fs < T ? min(T, (fs / 32 + 1) * 32) : T; }
+
 // Evaluate pod p (ops/ffd_step.make_step): nodes, then open claims by fewest
 // pods, then a fresh claim from the first accepting template. Leaves the
 // verdict in s.kind / s.index / s.bin and the bins' narrowed rows in the
-// fin_* scratch; commits nothing. With ``ch`` (a chain commit follows) it
-// also fills the ChainEval tables, s.rank2 and s.node_static: the types of
-// every claim that passes its gates are tested in full instead of up to the
-// first survivor.
-template <class A>
-__device__ void step_eval(const A& a, int p, Shared& s, int* s_gmin, int* s_boot, int* s_nothing,
-                          int* s_maxcap, const TopoRun* tr = nullptr, const ChainEval* ch = nullptr) {
+// fin_* scratch; commits nothing. With ``ch`` (a chain commit follows; the
+// cluster scope) it also fills the block's slice of ok_t / cap_t, the
+// ChainEval rows, s.rank2 and s.node_static: the types of every claim that
+// passes its gates are tested in full instead of up to the first survivor.
+// Every block of a cluster leaves the same verdict in its own Shared.
+template <class S, class A>
+__device__ void step_eval(const S& sc, const A& a, int p, Shared& s, Red& red, const StepMem& m,
+                          const TopoRun* tr = nullptr, const ChainEval* ch = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = a.K, W = a.W, N = a.N, C = a.C, R = a.R;
-  const ITs its = its_of(a);
+  const int gw = sc.gwarp(), nw = sc.nwarps();
+  const int K = a.K, W = a.W, N = a.N, C = a.C, R = a.R, T = a.T;
+  const TypeSlice& ts = sc.ts;
   const float* preq = a.pod_requests + (long)p * R;
   const uint8_t* pconf = a.pod_conflict + (long)p * a.PT;
   if (tid == 0) {
@@ -392,16 +683,31 @@ __device__ void step_eval(const A& a, int p, Shared& s, int* s_gmin, int* s_boot
     s.node_static = 0;
     s.tpl_pick = a.TPL;
     s.free_slot = C;
+    red.node_pick = N;
+    red.node_static = 0;
+    red.insensitive = 1;
   }
-  for (int r = tid; r < R; r += THREADS) s_maxcap[r] = 0;  // bits of 0.0f
-  group_prep(a, p, -1, s_gmin, s_boot, s_nothing);
-  block_sync();
+  sc.mark(SEC_GROUP_PREP);
+  for (int r = tid; r < R; r += THREADS) m.maxcap[r] = 0;  // bits of 0.0f
+  for (int c = tid; c < C; c += THREADS) {
+    m.any[c] = 0;
+    m.best[c] = 0;
+    m.fs[c] = MAXI;
+  }
+  for (int j = tid; j < a.TPL; j += THREADS) {
+    m.tok[j] = 0;
+    m.tfs[j] = MAXI;
+  }
+  group_prep(sc, a, p, -1, m);
+  sc.sync();
+  sc.mark(SEC_BIN_GATES);
+  Red* red0 = sc.lead(&red);
 
   // -- 1. existing nodes
-  for (int n = warp; n < N; n += NWARPS) {
+  for (int n = gw; n < N; n += nw) {
     const Row base = row_at(a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, n, K, W);
     bool parts[2];
-    bin_gate(a, p, base, nullptr, n, nullptr, -1, -1, s_gmin, s_boot, s_nothing, parts);
+    bin_gate<true>(a, p, base, nullptr, n, nullptr, -1, -1, m.gmin, m.boot, m.nothing, parts, &m);
     if (lane == 0) {
       // the gates that do not read the topology counters; a topology run
       // reads the node's integer capacity at the run's start less its
@@ -414,102 +720,124 @@ __device__ void step_eval(const A& a, int p, Shared& s, int* s_gmin, int* s_boot
       for (int d = 0; d < a.D && st && !tr; ++d)
         if (a.node_vol_used[(long)n * a.D + d] + a.pod_vols[(long)p * a.D + d] > a.node_vol_limits[(long)n * a.D + d])
           st = false;
-      if (st) s.node_static = 1;
-      if (st && parts[1]) atomicMin(&s.node_pick, n);
+      if (st) atomicMax(&red0->node_static, 1);
+      if (st && parts[1]) atomicMin(&red0->node_pick, n);
     }
   }
   for (int c = tid; c < C; c += THREADS)
     if (!a.claim_open[c]) atomicMin(&s.free_slot, c);
+  if (N > 0)
+    sc.sync();
+  else
+    block_sync();
+  if (tid == 0) {
+    s.node_pick = red0->node_pick;
+    s.node_static = red0->node_static;
+  }
   block_sync();
   const bool any_node = s.node_pick < N;
 
   // -- 2. open claims, fewest pods first (only read when no node accepts)
   if (!any_node) {
-    for (int c = warp; c < C; c += NWARPS) {
+    for (int c = gw; c < C; c += nw) {
       if (!a.claim_open[c]) continue;
       const Row base = row_at(a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, c, K, W);
       bool parts[2];
-      bin_gate(a, p, base, nullptr, N + c, a.wellknown, -1, -1, s_gmin, s_boot, s_nothing, parts);
+      bin_gate<true>(a, p, base, nullptr, N + c, a.wellknown, -1, -1, m.gmin, m.boot, m.nothing, parts, &m);
       bool pre = parts[0] && a.pod_tol_tpl[(long)p * a.TPL + a.claim_tpl[c]] != 0;
       for (int q = 0; q < a.PT && pre; ++q)
         if (a.claim_ports[(long)c * a.PT + q] && pconf[q]) pre = false;
       if (lane == 0) {
         a.bin_ok[N + c] = pre && parts[1];
-        if (ch) {
-          ch->pre[c] = pre;
-          ch->topo[c] = parts[1];
-        }
+        if (ch)
+          for (int r = 0; r < sc.size; ++r) {
+            ch->pre[(long)(r - sc.rank) * ch->stride + c] = pre;
+            ch->topo[(long)(r - sc.rank) * ch->stride + c] = parts[1];
+          }
       }
     }
-    block_sync();
+    sc.sync();
+    sc.mark(ch ? SEC_TABLE : SEC_FIRST);
+    candidate_claims(a, s, m);
+    const int ncand = s.ncand;
     if (ch) {
       // the full claims x instance-types table of the claims that pass
-      // their gates: survivors and capacities (a claim that fails them takes
-      // no pod of the chain; the spread mini-scan fills its row if it runs)
+      // their gates, over the block's slice: survivors and capacities (a
+      // claim that fails them takes no pod of the chain; the spread
+      // mini-scan fills its row if it runs), a warp per (claim, 32 types);
+      // a capacity is read only where its type survives
+      const int nchunk = (ts.t1 - ts.t0 + 31) / 32;
+      for (int w = warp; w < ncand * nchunk; w += NWARPS) {
+        const int c = m.cand[w / nchunk];
+        const int t = ts.t0 + (w % nchunk) * 32 + lane;
+        bool okt = false;
+        int cap = 0;
+        if (t < ts.t1) {
+          okt = claim_type_ok(ts, a, p, c, t);
+          if (okt) cap = capacity(ts.its.alloc + (long)t * R, a.claim_requests + (long)c * R, preq, R);
+          ts.ok_t[(long)c * ts.tstride + t] = okt;
+          ts.cap_t[(long)c * ts.tstride + t] = (uint8_t)min(cap, 255);
+        }
+        const int best = warp_max(cap);
+        if (__any_sync(FULL, okt) && lane == 0) {
+          atomicOr(sc.lead(m.any) + c, 1);
+          atomicMax(sc.lead(m.best) + c, best);
+        }
+      }
+      if (sc.leader() && tid == 0) count_work(WORK_TYPE_TESTS, (long)ncand * T);
+      sc.sync();
+      // every block: the claims that keep a type, their capacity for the
+      // chain and the two best ranks, from the leader's reduction
       int port_cap = BIG_CAP;
       for (int q = 0; q < a.PT; ++q)
         if (a.pod_ports[(long)p * a.PT + q]) port_cap = 1;
-      for (int c = warp; c < C; c += NWARPS) {
-        if (!a.claim_open[c] || !a.bin_ok[N + c]) {
-          if (lane == 0) {
-            ch->capc[c] = 0;
-            if (!a.claim_open[c]) {
-              ch->pre[c] = 0;
-              ch->topo[c] = 0;
-            }
-          }
-          continue;
+      const int* any0 = sc.lead(m.any);
+      const int* best0 = sc.lead(m.best);
+      for (int c = tid; c < C; c += THREADS) {
+        const bool open = a.claim_open[c];
+        const bool cok = open && a.bin_ok[N + c] && any0[c];
+        ch->cok[c] = cok;
+        ch->capc[c] = cok ? min(best0[c], port_cap) : 0;
+        if (!open) {
+          ch->pre[c] = 0;
+          ch->topo[c] = 0;
         }
-        int best = 0;
-        bool any = false;
-        for (int t = lane; t < a.T; t += 32) {
-          const bool okt = claim_type_ok(a, its, p, c, t);
-          const int cap = capacity(a.it_alloc + (long)t * R, a.claim_requests + (long)c * R, preq, R);
-          ch->ok_t[(long)c * a.T + t] = okt;
-          ch->cap_t[(long)c * a.T + t] = cap;
-          if (okt) {
-            any = true;
-            best = max(best, cap);
-          }
-        }
-        best = warp_max(best);
-        any = __any_sync(FULL, any);
-        if (lane == 0) {
-          count_work(WORK_TYPE_TESTS, a.T);
-          const bool cok = a.bin_ok[N + c] && any;
-          a.bin_ok[N + c] = cok;
-          ch->capc[c] = cok ? min(best, port_cap) : 0;
-          if (cok) atomicMin(&s.claim_rank, a.claim_npods[c] * C + c);
-        }
+        if (cok) atomicMin(&s.claim_rank, a.claim_npods[c] * C + c);
       }
       block_sync();
       for (int c = tid; c < C; c += THREADS) {
         const int rank = a.claim_npods[c] * C + c;
-        if (a.claim_open[c] && a.bin_ok[N + c] && rank != s.claim_rank) atomicMin(&s.rank2, rank);
+        if (ch->cok[c] && rank != s.claim_rank) atomicMin(&s.rank2, rank);
       }
     } else {
       // the claims x instance-types survival test: a warp per candidate
-      // claim, 32 types per ballot, stopping at the first chunk with a
-      // survivor
-      for (int c = warp; c < C; c += NWARPS) {
-        if (!a.claim_open[c] || !a.bin_ok[N + c]) continue;
-        const int rank = a.claim_npods[c] * C + c;
-        // skip a claim already beaten (one read, broadcast: the warp must agree)
-        int best = 0;
-        if (lane == 0) best = *(volatile int*)&s.claim_rank;
-        if (rank >= __shfl_sync(FULL, best, 0)) continue;
-        for (int t0 = 0; t0 < a.T; t0 += 32) {
-          const int t = t0 + lane;
-          if (lane == 0) count_work(WORK_TYPE_TESTS, min(32, a.T - t0));
-          const bool ok = t < a.T && claim_type_ok(a, its, p, c, t);
-          if (__any_sync(FULL, ok)) {
-            if (lane == 0) atomicMin(&s.claim_rank, rank);
-            break;
-          }
-        }
+      // claim over the block's slice, up to its first surviving chunk
+      for (int i = warp; i < ncand; i += NWARPS) {
+        const int c = m.cand[i];
+        const int f = first_claim_type(ts, a, p, c);
+        if (lane == 0 && f < MAXI) atomicMin(sc.lead(m.fs) + c, f);
+      }
+      sc.sync();
+      const int* fs0 = sc.lead(m.fs);
+      for (int i = tid; i < ncand; i += THREADS) {
+        const int c = m.cand[i];
+        if (fs0[c] < MAXI) atomicMin(&s.claim_rank, a.claim_npods[c] * C + c);
       }
     }
     block_sync();
+    if (!ch && sc.leader() && tid == 0) {
+      // the bound's yardstick: the tests a scan of the candidates in rank
+      // order needs, whatever this design ran. All T for each claim ranked
+      // before the winner (none survives), the winner's up to its first
+      // survivor, nothing after it; all T each when none wins.
+      const int* fs0 = sc.lead(m.fs);
+      long tests = 0;
+      for (int i = 0; i < s.ncand; ++i) {
+        const int c = m.cand[i];
+        if (a.claim_npods[c] * C + c <= s.claim_rank) tests += first_tests(fs0[c], T);
+      }
+      count_work(WORK_TYPE_TESTS, tests);
+    }
   }
   const bool any_claim = s.claim_rank < BIG;
   const bool has_slot = s.free_slot < C;
@@ -518,28 +846,43 @@ __device__ void step_eval(const A& a, int p, Shared& s, int* s_gmin, int* s_boot
   // hostname is minted, pinned and registered before the gates see it
   if (!any_node && !any_claim && has_slot) {
     const int host = a.CH > 0 ? a.host_lane[min(s.free_slot, a.CH - 1)] : -1;
-    group_prep(a, p, host, s_gmin, s_boot, s_nothing);
-    block_sync();
-    for (int j = warp; j < a.TPL; j += NWARPS) {
-      const int b = N + C + j;
+    sc.mark(SEC_GROUP_PREP);
+    group_prep(sc, a, p, host, m);
+    sc.sync();
+    sc.mark(SEC_TEMPLATE);
+    // the templates' gates on the scope's warps, then each block's slice
+    // of the passing templates' types, up to the first surviving chunk
+    for (int j = gw; j < a.TPL; j += nw) {
       const Row base = row_at(a.tpl_adm, a.tpl_comp, a.tpl_def, a.tpl_gt, a.tpl_lt, j, K, W);
-      bool ok = bin_gate(a, p, base, a.tpl_neg + (long)j * K, b, a.wellknown, host, host, s_gmin,
-                         s_boot, s_nothing);
-      ok = ok && a.pod_tol_tpl[(long)p * a.TPL + j];
-      if (!ok) continue;
-      for (int t0 = 0; t0 < a.T; t0 += 32) {
-        const int t = t0 + lane;
-        if (lane == 0) count_work(WORK_TYPE_TESTS, min(32, a.T - t0));
-        const bool tok = t < a.T && tpl_type_ok(a, its, p, j, t);
-        if (__any_sync(FULL, tok)) {
-          if (lane == 0) atomicMin(&s.tpl_pick, j);
-          break;
-        }
-      }
+      const bool ok = bin_gate<true>(a, p, base, a.tpl_neg + (long)j * K, N + C + j, a.wellknown, host, host,
+                                     m.gmin, m.boot, m.nothing, nullptr, &m) &&
+                      a.pod_tol_tpl[(long)p * a.TPL + j];
+      if (lane == 0) sc.lead(m.tok)[j] = ok;
     }
-    if (tid == 0) s.host_lane = host;
+    sc.sync();
+    const int* tok0 = sc.lead(m.tok);
+    for (int j = warp; j < a.TPL; j += NWARPS) {
+      if (!tok0[j]) continue;
+      const int f = first_tpl_type(ts, a, p, j);
+      if (lane == 0 && f < MAXI) atomicMin(sc.lead(m.tfs) + j, f);
+    }
+    sc.sync();
+    if (tid == 0) {
+      // the first passing template with a survivor; the yardstick counts
+      // the tests of a scan in template order up to it
+      const int* tfs0 = sc.lead(m.tfs);
+      long tests = 0;
+      for (int j = 0; j < a.TPL && s.tpl_pick == a.TPL; ++j) {
+        if (!tok0[j]) continue;
+        tests += first_tests(tfs0[j], T);
+        if (tfs0[j] < MAXI) s.tpl_pick = j;
+      }
+      if (sc.leader()) count_work(WORK_TYPE_TESTS, tests);
+      s.host_lane = host;
+    }
     block_sync();
   }
+  sc.mark(SEC_QUEUE);
 
   if (tid == 0) {
     int kind, index = -1, bin = -1;
@@ -570,84 +913,99 @@ __device__ void step_eval(const A& a, int p, Shared& s, int* s_gmin, int* s_boot
 // Commit pod p's verdict of the step_eval just before (every gate read the
 // pre-commit state) and record it. ``cap_gate``: the sweeps loop's commit,
 // which also keeps a claim's type only while one more pod fits its integer
-// capacity (ops/ffd_sweeps narrow_iter's ``cap_ct_all >= take``).
-template <class A>
-__device__ void step_commit(const A& a, int p, Shared& s, int* s_maxcap, const TopoRun* tr = nullptr,
+// capacity (ops/ffd_sweeps narrow_iter's ``cap_ct_all >= take``). First
+// every block writes its slice of the committed survivors row against the
+// pre-commit state; after a barrier the leader block writes the bin's state
+// rows while the records go to the scope's warps, a group each. The caller
+// puts a barrier after it before anything reads the state.
+template <class S, class A>
+__device__ void step_commit(const S& sc, const A& a, int p, Shared& s, const StepMem& m, const TopoRun* tr = nullptr,
                             bool cap_gate = false) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int K = a.K, W = a.W, R = a.R;
-  const ITs its = its_of(a);
+  const TypeSlice& ts = sc.ts;
   const float* preq = a.pod_requests + (long)p * R;
   const int kind = s.kind;
   if (kind == KIND_FAIL || kind == KIND_NO_SLOT) return;
   const int idx = s.index, bin = s.bin;
+  sc.mark(SEC_COMMIT);
 
-  if (kind == KIND_NODE && tr) {
-    // a topology run applies its members' node requests after the run
-    copy_row(a, bin, a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, idx);
-    if (tid == 0) tr->taken[idx] += 1;
-  } else if (kind == KIND_NODE) {
-    copy_row(a, bin, a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, idx);
-    for (int r = tid; r < R; r += THREADS) a.node_requests[(long)idx * R + r] += preq[r];
-    for (int q = tid; q < a.PT; q += THREADS) a.node_ports[(long)idx * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
-    for (int d = tid; d < a.D; d += THREADS) a.node_vol_used[(long)idx * a.D + d] += a.pod_vols[(long)p * a.D + d];
-    if (tid == 0) a.node_npods[idx] += 1;
-  } else if (kind == KIND_CLAIM) {
+  if (kind == KIND_CLAIM) {
     // the committed row of survivors, read against the pre-commit requests
-    if (tid == 0) count_work(WORK_TYPE_TESTS, a.T);
-    for (int t = tid; t < a.T; t += THREADS)
-      a.claim_it_ok[(long)idx * a.T + t] =
-          claim_type_ok(a, its, p, idx, t) &&
-          (!cap_gate || capacity(a.it_alloc + (long)t * R, a.claim_requests + (long)idx * R, preq, R) >= 1);
-    block_sync();
-    copy_row(a, bin, a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, idx);
-    for (int r = tid; r < R; r += THREADS) a.claim_requests[(long)idx * R + r] += preq[r];
-    for (int q = tid; q < a.PT; q += THREADS) a.claim_ports[(long)idx * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
-    if (tid == 0) a.claim_npods[idx] += 1;
-  } else {
+    if (sc.leader() && tid == 0) count_work(WORK_TYPE_TESTS, a.T);
+    for (int t = ts.t0 + tid; t < ts.t1; t += THREADS)
+      ts.cio[(long)idx * ts.tstride + t] =
+          claim_type_ok(ts, a, p, idx, t) &&
+          (!cap_gate || capacity(ts.its.alloc + (long)t * R, a.claim_requests + (long)idx * R, preq, R) >= 1);
+    sc.sync();
+  } else if (kind == KIND_NEW_CLAIM) {
     const int j = s.tpl_pick;
-    if (tid == 0) count_work(WORK_TYPE_TESTS, a.T);
-    for (int t = tid; t < a.T; t += THREADS) {
-      const bool ok = tpl_type_ok(a, its, p, j, t);
-      a.claim_it_ok[(long)idx * a.T + t] = ok;
+    if (sc.leader() && tid == 0) count_work(WORK_TYPE_TESTS, a.T);
+    int* maxcap0 = sc.lead(m.maxcap);
+    for (int t = ts.t0 + tid; t < ts.t1; t += THREADS) {
+      const bool ok = tpl_type_ok(ts, a, p, j, t);
+      ts.cio[(long)idx * ts.tstride + t] = ok;
       if (ok)  // caps are >= 0, so their float bits order as ints
-        for (int r = 0; r < R; ++r) atomicMax(&s_maxcap[r], __float_as_int(a.it_cap[(long)t * R + r]));
+        for (int r = 0; r < R; ++r) atomicMax(&maxcap0[r], __float_as_int(ts.cap[(long)t * R + r]));
     }
-    block_sync();
-    copy_row(a, bin, a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, idx);
-    for (int r = tid; r < R; r += THREADS) {
-      a.claim_requests[(long)idx * R + r] = a.tpl_overhead[(long)j * R + r] + preq[r];
-      // opening a claim burns pessimistic headroom (subtractMax)
-      a.remaining[(long)j * R + r] = a.remaining[(long)j * R + r] - __int_as_float(s_maxcap[r]);
-    }
-    for (int q = tid; q < a.PT; q += THREADS) a.claim_ports[(long)idx * a.PT + q] = a.pod_ports[(long)p * a.PT + q] || a.claim_ports[(long)idx * a.PT + q];
-    if (s.host_lane >= 0)
-      for (int g = tid; g < a.G; g += THREADS)
-        if (a.grp_key[g] == HOSTNAME_KEY) a.grp_registered[(long)g * a.V + s.host_lane] = 1;
-    if (tid == 0) {
-      a.claim_open[idx] = 1;
-      a.claim_npods[idx] += 1;
-      a.claim_tpl[idx] = j;
+    sc.sync();
+  }
+
+  if (sc.leader()) {
+    if (kind == KIND_NODE && tr) {
+      // a topology run applies its members' node requests after the run
+      copy_row(a, bin, a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, idx);
+      if (tid == 0) tr->taken[idx] += 1;
+    } else if (kind == KIND_NODE) {
+      copy_row(a, bin, a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, idx);
+      for (int r = tid; r < R; r += THREADS) a.node_requests[(long)idx * R + r] += preq[r];
+      for (int q = tid; q < a.PT; q += THREADS) a.node_ports[(long)idx * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
+      for (int d = tid; d < a.D; d += THREADS) a.node_vol_used[(long)idx * a.D + d] += a.pod_vols[(long)p * a.D + d];
+      if (tid == 0) a.node_npods[idx] += 1;
+    } else if (kind == KIND_CLAIM) {
+      copy_row(a, bin, a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, idx);
+      for (int r = tid; r < R; r += THREADS) a.claim_requests[(long)idx * R + r] += preq[r];
+      for (int q = tid; q < a.PT; q += THREADS) a.claim_ports[(long)idx * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
+      if (tid == 0) a.claim_npods[idx] += 1;
+    } else {
+      const int j = s.tpl_pick;
+      copy_row(a, bin, a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, idx);
+      for (int r = tid; r < R; r += THREADS) {
+        a.claim_requests[(long)idx * R + r] = a.tpl_overhead[(long)j * R + r] + preq[r];
+        // opening a claim burns pessimistic headroom (subtractMax)
+        a.remaining[(long)j * R + r] = a.remaining[(long)j * R + r] - __int_as_float(m.maxcap[r]);
+      }
+      for (int q = tid; q < a.PT; q += THREADS)
+        a.claim_ports[(long)idx * a.PT + q] = a.pod_ports[(long)p * a.PT + q] || a.claim_ports[(long)idx * a.PT + q];
+      if (tid == 0) {
+        a.claim_open[idx] = 1;
+        a.claim_npods[idx] += 1;
+        a.claim_tpl[idx] = j;
+      }
     }
   }
 
-  // -- topology record for the chosen bin (topology.go:125-148)
-  // a topology run's member records with its own select row
+  // -- the fresh claim's minted hostname lane, and the topology record for
+  // the chosen bin (topology.go:125-148), a warp per group; a topology run's
+  // member records with its own select row
   const int ps = tr ? tr->psel : p;
   bool any_rec = false;
   for (int g = 0; g < a.G; ++g)
     any_rec |= a.pod_selects[(long)ps * a.G + g] || a.pod_owned[(long)p * a.G + g];
-  if (!any_rec) return;
-  block_sync();
+  const int host = kind == KIND_NEW_CLAIM ? s.host_lane : -1;
+  if (!any_rec && host < 0) return;
+  if (any_rec) sc.mark(SEC_RECORD);
   const Row rec = fin_row(a, bin);
   const uint8_t* rec_neg = a.fin_neg + (long)bin * K;
   const uint8_t* allow = kind == KIND_NODE ? nullptr : a.wellknown;
   const TopoGroups tg = topo_of(a);
-  for (int g = warp; g < a.G; g += NWARPS) {
+  for (int g = sc.gwarp(); g < a.G; g += sc.nwarps()) {
     const int kg = a.grp_key[g];
-    if (!records_group(tg, g, rec, rec_neg, a.pod_selects[(long)ps * a.G + g], a.pod_owned[(long)p * a.G + g],
-                       allow, K, W))
+    if (host >= 0 && kg == HOSTNAME_KEY && lane == 0) a.grp_registered[(long)g * a.V + host] = 1;
+    if (!any_rec || !records_group(tg, g, rec, rec_neg, a.pod_selects[(long)ps * a.G + g],
+                                   a.pod_owned[(long)p * a.G + g], allow, K, W))
       continue;
+    __syncwarp();
     if (lane == 0) count_work(WORK_TOPO_LANES, a.V);
     for (int v = lane; v < a.V; v += 32) {
       if (bit_of(rec.adm + kg * W, v)) {
@@ -659,11 +1017,11 @@ __device__ void step_commit(const A& a, int p, Shared& s, int* s_maxcap, const T
 }
 
 // Place pod p: step_eval, then step_commit.
-template <class A>
-__device__ void step(const A& a, int p, Shared& s, int* s_gmin, int* s_boot, int* s_nothing,
-                     int* s_maxcap, const TopoRun* tr = nullptr) {
-  step_eval(a, p, s, s_gmin, s_boot, s_nothing, s_maxcap, tr);
-  step_commit(a, p, s, s_maxcap, tr);
+template <class S, class A>
+__device__ void step(const S& sc, const A& a, int p, Shared& s, Red& red, const StepMem& m,
+                     const TopoRun* tr = nullptr) {
+  step_eval(sc, a, p, s, red, m, tr);
+  step_commit(sc, a, p, s, m, tr);
 }
 
 }  // namespace

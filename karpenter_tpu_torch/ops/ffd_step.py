@@ -454,7 +454,7 @@ _AttrArgs = kernels.make_struct("AttrArgs", _ATTR_POINTERS, _ATTR_INTS)
 # own slot of the scratch, and walks the rows block-strided
 ATTR_MAX_BLOCKS = 264
 # the kernel's work counters, in order (csrc/step.cuh WORK_*)
-ATTR_WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers")
+ATTR_WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers", "cluster_barriers")
 
 
 def attribute_args(problem: SchedulingProblem, state: FFDState, rows):
@@ -479,7 +479,7 @@ def attribute_args(problem: SchedulingProblem, state: FFDState, rows):
     for name in ("fin_comp", "fin_def", "fin_neg"):
         t[name] = torch.empty((NB, bins, K), dtype=torch.bool, device=dev)
     t["words"] = torch.empty((B, 3), dtype=i32, device=dev)
-    t["work"] = torch.zeros((4,), dtype=torch.int64, device=dev)
+    t["work"] = torch.zeros((len(ATTR_WORK_COUNTERS),), dtype=torch.int64, device=dev)
     G = problem.grp_key.shape[0]
     dims = dict(K=K, V=V, W=W, C=C, N=N, T=problem.num_instance_types, TPL=TPL, R=problem.num_resources,
                 O=t["offer_ok"].shape[1], PT=t["pod_ports"].shape[1], D=t["pod_vols"].shape[1], G=G,
@@ -493,7 +493,7 @@ def launch_attribute(problem: SchedulingProblem, state: FFDState, rows):
     """Run the ``attribute`` kernel on CUDA tensors: every row's words in one
     launch (the JAX package's 32-row chunks exist only for its static
     shapes). ``problem``/``state`` lane-aligned. Returns (int32[B, 3] words,
-    int64[4] work counters, ATTR_WORK_COUNTERS)."""
+    int64[5] work counters, ATTR_WORK_COUNTERS)."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_attribute needs CUDA tensors")

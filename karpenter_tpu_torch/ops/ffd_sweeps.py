@@ -28,17 +28,26 @@ Two implementations of the same function:
   * the ``ffd_loop`` CUDA kernel (csrc/ffd_loop.cu) — the whole loop in one
     launch, taken for CUDA tensors. There is no fallback between the two.
 
+The kernel runs one solve on a thread-block cluster (csrc/ffd_loop.cu):
+``loop_plan`` picks the cluster's size, each block's slice of the instance
+types and whether that slice of the type tables is resident in the block's
+shared memory, from the shape alone; the launch reports the plan it ran
+with (``plan`` of its tensors). A cluster the card refuses raises
+KernelDeviceError; nothing falls back to a smaller cluster.
+
 The lanes mode (``launch_ffd_loop_lanes``; the partitioned solve's
 programs 13 and 14, parallel/mesh.py) runs L independent loops in one
-launch, one block per lane, each lane from its own argument struct with its
-own scratch, verdicts, IterCounts and work counters, each exiting its loop
-when it converges. Its plain version is ``sweeps_plain`` per lane.
+launch, one cluster per lane, each lane from its own argument struct with
+its own scratch, verdicts, IterCounts and work counters, each exiting its
+loop when it converges. Its plain version is ``sweeps_plain`` per lane.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -220,30 +229,142 @@ FFD_STATE = (
 # the kernel's own working rows, neither read before nor kept after it
 FFD_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok", "queue",
                "ok_t", "cap_t", "chain_c", "chain_v", "wave")
-_FFD_POINTERS = _FFD_INPUTS + FFD_STATE + FFD_SCRATCH + ("kind", "index", "counters", "work", "wave_hist")
+_FFD_POINTERS = _FFD_INPUTS + FFD_STATE + FFD_SCRATCH + ("kind", "index", "counters", "work", "sections", "plan",
+                                                         "wave_hist")
 _FFD_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "one_pass",
-             "wavefront")
+             "wavefront", "cluster", "tslice", "resident", "smem")
 _FfdArgs = kernels.make_struct("FfdArgs", _FFD_POINTERS, _FFD_INTS)
 
 # the kernel's work counters (csrc/ffd_loop.cu WORK_*), in order
-WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers")
+WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers", "cluster_barriers")
+# the kernel's section counters (csrc/step.cuh SEC_*), in order: clock64
+# cycles of the launch by section, for the split of its time
+SECTIONS = ("group_prep", "bin_gates", "table", "first_survivor", "template", "chain", "fill", "round", "spread",
+            "single", "commit", "record", "queue", "wave")
+
+
+def section_split(sections, kernel_ms: float) -> dict:
+    """{section: (share of the cycles, its ms: share x kernel_ms)} of one
+    launch's section counters, the sections that counted any."""
+    cycles = [int(x) for x in sections]
+    total = sum(cycles) or 1
+    return {name: (c / total, c / total * kernel_ms) for name, c in zip(SECTIONS, cycles) if c}
 
 # rows of the chain commit's per-claim and per-lane scratch (csrc/chain.cuh
-# NCS, NVS)
-_CHAIN_CLAIM_ROWS = 9
+# NCS, NVS), one set per block of the cluster
+_CHAIN_CLAIM_ROWS = 12
 _CHAIN_LANE_ROWS = 2
 # the loop's counters: IterCounts' seven fields
 _N_COUNTERS = 7
 
 
-def wave_scratch_words(lanes: int, G: int, C: int, N: int, K: int, W: int, T: int) -> int:
-    """int32 words of the wavefront's scratch (csrc/wave.cuh): the groups
-    recorded into, the claims and nodes touched, and one slab per extra lane
-    (4 scalars, the committed row's K x W lane words and its five K-rows, the
-    claim's survivors and capacities over the T types). 0 with no lanes."""
+def wave_scratch_words(lanes: int, G: int, C: int, N: int, K: int, W: int, T: int, blocks: int = 1) -> int:
+    """int32 words of the wavefront's scratch (csrc/wave.cuh): each block's
+    marks of the groups recorded into and the claims and nodes touched, and
+    one slab per extra lane (4 scalars, the committed row's K x W lane words
+    and its five K-rows, the claim's survivors and capacities over the T
+    types). 0 with no lanes."""
     if lanes <= 0:
         return 0
-    return G + C + max(N, 1) + lanes * (4 + K * W + 5 * K + 2 * T)
+    return blocks * (G + C + max(N, 1)) + lanes * (4 + K * W + 5 * K + 2 * T)
+
+
+# -- the launch plan (csrc/ffd_loop.cu: the cluster, Carver, load_slice) -----
+
+SMEM_OPTIN = 232448  # bytes of shared memory a block may opt into on an H100
+SMEM_STATIC = 4096  # kept back for the kernel's static shared memory
+DEFAULT_CLUSTER = 8  # blocks per solve of a launch of several: the portable cluster size
+SOLO_CLUSTER = 16  # blocks of a launch's one solve: an H100's largest (non-portable) cluster
+CARD_SMS = 132  # an H100 SXM's streaming multiprocessors
+
+# the card tests' and the measurements' cluster size (``forced_cluster``);
+# a context variable, so solves on other threads or in other contexts never
+# see each other's setting
+_cluster_override: contextvars.ContextVar = contextvars.ContextVar("ffd_loop_cluster", default=None)
+
+
+class LoopPlan(NamedTuple):
+    """One ``ffd_loop`` launch's shape: blocks per cluster, the instance types
+    each block owns (block r: [r * tslice, (r + 1) * tslice)), whether each
+    block's slice of the type tables lives in its shared memory, and the
+    dynamic shared memory of a block in bytes."""
+
+    cluster: int
+    tslice: int
+    resident: int
+    smem: int
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def cluster_size(lanes: int = 1) -> int:
+    """Blocks per solve for a launch of ``lanes`` solves: SOLO_CLUSTER for
+    one (faster than 8 at the 10k shapes on an H100, PERF.md section 6);
+    for several, the largest power of two no larger than DEFAULT_CLUSTER or
+    CARD_SMS // lanes, and at least 1 (8 up to 16 lanes).
+    ``forced_cluster`` overrides it."""
+    forced = _cluster_override.get()
+    if forced is not None:
+        return forced
+    if lanes <= 1:
+        return SOLO_CLUSTER
+    cap = min(DEFAULT_CLUSTER, max(CARD_SMS // max(lanes, 1), 1))
+    cl = 1
+    while cl * 2 <= cap:
+        cl *= 2
+    return cl
+
+
+@contextlib.contextmanager
+def forced_cluster(cluster: int):
+    """Launch every ``ffd_loop`` of the block, in this context, on clusters
+    of ``cluster`` blocks (the card tests' and the measurements' cluster
+    sizes)."""
+    if not 1 <= cluster <= 64:
+        raise ValueError(f"cluster size {cluster} out of range")
+    token = _cluster_override.set(int(cluster))
+    try:
+        yield
+    finally:
+        _cluster_override.reset(token)
+
+
+def type_slice(T: int, cluster: int) -> int:
+    """Instance types a block owns: T over the cluster, rounded up to 16 (so
+    every slice starts 16-byte aligned in each type table)."""
+    return _a16(max(-(-T // cluster), 1))
+
+
+def smem_bytes(dims: dict, cluster: int, resident: bool) -> int:
+    """A block's dynamic shared memory (csrc/ffd_loop.cu loop_body's Carver):
+    the step's arrays (group scratch and the matched-group list over G, the
+    fresh claim's max capacity over R, the claims' reductions and candidate
+    list over C, the templates' over TPL), then with ``resident`` the block's
+    slice of the type tables and of the claims' survivors, the chain head's
+    survivors and their capacities; each array 16-byte aligned."""
+    G, R, C, TPL = dims["G"], dims["R"], dims["C"], dims["TPL"]
+    K, W, O = dims["K"], dims["W"], dims["O"]
+    nt = type_slice(dims["T"], cluster)
+    total = 5 * _a16(4 * G) + _a16(4) + _a16(4 * R) + 4 * _a16(4 * C) + 2 * _a16(4 * TPL)
+    if resident:
+        total += (_a16(4 * nt * K * W) + 2 * _a16(4 * nt * K) + 2 * _a16(4 * nt * R) + 2 * _a16(4 * nt * O)
+                  + 3 * _a16(nt * K) + _a16(nt * O) + _a16(TPL * nt) + 3 * _a16(C * nt))
+    return total
+
+
+def loop_plan(dims: dict, cluster: Optional[int] = None) -> LoopPlan:
+    """The plan of a launch over a problem of ``dims`` (the FfdArgs dims):
+    the cluster (``cluster``, else ``cluster_size()``), the slice, and
+    resident when the resident layout fits what a block may opt into (less
+    the static shared memory); otherwise the same kernel reads the type
+    tables from device memory. No shape is refused here: a layout the card
+    cannot hold fails at the launch."""
+    cl = cluster_size() if cluster is None else int(cluster)
+    full = smem_bytes(dims, cl, True)
+    resident = full <= SMEM_OPTIN - SMEM_STATIC
+    return LoopPlan(cl, type_slice(dims["T"], cl), int(resident), full if resident else smem_bytes(dims, cl, False))
 
 
 def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = False) -> None:
@@ -292,9 +413,9 @@ def result_of(t: dict, V: int, one_pass: bool = False) -> FFDResult:
 
 
 # the lanes mode's launch struct (csrc/ffd_loop.cu FfdLanesArgs): the device
-# array of per-lane FfdArgs, the lane count, and the dims the shared memory is
-# sized from
-_FFD_LANES_INTS = ("L", "G", "R")
+# array of per-lane FfdArgs, the lane count, the blocks per lane and the
+# widest lane's dynamic shared memory
+_FFD_LANES_INTS = ("L", "cluster", "smem")
 _FfdLanesArgs = kernels.make_struct("FfdLanesArgs", ("lanes",), _FFD_LANES_INTS)
 
 
@@ -315,16 +436,19 @@ def ffd_loop_lanes_args(problems: Sequence[SchedulingProblem], inits: Sequence[F
         raise ValueError("the lanes mode needs one initial state per lane, and at least one lane")
     if (kind0s is None) != (index0s is None):
         raise ValueError("kind0s and index0s seed the verdict rows together")
+    cluster = cluster_size(len(problems))
     lanes = [ffd_loop_args(p, init, False,
                            None if kind0s is None else kind0s[b], None if index0s is None else index0s[b],
-                           wavefront=wavefront)
+                           wavefront=wavefront, cluster=cluster)
              for b, (p, init) in enumerate(zip(problems, inits))]
     dims = {(a.G, a.R) for _, a in lanes}
     if len(dims) != 1:
         raise ValueError(f"the lanes differ in their topology groups or resources: {sorted(dims)}")
-    (G, R), = dims
+    smem = max(a.smem for _, a in lanes)
+    for _, a in lanes:
+        a.smem = smem
     buf = lane_structs([a for _, a in lanes], problems[0].lane_valid.device)
-    args = _FfdLanesArgs(lanes=buf.data_ptr(), L=len(lanes), G=G, R=R)
+    args = _FfdLanesArgs(lanes=buf.data_ptr(), L=len(lanes), cluster=cluster, smem=smem)
     return [t for t, _ in lanes], buf, args
 
 
@@ -448,23 +572,25 @@ def state_back(t: dict, V: int) -> FFDState:
 
 
 def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None,
-                  order_scores=None, wavefront: int = 0):
+                  order_scores=None, wavefront: int = 0, cluster: Optional[int] = None):
     """The kernel's tensors by struct field name (inputs in its layout, a
     copy of the carried state to update in place, scratch, outputs) and its
-    argument struct: one launch's worth, as ``launch_ffd_loop`` passes it."""
+    argument struct: one launch's worth, as ``launch_ffd_loop`` passes it,
+    planned for clusters of ``cluster`` blocks (else ``cluster_size()``)."""
     t = problem_tensors(problem)
     # the carried state, copied into the kernel's layout (updated in place)
     t.update(state_tensors(init, problem.lane_valid, problem.lane_numeric))
-    return loop_args_from(t, one_pass, kind0, index0, order_scores, wavefront)
+    return loop_args_from(t, one_pass, kind0, index0, order_scores, wavefront, cluster)
 
 
 def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order_scores=None,
-                   wavefront: int = 0):
+                   wavefront: int = 0, cluster: Optional[int] = None):
     """``ffd_loop_args`` over tables already in the kernel's layout: the
     problem's (``problem_tensors``, or a device-resident world holding them,
     ops/fused.py) and a state the launch may update in place
     (``state_tensors``), by struct field name. Adds scratch and outputs to a
-    copy of ``tensors``; the dimensions are read from the tables' shapes."""
+    copy of ``tensors``; the dimensions are read from the tables' shapes and
+    the launch's plan from them and ``cluster`` (``loop_plan``)."""
     t = dict(tensors)
     dev = t["ln"].device
     K, W = t["lvw"].shape
@@ -479,8 +605,13 @@ def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order
     t["fin_lt"] = torch.empty((B, K), dtype=i32, device=dev)
     for name in ("fin_comp", "fin_def", "fin_neg"):
         t[name] = torch.empty((B, K), dtype=torch.bool, device=dev)
+    dims = dict(P=P, K=K, V=V, W=W, C=C, N=N, T=T, TPL=TPL, R=R,
+                O=t["offer_ok"].shape[1], PT=t["pod_ports"].shape[1],
+                D=t["pod_vols"].shape[1], G=G, F=F, CH=t["host_lane"].shape[0])
+    plan = loop_plan(dims, cluster)
+    CL = plan.cluster
     t["bin_ok"] = torch.zeros((B,), dtype=torch.bool, device=dev)
-    t["queue"] = torch.empty((2 * P,), dtype=i32, device=dev)
+    t["queue"] = torch.empty((CL, 2 * P), dtype=i32, device=dev)
     t["kind"] = torch.empty((P,), dtype=i32, device=dev)
     t["index"] = torch.empty((P,), dtype=i32, device=dev)
     if (kind0 is None) != (index0 is None):
@@ -493,21 +624,19 @@ def loop_args_from(tensors: dict, one_pass: bool, kind0=None, index0=None, order
         raise ValueError(f"order_scores must be f32[{P}] on {dev}")
     t["order_scores"] = None if order_scores is None else order_scores.to(torch.float32).contiguous()
     t["ok_t"] = torch.empty((C, T), dtype=torch.bool, device=dev)
-    t["cap_t"] = torch.empty((C, T), dtype=i32, device=dev)
-    t["chain_c"] = torch.empty((_CHAIN_CLAIM_ROWS, C), dtype=i32, device=dev)
-    t["chain_v"] = torch.empty((_CHAIN_LANE_ROWS, V), dtype=i32, device=dev)
+    t["cap_t"] = torch.empty((C, T), dtype=torch.uint8, device=dev)
+    t["chain_c"] = torch.empty((CL, _CHAIN_CLAIM_ROWS, C), dtype=i32, device=dev)
+    t["chain_v"] = torch.empty((CL, _CHAIN_LANE_ROWS, V), dtype=i32, device=dev)
     t["counters"] = torch.zeros((_N_COUNTERS,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
+    t["sections"] = torch.zeros((len(SECTIONS),), dtype=torch.int64, device=dev)
+    t["plan"] = torch.zeros((3,), dtype=i32, device=dev)
     if one_pass or wavefront < 0:
         wavefront = 0  # the one-pass mode has no wavefront, as in the JAX package
-    words = wave_scratch_words(wavefront, G, C, N, K, W, T)
+    words = wave_scratch_words(wavefront, G, C, N, K, W, T, CL)
     t["wave"] = torch.empty((words,), dtype=i32, device=dev) if words else None
     t["wave_hist"] = torch.zeros((wavefront + 2,), dtype=i32, device=dev) if wavefront else None
 
-    dims = dict(P=P, K=K, V=V, W=W, C=C, N=N, T=T, TPL=TPL, R=R,
-                O=t["offer_ok"].shape[1], PT=t["pod_ports"].shape[1],
-                D=t["pod_vols"].shape[1], G=G, F=F,
-                CH=t["host_lane"].shape[0], one_pass=int(one_pass), wavefront=int(wavefront))
     args = _FfdArgs(**{name: (t[name].data_ptr() if t[name] is not None else None) for name in _FFD_POINTERS},
-                    **dims)
+                    **dims, one_pass=int(one_pass), wavefront=int(wavefront), **plan._asdict())
     return t, args

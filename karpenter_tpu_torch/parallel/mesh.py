@@ -330,8 +330,8 @@ def shard_sweeps_plain(batch: SchedulingProblem, max_claims: int,
 def shard_sweeps(batch: SchedulingProblem, max_claims: int, wavefront: int = 0) -> list:
     """Program 13 (the JAX package's ``shard_sweeps_program``): every lane of
     the stacked batch runs its own requeue loop from a fresh state to its own
-    convergence. One ``ffd_loop`` launch in its lanes mode (one block per
-    lane) on CUDA tensors, ``shard_sweeps_plain`` on CPU tensors. One
+    convergence. One ``ffd_loop`` launch in its lanes mode (one cluster of
+    blocks per lane) on CUDA tensors, ``shard_sweeps_plain`` on CPU tensors. One
     FFDResult per lane, in lane order; ``wavefront`` as in
     ``shard_sweeps_plain``."""
     if batch.lane_valid.is_cuda:

@@ -8,7 +8,7 @@ provably independent sub-problems (shard/partition.py, the JAX package's
 union-find over constraint-signature classes), encodes each partition
 against ONE frozen vocabulary, pads them to a common bucket, and runs all of
 them as one launch of a lane grid (parallel/mesh.shard_sweeps: the
-``ffd_loop`` kernel with one block per partition, each running its own
+``ffd_loop`` kernel with one cluster per partition, each running its own
 requeue loop to its own convergence), then merges the per-partition claim
 landscapes back into one SolveResult behind the per-partition device gate
 (shard/solve.py).

@@ -21,7 +21,7 @@ The pipeline:
 3. **Pad to a common bucket** (ops/padding.py min_pods/min_nodes/min_runs
    floors) and stack, one lane per partition.
 4. **Dispatch one lane grid** (parallel/mesh.shard_sweeps, program 13: one
-   ``ffd_loop`` launch, one block per lane, each running its own requeue
+   ``ffd_loop`` launch, one cluster per lane, each running its own requeue
    loop to its own convergence). NO_SLOT in any lane re-dispatches every
    lane at the next claim bucket, exactly like the unsharded ladder. With
    ``KARPENTER_TPU_RELAX2`` on and a relax-applicable stack,

@@ -193,23 +193,31 @@ def test_library_path_tracks_sources_and_flags():
 
 def test_step_is_shared_by_the_loop_and_the_screen():
     """ffd_loop.cu and runs_screen.cu compile the one per-pod step of
-    step.cuh: neither defines its own. The loop's one-pass mode writes each
-    verdict row from the step's Shared::kind / index right after the call;
-    its sweeps modes write every committed chain member's row after the
-    narrow iteration of chain.cuh, which evaluates through the same step."""
+    step.cuh, a template over its scope (a cluster for the loop, a lone
+    block for the screen): neither defines its own. The loop's one-pass mode
+    writes each verdict row from the step's Shared::kind / index right after
+    the call (the cluster's leader block); its sweeps modes write every
+    committed chain member's row after the narrow iteration of chain.cuh,
+    which evaluates through the same step. No verdict row is written inside
+    step.cuh or chain.cuh."""
     step = (CSRC / "step.cuh").read_text()
-    assert "__device__ void step(const A& a, int p, Shared& s" in step
+    assert "__device__ void step(const S& sc, const A& a, int p, Shared& s" in step
+    assert "using BlockScope = Scope<false>;" in step and "using ClusterScope = Scope<true>;" in step
     assert "a.kind[" not in step and "a.index[" not in step
+    # one algorithm for both scopes: only the Scope itself branches on them
+    assert "S::cluster" not in step
     for source in ("ffd_loop.cu", "runs_screen.cu"):
         text = (CSRC / source).read_text()
         assert '#include "step.cuh"' in text
         assert "void step(" not in text and "bool bin_gate(" not in text and "void group_prep(" not in text
     loop = (CSRC / "ffd_loop.cu").read_text()
-    assert loop.count("step(a, p, s, s_gmin, s_boot, s_nothing, s_maxcap);\n      if (tid == 0) {\n"
+    assert loop.count("step(sc, a, p, s, red, m);\n      if (leader && tid == 0) {\n"
                       "        a.kind[p] = s.kind;\n        a.index[p] = s.index;") == 1
-    assert loop.count("narrow_iter(a, p, s, cs, s_gmin, s_boot, s_nothing, s_maxcap);") == 1
+    assert loop.count("narrow_iter(sc, a, p, s, cs, red, m);") == 1 and "ClusterScope sc;" in loop
+    screen = (CSRC / "runs_screen.cu").read_text()
+    assert screen.count("step(block_scope(a), a, ") == 2
     chain = (CSRC / "chain.cuh").read_text()
-    assert '#include "step.cuh"' in chain and "step_eval(a, p, s" in chain and "step_commit(a, p, s" in chain
+    assert '#include "step.cuh"' in chain and "step_eval(sc, a, p, s" in chain and "step_commit(sc, a, p, s" in chain
     assert "a.kind[" not in chain and "bool bin_gate(" not in chain
 
 
@@ -218,6 +226,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+@pytest.fixture(params=[1, 2, 4, 8])
+def cluster(request):
+    """Every ffd_loop launch of the test on clusters of this many blocks."""
+    with ffd_sweeps.forced_cluster(request.param):
+        yield request.param
 
 
 CORPORA = {
@@ -250,7 +265,7 @@ PR1_CORPORA = ("chain-2000", "chain-2001-overflow", "fuzz-6", "bounds-0", "topol
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", PR1_CORPORA)
-def test_ffd_loop_matches_plain(cuda, name):
+def test_ffd_loop_matches_plain(cuda, cluster, name):
     make, slots = CORPORA[name]
     prob = problem_to_torch(_encode(make(), slots), cuda)
     bf = problem_bounds_free(prob)
@@ -276,7 +291,7 @@ CHAIN_CORPORA = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CHAIN_CORPORA)
-def test_ffd_loop_chain_commits_match_plain(cuda, name):
+def test_ffd_loop_chain_commits_match_plain(cuda, cluster, name):
     """The chain commits of ffd_loop's sweeps modes against the plain loop:
     fresh, carried (seeded with all-FAIL verdict rows) and fused (the
     resident world's launch), each exact on kind/index, state and all four
@@ -299,6 +314,68 @@ def test_ffd_loop_chain_commits_match_plain(cuda, name):
     assert tuple(int(x) for x in fk.iters) == tuple(rp.iters)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chain-3003", "diverse-300"])
+def test_ffd_loop_streamed_tables_match_plain(cuda, cluster, name):
+    """The plan's other layout on a resident shape: each block reads its slice
+    of the type tables from device memory (what a shape whose slice does not
+    fit a block's shared memory runs), fresh and one-pass, against the plain
+    loops; the launch reports the layout it ran."""
+    make, slots = CHAIN_CORPORA[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    bf = problem_bounds_free(prob)
+    rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), bf)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for one_pass in (False, True):
+        t, args = ffd_sweeps.ffd_loop_args(prob, initial_state(prob, slots), one_pass)
+        assert args.resident == 1 and args.cluster == cluster
+        dims = {k: getattr(args, k) for k in ("G", "R", "C", "TPL", "K", "W", "O", "T")}
+        args.resident, args.smem = 0, ffd_sweeps.smem_bytes(dims, cluster, False)
+        kernels.launch("ffd_loop", args, stream)
+        torch.cuda.synchronize()
+        assert t["plan"].cpu().tolist() == [cluster, 0, args.tslice]
+        rk = ffd_sweeps.result_of(t, prob.num_lanes, one_pass)
+        if one_pass:
+            _assert_same(rk, solve_ffd_plain(prob, initial_state(prob, slots), bf))
+        else:
+            _assert_same(rk, rp)
+            assert tuple(int(x) for x in rk.iters) == tuple(rp.iters)
+
+
+@pytest.mark.cuda
+def test_ffd_loop_lanes_beyond_the_card(cuda):
+    """20 lanes of 8-block clusters (160 blocks on 132 SMs): the clusters the
+    card cannot hold at once wait for a running one; every lane equals the
+    plain loop."""
+    make, slots = CHAIN_CORPORA["diverse-300"]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    rp = ffd_sweeps.sweeps_plain(prob, initial_state(prob, slots), problem_bounds_free(prob))
+    with ffd_sweeps.forced_cluster(8):
+        ts, _buf, args = ffd_sweeps.ffd_loop_lanes_args([prob] * 20, [initial_state(prob, slots)] * 20)
+        assert args.L * args.cluster > ffd_sweeps.CARD_SMS
+        kernels.launch("ffd_loop_lanes", args, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    for t in ts:
+        assert t["plan"].cpu().tolist()[0] == 8
+        rk = ffd_sweeps.result_of(t, prob.num_lanes)
+        _assert_same(rk, rp)
+        assert tuple(int(x) for x in rk.iters) == tuple(rp.iters)
+
+
+@pytest.mark.cuda
+def test_refused_cluster_is_a_device_error(cuda):
+    """A cluster the card cannot schedule (32 blocks; an H100 holds 16 at
+    most) raises KernelDeviceError: the launch is neither counted nor run on
+    a smaller cluster or one block."""
+    make, slots = CORPORA["fuzz-6"]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    before = dict(kernels.LAUNCHES)
+    with ffd_sweeps.forced_cluster(32), pytest.raises(kernels.KernelDeviceError):
+        ffd_sweeps.solve_ffd_sweeps(prob, slots)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+
+
 # the wavefront (csrc/wave.cuh): tests/test_wavefront_parity.py's corpora, a
 # chain-heavy one and fuzz/topology corpora with existing nodes (node lanes)
 WAVE_CORPORA = {
@@ -319,7 +396,7 @@ def _assert_same_wave(rk, rp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [3, 1])
 @pytest.mark.parametrize("name", WAVE_CORPORA)
-def test_ffd_loop_wavefront_matches_plain(cuda, name, lanes):
+def test_ffd_loop_wavefront_matches_plain(cuda, cluster, name, lanes):
     """ffd_loop's wavefront against the plain loop in every sweeps mode:
     fresh, carried (all-FAIL seeds), scored (the committed weights), the
     lanes mode (two lanes) and the fused launch; kind/index, state, all
@@ -353,7 +430,7 @@ WIDE_CORPORA = {"wide-keys": W.wide_keys_workload, "wide-lanes": W.wide_lanes_wo
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", WIDE_CORPORA)
-def test_wide_shapes_match_plain(cuda, name):
+def test_wide_shapes_match_plain(cuda, cluster, name):
     """ffd_loop (sweeps and one pass) and runs_screen (stacked, one and three
     passes) at K > 32 and V > 2,048 against their plain versions."""
     prob = problem_to_torch(_encode(WIDE_CORPORA[name](), 32), cuda)
@@ -859,7 +936,7 @@ def test_lane_scores_matches_plain(cuda, name, head):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scores", ["lane", "ties"])
 @pytest.mark.parametrize("name", ["topology-3", "chain-2000", "homogeneous-48", "diverse-300-overflow"])
-def test_ffd_loop_order_scores_match_plain(cuda, name, scores):
+def test_ffd_loop_order_scores_match_plain(cuda, cluster, name, scores):
     """The scored requeue: ffd_loop fresh and carried (from phase 1) with
     order scores against the plain loop with the same scores; kind, index,
     state and all four IterCounts exact. ``ties`` scores take three values,
@@ -918,9 +995,9 @@ def _shard_batch(device, monkeypatch, name):
     entry = "shard_relax2_sweeps" if env.get("KARPENTER_TPU_RELAX2") else "shard_sweeps"
     orig = getattr(mesh, entry)
 
-    def recording(batch, max_claims, *args):
+    def recording(batch, max_claims, *args, **kwargs):
         seen["batch"], seen["C"] = batch, max_claims
-        return orig(batch, max_claims, *args)
+        return orig(batch, max_claims, *args, **kwargs)
 
     monkeypatch.setattr(mesh, entry, recording)
     solver = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=device)
@@ -943,7 +1020,7 @@ def _assert_bitwise(ra, rb):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["plain-0", "ports-1", "topology-0"])
-def test_ffd_loop_lanes_match_single_launches_and_plain(cuda, monkeypatch, name):
+def test_ffd_loop_lanes_match_single_launches_and_plain(cuda, cluster, monkeypatch, name):
     """Program 13: the lanes mode's launch equals one single-lane launch per
     lane bit for bit, and the plain loop per lane."""
     batch, C = _shard_batch(cuda, monkeypatch, name)
