@@ -50,6 +50,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      every state leaf's bits), with the split of its leader
      block's cycles by section (share and ms, csrc/step.cuh ``SEC_*``), and
      the sync probe times a block barrier and a cluster barrier of each size.
+     ``relax_place`` (one solve on a cluster of 16) is timed with its split
+     by stage, beside its lanes kernel at one lane, and again on clusters of
+     CLUSTER_SIZES blocks, each launch equal to the plain waterfill bit for
+     bit (verdicts, residue, stats, every state leaf's bits).
   3. the consolidation screen at full width: ``UnionScorer.score_subsets``
      over the bench cluster widened to 200 candidates (the 100 prefixes, the
      200 singletons and 20 seeded random subsets of 150-200 candidates: 320
@@ -63,7 +67,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      ``runs_screen`` must equal its plain version exactly (kind, index, every
      state leaf) in each mode on 50 lanes (every 10th, the last, the 20 large
      random subsets); then the kernel alone, through its wrapper, and its
-     plain version are timed.
+     plain version are timed, with the plan's layout and its slowest lane's
+     split by section; then each mode again in every layout and cluster
+     size of SCREEN_PLANS, each launch bit-equal to the plan's own.
   4. the steady-state churn cycle (the JAX package's device-world bench
      scenario): 10,000 ``default_pod_factory`` pods against 400 catalog
      types, 200 arrivals and 200 deletes a cycle, 24 cycles, through
@@ -86,7 +92,8 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      scheduled count equal to a solo ``TorchSolver`` solve, the kernel
      equal to ``batched_screen_plain`` (three passes) and
      ``batched_solve_plain`` (one) on every narrow lane and two wide ones,
-     then timed alone, wrapped and plain; the 16-tenant x 6-cycle scenario
+     then timed alone, wrapped and plain, and in every layout of
+     SCREEN_PLANS, bit-equal to the plan's own; the 16-tenant x 6-cycle scenario
      through ``SolveService`` (a warm pass, a measured pass with its launch
      counts, every ticket ok, the stacked ``runs_screen`` launched) beside
      the same problems through one ``SupervisedSolver``, every tenant's
@@ -116,7 +123,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      and phase-1 stats equal to the JAX package's (EXPECT_RELAX2,
      EXPECT_POLICY); then the convex mode and ``lane_scores`` alone, wrapped
      and plain at those shapes, each equal to plain, the homogeneous carried
-     repair and the scored fresh loop against their plain loops.
+     repair and the scored fresh loop against their plain loops; the convex
+     mode also on clusters of CLUSTER_SIZES blocks, each launch equal to
+     plain bit for bit, with its split by stage.
   8. the partitioned solve (the JAX package's ``KARPENTER_TPU_SHARD`` with
      ``_MIN_DEVICES=1`` and ``_PARTITIONS=8``, programs 13-14) and mesh
      health (program 18) at full width: 100,000 pods of the JAX bench's
@@ -134,7 +143,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      ``single-device`` (recarves 1) while the unsharded path serves, two
      forced probes (``probe`` kernel launches) bringing the card back, the
      next sharded solve serving; the ``probe`` kernel against its plain sum.
-     Then each lanes mode and the probe alone, wrapped and plain.
+     Then each lanes mode and the probe alone, wrapped and plain; the convex
+     lanes with the slowest lane's split by stage, the deepest lane alone
+     against the single launch, and the lanes launch on clusters of
+     CLUSTER_SIZES blocks a lane, every lane bit-equal to the default's.
   9. the wavefront at full width (``KARPENTER_TPU_WAVEFRONT=1``, W = 4):
      phase 2's batch through ``TorchSolver.solve`` fresh (``relax=False``)
      and carried (``relax=True``), each one ``ffd_loop_wavefront`` launch
@@ -159,7 +171,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      are computed, and for ``ffd_loop`` the latency floor of its barriers
      (block barriers x a block barrier's cost + cluster barriers x a cluster
      barrier's cost), its cluster, residency and times at each cluster size
-     with their section splits, and its fresh and one-pass modes. Bytes are those of the kernel's own
+     with their section splits, and its fresh and one-pass modes; for
+     ``relax_place`` (and its convex and lanes modes) the cluster and the
+     times by cluster size, for ``runs_screen`` the plan and the times by
+     layout. Bytes are those of the kernel's own
      arguments. The churn, serve, shard and provisioning phases' records
      ride in the same line; the wavefront mode is an entry of its own.
  12. the card's name and power limit; the last line is the device JSON.
@@ -195,6 +210,9 @@ MAIN_PODS = 10000  # the north-star batch
 # card schedules it); a lone solve on the main path runs on the planner's
 # SOLO_CLUSTER (16), the lanes of the partitioned solve on 8
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# runs_screen's layouts and cluster sizes (parallel/mesh.screen_plan), each
+# run in phases 3 and 5 beside the plan's own pick
+SCREEN_PLANS = (("block", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("cluster", 16))
 ONE_PASS_PODS = 2500  # the one-pass scan's depth in phase 2 (its plain loop is per pod)
 SOLVE_KERNELS = ("ffd_loop", "gate_counts", "relax_place")
 # phase 1's corpora whose requeue the scored ffd_loop sorts against its plain
@@ -330,6 +348,109 @@ PGD_COLUMN_OPS = 18
 
 def log(msg):
     print(msg, flush=True)
+
+
+def relax_bits(tag, rk, rp):
+    """Two phase-1 results equal bit for bit: verdicts, residue, the raw
+    stats words and every state leaf (float leaves as their bits)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.models.problem import numpy_fields
+
+    for key in ("kind", "index", "residue_active"):
+        if not torch.equal(getattr(rk, key).cpu(), getattr(rp, key).cpu()):
+            raise AssertionError(f"{tag}: relax_place {key} differs")
+    words = lambda st: [int(x.reshape(()).view(torch.int32)) if x.dtype == torch.float32 else int(x)  # noqa: E731
+                        for x in st]
+    if words(rk.stats) != words(rp.stats):
+        raise AssertionError(f"{tag}: relax_place stats {words(rk.stats)} != {words(rp.stats)}")
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for name in sp:
+        if not np.array_equal(sk[name].view(np.uint8), sp[name].view(np.uint8)):
+            raise AssertionError(f"{tag}: relax_place state {name} differs in its bits")
+
+
+def split_by(names, sections, ms):
+    """{section: ms} of one launch's (or lane's) section counters: each
+    section's share of the clock, times the launch's ms."""
+    cyc = [int(x) for x in sections.cpu()]
+    total = sum(cyc) or 1
+    return {n: round(c / total * ms, 4) for n, c in zip(names, cyc) if c}
+
+
+def relax_by_cluster(tag, prob, C, convex, ref, time_launches):
+    """relax_place at each cluster size of CLUSTER_SIZES (single launches):
+    timed, each launch held to ``ref`` (its plain version) bit for bit, and
+    its split by stage."""
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.ops import relax as RX
+    from karpenter_tpu_torch.ops import relax2 as R2
+    from karpenter_tpu_torch.ops.ffd_sweeps import forced_cluster
+
+    rows = {}
+    for cl in CLUSTER_SIZES:
+        try:
+            with forced_cluster(cl):
+                sets = [((t, st), a) for t, st, a in (RX.relax_place_args(prob, C, convex) for _ in range(3))]
+            ms, all_ms = time_launches("relax_place", [(t, a) for (t, _), a in sets])
+        except kernels.KernelDeviceError as e:
+            if cl <= 8:
+                raise
+            log(f"  {tag} at a cluster of {cl}: refused by the card ({e})")
+            continue
+        for (t, st), _ in sets:
+            if int(t["plan"][0]) != cl:
+                raise AssertionError(f"{tag}: a launch planned at {cl} ran on {int(t['plan'][0])} blocks")
+            rk = RX._relax_out(t, st, prob.num_lanes, convex)
+            relax_bits(f"{tag} cluster {cl}", rk if convex is None else rk._replace(stats=R2.stats_of(rk.stats)), ref)
+        rows[cl] = {"ms": ms, "sections": split_by(RX.SECTIONS, sets[0][0][0]["sections"], ms)}
+        log(f"  {tag} cluster {cl}: {ms:.4f} ms median of {[round(x, 4) for x in all_ms]}, == plain bit for bit; "
+            f"by stage {rows[cl]['sections']}")
+    return rows
+
+
+def screen_by_layout(tag, make_args, rk, V, time_launches):
+    """runs_screen in every layout and cluster size of SCREEN_PLANS: each
+    launch ran in the forced layout and equals ``rk`` (the default plan's
+    launch, itself held to the plain screen) bit for bit; timed, with its
+    slowest lane's split by section."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.models.problem import numpy_fields
+    from karpenter_tpu_torch.parallel import mesh as M
+
+    want = numpy_fields(rk.state)
+    rows = {}
+    for layout, cl in SCREEN_PLANS:
+        name = f"{layout}{cl}" if layout == "cluster" else layout
+        try:
+            with M.forced_screen_plan(layout, cl):
+                sets = [make_args() for _ in range(2)]
+            ms, all_ms = time_launches("runs_screen", sets)
+        except kernels.KernelDeviceError as e:
+            if layout != "cluster" or cl <= 8:
+                raise
+            log(f"  {tag} {name}: refused by the card ({e})")
+            continue
+        for t, _ in sets:
+            if t["plan"].cpu().tolist() != [M.SCREEN_LAYOUTS.index(layout), cl, 512]:
+                raise AssertionError(f"{tag} {name}: the launch ran as {t['plan'].cpu().tolist()}")
+            if not (torch.equal(t["kind"], rk.kind) and torch.equal(t["index"], rk.index)):
+                raise AssertionError(f"{tag} {name}: kind/index differ from the default layout's")
+            got = numpy_fields(M.state_back(t, V))
+            for key in want:
+                if not np.array_equal(got[key].view(np.uint8), want[key].view(np.uint8)):
+                    raise AssertionError(f"{tag} {name}: state {key} differs from the default layout's in its bits")
+        t = sets[0][0]
+        per = t["sections"].sum(dim=1)
+        slow = int(per.argmax())
+        rows[name] = {"ms": ms, "slowest_lane": slow, "sections": split_by(M.RS_SECTIONS, t["sections"][slow], ms)}
+        log(f"  {tag} {name}: {ms:.3f} ms median of {[round(x, 3) for x in all_ms]}, == the default layout bit for "
+            f"bit; the slowest lane ({slow}) by section {rows[name]['sections']}")
+    return rows
 
 
 def main() -> int:
@@ -833,9 +954,12 @@ def run(dev) -> int:
     stats = dict(zip(("eligible", "placed", "demoted", "claims"), (int(x) for x in rxk.stats)))
     if stats != solver.last_relax:
         raise AssertionError(f"main path: phase 1 {stats} != the solve's {solver.last_relax}")
-    log(f"  relax_place: kernel {rx_ms:.4f} ms median of {[round(t, 4) for t in rx_all]}; wrapper {rx_wrap_ms:.4f} ms; "
-        f"plain {rx_plain_ms:.1f} ms; kernel == plain; {stats}; work {rx_work}; the lanes kernel at one lane "
-        f"{rx_lane_ms:.4f} ms")
+    rx_plan = int(rx_sets[0][0]["plan"][0])
+    log(f"  relax_place: kernel {rx_ms:.4f} ms median of {[round(t, 4) for t in rx_all]} on a cluster of {rx_plan}; "
+        f"wrapper {rx_wrap_ms:.4f} ms; plain {rx_plain_ms:.1f} ms; kernel == plain; {stats}; work {rx_work}; "
+        f"the lanes kernel at one lane {rx_lane_ms:.4f} ms (the single launch {rx_ms:.4f} ms, "
+        f"{(rx_lane_ms / rx_ms - 1) * 100:+.1f}%); by stage {split_by(RX.SECTIONS, rx_sets[0][0]['sections'], rx_ms)}")
+    rx_by_cluster = relax_by_cluster("relax_place waterfill", prob, C, None, rxp, time_launches)
 
     # ffd_loop in each mode at the main path's shapes, each against its
     # plain loop on the same inputs: the carried repair pass (the main
@@ -1131,6 +1255,8 @@ def run(dev) -> int:
                 "library_ms": None,
                 "wrapper_ms": rx_wrap_ms,
                 "one_lane_lanes_ms": rx_lane_ms,
+                "cluster": rx_plan,
+                "by_cluster": rx_by_cluster,
                 "work": rx_work,
                 "stats": stats,
                 "launches_relax_off": launches_off["relax_place"],
@@ -1184,6 +1310,7 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         WORK_COUNTERS,
         ffd_loop_args,
         ffd_loop_lanes_args,
+        forced_cluster,
         launch_ffd_loop,
     )
     from karpenter_tpu_torch.parallel import mesh as M
@@ -1406,6 +1533,36 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         (lambda x: ((x[0], x[1]), x[2]))(RX.relax_place_lanes_args([probs2[deepest]], C2, cv)) for _ in range(5)])
     r2_single_ms, _ = time_launches("relax_place", [
         (t, a) for t, _, a in (RX.relax_place_args(probs2[deepest], C2, cv) for _ in range(5))])
+    r2_plan = int(r2_sets[0][0][0][0][0]["plan"][0])
+
+    def lanes_split(lanes_t, ms):
+        # the slowest lane's split (the launch waits for it)
+        per = [int(t["sections"].sum()) for t, _ in lanes_t]
+        return split_by(RX.SECTIONS, lanes_t[per.index(max(per))][0]["sections"], ms)
+
+    r2_sections = lanes_split(r2_sets[0][0][0], r2_ms)
+    # the convex lanes at each cluster size, each lane held bit for bit to the
+    # default launch's (itself held to single launches and to plain)
+    r2_by_cluster = {}
+    for cl in CLUSTER_SIZES:
+        try:
+            with forced_cluster(cl):
+                csets = [(lambda x: ((x[0], x[1]), x[2]))(RX.relax_place_lanes_args(probs2, C2, cv)) for _ in range(2)]
+            c_ms2, c_all2 = time_launches("relax2_place_lanes", csets)
+        except kernels.KernelDeviceError as e:
+            if cl <= 8:
+                raise
+            log(f"  relax_place convex lanes at a cluster of {cl}: refused by the card ({e})")
+            continue
+        for (lanes_t, _), _ in csets:
+            for b, ((t, st), p) in enumerate(zip(lanes_t, probs2)):
+                if int(t["plan"][0]) != cl:
+                    raise AssertionError(f"fleet relax2 lane {b}: planned at {cl}, ran on {int(t['plan'][0])}")
+                out = RX._relax_out(t, st, p.num_lanes, cv)
+                relax_bits(f"fleet relax2 lane {b} cluster {cl}", out._replace(stats=R2.stats_of(out.stats)), outs[b])
+        r2_by_cluster[cl] = {"ms": c_ms2, "sections": lanes_split(csets[0][0][0], c_ms2)}
+        log(f"  relax_place convex lanes cluster {cl}: {c_ms2:.4f} ms median of {[round(x, 4) for x in c_all2]}, "
+            f"every lane == the default launch bit for bit; the slowest lane by stage {r2_by_cluster[cl]['sections']}")
     c_sets = []
     for _ in range(2):
         al = [_lane_align(dataclasses.replace(p, pod_active=o.residue_active), o.state) for p, o in zip(probs2, outs)]
@@ -1427,8 +1584,10 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
     log(f"  fleet relax2 sharded: {res2.num_scheduled()}/{SHARD_PODS} scheduled, claims {len(res2.new_claims)}, "
         f"merged {info2['merged_claims']}, wall {wall2 * 1e3:.1f} ms {({k: round(v * 1e3, 1) for k, v in s2.last_timing.items()})}, "
         f"launches {launches2}; summed Relax2Stats {r2}")
-    log(f"  relax_place convex lanes: kernel {r2_ms:.4f} ms median of {[round(x, 4) for x in r2_all]}, wrapper "
-        f"{r2_wrap_ms:.4f} ms, lane {deepest} alone {r2_one_ms:.4f} ms (single-lane kernel {r2_single_ms:.4f} ms), "
+    log(f"  relax_place convex lanes: kernel {r2_ms:.4f} ms median of {[round(x, 4) for x in r2_all]} on clusters of "
+        f"{r2_plan}, wrapper {r2_wrap_ms:.4f} ms, lane {deepest} alone {r2_one_ms:.4f} ms in a one-lane launch (the "
+        f"single launch {r2_single_ms:.4f} ms, {(r2_one_ms / r2_single_ms - 1) * 100:+.1f}%); the slowest lane by stage "
+        f"{r2_sections}; "
         f"== single convex launches and their carried loops bit for bit, == plain on lanes "
         f"{list(SHARD_PLAIN_LANES)} (convex + carried {r2_plain_ms:.1f} ms); carried lanes launch {c_ms:.3f} ms; "
         f"work {r2_work}; bytes {r2_bytes}; bound {r2_bound:.5f} ms ({r2_by})")
@@ -1561,9 +1720,11 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
             "bound_by": r2_by,
             "library_ms": None,
             "wrapper_ms": r2_wrap_ms,
-            "mode": f"relax_place convex lanes, grid {len(probs2)}, then ffd_loop lanes seeded",
+            "mode": f"relax_place convex lanes, {len(probs2)} clusters of {r2_plan}, then ffd_loop lanes seeded",
             "deepest_lane_alone_ms": r2_one_ms,
             "deepest_lane_single_ms": r2_single_ms,
+            "cluster": r2_plan,
+            "by_cluster": r2_by_cluster,
             "work": r2_work,
             "carried_lanes_ms": c_ms,
         },
@@ -1736,6 +1897,7 @@ def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         wrap_ms, _ = time_ms(lambda: R2.relax2_place(prob, C), 5)
         yp, p_ms = plain_ms(lambda: R2.relax2_place_plain(prob, C))
         relax2_err = max(relax2_err, compare_relax2(f"relax2 {tag}", yk, yp))
+        by_cluster = relax_by_cluster(f"relax2 {tag}", prob, C, (iters, step), yp, time_launches)
         work = dict(zip(RX.WORK_COUNTERS, sets[0][0]["work"].cpu().tolist()))
         # the carried repair from the convex phase: IterCounts as the JAX
         # package's (checked in drive); kernel against plain on the bulk
@@ -1758,10 +1920,12 @@ def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         b_ms, b_by = bound(nbytes, int_ops, flt_ops)
         runs[tag] = dict(ms=k_ms, wrapper_ms=wrap_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, work=work,
                          bytes=nbytes, int_ops=int_ops, float_ops=flt_ops, launches=launches["relax2_place"],
-                         solve_ms=wall * 1e3, phase1=info, iters=expect["iters"])
-        log(f"  relax2 {tag}: kernel {k_ms:.4f} ms median of {[round(x, 4) for x in k_all]}, wrapper {wrap_ms:.4f} ms, "
-            f"plain {p_ms:.1f} ms, kernel == plain; work {work}; bytes {nbytes}, int ops {int_ops:.4g}, "
-            f"float ops {flt_ops:.4g}; bound {b_ms:.5f} ms ({b_by})")
+                         solve_ms=wall * 1e3, phase1=info, iters=expect["iters"], by_cluster=by_cluster,
+                         plan=int(sets[0][0]["plan"][0]), sections=split_by(RX.SECTIONS, sets[0][0]["sections"], k_ms))
+        log(f"  relax2 {tag}: kernel {k_ms:.4f} ms median of {[round(x, 4) for x in k_all]} on a cluster of "
+            f"{runs[tag]['plan']}, wrapper {wrap_ms:.4f} ms, plain {p_ms:.1f} ms, kernel == plain; work {work}; bytes "
+            f"{nbytes}, int ops {int_ops:.4g}, float ops {flt_ops:.4g}; bound {b_ms:.5f} ms ({b_by}); by stage "
+            f"{runs[tag]['sections']}")
 
     # the learned order: fresh (relax off) and carried from the waterfill
     pol = {}
@@ -2150,9 +2314,15 @@ def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
         flt_ops = work["type_tests"] * 2 * R
         b_ms, b_by = bound(nbytes, int_ops, flt_ops)
         lanes = variants.pod_active.shape[0]
+        plan = t0["plan"].cpu().tolist()
+        slow = int(t0["sections"].sum(dim=1).argmax())
+        sections = split_by(M.RS_SECTIONS, t0["sections"][slow], k_ms)
+        by_layout = screen_by_layout(f"runs_screen {mode}", make_args, rk, base.num_lanes, time_launches)
         out["per_mode"][mode] = dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, plain_lanes=len(checked), lanes=lanes,
                                      bound_ms=b_ms, bound_by=b_by, bytes=nbytes, int_ops=int_ops, flt_ops=flt_ops,
-                                     work=work)
+                                     work=work, plan=plan, sections=sections, by_layout=by_layout)
+        log(f"  runs_screen {mode}: {lanes} lanes, plan {plan} (layout, blocks a lane, threads a block), the slowest "
+            f"lane ({slow}) by section {sections}")
         log(f"  runs_screen {mode}: {lanes} lanes, kernel {k_ms:.3f} ms median of {[round(x, 3) for x in k_all]}, "
             f"wrapper {w_ms:.3f} ms, plain {p_ms:.1f} ms on {len(checked)} lanes; kernel == plain on those lanes "
             f"(max float err {out['max_abs_err']}); bytes {nbytes}, int ops {int_ops:.4g}, float ops {flt_ops:.4g}, "
@@ -2558,8 +2728,21 @@ def serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, main_wor
         b_ms, b_by = bound(nbytes, int_ops, flt_ops)
         dims = {f: getattr(a0, f) for f in ("B", "P", "C", "T", "V", "W", "K", "N", "G", "R", "TPL", "RN", "MR")}
         # the launch's dynamic shared memory, as runs_screen_launch sizes it
-        dims["dyn_smem_bytes"] = 4 * (5 * a0.G + a0.R + 4 * a0.MR + 2 * a0.N + 9 * a0.C + 4 * a0.TPL + 1)
+        smem_of = kernels.library("runs_screen").runs_screen_smem_bytes
+        smem_of.argtypes, smem_of.restype = [ctypes.c_void_p], ctypes.c_longlong
+        dims["dyn_smem_bytes"] = int(smem_of(ctypes.addressof(a0)))
+        t0 = sets[0][0]
+        plan = t0["plan"].cpu().tolist()
+        slow = int(t0["sections"].sum(dim=1).argmax())
+        sections = split_by(M.RS_SECTIONS, t0["sections"][slow], k_ms)
+        log(f"  stacked {tag}: plan {plan} (layout, blocks a lane, threads a block), the slowest lane ({slow}) by "
+            f"section {sections}")
+        by_layout = screen_by_layout(
+            f"stacked {tag}", lambda: M.stacked_screen_args(batch, C, max_run=max_run, passes=passes,
+                                                            with_topo=with_topo),
+            rk, t0["ln"].shape[-1], time_launches)
         shapes[tag] = dict(lanes=len(lanes), answered=len(answered), reasons=stats["reasons"], dims=dims,
+                           plan=plan, sections=sections, by_layout=by_layout,
                            wall_ms=wall * 1e3, split_ms=stats["timing"], ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
                            plain_lanes=len(checked), solve_ms=k1_ms, solve_plain_ms=p1_ms, bound_ms=b_ms,
                            bound_by=b_by, bytes=nbytes, int_ops=int_ops, flt_ops=flt_ops, work=work,

@@ -551,56 +551,13 @@ __global__ void __launch_bounds__(THREADS, 1) sync_probe_kernel(int n, int clust
   }
 }
 
-// Launch ``blocks`` blocks of ``kernel`` in clusters of ``cluster`` blocks
-// with ``smem`` bytes of dynamic shared memory each. Returns 0, or the CUDA
-// error the runtime gave (cleared, so that it does not surface at a later
-// launch): a cluster the card cannot schedule (too large, or too much shared
-// memory for its blocks to be resident together) is refused here and never
-// run in a smaller shape.
-template <class... Args>
-int cluster_launch(void (*kernel)(Args...), int blocks, int cluster, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  if (cluster < 1 || blocks % cluster != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess && cluster > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(kernel), &cfg);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int ffd_loop_args_size() { return (int)sizeof(FfdArgs); }
 
 // Launch one cluster on ``stream``; returns 0 or the CUDA error.
 extern "C" int ffd_loop_launch(const FfdArgs* args, void* stream) {
-  return cluster_launch(ffd_loop_kernel, args->cluster, args->cluster, (size_t)args->smem,
+  return cluster_launch(ffd_loop_kernel, args->cluster, args->cluster, THREADS, (size_t)args->smem,
                         static_cast<cudaStream_t>(stream), *args);
 }
 
@@ -611,13 +568,13 @@ extern "C" int ffd_loop_lanes_args_size() { return (int)sizeof(FfdLanesArgs); }
 // concurrent).
 extern "C" int ffd_loop_lanes_launch(const FfdLanesArgs* args, void* stream) {
   if (args->L <= 0) return 0;
-  return cluster_launch(ffd_loop_lanes_kernel, args->L * args->cluster, args->cluster, (size_t)args->smem,
+  return cluster_launch(ffd_loop_lanes_kernel, args->L * args->cluster, args->cluster, THREADS, (size_t)args->smem,
                         static_cast<cudaStream_t>(stream), args->lanes);
 }
 
 // ``n`` barriers alone: block barriers in one block (``cluster`` 0) or
 // cluster barriers in one cluster of ``cluster`` blocks.
 extern "C" int ffd_sync_probe_launch(int n, int cluster, void* stream) {
-  return cluster_launch(sync_probe_kernel, max(cluster, 1), max(cluster, 1), 0, static_cast<cudaStream_t>(stream),
+  return cluster_launch(sync_probe_kernel, max(cluster, 1), max(cluster, 1), THREADS, 0, static_cast<cudaStream_t>(stream),
                         n, cluster);
 }

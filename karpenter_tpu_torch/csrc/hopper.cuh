@@ -1,8 +1,9 @@
-// Hopper's cluster and bulk-copy primitives, as the FFD loop kernel
-// (ffd_loop.cu, through step.cuh) uses them: a solve runs on a thread-block
-// cluster whose blocks meet at cluster barriers, reach each other's shared
-// memory (distributed shared memory), and load their slices of the
-// instance-type tables with TMA bulk copies that complete on an mbarrier.
+// Hopper's cluster and bulk-copy primitives, as the kernels that run one
+// solve on a thread-block cluster use them (ffd_loop.cu through step.cuh,
+// relax_place.cu, runs_screen.cu): the blocks of a cluster meet at cluster
+// barriers, reach each other's shared memory (distributed shared memory),
+// and load their slices of the instance-type tables with TMA bulk copies that
+// complete on an mbarrier; cluster_launch starts a grid of clusters.
 // Every function is a thin wrapper, so that the rest of the kernel reads as
 // plain CUDA.
 #pragma once
@@ -68,6 +69,49 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Launch ``blocks`` blocks of ``threads`` threads of ``kernel`` in clusters
+// of ``cluster`` blocks with ``smem`` bytes of dynamic shared memory each.
+// Returns 0, or the CUDA error the runtime gave (cleared, so that it does not
+// surface at a later launch): a cluster the card cannot schedule (too large,
+// or too much shared memory for its blocks to be resident together) is
+// refused here and never run in a smaller shape.
+template <class... Args>
+int cluster_launch(void (*kernel)(Args...), int blocks, int cluster, int threads, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  if (cluster < 1 || blocks % cluster != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && cluster > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(kernel), &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace kt

@@ -17,35 +17,64 @@
 //
 // What bounds it on an H100: each lane is a dependent scan over runs (a
 // run's commit reads every earlier commit's state), so a lane's time is the
-// latency of its chain of commits; the lanes are independent. Per commit the
-// work is a bin gate per existing node, open claim and template, and the
-// claims x instance types and templates x types capacity tables (K x W
-// compat words, O offerings, R float divisions each). The shared problem
-// (~1 MB) and a lane's state (~40 KB at 256 nodes) are L2-resident.
+// latency of its chain of commits; the lanes are independent, and the
+// launch lasts as long as its slowest lane. Per commit the work is a bin
+// gate per existing node, open claim and template (a chain of dependent L2
+// loads each), the claims x instance types and templates x types capacity
+// tables (K x W compat words, O offerings, R float divisions each), and a
+// few scans over the run's rows and the claims. The shared problem (~1 MB)
+// and a lane's state (~40 KB at 256 nodes) are L2-resident.
 //
-// What the design does about it: one block per lane (the grid is the lane
-// axis, 320 blocks at 200 candidates, over 132 SMs), each walking its lane's
-// runs in order with its state in its own slot of device memory. The shared
-// problem is read by every block; the lane's variant arrays are indexed by
-// blockIdx.x. A block builds its lane's view of the argument struct in
-// shared memory (state pointers offset to its slot) and hands it to the
-// per-pod step of step.cuh, so RUN_SINGLE and every RUN_TOPO member run the
-// ffd_loop kernel's own step. In stacked mode the view also offsets every
-// problem table and the start state to the lane's own slot, so nothing is
-// shared but the dimensions: the serve layer's 8 tenant lanes fill 8 of the
-// 132 SMs, one block each. The analytic commit keeps the JAX package's
-// closed form: integer capacities (a float division and a floor), the
-// claims' water level by a 22-step bisection, the temporal ordinal -> bin
-// maps, one template claim opened at a time with its limit headroom burned
-// once per open; its warps split the nodes, claims, templates and types,
-// and one thread does the short integer prefix sums. The state update
+// What the design does about it: the wrapper's planner
+// (parallel/mesh.screen_plan) picks a layout per launch from the lanes, the
+// card's SMs and the lane's rows, and both layouts run one body, a template
+// over the scope of step.cuh:
+//   * LAYOUT_CLUSTER (few lanes of many rows: the serve layer's 8 x 1,250):
+//     one thread-block cluster of ``cluster`` blocks per lane, its per-pod
+//     steps in
+//     ClusterScope as ffd_loop's lanes mode runs them (the bins' gates and
+//     the topology groups over the cluster's warps, each block a slice of the
+//     instance types), and the closed-form commit's gates, type tables,
+//     records and row writes over the cluster's warps too. Its scalar
+//     decisions (the ordinals, the fill of the nodes, the claims' water
+//     level, the fresh claims) run alike in every block on its own copies in
+//     shared memory; a block's results that another reads meet at a cluster
+//     barrier, written into every block's copy or the leader's through
+//     distributed shared memory; the leader block alone writes the state
+//     rows of a fresh claim.
+//   * LAYOUT_BLOCK (many lanes: the screen's 320; and lanes of few rows,
+//     where a cluster barrier's ~0.6 us outweighs the cluster's warps): one
+//     512-thread block per lane, one resident on each SM (128 registers a
+//     thread fill its register file). A lane's time is its chain of gates,
+//     spread over its warps: smaller blocks three to an SM, all 320 lanes in
+//     one wave, were 1.5-2.3x slower (PERF.md section 5).
+// The blocks (clusters) take the lanes heaviest first (``order``, the
+// wrapper's sort by the lane's active rows), so that the lanes that set the
+// launch's length start in the first wave, and the light ones fill the SMs
+// around them. Each lane walks its runs in
+// order with its state in its own slot of device memory. The shared problem
+// is read by every lane; the lane's variant arrays are indexed by its lane.
+// A block builds its lane's view of the argument struct in shared memory
+// (state pointers offset to its slot) and hands it to the per-pod step of
+// step.cuh, so RUN_SINGLE and every RUN_TOPO member run the ffd_loop
+// kernel's own step. In stacked mode the view also offsets every problem
+// table and the start state to the lane's own slot, so nothing is shared but
+// the dimensions. The analytic commit keeps the JAX package's closed form:
+// integer capacities (a float division and a floor), the claims' water level
+// by a 22-step bisection (one warp, each step's sum a warp sum), the
+// temporal ordinal -> bin maps (block scans; the claims phase's (level,
+// claim) order built once per commit), one template claim opened at a time
+// with its limit headroom burned once per open. The state update
 // ``requests + take * pod_requests`` rounds once (a float64 multiply-add
 // rounded to float32), as the JAX package's CPU compilation contracts it.
+// Every layout computes the same commits in the same order, so each equals
+// the plain version bit for bit.
 //
 // Counted work (per lane, ``work``): the step's four counters (bin gates,
 // topology lanes, type tests, barriers; the analytic commit adds its own
 // gates and type tests to them), runs committed by mode, pods stepped and
-// pods committed in closed form.
+// pods committed in closed form; and each lane's leader clock by section
+// (``sections``).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false.
 #include "step.cuh"
@@ -189,17 +218,26 @@ struct RunsArgs {
   int* kind;                 // [B, P]
   int* index;                // [B, P]
   unsigned long long* work;  // [B, NWORK_RS]
+  long long* sections;       // [B, NRSEC]: each lane's clock64 cycles by section (RS_SEC_*)
+  const int* order;          // [B] the lane each cluster (block) runs, the heaviest first; null: in order
+  int* plan;                 // [3]: the layout, the blocks per lane and the threads per block it ran with
   // dims
   // stacked: 1 when every lane is a whole problem of its own (the batched
   // programs): the problem tables above and the init_* state then carry a
   // leading lane axis too, and the lane census pointers are null
-  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, B, RN, MR, passes, stacked;
+  // layout: LAYOUT_* of the launch's plan (parallel/mesh.screen_plan), and
+  // its blocks per lane (a cluster in LAYOUT_CLUSTER, else 1)
+  int P, K, V, W, C, N, T, TPL, R, O, PT, D, G, F, CH, B, RN, MR, passes, stacked, layout, cluster;
 };
 
 namespace {
 
 constexpr int RUN_SINGLE = 0;
 constexpr int RUN_ANALYTIC = 1;
+
+// the launch's layouts (parallel/mesh.py SCREEN_LAYOUTS)
+constexpr int LAYOUT_BLOCK = 0;
+constexpr int LAYOUT_CLUSTER = 1;
 
 // per-lane counters after the step's NWORK
 constexpr int RW_RUNS_SINGLE = 0;
@@ -212,13 +250,39 @@ constexpr int NWORK_RS = NWORK + NRWORK;
 
 __shared__ unsigned long long s_rwork[NRWORK];
 
-// the analytic commit's scalars
+// section counters (RunsArgs::sections): a lane's clock64 cycles by
+// section, read by thread 0 of each block right after the barrier that ends
+// one (the lane's leader block's are written out). rs_to(x) closes the
+// section in progress and opens x.
+constexpr int RS_SEC_INIT = 0;       // the lane's start state
+constexpr int RS_SEC_SINGLE = 1;     // RUN_SINGLE: the per-pod step
+constexpr int RS_SEC_A_NODES = 2;    // RUN_ANALYTIC: ordinals, the nodes' gates and capacities
+constexpr int RS_SEC_A_CLAIMS = 3;   // node takes, claims' gates and types, the water level, claim takes
+constexpr int RS_SEC_A_TPL = 4;      // fresh template claims
+constexpr int RS_SEC_A_ROWS = 5;     // each member's (kind, index)
+constexpr int RS_SEC_A_RECORD = 6;   // records, verdict rows
+constexpr int RS_SEC_TOPO = 7;       // RUN_TOPO
+constexpr int RS_SEC_PASS = 8;       // a pass's active set
+constexpr int NRSEC = 9;
+
+__shared__ long long s_rsec[NRSEC + 2];
+
+__device__ __forceinline__ void rs_to(int next) {
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    s_rsec[s_rsec[NRSEC + 1]] += now - s_rsec[NRSEC];
+    s_rsec[NRSEC] = now;
+    s_rsec[NRSEC + 1] = next;
+  }
+}
+
+// the analytic commit's scalars (every block its own copy)
 struct RunShared {
   int k, port_cap, placed_n, rem, m, rem2, placed_new, noslot;
   int c_rem, keep, free_slot, pick, take, host;
 };
 
-// dynamic shared memory, carved per launch
+// dynamic shared memory, carved per launch (every block its own)
 struct Dyn {
   int* gmin;  // [G] the step's group scratch
   int* boot;
@@ -228,6 +292,7 @@ struct Dyn {
   int* ord;     // [MR] temporal ordinal
   int* krow;    // [MR] this commit's kind per row
   int* irow;    // [MR] this commit's index per row
+  int* seq;     // [MR] the claims phase's claim by ordinal
   int* ncap;    // [N]
   int* ncum;    // [N]
   int* capc;    // [C]
@@ -235,8 +300,10 @@ struct Dyn {
   int* plvl;    // [C] claim levels before the commit
   int* newtake;  // [C]
   int* newcum;   // [C]
+  int* cumtake;  // [C] exclusive prefix of take
   int* tcompat;  // [TPL]
   int* qt;       // [TPL]
+  int* wsum;     // [32] a block scan's warp totals
   StepMem sm;    // the step's arrays: gmin, boot, nothing, maxcap and its own
   Red* red;      // the step's reduction targets
 };
@@ -277,26 +344,77 @@ __device__ __forceinline__ int upper_bound(const int* x, int n, int v) {
   return lo;
 }
 
-// temporal ordinal jj of the claims phase -> its claim: assignments sort by
-// (level before, claim index)
-__device__ int claim_of(const Dyn& d, int C, int jj) {
-  const int lev = water_level(d.plvl, d.take, C, jj);
-  int before = 0;
-  for (int c = 0; c < C; ++c) before += min(max(lev - d.plvl[c], 0), d.take[c]);
-  const int pos = jj - before;
-  int cum = 0;
-  for (int c = 0; c < C; ++c) {
-    const bool at = d.plvl[c] <= lev && lev < d.plvl[c] + d.take[c];
-    cum += at;
-    if (at && cum == pos + 1) return c;
+__device__ __forceinline__ int warp_incl_scan(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
   }
-  return 0;
+  return x;
+}
+
+// The prefix sums of x[0..n) into out (inclusive with ``incl``, else
+// exclusive) by the whole block, a contiguous chunk per thread; returns the
+// total. Integers: exact in any order. Called by every thread of the block.
+__device__ int block_scan(const int* x, int* out, int n, bool incl, int* wsum) {
+  constexpr int NT = THREADS, NW = NWARPS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = (n + NT - 1) / NT;
+  const int lo = min(n, tid * chunk), hi = min(n, lo + chunk);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += x[i];
+  const int in = warp_incl_scan(sum);
+  if (lane == 31) wsum[warp] = in;
+  block_sync();
+  if (warp == 0) {
+    const int v = warp_incl_scan(lane < NW ? wsum[lane] : 0);
+    if (lane < NW) wsum[lane] = v;
+  }
+  block_sync();
+  int run = in - sum + (warp > 0 ? wsum[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int xi = x[i];
+    out[i] = incl ? run + xi : run;
+    run += xi;
+  }
+  const int total = wsum[NW - 1];
+  block_sync();
+  return total;
+}
+
+// The same in one warp (the caller's): small axes (the claims).
+__device__ int warp_scan(const int* x, int* out, int n, bool incl) {
+  const int lane = threadIdx.x & 31;
+  int run = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const int v = i < n ? x[i] : 0;
+    const int in = warp_incl_scan(v);
+    if (i < n) out[i] = run + (incl ? in : in - v);
+    run += __shfl_sync(FULL, in, 31);
+  }
+  return run;
+}
+
+__device__ __forceinline__ int warp_reduce_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+// a value into every block's copy of a shared array (one thread)
+template <class S>
+__device__ __forceinline__ void to_all(const S& sc, int* arr, int i, int v) {
+  for (int r = 0; r < sc.size; ++r) sc.at(arr, r)[i] = v;
 }
 
 // the window rows this commit covers take its verdicts, except rows a
-// previous pass already placed (kind/index keep the first placement)
-__device__ void write_rows(const RunsArgs& a, const Dyn& d, int start, int len) {
-  for (int i = threadIdx.x; i < len; i += THREADS) {
+// previous pass already placed (kind/index keep the first placement); the
+// rows over the scope's threads
+template <class S>
+__device__ void write_rows(const S& sc, const RunsArgs& a, const Dyn& d, int start, int len) {
+  for (int i = sc.gthread(); i < len; i += sc.nthreads()) {
     const int row = start + i;
     if (a.kind[row] >= KIND_FAIL) {
       a.kind[row] = d.krow[i];
@@ -306,9 +424,11 @@ __device__ void write_rows(const RunsArgs& a, const Dyn& d, int start, int len) 
 }
 
 // RUN_ANALYTIC (ops/ffd_runs.make_run_commit): the whole run in closed form
-__device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Shared& s, RunShared& rs,
+template <class S>
+__device__ void analytic_commit(const S& sc, const RunsArgs& a, int p, int start, int len, RunShared& rs,
                                 const Dyn& d) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gw = sc.gwarp(), nw = sc.nwarps();
   const int K = a.K, W = a.W, N = a.N, C = a.C, T = a.T, TPL = a.TPL, R = a.R, MR = a.MR;
   const ITs its = its_of(a);
   const float* preq = a.pod_requests + (long)p * R;
@@ -319,12 +439,10 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
     d.irow[i] = -1;
   }
   block_sync();
+  // the active members' temporal ordinals
+  const int k = block_scan(d.act, d.ord, MR, true, d.wsum);
+  for (int i = tid; i < MR; i += THREADS) d.ord[i] -= 1;
   if (tid == 0) {
-    int k = 0;
-    for (int i = 0; i < MR; ++i) {
-      k += d.act[i];
-      d.ord[i] = k - 1;
-    }
     rs.k = k;
     bool ports = false;
     for (int q = 0; q < a.PT; ++q) ports |= a.pod_ports[(long)p * a.PT + q] != 0;
@@ -332,20 +450,21 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
     rs.placed_n = 0;
     rs.placed_new = 0;
     rs.noslot = 0;
-    s_rwork[RW_RUNS_ANALYTIC] += 1;
-    s_rwork[RW_PODS_ANALYTIC] += k;
+    if (sc.leader()) {
+      s_rwork[RW_RUNS_ANALYTIC] += 1;
+      s_rwork[RW_PODS_ANALYTIC] += k;
+    }
   }
   block_sync();
-  const int k = rs.k;
   if (k == 0) {  // no active member: nothing to commit
-    write_rows(a, d, start, len);
-    block_sync();
+    write_rows(sc, a, d, start, len);
+    sc.sync();
     return;
   }
 
   // -- 1. existing nodes: first-fit fill in node order
   if (N > 0) {
-    for (int n = warp; n < N; n += NWARPS) {
+    for (int n = gw; n < N; n += nw) {
       const Row base = row_at(a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, n, K, W);
       const bool ok = bin_gate(a, p, base, nullptr, n, nullptr, -1, -1, d.gmin, d.boot, d.nothing);
       if (lane == 0) {
@@ -365,20 +484,15 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
           const int rc = capacity(a.node_avail + (long)n * R, a.node_requests + (long)n * R, preq, R);
           cap = min(min(rc, vol), rs.port_cap);
         }
-        d.ncap[n] = cap;
+        to_all(sc, d.ncap, n, cap);
       }
     }
+    sc.sync();
+    const int cum = block_scan(d.ncap, d.ncum, N, true, d.wsum);
+    if (tid == 0) rs.placed_n = min(k, cum);
     block_sync();
-    if (tid == 0) {
-      int cum = 0;
-      for (int n = 0; n < N; ++n) {
-        cum += d.ncap[n];
-        d.ncum[n] = cum;
-      }
-      rs.placed_n = min(k, cum);
-    }
-    block_sync();
-    for (int n = warp; n < N; n += NWARPS) {
+    rs_to(RS_SEC_A_CLAIMS);
+    for (int n = gw; n < N; n += nw) {
       const int take = min(max(k - (d.ncum[n] - d.ncap[n]), 0), d.ncap[n]);
       for (int r = lane; r < R; r += 32)
         a.node_requests[(long)n * R + r] = add_times(a.node_requests[(long)n * R + r], take, preq[r]);
@@ -395,9 +509,12 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
   if (tid == 0) rs.rem = k - rs.placed_n;
 
   // -- 2. open claims: fewest-pods waterfill bounded by each claim's capacity
-  for (int c = warp; c < C; c += NWARPS) {
+  for (int c = gw; c < C; c += nw) {
     if (!a.claim_open[c]) {
-      if (lane == 0) d.capc[c] = 0;
+      if (lane == 0) {
+        to_all(sc, d.capc, c, 0);
+        to_all(sc, d.plvl, c, a.claim_npods[c]);
+      }
       continue;
     }
     const Row base = row_at(a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, c, K, W);
@@ -418,35 +535,44 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
     best = warp_max(best);
     if (lane == 0) {
       count_work(WORK_TYPE_TESTS, T);
-      d.capc[c] = ok ? min(best, rs.port_cap) : 0;
+      to_all(sc, d.capc, c, ok ? min(best, rs.port_cap) : 0);
+      to_all(sc, d.plvl, c, a.claim_npods[c]);
     }
   }
-  block_sync();
-  if (tid == 0) {
+  sc.sync();
+  if (warp == 0) {
+    // the claims' water level, their takes, and the leftover's +1 in claim
+    // order (one warp, every block on its own copies)
     int sum = 0;
-    for (int c = 0; c < C; ++c) {
-      sum += d.capc[c];
-      d.plvl[c] = a.claim_npods[c];
-    }
+    for (int c = lane; c < C; c += 32) sum += d.capc[c];
+    sum = warp_reduce_sum(sum);
     const int m = min(rs.rem, sum);
-    const int L = water_level(d.plvl, d.capc, C, m);
+    const int L = warp_water_level(d.plvl, d.capc, C, m);
     int taken = 0;
-    for (int c = 0; c < C; ++c) {
+    for (int c = lane; c < C; c += 32) {
       d.take[c] = min(max(L - d.plvl[c], 0), d.capc[c]);
       taken += d.take[c];
     }
+    taken = warp_reduce_sum(taken);
     const int leftover = m - taken;
-    int at_count = 0;
-    for (int c = 0; c < C; ++c) {
-      const bool at = d.plvl[c] + d.take[c] == L && d.take[c] < d.capc[c];
-      at_count += at;
-      if (at && at_count <= leftover) d.take[c] += 1;
+    int run = 0;
+    for (int base = 0; base < C; base += 32) {
+      const int c = base + lane;
+      const bool at = c < C && d.plvl[c] + d.take[c] == L && d.take[c] < d.capc[c];
+      const int in = warp_incl_scan(at);
+      if (at && run + in <= leftover) d.take[c] += 1;
+      run += __shfl_sync(FULL, in, 31);
     }
-    rs.m = m;
-    rs.rem2 = rs.rem - m;
+    __syncwarp();
+    warp_scan(d.take, d.cumtake, C, false);
+    if (lane == 0) {
+      rs.m = m;
+      rs.rem2 = rs.rem - m;
+    }
   }
+  for (int c = tid; c < C; c += THREADS) d.newtake[c] = 0;
   block_sync();
-  for (int c = warp; c < C; c += NWARPS) {
+  for (int c = gw; c < C; c += nw) {
     const int take = d.take[c];
     for (int r = lane; r < R; r += 32)
       a.claim_requests[(long)c * R + r] = add_times(a.claim_requests[(long)c * R + r], take, preq[r]);
@@ -457,17 +583,14 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
       for (int q = lane; q < a.PT; q += 32) a.claim_ports[(long)c * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
       if (lane == 0) a.claim_npods[c] += take;
     }
-    if (lane == 0) {
-      a.bin_ok[N + c] = take > 0;
-      d.newtake[c] = 0;
-    }
+    if (lane == 0) a.bin_ok[N + c] = take > 0;
   }
-  block_sync();
+  rs_to(RS_SEC_A_TPL);
 
   // -- 3. fresh template claims, one open at a time; the template-side
   // merges, compat and capacities depend only on the pod
   if (rs.rem2 > 0) {
-    for (int j = warp; j < TPL; j += NWARPS) {
+    for (int j = gw; j < TPL; j += nw) {
       const int b = N + C + j;
       const Row base = row_at(a.tpl_adm, a.tpl_comp, a.tpl_def, a.tpl_gt, a.tpl_lt, j, K, W);
       const bool ok = bin_gate(a, p, base, a.tpl_neg + (long)j * K, b, a.wellknown, -1, -1, d.gmin, d.boot,
@@ -482,26 +605,29 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
       }
       if (lane == 0) {
         count_work(WORK_TYPE_TESTS, T);
-        d.tcompat[j] = ok;
+        to_all(sc, d.tcompat, j, ok);
       }
     }
     if (tid == 0) {
       rs.c_rem = rs.rem2;
       rs.keep = 1;
     }
-    block_sync();
+    // the claims' rows, survivors and counts of stage 2 before the slot
+    // search below reads the claims
+    sc.sync();
     while (rs.keep && rs.c_rem > 0) {
-      for (int j = warp; j < TPL; j += NWARPS) {
+      for (int j = gw; j < TPL; j += nw) {
         int q = 0;
         for (int t = lane; t < T; t += 32)
           if (a.ok_t[(long)(C + j) * T + t] && within_limits(a, j, t)) q = max(q, a.cap_t[(long)(C + j) * T + t]);
         q = warp_max(q);
         if (lane == 0) {
           count_work(WORK_TYPE_TESTS, T);
-          d.qt[j] = q;
+          to_all(sc, d.qt, j, q);
         }
       }
-      block_sync();
+      for (int r = tid; r < R; r += THREADS) d.maxcap[r] = 0;  // bits of 0.0f
+      sc.sync();
       if (tid == 0) {
         int slot = C;
         for (int c = 0; c < C; ++c)
@@ -523,13 +649,12 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
         rs.noslot |= slot >= C;
         rs.host = a.CH > 0 ? a.host_lane[min(slot, a.CH - 1)] : -1;
       }
-      for (int r = tid; r < R; r += THREADS) d.maxcap[r] = 0;  // bits of 0.0f
       block_sync();
       if (rs.take > 0) {
         const int slot = rs.free_slot, j = rs.pick, take = rs.take, host = rs.host;
         // the committed claim row: the merged template row, with the slot's
-        // minted hostname pinned
-        if (warp == 0) {
+        // minted hostname pinned (the leader's first warp)
+        if (sc.leader() && warp == 0) {
           warp_copy_row(a, N + C + j, a.claim_adm, a.claim_comp, a.claim_def, a.claim_gt, a.claim_lt, slot);
           __syncwarp();
           if (host >= 0) {
@@ -542,49 +667,67 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
             }
           }
         }
-        // survivors with the first pod aboard, read before the headroom burns
-        for (int t = tid; t < T; t += THREADS) {
+        // survivors with the first pod aboard, read before the headroom
+        // burns; the largest capacity into the leader's copy
+        int* maxcap0 = sc.lead(d.maxcap);
+        for (int t = sc.gthread(); t < T; t += sc.nthreads()) {
           const bool surv = a.ok_t[(long)(C + j) * T + t] && within_limits(a, j, t);
           a.claim_it_ok[(long)slot * T + t] = surv && a.cap_t[(long)(C + j) * T + t] >= take;
           if (surv)  // caps are >= 0, so their float bits order as ints
-            for (int r = 0; r < R; ++r) atomicMax(&d.maxcap[r], __float_as_int(a.it_cap[(long)t * R + r]));
+            for (int r = 0; r < R; ++r) atomicMax(&maxcap0[r], __float_as_int(a.it_cap[(long)t * R + r]));
         }
-        for (int r = tid; r < R; r += THREADS)
-          a.claim_requests[(long)slot * R + r] = add_times(a.tpl_overhead[(long)j * R + r], take, preq[r]);
-        for (int q = tid; q < a.PT; q += THREADS)
-          a.claim_ports[(long)slot * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
-        block_sync();
+        if (sc.leader()) {
+          for (int r = tid; r < R; r += THREADS)
+            a.claim_requests[(long)slot * R + r] = add_times(a.tpl_overhead[(long)j * R + r], take, preq[r]);
+          for (int q = tid; q < a.PT; q += THREADS)
+            a.claim_ports[(long)slot * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
+        }
+        sc.sync();
         // opening a claim burns pessimistic headroom (subtractMax) and
         // registers its hostname lane for hostname topologies
-        for (int r = tid; r < R; r += THREADS)
-          a.remaining[(long)j * R + r] = a.remaining[(long)j * R + r] - __int_as_float(d.maxcap[r]);
-        if (host >= 0)
-          for (int g = tid; g < a.G; g += THREADS)
-            if (a.grp_key[g] == HOSTNAME_KEY) a.grp_registered[(long)g * a.V + host] = 1;
+        if (sc.leader()) {
+          for (int r = tid; r < R; r += THREADS)
+            a.remaining[(long)j * R + r] = a.remaining[(long)j * R + r] - __int_as_float(d.maxcap[r]);
+          if (host >= 0)
+            for (int g = tid; g < a.G; g += THREADS)
+              if (a.grp_key[g] == HOSTNAME_KEY) a.grp_registered[(long)g * a.V + host] = 1;
+          if (tid == 0) {
+            a.claim_open[slot] = 1;
+            a.claim_npods[slot] += take;
+            a.claim_tpl[slot] = j;
+            a.bin_ok[N + slot] = 1;
+          }
+        }
         if (tid == 0) {
-          a.claim_open[slot] = 1;
-          a.claim_npods[slot] += take;
-          a.claim_tpl[slot] = j;
-          a.bin_ok[N + slot] = 1;
           d.newtake[slot] += take;
           rs.c_rem -= take;
           rs.placed_new += take;
         }
-        block_sync();
+        sc.sync();
       }
     }
   }
-  if (tid == 0) {
-    int cum = 0;
-    for (int c = 0; c < C; ++c) {
-      cum += d.newtake[c];
-      d.newcum[c] = cum;
+  if (warp == 0) warp_scan(d.newtake, d.newcum, C, true);
+  block_sync();
+  rs_to(RS_SEC_A_ROWS);
+
+  // -- 4. each member's (kind, index), in temporal order (every block all
+  // rows, into its own copy); the claims phase's j-th assignment, in the
+  // order (level before, claim index), built once: assignment (c, level L)
+  // sits after every assignment at a lower level and every claim before c
+  // at L
+  const int placed_n = rs.placed_n, m = rs.m, placed_new = rs.placed_new;
+  for (int q = tid; q < m; q += THREADS) {
+    const int c = upper_bound(d.cumtake, C, q) - 1;
+    const int L = d.plvl[c] + (q - d.cumtake[c]);
+    int pos = 0;
+    for (int c2 = 0; c2 < C; ++c2) {
+      pos += min(max(L - d.plvl[c2], 0), d.take[c2]);
+      pos += c2 < c && d.plvl[c2] <= L && L < d.plvl[c2] + d.take[c2];
     }
+    d.seq[pos] = c;
   }
   block_sync();
-
-  // -- 4. each member's (kind, index), in temporal order
-  const int placed_n = rs.placed_n, m = rs.m, placed_new = rs.placed_new;
   for (int i = tid; i < len; i += THREADS) {
     if (!d.act[i]) continue;
     const int o = d.ord[i];
@@ -594,7 +737,7 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
       index = upper_bound(d.ncum, N, o);
     } else if (o < placed_n + m) {
       kind = KIND_CLAIM;
-      index = claim_of(d, C, o - placed_n);
+      index = d.seq[o - placed_n];
     } else if (o < placed_n + m + placed_new) {
       const int nc = o - placed_n - m;
       index = upper_bound(d.newcum, C, nc);
@@ -608,13 +751,16 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
     d.krow[i] = kind;
     d.irow[i] = index;
   }
-  block_sync();
+  // the bins' final rows (every block's takes and fresh claims) before the
+  // records read them
+  sc.sync();
+  rs_to(RS_SEC_A_RECORD);
 
   // -- 5. Topology.Record of every placed member against its bin's final
   // row; members are topology-blind, so their records simply sum
   if (a.G > 0) {
     // polarity of the final rows of the bins that took members
-    for (int x = tid; x < (N + C) * K; x += THREADS) {
+    for (int x = sc.gthread(); x < (N + C) * K; x += sc.nthreads()) {
       const int b = x / K, kk = x % K;
       if (!a.bin_ok[b]) continue;
       const Row row = b < N ? row_at(a.node_adm, a.node_comp, a.node_def, a.node_gt, a.node_lt, b, K, W)
@@ -622,9 +768,9 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
       a.fin_neg[(long)b * K + kk] = negative_polarity_key(row.adm + kk * W, row.comp[kk], row.gt[kk], row.lt[kk],
                                                           a.lvw + kk * W, a.ln + (long)kk * a.V, W);
     }
-    block_sync();
+    sc.sync();
     const TopoGroups tg = topo_of(a);
-    for (int g = warp; g < a.G; g += NWARPS) {
+    for (int g = gw; g < a.G; g += nw) {
       const int kg = a.grp_key[g];
       for (int i = 0; i < len; ++i) {
         if (d.krow[i] >= KIND_FAIL || !a.pod_selects[(long)(start + i) * a.G + g]) continue;
@@ -641,58 +787,70 @@ __device__ void analytic_commit(const RunsArgs& a, int p, int start, int len, Sh
           }
       }
     }
-    block_sync();
   }
-  write_rows(a, d, start, len);
-  block_sync();
+  write_rows(sc, a, d, start, len);
+  sc.sync();
 }
 
 // RUN_TOPO (ops/topo_runs.make_topo_run_commit): each active member through
 // the step, nodes gated by their capacity at the run's start
-__device__ void topo_commit(const RunsArgs& a, int p, int start, int len, Shared& s, const Dyn& d) {
+template <class S>
+__device__ void topo_commit(const S& sc, const RunsArgs& a, int p, int start, int len, Shared& s, const Dyn& d) {
   const int tid = threadIdx.x, N = a.N, R = a.R;
   const float* preq = a.pod_requests + (long)p * R;
   for (int i = tid; i < a.MR; i += THREADS) {
     d.krow[i] = KIND_FAIL;
     d.irow[i] = -1;
   }
-  for (int n = tid; n < N; n += THREADS) {
+  for (int n = sc.gthread(); n < N; n += sc.nthreads()) {
     a.node_cap[n] = capacity(a.node_avail + (long)n * R, a.node_requests + (long)n * R, preq, R);
     a.node_taken[n] = 0;
   }
-  if (tid == 0) s_rwork[RW_RUNS_TOPO] += 1;
-  block_sync();
+  if (sc.leader() && tid == 0) s_rwork[RW_RUNS_TOPO] += 1;
+  sc.sync();
   TopoRun tr{0, a.node_cap, a.node_taken};
   for (int i = 0; i < min(len, a.MR); ++i) {
     if (!a.pod_active[start + i]) continue;
     tr.psel = start + i;
-    step(block_scope(a), a, p, s, *d.red, d.sm, &tr);
+    step(sc, a, p, s, *d.red, d.sm, &tr);
     if (tid == 0) {
       d.krow[i] = s.kind;
       d.irow[i] = s.index;
-      s_rwork[RW_PODS_STEPPED] += 1;
+      if (sc.leader()) s_rwork[RW_PODS_STEPPED] += 1;
     }
-    block_sync();
+    sc.sync();
   }
   // the members' node requests, counts and ports, in bulk
-  for (int x = tid; x < N * R; x += THREADS) {
+  for (int x = sc.gthread(); x < N * R; x += sc.nthreads()) {
     const int n = x / R, r = x % R;
     a.node_requests[x] = add_times(a.node_requests[x], a.node_taken[n], preq[r]);
   }
-  for (int n = tid; n < N; n += THREADS) {
+  for (int n = sc.gthread(); n < N; n += sc.nthreads()) {
     const int taken = a.node_taken[n];
     a.node_npods[n] += taken;
     if (taken > 0)
       for (int q = 0; q < a.PT; ++q) a.node_ports[(long)n * a.PT + q] |= a.pod_ports[(long)p * a.PT + q];
   }
   block_sync();
-  write_rows(a, d, start, len);
-  block_sync();
+  write_rows(sc, a, d, start, len);
+  sc.sync();
 }
 
-template <class T>
-__device__ __forceinline__ void copy_n(T* dst, const T* src, long n) {
-  for (long i = threadIdx.x; i < n; i += THREADS) dst[i] = src[i];
+// ``n`` elements from src to dst over the scope's threads, 16 bytes a
+// thread where both are aligned
+template <class S, class T>
+__device__ __forceinline__ void copy_n(const S& sc, T* dst, const T* src, long n) {
+  const long bytes = n * (long)sizeof(T);
+  char* db = reinterpret_cast<char*>(dst);
+  const char* sb = reinterpret_cast<const char*>(src);
+  long i = sc.gthread(), head = 0;
+  if (((reinterpret_cast<uintptr_t>(db) | reinterpret_cast<uintptr_t>(sb)) & 15) == 0) {
+    head = bytes / 16 * 16;
+#pragma unroll 4
+    for (long x = i; x < bytes / 16; x += sc.nthreads())
+      reinterpret_cast<int4*>(db)[x] = reinterpret_cast<const int4*>(sb)[x];
+  }
+  for (long x = head + i; x < bytes; x += sc.nthreads()) db[x] = sb[x];
 }
 
 // the argument struct as lane ``b`` sees it: per-lane pointers at its slot
@@ -743,6 +901,7 @@ __device__ void lane_view(const RunsArgs& g, RunsArgs& a, int b) {
   a.kind += b * P;
   a.index += b * P;
   a.work += b * NWORK_RS;
+  a.sections += b * NRSEC;
   if (!g.stacked) return;
   // stacked mode: lane b's own problem tables and start state, each leaf
   // advanced by b x its per-lane element count (mirrored by lane_elems in
@@ -832,17 +991,29 @@ __device__ void lane_view(const RunsArgs& g, RunsArgs& a, int b) {
 #undef RS_LANE
 }
 
-__global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) {
+// One lane (the cluster's or block's ``lane``) walks its runs, every pass.
+template <class S>
+__device__ __forceinline__ void lane_body(const RunsArgs& args, S sc) {
   __shared__ RunsArgs a;
   __shared__ Shared s;
   __shared__ RunShared rs;
   __shared__ Red red;
   extern __shared__ int dyn[];
   const int tid = threadIdx.x;
-  if (tid == 0) lane_view(args, a, blockIdx.x);
+  const int slot = (int)blockIdx.x / sc.size;
+  const int lane_id = args.order ? args.order[slot] : slot;
+  if (tid == 0) lane_view(args, a, lane_id);
   if (tid < NWORK) s_work[tid] = 0;
   if (tid < NRWORK) s_rwork[tid] = 0;
+  if (tid < NRSEC) s_rsec[tid] = 0;
+  if (tid == 0) {
+    s_rsec[NRSEC] = clock64();
+    s_rsec[NRSEC + 1] = RS_SEC_INIT;
+  }
+  sec_start();  // the step's own section marks (a cluster's)
   __syncthreads();
+  // the plan and the launch disagree: a plan made for another block shape
+  if (args.cluster != sc.size || (int)blockDim.x != THREADS) __trap();
   const int G = a.G, R = a.R, MR = a.MR, N = a.N, C = a.C, TPL = a.TPL;
   Dyn d;
   int* x = dyn;
@@ -854,6 +1025,7 @@ __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) 
   d.ord = x; x += MR;
   d.krow = x; x += MR;
   d.irow = x; x += MR;
+  d.seq = x; x += MR;
   d.ncap = x; x += N;
   d.ncum = x; x += N;
   d.capc = x; x += C;
@@ -861,8 +1033,10 @@ __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) 
   d.plvl = x; x += C;
   d.newtake = x; x += C;
   d.newcum = x; x += C;
+  d.cumtake = x; x += C;
   d.tcompat = x; x += TPL;
   d.qt = x; x += TPL;
+  d.wsum = x; x += 32;
   d.sm = group_mem(d.gmin, d.boot, d.nothing, d.maxcap);
   d.sm.mg = x; x += G;
   d.sm.mk = x; x += G;
@@ -874,92 +1048,149 @@ __global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) 
   d.sm.tfs = x; x += TPL;
   d.sm.nm = x;
   d.red = &red;
+  // every block owns a slice of the types; the tables stay in device memory
+  sc.ts.tstride = a.T;
+  sc.ts.its = its_of(a);
+  sc.ts.cap = a.it_cap;
+  sc.ts.tpl_ok = a.tpl_it_ok;
+  sc.ts.cio = a.claim_it_ok;
+  sc.ts.ok_t = nullptr;
+  sc.ts.cap_t = nullptr;
+  const int tslice = (a.T + sc.size - 1) / sc.size;
+  sc.ts.t0 = min(a.T, sc.rank * tslice);
+  sc.ts.t1 = min(a.T, sc.ts.t0 + tslice);
+  const bool leader = sc.leader();
 
   // the lane's state: a copy of the start state, with the lane's census in
-  // full mode
+  // full mode (over the scope's threads)
   const long K = a.K, W = a.W;
-  copy_n(a.claim_adm, a.init_claim_adm, C * K * W);
-  copy_n(a.claim_comp, a.init_claim_comp, C * K);
-  copy_n(a.claim_def, a.init_claim_def, C * K);
-  copy_n(a.claim_gt, a.init_claim_gt, C * K);
-  copy_n(a.claim_lt, a.init_claim_lt, C * K);
-  copy_n(a.claim_requests, a.init_claim_requests, (long)C * R);
-  copy_n(a.claim_it_ok, a.init_claim_it_ok, (long)C * a.T);
-  copy_n(a.claim_open, a.init_claim_open, (long)C);
-  copy_n(a.claim_npods, a.init_claim_npods, (long)C);
-  copy_n(a.claim_tpl, a.init_claim_tpl, (long)C);
-  copy_n(a.claim_ports, a.init_claim_ports, (long)C * a.PT);
-  copy_n(a.node_adm, a.init_node_adm, N * K * W);
-  copy_n(a.node_comp, a.init_node_comp, N * K);
-  copy_n(a.node_def, a.init_node_def, N * K);
-  copy_n(a.node_gt, a.init_node_gt, N * K);
-  copy_n(a.node_lt, a.init_node_lt, N * K);
-  copy_n(a.node_requests, a.init_node_requests, (long)N * R);
-  copy_n(a.node_npods, a.init_node_npods, (long)N);
-  copy_n(a.node_ports, a.init_node_ports, (long)N * a.PT);
-  copy_n(a.node_vol_used, a.init_node_vol_used, (long)N * a.D);
-  copy_n(a.remaining, a.init_remaining, (long)TPL * R);
-  copy_n(a.grp_counts, a.lane_grp_counts0 ? a.lane_grp_counts0 : a.init_grp_counts, (long)G * a.V);
-  copy_n(a.grp_registered, a.lane_grp_registered0 ? a.lane_grp_registered0 : a.init_grp_registered, (long)G * a.V);
-  for (int p = tid; p < a.P; p += THREADS) {
+  copy_n(sc, a.claim_adm, a.init_claim_adm, C * K * W);
+  copy_n(sc, a.claim_comp, a.init_claim_comp, C * K);
+  copy_n(sc, a.claim_def, a.init_claim_def, C * K);
+  copy_n(sc, a.claim_gt, a.init_claim_gt, C * K);
+  copy_n(sc, a.claim_lt, a.init_claim_lt, C * K);
+  copy_n(sc, a.claim_requests, a.init_claim_requests, (long)C * R);
+  copy_n(sc, a.claim_it_ok, a.init_claim_it_ok, (long)C * a.T);
+  copy_n(sc, a.claim_open, a.init_claim_open, (long)C);
+  copy_n(sc, a.claim_npods, a.init_claim_npods, (long)C);
+  copy_n(sc, a.claim_tpl, a.init_claim_tpl, (long)C);
+  copy_n(sc, a.claim_ports, a.init_claim_ports, (long)C * a.PT);
+  copy_n(sc, a.node_adm, a.init_node_adm, N * K * W);
+  copy_n(sc, a.node_comp, a.init_node_comp, N * K);
+  copy_n(sc, a.node_def, a.init_node_def, N * K);
+  copy_n(sc, a.node_gt, a.init_node_gt, N * K);
+  copy_n(sc, a.node_lt, a.init_node_lt, N * K);
+  copy_n(sc, a.node_requests, a.init_node_requests, (long)N * R);
+  copy_n(sc, a.node_npods, a.init_node_npods, (long)N);
+  copy_n(sc, a.node_ports, a.init_node_ports, (long)N * a.PT);
+  copy_n(sc, a.node_vol_used, a.init_node_vol_used, (long)N * a.D);
+  copy_n(sc, a.remaining, a.init_remaining, (long)TPL * R);
+  copy_n(sc, a.grp_counts, a.lane_grp_counts0 ? a.lane_grp_counts0 : a.init_grp_counts, (long)G * a.V);
+  copy_n(sc, a.grp_registered, a.lane_grp_registered0 ? a.lane_grp_registered0 : a.init_grp_registered, (long)G * a.V);
+  for (int p = sc.gthread(); p < a.P; p += sc.nthreads()) {
     a.kind[p] = KIND_FAIL;
     a.index[p] = -1;
   }
-  block_sync();
+  if (leader && tid == 0 && lane_id == 0) {
+    args.plan[0] = args.layout;
+    args.plan[1] = sc.size;
+    args.plan[2] = THREADS;
+  }
+  // every block of the cluster is running before any reaches another's
+  // shared memory, and the start state is in place
+  sc.sync();
 
   for (int pass = 0; pass < a.passes; ++pass) {
     for (int r = 0; r < a.RN; ++r) {
       const int start = a.run_start[r], len = a.run_len[r], mode = a.run_mode[r];
       if (len <= 0) continue;  // a padding or trimmed-out run: a no-op
+      rs_to(mode == RUN_SINGLE ? RS_SEC_SINGLE : mode == RUN_ANALYTIC ? RS_SEC_A_NODES : RS_SEC_TOPO);
       if (mode == RUN_SINGLE) {
         // an inactive row fails without touching state
         if (a.pod_active[start]) {
-          step(block_scope(a), a, start, s, *d.red, d.sm);
-          if (tid == 0) {
+          step(sc, a, start, s, *d.red, d.sm);
+          if (leader && tid == 0) {
             a.kind[start] = s.kind;
             a.index[start] = s.index;
             s_rwork[RW_PODS_STEPPED] += 1;
           }
-        } else if (tid == 0 && a.kind[start] >= KIND_FAIL) {
+        } else if (leader && tid == 0 && a.kind[start] >= KIND_FAIL) {
           a.kind[start] = KIND_FAIL;
           a.index[start] = -1;
         }
-        if (tid == 0) s_rwork[RW_RUNS_SINGLE] += 1;
-        block_sync();
+        if (leader && tid == 0) s_rwork[RW_RUNS_SINGLE] += 1;
+        sc.sync();
       } else if (mode == RUN_ANALYTIC) {
-        analytic_commit(a, start, start, len, s, rs, d);
+        analytic_commit(sc, a, start, start, len, rs, d);
       } else {
-        topo_commit(a, start, start, len, s, d);
+        topo_commit(sc, a, start, start, len, s, d);
       }
     }
+    rs_to(RS_SEC_PASS);
     if (pass + 1 < a.passes) {
       // placed rows leave the next pass's active set
-      for (int p = tid; p < a.P; p += THREADS)
+      for (int p = sc.gthread(); p < a.P; p += sc.nthreads())
         if (a.kind[p] < KIND_FAIL) a.pod_active[p] = 0;
-      block_sync();
+      sc.sync();
     }
   }
+  // the work of every block into the leader's counters (the barrier counts
+  // are the leader's own), then the leader writes them out; no block leaves
+  // while another may still reach its shared memory
   __syncthreads();
-  if (tid < NWORK) a.work[tid] = s_work[tid];
-  if (tid < NRWORK) a.work[NWORK + tid] = s_rwork[tid];
+  rs_to(RS_SEC_PASS);
+  if (sc.size > 1) {
+    if (!leader && tid <= WORK_TYPE_TESTS) atomicAdd(sc.lead(&s_work[tid]), s_work[tid]);
+    cluster_barrier();
+  }
+  if (leader) {
+    if (tid < NWORK) a.work[tid] = s_work[tid];
+    if (tid < NRWORK) a.work[NWORK + tid] = s_rwork[tid];
+    if (tid < NRSEC) a.sections[tid] = s_rsec[tid];
+  }
+}
+
+// LAYOUT_BLOCK: one 512-thread block per lane
+__global__ void __launch_bounds__(THREADS, 1) runs_screen_kernel(RunsArgs args) {
+  BlockScope sc{};
+  sc.rank = 0;
+  sc.size = 1;
+  lane_body(args, sc);
+}
+
+// LAYOUT_CLUSTER: one cluster of args.cluster 512-thread blocks per lane
+__global__ void __launch_bounds__(THREADS, 1) runs_screen_cluster_kernel(RunsArgs args) {
+  ClusterScope sc{};
+  sc.rank = cluster_rank();
+  sc.size = cluster_blocks();
+  lane_body(args, sc);
 }
 
 }  // namespace
 
 extern "C" int runs_screen_args_size() { return (int)sizeof(RunsArgs); }
 
-// Launch on ``stream`` (one block per lane); returns cudaGetLastError().
+// Dynamic shared memory of one block for these dims (Dyn).
+extern "C" long long runs_screen_smem_bytes(const RunsArgs* args) {
+  const RunsArgs& a = *args;
+  return (long long)(5 * a.G + a.R + 5 * a.MR + 2 * a.N + 10 * a.C + 4 * a.TPL + 32 + 1) * sizeof(int);
+}
+
+// Launch on ``stream`` in the layout of args->layout; returns 0 or the
+// CUDA error (a layout the card cannot hold is refused, never run in
+// another shape).
 extern "C" int runs_screen_launch(const RunsArgs* args, void* stream) {
   const RunsArgs& a = *args;
-  const size_t smem = (size_t)(5 * a.G + a.R + 4 * a.MR + 2 * a.N + 9 * a.C + 4 * a.TPL + 1) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(runs_screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    // above the card's opt-in limit: the caller raises KernelDeviceError;
-    // clear the error so that it does not surface at a later launch
-    if (e != cudaSuccess) return (int)cudaGetLastError();
-  }
+  const size_t smem = (size_t)runs_screen_smem_bytes(args);
   if (a.B <= 0) return 0;
-  runs_screen_kernel<<<a.B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.layout == LAYOUT_CLUSTER)
+    return cluster_launch(runs_screen_cluster_kernel, a.B * a.cluster, a.cluster, THREADS, smem, st, a);
+  if (a.cluster != 1 || a.layout != LAYOUT_BLOCK) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(runs_screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // above the card's opt-in limit: the caller raises KernelDeviceError;
+  // clear the error so that it does not surface at a later launch
+  if (e != cudaSuccess) return (int)cudaGetLastError();
+  runs_screen_kernel<<<a.B, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

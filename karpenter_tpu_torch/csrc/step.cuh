@@ -11,9 +11,10 @@
 // Shared::index after the call.
 //
 // They are templates over a Scope too: who runs the step. ``BlockScope`` is
-// one block alone (the screen's lanes, the explain pass): every barrier is a
-// block barrier and the block owns every instance type. ``ClusterScope`` is
-// one block of a thread-block cluster that runs one solve (ffd_loop): the
+// one block alone (the screen's lanes in its block layout, the explain
+// pass): every barrier is a block barrier and the block owns every instance
+// type. ``ClusterScope`` is one block of a thread-block cluster that runs one
+// solve (ffd_loop; the screen's lanes in its cluster layout): the
 // bins' gates and the topology groups go to the cluster's warps round-robin,
 // each block owns a slice of the instance types (its TypeSlice, resident in
 // its shared memory or read from device memory), the cross-block results
@@ -165,6 +166,8 @@ struct Scope {
   __device__ __forceinline__ bool leader() const { return rank == 0; }
   __device__ __forceinline__ int gwarp() const { return rank * NWARPS + (int)(threadIdx.x >> 5); }
   __device__ __forceinline__ int nwarps() const { return size * NWARPS; }
+  __device__ __forceinline__ int gthread() const { return rank * THREADS + (int)threadIdx.x; }
+  __device__ __forceinline__ int nthreads() const { return size * THREADS; }
   // the copy of a shared-memory object in block r / in the leader
   template <class T>
   __device__ __forceinline__ T* at(T* p, int r) const {
@@ -194,24 +197,6 @@ struct Scope {
 };
 using BlockScope = Scope<false>;
 using ClusterScope = Scope<true>;
-
-// A lone block owning every instance type of ``a``'s tables.
-template <class A>
-__device__ __forceinline__ BlockScope block_scope(const A& a) {
-  BlockScope sc;
-  sc.rank = 0;
-  sc.size = 1;
-  sc.ts.t0 = 0;
-  sc.ts.t1 = a.T;
-  sc.ts.tstride = a.T;
-  sc.ts.its = its_of(a);
-  sc.ts.cap = a.it_cap;
-  sc.ts.tpl_ok = a.tpl_it_ok;
-  sc.ts.cio = a.claim_it_ok;
-  sc.ts.ok_t = nullptr;
-  sc.ts.cap_t = nullptr;
-  return sc;
-}
 
 // A block alone without a type slice, and the group scratch of a kernel
 // that calls group_prep and bin_gate without the step (attribute.cu).
@@ -282,24 +267,11 @@ __device__ __forceinline__ float add_times(float base, int take, float req) {
   return __double2float_rn((double)base + (double)take * (double)req);
 }
 
-// ops/ffd_core._water_level: largest L with sum(clip(L - lvl, 0, cap)) <= units
-__device__ int water_level(const int* lvl, const int* cap, int n, int units) {
-  int lo = 0, hi = 2 * BIG_CAP;
-  for (int it = 0; it < 22; ++it) {
-    const int mid = (lo + hi + 1) / 2;
-    int used = 0;
-    for (int c = 0; c < n; ++c) used += min(max(mid - lvl[c], 0), cap[c]);
-    if (used <= units)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  return lo;
-}
-
-// The same level with one warp: the same bisection, each step's sum over the
-// n claims a warp_sum (integer, so the order does not change it). A lane
-// keeps its first four claims' levels and caps in registers for the 22 steps.
+// ops/ffd_core._water_level, by one warp: the largest L with
+// sum(clip(L - lvl, 0, cap)) <= units, by a 22-step bisection, each step's
+// sum over the n claims a warp_sum (integer, so the order does not change
+// it). A lane keeps its first four claims' levels and caps in registers for
+// the 22 steps.
 __device__ int warp_water_level(const int* lvl, const int* cap, int n, int units) {
   const int lane = threadIdx.x & 31;
   int lv[4], cp[4];

@@ -300,14 +300,18 @@ def _a16(n: int) -> int:
 
 
 def cluster_size(lanes: int = 1) -> int:
-    """Blocks per solve for a launch of ``lanes`` solves: SOLO_CLUSTER for
-    one (faster than 8 at the 10k shapes on an H100, PERF.md section 6);
-    for several, the largest power of two no larger than DEFAULT_CLUSTER or
-    CARD_SMS // lanes, and at least 1 (8 up to 16 lanes).
-    ``forced_cluster`` overrides it."""
+    """Blocks per solve for a launch of ``lanes`` solves of ``ffd_loop``
+    or ``relax_place``: SOLO_CLUSTER for one (faster than 8 at the 10k shapes
+    on an H100, PERF.md section 6); for several, the largest power of two no
+    larger than DEFAULT_CLUSTER or CARD_SMS // lanes, and at least 1 (8 up
+    to 16 lanes). ``forced_cluster`` overrides it."""
     forced = _cluster_override.get()
-    if forced is not None:
-        return forced
+    return lanes_cluster(lanes) if forced is None else forced
+
+
+def lanes_cluster(lanes: int) -> int:
+    """``cluster_size`` without the override: the blocks a lane of a launch
+    of ``lanes`` lanes takes by the card's SMs alone."""
     if lanes <= 1:
         return SOLO_CLUSTER
     cap = min(DEFAULT_CLUSTER, max(CARD_SMS // max(lanes, 1), 1))
@@ -319,9 +323,9 @@ def cluster_size(lanes: int = 1) -> int:
 
 @contextlib.contextmanager
 def forced_cluster(cluster: int):
-    """Launch every ``ffd_loop`` of the block, in this context, on clusters
-    of ``cluster`` blocks (the card tests' and the measurements' cluster
-    sizes)."""
+    """Launch every ``ffd_loop`` and ``relax_place`` planned in this
+    context on clusters of ``cluster`` blocks (the card tests' and the
+    measurements' cluster sizes)."""
     if not 1 <= cluster <= 64:
         raise ValueError(f"cluster size {cluster} out of range")
     token = _cluster_override.set(int(cluster))

@@ -23,16 +23,17 @@ the sum of the normalised demand of the group's earlier pods. The JAX
 package takes it as a difference of two float32 prefix sums over the whole
 batch, whose rounding depends on the scan's order; both implementations here
 take one float64 prefix sum in pod-index order instead (numpy's sequential
-``cumsum`` on a host copy, one thread in the kernel), which agree bit for bit
-and match the JAX package wherever its float32 rounding does not move a pod
-across a bin boundary.
+``cumsum`` on a host copy; the kernel takes the same sums exactly in
+integers while the batch's demand sums below 512, and one lane adds them in
+pod order above that), which agree bit for bit and match the JAX package
+wherever its float32 rounding does not move a pod across a bin boundary.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,7 +48,7 @@ from karpenter_tpu_torch.ops.ffd_core import (
     initial_state,
     problem_bounds_free,
 )
-from karpenter_tpu_torch.ops.ffd_sweeps import _req_tensors, lane_structs
+from karpenter_tpu_torch.ops.ffd_sweeps import _req_tensors, cluster_size, lane_structs
 from karpenter_tpu_torch.ops.relax_common import (
     _scatter,
     commit_assignment,
@@ -155,9 +156,10 @@ RELAX_STATE = (
 )
 # the kernel's own working memory, sized by relax_place_workspace_bytes
 RELAX_SCRATCH = ("workspace",)
-_RELAX_POINTERS = _RELAX_INPUTS + RELAX_STATE + ("kind", "index", "residue", "stats", "work") + RELAX_SCRATCH
+_RELAX_POINTERS = (_RELAX_INPUTS + RELAX_STATE + ("kind", "index", "residue", "stats", "work", "sections", "plan")
+                   + RELAX_SCRATCH)
 _RELAX_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH", "n_passes",
-               "mode", "iters")
+               "mode", "iters", "cluster")
 _RELAX_FLOATS = ("step",)
 _RelaxArgs = kernels.make_struct("RelaxArgs", _RELAX_POINTERS, _RELAX_INTS, _RELAX_FLOATS)
 # the stats word: RelaxStats' four counts, then (convex mode) the rest of
@@ -166,15 +168,20 @@ N_STATS = 9
 
 # the kernel's work counters (csrc/relax_place.cu WORK_*), in order
 WORK_COUNTERS = ("type_tests", "record_lanes", "pgd_columns")
+# the leader's clock by stage (csrc/relax_place.cu SEC_*), in order
+SECTIONS = ("init", "eligibility", "groups", "merge", "survival", "pick", "demand", "prefix", "slots", "loads",
+            "update", "round", "rows", "ladder", "commit", "topology", "verdicts")
 
 
-def relax_place_args(problem: SchedulingProblem, C: int, convex=None):
+def relax_place_args(problem: SchedulingProblem, C: int, convex=None, cluster: Optional[int] = None):
     """The kernel's tensors by struct field name (inputs in its layout, the
     initial state to be committed in place, outputs, its workspace), the
     initial state, and its argument struct: one launch's worth, as
     ``launch_relax_place`` passes it. ``problem`` holds CUDA tensors with
     lanes padded to a multiple of 32. ``convex`` = (iters, step) selects the
-    convex mode (ops/relax2.py); None the waterfill."""
+    convex mode (ops/relax2.py); None the waterfill. ``cluster``: the blocks
+    of the solve's cluster (default ``ffd_sweeps.cluster_size()``, the
+    plan ffd_loop's launches take, and its ``forced_cluster`` override)."""
     dev = problem.lane_valid.device
     K, V = problem.num_keys, problem.num_lanes
     if V % 32:
@@ -223,12 +230,15 @@ def relax_place_args(problem: SchedulingProblem, C: int, convex=None):
     t["residue"] = torch.empty((P,), dtype=torch.bool, device=dev)
     t["stats"] = torch.zeros((N_STATS,), dtype=i32, device=dev)
     t["work"] = torch.zeros((len(WORK_COUNTERS),), dtype=torch.int64, device=dev)
+    t["sections"] = torch.zeros((len(SECTIONS),), dtype=torch.int64, device=dev)
+    t["plan"] = torch.zeros((1,), dtype=i32, device=dev)
     dims = dict(P=P, K=K, V=V, W=V // 32, C=C, N=problem.num_nodes, T=problem.num_instance_types,
                 TPL=problem.num_templates, R=problem.num_resources, O=problem.offer_ok.shape[1],
                 PT=problem.pod_ports.shape[1], D=problem.pod_vol_counts.shape[1], G=problem.num_groups,
                 F=problem.grp_filter_valid.shape[1], CH=problem.claim_hostname_lane.shape[0],
                 n_passes=RELAX_PASSES, mode=0 if convex is None else 1,
-                iters=0 if convex is None else int(convex[0]), step=0.0 if convex is None else float(convex[1]))
+                iters=0 if convex is None else int(convex[0]), step=0.0 if convex is None else float(convex[1]),
+                cluster=cluster_size() if cluster is None else int(cluster))
     t["workspace"] = None
     args = _RelaxArgs(**{n: (t[n].data_ptr() if t[n] is not None else None) for n in _RELAX_POINTERS}, **dims)
     lib = kernels.library("relax_place")
@@ -241,7 +251,7 @@ def relax_place_args(problem: SchedulingProblem, C: int, convex=None):
 
 
 # the lanes mode's launch struct (csrc/relax_place.cu RelaxLanesArgs)
-_RelaxLanesArgs = kernels.make_struct("RelaxLanesArgs", ("lanes",), ("L",))
+_RelaxLanesArgs = kernels.make_struct("RelaxLanesArgs", ("lanes",), ("L", "cluster"))
 
 
 def _relax_out(t: dict, state0: FFDState, V: int, convex) -> RelaxOut:
@@ -263,17 +273,19 @@ def _relax_out(t: dict, state0: FFDState, V: int, convex) -> RelaxOut:
 def relax_place_lanes_args(problems, C: int, convex):
     """One ``relax_place_args`` per lane in the convex mode (``convex`` =
     (iters, step)), their structs in one device buffer, and the lanes-mode
-    struct: (per-lane (tensors, initial state), buffer, struct)."""
-    lanes = [relax_place_args(p, C, convex) for p in problems]
+    struct: (per-lane (tensors, initial state), buffer, struct). Every lane
+    runs on a cluster of ``cluster_size(L)`` blocks."""
+    cluster = cluster_size(len(problems))
+    lanes = [relax_place_args(p, C, convex, cluster=cluster) for p in problems]
     buf = lane_structs([a for _, _, a in lanes], problems[0].lane_valid.device)
-    return [(t, st) for t, st, _ in lanes], buf, _RelaxLanesArgs(lanes=buf.data_ptr(), L=len(lanes))
+    return [(t, st) for t, st, _ in lanes], buf, _RelaxLanesArgs(lanes=buf.data_ptr(), L=len(lanes), cluster=cluster)
 
 
 def launch_relax_place_lanes(problems, C: int, convex):
     """Run ``relax_place``'s convex mode in its lanes mode on CUDA tensors
     (program 14's phase 1): lane b over ``problems[b]`` (lanes padded to a
-    multiple of 32), all lanes in one launch, grid L, each with its own
-    workspace. One RelaxOut per lane, its stats the raw int32[9] word;
+    multiple of 32), all lanes in one launch, a cluster per lane, each with
+    its own workspace. One RelaxOut per lane, its stats the raw int32[9] word;
     counted as ``relax2_place_lanes``."""
     dev = problems[0].lane_valid.device if problems else None
     if dev is None or dev.type != "cuda":

@@ -15,9 +15,11 @@ lane solves the same shared union problem with a few arrays varied
     axis (``run_idx``, -1 entries are no-op runs).
 
 On CUDA tensors both launch the ``runs_screen`` kernel
-(csrc/runs_screen.cu): one block per lane, all lanes in one launch. On CPU
-tensors they run ``lean_screen_plain`` / ``residual_screen_plain``, which
-loop ``ops/ffd_runs.runs_scan_plain`` over the lanes. There is no fallback
+(csrc/runs_screen.cu): all lanes in one launch, laid out by ``screen_plan``
+(a cluster per lane for few lanes of many rows, else a block per lane), the
+heaviest lanes first. On CPU tensors they run ``lean_screen_plain`` /
+``residual_screen_plain``, which loop ``ops/ffd_runs.runs_scan_plain`` over
+the lanes. There is no fallback
 between the two. There is no mesh here: one card scores every lane.
 
 The batched programs (``batched_solve`` :129 over ``_batched_solve_jit`` :88,
@@ -34,7 +36,7 @@ The partitioned solve's programs (shard/solve.py, ``KARPENTER_TPU_SHARD``):
 ``shard_sweeps`` (program 13, the JAX package's ``shard_sweeps_program``
 :468) and ``shard_relax2_sweeps`` (program 14, ``shard_relax2_sweeps_program``
 :517) run every partition of a stacked batch as one lane of a grid, one
-block each: ``ffd_loop`` in its lanes mode, after ``relax_place``'s convex
+cluster each: ``ffd_loop`` in its lanes mode, after ``relax_place``'s convex
 lanes mode for program 14. Each lane exits its loop when it converges,
 which is ``shard_map``'s per-device semantics (the JAX package's vmap
 lockstep gives the same per-lane results). ``healthy_devices`` and
@@ -45,8 +47,10 @@ replicas) is not ported.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,9 +68,11 @@ from karpenter_tpu_torch.ops.ffd_core import (
 )
 from karpenter_tpu_torch.ops.ffd_runs import check_run_modes, has_topo_runs, max_run_bucket, runs_scan_plain
 from karpenter_tpu_torch.ops.ffd_sweeps import (
+    CARD_SMS,
     FFD_STATE,
     _FFD_INPUTS,
     WORK_COUNTERS,
+    lanes_cluster,
     launch_ffd_loop_lanes,
     problem_tensors,
     state_back,
@@ -402,14 +408,79 @@ RS_STATE = FFD_STATE
 # per-lane working rows, neither read before nor kept after a launch
 RS_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg", "bin_ok",
               "ok_t", "cap_t", "node_cap", "node_taken")
-_RS_POINTERS = _RS_SHARED + RS_INIT + RS_LANE_INPUTS + RS_STATE + RS_SCRATCH + ("kind", "index", "work")
+_RS_POINTERS = (_RS_SHARED + RS_INIT + RS_LANE_INPUTS + RS_STATE + RS_SCRATCH
+                + ("kind", "index", "work", "sections", "order", "plan"))
 _RS_INTS = ("P", "K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "F", "CH",
-            "B", "RN", "MR", "passes", "stacked")
+            "B", "RN", "MR", "passes", "stacked", "layout", "cluster")
 _RunsArgs = kernels.make_struct("RunsArgs", _RS_POINTERS, _RS_INTS)
 
 # the kernel's per-lane work counters (csrc/runs_screen.cu), in order: the
 # step's four, then runs committed by mode and pods by route
 RS_WORK_COUNTERS = WORK_COUNTERS + ("runs_single", "runs_analytic", "runs_topo", "pods_stepped", "pods_analytic")
+# each lane's clock by section (csrc/runs_screen.cu RS_SEC_*), in order
+RS_SECTIONS = ("init", "single", "analytic_nodes", "analytic_claims", "analytic_templates", "analytic_rows",
+               "analytic_records", "topology", "pass")
+
+
+# -- the launch plan (csrc/runs_screen.cu LAYOUT_*) -----------------------------
+
+# the kernel's layouts, by their LAYOUT_* number: a 512-thread block per
+# lane, a cluster of 512-thread blocks per lane
+SCREEN_LAYOUTS = ("block", "cluster")
+# the rows a lane needs for a cluster to pay for its barriers (~0.6 us each,
+# against ~40 ns for a block's): on an H100 the serve layer's 8 lanes of
+# 1,280 rows ran 5% faster on clusters of 8 than on blocks, its 8 lanes of
+# 64 rows 33% slower (PERF.md section 5)
+SCREEN_CLUSTER_ROWS = 512
+
+
+class ScreenPlan(NamedTuple):
+    """One ``runs_screen`` launch's layout (a SCREEN_LAYOUTS name) and its
+    blocks per lane."""
+
+    layout: str
+    cluster: int
+
+
+# the card tests' and the measurements' layout (``forced_screen_plan``); a
+# context variable, as ffd_sweeps' cluster override
+_plan_override: contextvars.ContextVar = contextvars.ContextVar("runs_screen_plan", default=None)
+
+
+def screen_plan(lanes: int, rows: int) -> ScreenPlan:
+    """The layout of a launch of ``lanes`` lanes of ``rows`` rows each on an
+    H100 (CARD_SMS SMs): with at most half as many lanes as SMs and at least
+    SCREEN_CLUSTER_ROWS rows, a cluster per lane of the largest power of two
+    no larger than DEFAULT_CLUSTER (8) or CARD_SMS // lanes blocks (the serve
+    layer's 8 wide lanes: 8); otherwise a 512-thread block per lane (the
+    screen's 320 lanes). ``forced_screen_plan`` overrides it."""
+    forced = _plan_override.get()
+    if forced is not None:
+        return forced
+    if 2 * lanes <= CARD_SMS and rows >= SCREEN_CLUSTER_ROWS:
+        return ScreenPlan("cluster", lanes_cluster(max(lanes, 2)))
+    return ScreenPlan("block", 1)
+
+
+@contextlib.contextmanager
+def forced_screen_plan(layout: str, cluster: int = 1):
+    """Launch every ``runs_screen`` planned in this context in ``layout``
+    with ``cluster`` blocks per lane (1 unless the layout is "cluster"):
+    the card tests' and the measurements' layouts."""
+    if layout not in SCREEN_LAYOUTS or not 1 <= cluster <= 64 or (layout != "cluster" and cluster != 1):
+        raise ValueError(f"no runs_screen layout {layout!r} with {cluster} block(s) a lane")
+    token = _plan_override.set(ScreenPlan(layout, int(cluster)))
+    try:
+        yield
+    finally:
+        _plan_override.reset(token)
+
+
+def lane_order(pod_active) -> torch.Tensor:
+    """The lanes by their active rows, most first (ties in lane order): the
+    order the launch's blocks take them, so that the lanes that set its
+    length start in the first wave. On the lanes' device, no host sync."""
+    return torch.argsort(pod_active.sum(dim=1), descending=True, stable=True).to(torch.int32).contiguous()
 
 
 def lane_elems(dims) -> dict:
@@ -553,10 +624,15 @@ def _launch_args(t: dict, base: SchedulingProblem, C: int, node_avail, pod_activ
     t["kind"] = torch.empty((B, P), dtype=i32, device=dev)
     t["index"] = torch.empty((B, P), dtype=i32, device=dev)
     t["work"] = torch.zeros((B, len(RS_WORK_COUNTERS)), dtype=torch.int64, device=dev)
+    t["sections"] = torch.zeros((B, len(RS_SECTIONS)), dtype=torch.int64, device=dev)
+    t["order"] = lane_order(pod_active)
+    t["plan"] = torch.zeros((3,), dtype=i32, device=dev)
+    plan = screen_plan(B, P)
     dims = dict(P=P, K=K, V=V, W=W, C=C, N=N, T=T, TPL=TPL, R=R, O=base.offer_ok.shape[1],
                 PT=base.pod_ports.shape[1], D=base.pod_vol_counts.shape[1], G=G,
                 F=base.grp_filter_valid.shape[1], CH=base.claim_hostname_lane.shape[0], B=B,
-                RN=base.num_runs, MR=max_run, passes=passes, stacked=int(stacked))
+                RN=base.num_runs, MR=max_run, passes=passes, stacked=int(stacked),
+                layout=SCREEN_LAYOUTS.index(plan.layout), cluster=plan.cluster)
     if stacked:
         for name, n in lane_elems(dims).items():
             x = t[name]

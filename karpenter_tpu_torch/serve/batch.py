@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``serve/batch.py``. When several tenant
 streams have generic, shape-compatible requests queued at the same instant,
 the dispatcher stacks them into one ``parallel/mesh.batched_screen`` call:
 each tenant's whole problem is one lane of the ``runs_screen`` kernel's
-stacked mode (one block per lane, up to three placement passes from the
-lane's own initial state), so the launch and the transfers are paid once
-for the group.
+stacked mode (a cluster of blocks per lane when its few lanes are wide, up
+to three placement passes from the lane's own initial state), so the launch
+and the transfers are paid once for the group.
 
 Strictly opportunistic:
 

@@ -57,7 +57,7 @@ def _c_struct_fields(source: str, struct: str):
         ("lane_scores.cu", "LaneArgs", policy._LANE_POINTERS, policy._LANE_INTS),
         ("probe.cu", "ProbeArgs", gdev._PROBE_POINTERS, gdev._PROBE_INTS),
         ("ffd_loop.cu", "FfdLanesArgs", ("lanes",), ffd_sweeps._FFD_LANES_INTS),
-        ("relax_place.cu", "RelaxLanesArgs", ("lanes",), ("L",)),
+        ("relax_place.cu", "RelaxLanesArgs", ("lanes",), ("L", "cluster")),
     ],
 )
 def test_ctypes_struct_matches_c_struct(source, struct, pointers, ints):
@@ -193,8 +193,9 @@ def test_library_path_tracks_sources_and_flags():
 
 def test_step_is_shared_by_the_loop_and_the_screen():
     """ffd_loop.cu and runs_screen.cu compile the one per-pod step of
-    step.cuh, a template over its scope (a cluster for the loop, a lone
-    block for the screen): neither defines its own. The loop's one-pass mode
+    step.cuh, a template over its scope (a cluster for the loop; a cluster
+    or a lone block for the screen, by its layout): neither defines its
+    own. The loop's one-pass mode
     writes each verdict row from the step's Shared::kind / index right after
     the call (the cluster's leader block); its sweeps modes write every
     committed chain member's row after the narrow iteration of chain.cuh,
@@ -215,7 +216,7 @@ def test_step_is_shared_by_the_loop_and_the_screen():
                       "        a.kind[p] = s.kind;\n        a.index[p] = s.index;") == 1
     assert loop.count("narrow_iter(sc, a, p, s, cs, red, m);") == 1 and "ClusterScope sc;" in loop
     screen = (CSRC / "runs_screen.cu").read_text()
-    assert screen.count("step(block_scope(a), a, ") == 2
+    assert screen.count("step(sc, a, ") == 2
     chain = (CSRC / "chain.cuh").read_text()
     assert '#include "step.cuh"' in chain and "step_eval(sc, a, p, s" in chain and "step_commit(sc, a, p, s" in chain
     assert "a.kind[" not in chain and "bool bin_gate(" not in chain
@@ -232,6 +233,21 @@ def cuda():
 def cluster(request):
     """Every ffd_loop launch of the test on clusters of this many blocks."""
     with ffd_sweeps.forced_cluster(request.param):
+        yield request.param
+
+
+@pytest.fixture(params=[1, 2, 4, 8, 16])
+def relax_cluster(request):
+    """Every relax_place launch of the test on clusters of this many blocks."""
+    with ffd_sweeps.forced_cluster(request.param):
+        yield request.param
+
+
+@pytest.fixture(params=[("block", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("cluster", 16)],
+                ids=lambda p: f"{p[0]}{p[1]}")
+def screen_layout(request):
+    """Every runs_screen launch of the test in this layout."""
+    with mesh.forced_screen_plan(*request.param):
         yield request.param
 
 
@@ -916,6 +932,153 @@ def test_relax2_place_matches_plain(cuda, name, knobs):
     _assert_same(rk, rp)
     work = dict(zip(relax.WORK_COUNTERS, rk.work.cpu().tolist()))
     assert work["pgd_columns"] > 0 or relax2.host_stats(rp.stats).eligible == 0
+
+
+def _assert_relax_bits(rk, rp):
+    """Two phase-1 results equal bit for bit: verdicts, residue, stats (the
+    raw words) and every state leaf (float leaves as their bits)."""
+    for key in ("kind", "index", "residue_active"):
+        assert torch.equal(getattr(rk, key).cpu(), getattr(rp, key).cpu()), key
+    words = lambda st: [int(x.reshape(()).view(torch.int32)) if x.dtype == torch.float32 else int(x) for x in st]
+    assert words(rk.stats) == words(rp.stats)
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for key in sp:
+        np.testing.assert_array_equal(sk[key].view(np.uint8), sp[key].view(np.uint8), err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("convex", [None, (24, 0.3)], ids=["waterfill", "convex"])
+@pytest.mark.parametrize("name", ["homogeneous-48", "diverse-300-overflow", "fuzz-6", "chain-2000"])
+def test_relax_place_at_each_cluster_size_matches_plain(cuda, relax_cluster, name, convex):
+    """relax_place on clusters of 1 to 16 blocks: the launch runs on the
+    forced cluster and equals its plain version bit for bit, in both
+    modes."""
+    from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32
+
+    make, slots = CORPORA[name]
+    prob = _pad_lanes_mult32(problem_to_torch(_encode(make(), slots), cuda))
+    t, state0, args = relax.relax_place_args(prob, slots, convex)
+    assert args.cluster == relax_cluster
+    kernels.launch("relax_place", args, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert int(t["plan"][0]) == relax_cluster
+    rk = relax._relax_out(t, state0, prob.num_lanes, convex)
+    if convex is None:
+        rp = relax.relax_place_plain(prob, slots)
+    else:
+        rk = rk._replace(stats=relax2.stats_of(rk.stats))
+        rp = relax2.relax2_place_plain(prob, slots, *convex)
+    _assert_relax_bits(rk, rp)
+    sections = t["sections"].cpu()
+    assert int(sections.sum()) > 0 and len(sections) == len(relax.SECTIONS)
+
+
+@pytest.mark.cuda
+def test_relax_place_refuses_a_cluster_the_card_cannot_hold(cuda):
+    """A plan of 32 blocks a cluster is refused at the launch (nothing
+    runs), and a plan made for another cluster than the launch's traps
+    rather than run in that shape: here the refusal."""
+    prob = problem_to_torch(_encode(W.fuzz_workload(6), 16), cuda)
+    with ffd_sweeps.forced_cluster(32):
+        with pytest.raises(kernels.KernelDeviceError):
+            relax.relax_place(prob, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 2, 4, 8])
+def test_relax_place_convex_lanes_at_each_cluster_size(cuda, monkeypatch, size):
+    """Program 14's convex lanes on clusters of 1-8 blocks a lane equal one
+    single convex launch per lane and the plain phase 1 bit for bit."""
+    batch, C = _shard_batch(cuda, monkeypatch, "relax2-fleet-160")
+    iters, step = relax2.pgd_iters(), relax2.pgd_step()
+    problems = mesh._shard_lanes(batch)
+    with ffd_sweeps.forced_cluster(size):
+        lanes, _buf, args = relax.relax_place_lanes_args(problems, C, (iters, step))
+        assert args.cluster == size
+        kernels.launch("relax2_place_lanes", args, torch.cuda.current_stream(cuda).cuda_stream)
+        torch.cuda.synchronize()
+    for (t, st), p in zip(lanes, problems):
+        assert int(t["plan"][0]) == size
+        out = relax._relax_out(t, st, p.num_lanes, (iters, step))
+        out = out._replace(stats=relax2.stats_of(out.stats))
+        _assert_relax_bits(out, relax2.launch_relax2_place(p, C, iters, step))
+        _assert_relax_bits(out, relax2.relax2_place_plain(p, C, iters, step))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus", ["residual", "full", "full-topology"])
+def test_runs_screen_in_each_layout_matches_plain(cuda, screen_layout, corpus):
+    """test_runs_screen_matches_plain in every layout the plan can pick and
+    at every cluster size: the launch ran in the forced layout, and equals
+    the plain screen exactly."""
+    from karpenter_tpu_torch.disruption import batch
+    from karpenter_tpu_torch.testing import workloads as wl
+
+    n = 10
+    base_pods = {
+        "residual": wl.pinned_base_pods(8, cpu=63.5),
+        "full": wl.pinned_base_pods(8, cpu=63.5),
+        "full-topology": wl.zonal_spread_pods(6),
+    }[corpus]
+    scorer = batch.build_bench_scorer(n, base_pods=base_pods, device=cuda, delta=corpus == "residual")[0]
+    subsets = [list(range(k + 1)) for k in range(n)] + [[k] for k in range(n)] + [[1, 3, 5, 7, 9]]
+    seen = {}
+    real_args = mesh._launch_args
+
+    def recording(*a, **kw):
+        out = real_args(*a, **kw)
+        seen["t"] = out[0]
+        return out
+
+    real_lean, real_res = batch.lean_screen, batch.residual_screen
+
+    def lean(base, variants, C, passes=3):
+        rk = real_lean(base, variants, C, passes)
+        seen["full"] = (rk, mesh.lean_screen_plain(base, variants, C, passes))
+        return rk
+
+    def res(base, carried, variants, run_idx, C):
+        rk = real_res(base, carried, variants, run_idx, C)
+        seen["residual"] = (rk, mesh.residual_screen_plain(base, carried, variants, run_idx, C))
+        return rk
+
+    mesh._launch_args = recording
+    batch.lean_screen, batch.residual_screen = lean, res
+    try:
+        scorer.score_subsets(subsets)
+    finally:
+        mesh._launch_args = real_args
+        batch.lean_screen, batch.residual_screen = real_lean, real_res
+    torch.cuda.synchronize()
+    layout, size = screen_layout
+    assert seen["t"]["plan"].cpu().tolist() == [mesh.SCREEN_LAYOUTS.index(layout), size, 512]
+    rk, rp = seen["residual" if corpus == "residual" else "full"]
+    assert torch.equal(rk.kind.cpu(), rp.kind.cpu()) and torch.equal(rk.index.cpu(), rp.index.cpu())
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for key in sp:
+        np.testing.assert_array_equal(sk[key].view(np.uint8), sp[key].view(np.uint8), err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["topology-3", "volumes-0", "fuzz-6", "chain-2000", "distinct-tenants"])
+def test_stacked_screen_in_each_layout_matches_plain(cuda, screen_layout, name):
+    """runs_screen's stacked mode (three passes) in every layout and
+    cluster size against batched_screen_plain, bit for bit."""
+    batch, _ = _stacked_corpus(name)
+    batch = problem_to_torch(batch, cuda)
+    slots = _STACK_SLOTS.get(name, 16)
+    t, args = mesh.stacked_screen_args(batch, slots, max_run=mesh.max_run_bucket(batch), passes=3,
+                                       with_topo=mesh.has_topo_runs(batch))
+    kernels.launch("runs_screen", args, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    layout, size = screen_layout
+    assert t["plan"].cpu().tolist() == [mesh.SCREEN_LAYOUTS.index(layout), size, 512]
+    rk = mesh.FFDResult(kind=t["kind"], index=t["index"], state=mesh.state_back(t, t["ln"].shape[-1]), work=t["work"])
+    rp = mesh.batched_screen_plain(batch, slots, passes=3)
+    assert torch.equal(rk.kind.cpu(), rp.kind.cpu()) and torch.equal(rk.index.cpu(), rp.index.cpu())
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for key in sp:
+        np.testing.assert_array_equal(sk[key].view(np.uint8), sp[key].view(np.uint8), err_msg=key)
 
 
 @pytest.mark.cuda
