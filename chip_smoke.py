@@ -17,11 +17,15 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      on kind/index, residue, stats, integer and bool state and all four
      IterCounts fields (narrow iterations, sweeps, chain commits, chain
      pods), and within rtol 1e-5 on float state; ``attribute`` must give the
-     plain words for every active row against each solve's final state, and
+     plain words for every active row against each solve's final state under
+     both row plans (each run of byte-identical rows once, and every row:
+     their counts of every entry's gates and listed types equal, the work
+     each launch needs no more than that), and
      every gate family must fail somewhere; ``runs_screen`` (stacked) must
      equal its plain version at the wide shapes; ``gate_counts`` must give
-     identical counts on clean results and on results corrupted to trip each
-     invariant; ``lane_scores`` must be within 1e-6 of its plain version.
+     identical counts on clusters of GATE_CLUSTERS blocks on clean results
+     and on results corrupted to trip each invariant;
+     ``lane_scores`` must be within 1e-6 of its plain version.
      Whole solves with ``relax`` on and off, and with
      ``KARPENTER_TPU_RELAX2`` or ``KARPENTER_TPU_ORDER_POLICY`` on, must equal
      the plain path's ``TorchSolver(device="cpu")``. The wavefront corpora
@@ -43,7 +47,11 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      which it must equal: ``relax_place``, ``ffd_loop`` carried and fresh
      (with their IterCounts) and one-pass (over the batch's first
      ONE_PASS_PODS rows, the depth cut so the whole smoke keeps its time),
-     ``gate_counts``. The main path's ``ffd_loop`` must have run on a
+     ``gate_counts`` on clusters of GATE_CLUSTERS blocks with its split by stage, its leader's
+     barriers and its latency floor (one launch + barriers x a barrier's
+     cost), and the 10k gate stage split into the host's GateArgs build, the
+     wrapper, the kernel and the rest of ``full_gate``. The main path's
+     ``ffd_loop`` must have run on a
      cluster of more than one block; each of its three modes is then timed
      on clusters of CLUSTER_SIZES blocks (16 where the card schedules it),
      each launch equal to the plain loop bit for bit (verdicts, IterCounts,
@@ -82,8 +90,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      bit-equal to its plain version on every patched cycle; the resident
      world bit-equal to the cold encode's on every fourth cycle and the
      last; the fused counts equal to ``gate_counts_plain`` over the same
-     state on two cycles. Then the cycle walls, their split, the bytes up,
-     and ``patch_world`` and the fused gate alone, wrapped and plain.
+     state on every cycle, on every cluster size. Then the cycle walls, their
+     split, the bytes up, and ``patch_world`` and the fused gate alone (on
+     every cluster size, with its split and latency floor), wrapped and plain.
   5. the supervised multi-tenant serve path (the JAX package's serve
      scenario): ``runs_screen`` in its stacked mode through
      ``serve.batch.stacked_solve`` (encode, stack, one launch, decode, full
@@ -111,8 +120,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      on: the same placements, one ``attribute`` launch with the flag on
      (none off), words equal to ``attribute_plain``'s on the same rows and
      state, the report's reasons equal to the plain words' decode; then the
-     kernel alone, wrapped and plain on the limited batch's rows, and the
-     explain overhead.
+     kernel alone under each row plan (its split by section, its latency
+     floor), wrapped and plain on the limited batch's rows, and the explain
+     overhead.
   7. the flag-gated phase-1 and order paths at full width (the JAX
      package's flags): ``KARPENTER_TPU_RELAX2=1`` on phase 2's batch and on
      10,000 pods of homogeneous_workload's five sizes against the 400 types
@@ -131,7 +141,8 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      health (program 18) at full width: 100,000 pods of the JAX bench's
      fleet corpus (``make_fleet_pods``, 32 neighborhoods) against 400 types,
      sharded into 8 lanes of one ``ffd_loop`` launch (one cluster each),
-     served, every partition's ``gate_counts`` clean, every pod the
+     served, every partition's ``gate_counts`` clean and equal to its plain
+     version on every cluster size (the deepest partition timed), every pod the
      unsharded FFD control schedules scheduled, and each pod scheduled
      beyond them one with a required pod affinity; the recorded stack's lanes
      launch equal to 8 single-lane launches bit for bit (kinds, indices,
@@ -340,6 +351,7 @@ EXPECT_PROVISION = {
 STAT_RTOL = 1e-3
 SCORE_ATOL = 1e-6  # lane scores, kernel against plain: log1p may differ by an ulp
 GATE_REPEATS = 20  # phase 7: gate_counts launches on each result, each equal to plain
+GATE_CLUSTERS = (16, 8, 4)  # gate_counts' cluster sizes held to plain and timed (the plan's first)
 # float32 operations per valid (pod, window column) pair and trip of the
 # convex phase: the load's multiply and add, and the update's overload,
 # price, gradient, step, clip, row sum, rescale and change (ops/relax2.py)
@@ -453,6 +465,56 @@ def screen_by_layout(tag, make_args, rk, V, time_launches):
     return rows
 
 
+# one launch and the barrier costs (phase 2's sync probe), for the latency
+# floors of the later phases
+LATENCY = {}
+
+
+def gate_by_cluster(tag, build, wrap, want, time_ms, time_launches, reps=10):
+    """``gate_counts`` on clusters of GATE_CLUSTERS blocks: each launch's
+    counts held to ``want`` (the plain version's), the kernel's time, the
+    wrapper's, the split by section and the leader's barriers. Returns the
+    rows by cluster size and the plan's argument sets."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops.ffd_sweeps import forced_cluster
+    from karpenter_tpu_torch.verify import device as gdev
+
+    rows, default = {}, None
+    for blocks in GATE_CLUSTERS:
+        layout = f"cluster{blocks}"
+        with forced_cluster(blocks):
+            sets = [build() for _ in range(reps)]
+            ms, all_ms = time_launches("gate_counts", sets)
+            wrap_ms, _ = time_ms(wrap, 5)
+        for t, _ in sets:
+            if not np.array_equal(t["counts"].cpu().numpy(), np.asarray(want)):
+                raise AssertionError(f"{tag} ({layout}): kernel {t['counts'].tolist()} != plain {list(want)}")
+        t, args = sets[0]
+        sec = t["sections"].cpu()
+        rows[layout] = {"ms": ms, "wrapper_ms": wrap_ms, "blocks": args.NB,
+                        "sections": {k: round(v, 5) for k, v in gdev.gate_section_split(sec, ms).items()},
+                        "barriers": list(gdev.gate_barriers(sec))}
+        log(f"  {tag} {layout} ({args.NB} blocks): kernel {ms:.4f} ms median of {[round(x, 4) for x in all_ms]}, "
+            f"wrapper {wrap_ms:.4f} ms, == plain; by section {rows[layout]['sections']}; leader's block / cluster "
+            f"barriers {rows[layout]['barriers']}")
+        if blocks == gdev.gate_blocks():
+            default = sets
+    if LATENCY:
+        gate_floors(rows)
+    return rows, default
+
+
+def gate_floors(rows):
+    """Each layout's latency floor: one launch, plus the leader's block
+    barriers at a block barrier's cost and its cluster barriers at the cost
+    of one in a cluster of its size."""
+    for layout, row in rows.items():
+        nb, ncl = row["barriers"]
+        cl = LATENCY["cluster_sync_ms"].get(row["blocks"], 0.0) if ncl else 0.0
+        row["latency_floor_ms"] = LATENCY["launch_ms"] + nb * LATENCY["sync_ms"] + ncl * cl
+
+
 def main() -> int:
     import torch
 
@@ -479,7 +541,13 @@ def run(dev) -> int:
         initial_state,
         problem_bounds_free,
     )
-    from karpenter_tpu_torch.ops.ffd_step import attribute_plain, launch_attribute, solve_ffd, solve_ffd_plain
+    from karpenter_tpu_torch.ops.ffd_step import (
+        ATTR_WORK_COUNTERS,
+        attribute_plain,
+        launch_attribute,
+        solve_ffd,
+        solve_ffd_plain,
+    )
     from karpenter_tpu_torch.ops.ffd_sweeps import (
         FFD_SCRATCH,
         FFD_STATE,
@@ -643,11 +711,21 @@ def run(dev) -> int:
         # the explain pass over every active row against the final state
         rows = torch.nonzero(prob.pod_active).reshape(-1)
         aprob, astate = _lane_align(prob, rk.state)
-        wk_, _ = launch_attribute(aprob, astate, rows)
+        wk_, work_ = launch_attribute(aprob, astate, rows)
         wp_ = attribute_plain(prob, rk.state, rows)
+        # every row attributed (the problem without its byte-identity runs)
+        wa_, work_all = launch_attribute(dataclasses.replace(aprob, pod_eqprev=None), astate, rows)
         torch.cuda.synchronize()
-        if not torch.equal(wk_.cpu(), wp_.cpu()):
+        if not (torch.equal(wk_.cpu(), wp_.cpu()) and torch.equal(wa_.cpu(), wp_.cpu())):
             raise AssertionError(f"{tag}: attribute words differ from plain")
+        # the comparison counters (every entry's gates, every listed type)
+        # do not depend on the row plan; the needed work is at most theirs
+        wd = dict(zip(ATTR_WORK_COUNTERS, work_.cpu().tolist()))
+        wa = dict(zip(ATTR_WORK_COUNTERS, work_all.cpu().tolist()))
+        if (any(wd[k] != wa[k] for k in ("entry_gates", "listed_type_tests")) or wa["bin_gates"] != wa["entry_gates"]
+                or wd["bin_gates"] > wa["bin_gates"] or wa["type_tests"] > wa["listed_type_tests"]
+                or wd["type_tests"] > wa["type_tests"]):
+            raise AssertionError(f"{tag}: attribute work counters disagree between the row plans ({wd} against {wa})")
         if rows.numel():
             attr_err = max(attr_err, int((wk_.cpu().long() - wp_.cpu().long()).abs().max()))
         for word in wk_[:, 0].cpu().tolist():
@@ -818,17 +896,21 @@ def run(dev) -> int:
         gp, ga, bf = _build_args(result.verify_ctx, result, pods, None)
         cases = [("clean", gp, ga)] + corruptions(gp, ga)
         for name, g1, a1 in cases:
-            ck = gdev.launch_gate_counts(g1, a1).cpu().numpy()
             cp = gdev.gate_counts_plain(g1, a1, bf).cpu().numpy()
-            gate_err = max(gate_err, int(np.abs(ck.astype(np.int64) - cp).max()))
-            if not np.array_equal(ck, cp):
-                raise AssertionError(f"gate {tag}/{name}: kernel {ck.tolist()} != plain {cp.tolist()}")
+            for blocks in GATE_CLUSTERS:
+                with forced_cluster(blocks):
+                    ck = gdev.launch_gate_counts(g1, a1).cpu().numpy()
+                gate_err = max(gate_err, int(np.abs(ck.astype(np.int64) - cp).max()))
+                if not np.array_equal(ck, cp):
+                    raise AssertionError(f"gate {tag}/{name} (cluster {blocks}): kernel {ck.tolist()} != plain "
+                                         f"{cp.tolist()}")
             if name == "clean" and ck.any():
                 raise AssertionError(f"gate {tag}: clean result counted {ck.tolist()}")
             if name != "clean" and not ck[gdev.INVARIANTS.index(name)]:
                 raise AssertionError(f"gate {tag}/{name}: corruption did not trip its invariant")
             tripped.add(name)
-        log(f"  gate {tag}: {len(cases)} cases (clean + {len(cases) - 1} corrupted) kernel == plain")
+        log(f"  gate {tag}: {len(cases)} cases (clean + {len(cases) - 1} corrupted) kernel == plain on clusters "
+            f"of {GATE_CLUSTERS} blocks")
     if tripped != {"clean", *gdev.INVARIANTS}:
         raise AssertionError(f"gate corruptions cover only {sorted(tripped)}")
 
@@ -1081,16 +1163,45 @@ def run(dev) -> int:
             by_cluster[cl] = row
 
     gp, ga, gbf = _build_args(ctx, result, pods, None)
-    ck = gdev.launch_gate_counts(gp, ga).cpu().numpy()
-    k2_sets = [gdev.gate_counts_args(gp, ga) for _ in range(10)]
-    k2_ms, _ = time_launches("gate_counts", k2_sets)
-    k2_wrap_ms, _ = time_ms(lambda: gdev.launch_gate_counts(gp, ga), 5)
-    k2_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gp, ga, gbf), 3)
     cp = gdev.gate_counts_plain(gp, ga, gbf).cpu().numpy()
+    k2_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gp, ga, gbf), 3)
+    # the solve's own tables, as full_gate hands them to the wrapper
+    gtab = ctx.device_tables
+    if gtab is None:
+        raise AssertionError("main path gate: the solve handed the gate no tables")
+    gate_layouts, k2_sets = gate_by_cluster("main path gate", lambda: gdev.gate_counts_args(gp, ga, gtab),
+                                           lambda: gdev.launch_gate_counts(gp, ga, gtab), cp, time_ms,
+                                           time_launches)
+    ck = gdev.launch_gate_counts(gp, ga, gtab).cpu().numpy()
     gate_err = max(gate_err, int(np.abs(ck.astype(np.int64) - cp).max()))
-    if not np.array_equal(ck, cp) or any(not torch.equal(t["counts"].cpu(), torch.from_numpy(ck)) for t, _ in k2_sets):
+    if not np.array_equal(ck, cp):
         raise AssertionError("main path gate: kernel != plain")
-    log(f"  gate_counts: kernel {k2_ms:.4f} ms, wrapper {k2_wrap_ms:.4f} ms (plain {k2_plain_ms:.3f} ms)")
+    k2_layout = "cluster%d" % gdev.gate_blocks()
+    k2_ms, k2_wrap_ms = gate_layouts[k2_layout]["ms"], gate_layouts[k2_layout]["wrapper_ms"]
+    log(f"  gate_counts ({k2_layout}): kernel {k2_ms:.4f} ms, wrapper {k2_wrap_ms:.4f} ms (plain {k2_plain_ms:.3f} ms)")
+
+    # the 10k gate stage (the solve's last_timing["gate"]) by part: the host's
+    # GateArgs build, the wrapper (argument build and launch), the kernel,
+    # and the rest of full_gate (the host audit and skew checks, the fetch)
+    def host_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    g_full = host_ms(lambda: full_gate(result, pods, its, tpls, nodes))
+    g_build = host_ms(lambda: _build_args(ctx, result, pods, None))
+    g_call = host_ms(lambda: gdev.launch_gate_counts(gp, ga, gtab))
+    gate_stage = {"full_gate_ms": g_full, "build_args_ms": g_build, "wrapper_ms": g_call - k2_ms,
+                  "kernel_ms": k2_ms, "audit_and_rest_ms": g_full - g_build - g_call,
+                  "solve_timing_gate_ms": solver.last_timing.get("gate", 0.0) * 1e3}
+    log(f"  the 10k gate stage: full_gate {g_full:.3f} ms = GateArgs build {g_build:.3f} + wrapper "
+        f"{g_call - k2_ms:.3f} + kernel {k2_ms:.4f} + audit, skew checks and fetch {g_full - g_build - g_call:.3f} "
+        f"(the solve's last_timing gate {gate_stage['solve_timing_gate_ms']:.3f} ms)")
 
     # bounds: the bytes a launch must move (each of the kernel's inputs read
     # once, each output written once, the state it updates in place read and
@@ -1169,8 +1280,14 @@ def run(dev) -> int:
     k2_int_ops = P * (K * (Wd + 3) + 2 * PT) + C * T * (K * Wd + O)
     k2_flt_ops = P * R + C * T * 2 * R
     k2_bound, k2_by = bound(k2_bytes, k2_int_ops, k2_flt_ops)
+    # the later phases' latency floors: one launch (the probe's, with no
+    # barrier), and the barrier costs above
+    LATENCY.update(launch_ms=time_ms(lambda: run_probe(0, 0), 5)[0], sync_ms=sync_ms,
+                   cluster_sync_ms=cluster_sync_ms)
+    gate_floors(gate_layouts)
     log(f"  gate_counts: bytes {k2_bytes}, int ops {k2_int_ops:.4g}, float ops {k2_flt_ops:.4g}; "
-        f"bound {k2_bound:.5f} ms ({k2_by})")
+        f"bound {k2_bound:.5f} ms ({k2_by}); one launch {LATENCY['launch_ms']:.4f} ms; latency floor by layout "
+        f"{ {k: round(v['latency_floor_ms'], 5) for k, v in gate_layouts.items()} } ms")
     log(f"  phase 2 wall {time.perf_counter() - t_phase:.1f}s")
     rs = consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
     churn_entries, churn = churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
@@ -1240,6 +1357,11 @@ def run(dev) -> int:
                 "library_ms": None,
                 "wrapper_ms": k2_wrap_ms,
                 "launches_relax_off": launches_off["gate_counts"],
+                "layout": k2_layout,
+                "by_layout": gate_layouts,
+                "latency_floor_ms": gate_layouts[k2_layout]["latency_floor_ms"],
+                "gate_stage": gate_stage,
+                "fleet_partition": shard["gate"],
             },
             {
                 "name": "relax_place",
@@ -1401,7 +1523,18 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
 
     # -- 8.1 the fleet at full width: sharded and its unsharded control ------
     fleet = W.fleet_workload(SHARD_PODS, 400, seed=42, neighborhoods=SHARD_NEIGHBORHOODS)
-    solver, result, wall, launches, seen = solve(fleet, SHARD_ENV, "shard_sweeps")
+    gates_seen = []  # every partition's gate arguments, held to plain below
+    real_gate = gdev.verify_gate
+
+    def recording_gate(gp, ga, bf, tables=None):
+        gates_seen.append((gp, ga, bf))
+        return real_gate(gp, ga, bf, tables)
+
+    gdev.verify_gate = recording_gate
+    try:
+        solver, result, wall, launches, seen = solve(fleet, SHARD_ENV, "shard_sweeps")
+    finally:
+        gdev.verify_gate = real_gate
     info = served("fleet", solver, seen, launches, False)
     split = dict(solver.last_timing)
     # the control: the unsharded FFD solve (relax off, the JAX package's
@@ -1451,6 +1584,28 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         + f"; control wall {cwall * 1e3:.1f} ms ({({k: round(v * 1e3, 1) for k, v in ctrl.last_timing.items()})}, "
         f"{ctrl.claim_escalations} escalations, launches {claunches}); speedup_vs_control "
         f"{summary['speedup_vs_control']:.3f}")
+
+    # gate_counts at the partition shape: every partition's gate held to its
+    # plain version on every cluster size, the deepest one timed
+    deep = max(range(len(gates_seen)), key=lambda i: int((gates_seen[i][1].pod_bin >= 0).sum()))
+    for i, (pgp, pga, pbf) in enumerate(gates_seen):
+        want = gdev.gate_counts_plain(pgp, pga, pbf).cpu().numpy()
+        if i == deep:
+            g_rows, _ = gate_by_cluster(f"fleet partition {i} gate", lambda: gdev.gate_counts_args(pgp, pga),
+                                       lambda: gdev.launch_gate_counts(pgp, pga), want, time_ms, time_launches)
+            g_plain, _ = time_ms(lambda: gdev.gate_counts_plain(pgp, pga, pbf), 3)
+            summary["gate"] = {"partitions": len(gates_seen), "timed": i, "rows": int(pgp.pod_requests.shape[0]),
+                               "placed": int((pga.pod_bin >= 0).sum()), "claims": int(pga.claim_tpl.shape[0]),
+                               "by_layout": g_rows, "plain_ms": g_plain}
+            continue
+        for blocks in GATE_CLUSTERS:
+            with forced_cluster(blocks):
+                got = gdev.launch_gate_counts(pgp, pga).cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"fleet partition {i} gate (cluster {blocks}): kernel {got.tolist()} != plain")
+    log(f"  fleet gates: {len(gates_seen)} partitions, each == plain on clusters of {GATE_CLUSTERS} blocks; partition {deep} "
+        f"({summary['gate']['rows']} rows, {summary['gate']['placed']} placed, C = {summary['gate']['claims']}) "
+        f"plain {summary['gate']['plain_ms']:.3f} ms")
 
     # -- 8.2 the lanes launch held: single-lane launches, plain twins ----------
     batch, C = seen[-1][:2]
@@ -2065,9 +2220,9 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
     seen = []
     real = ffd_step.attribute_pods
 
-    def recording(problem, state, rows):
-        words = real(problem, state, rows)
-        seen.append((problem, state, list(rows), words))
+    def recording(problem, state, rows, tables=None):
+        words = real(problem, state, rows, tables)
+        seen.append((problem, state, list(rows), words, tables))
         return words
 
     prev = os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
@@ -2092,7 +2247,9 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
             if rep is None or rep.pods.keys() != on.failures.keys() or not expected(rep, len(batch)):
                 raise AssertionError(f"explain {name}: {len(on.failures)} failures, reasons "
                                      f"{None if rep is None else rep.counts()}")
-            problem, state, rows, words = seen[0]
+            problem, state, rows, words, tables = seen[0]
+            if tables is None:
+                raise AssertionError(f"explain {name}: the solve handed the explain pass no tables")
             wp, p_ms = plain_ms(lambda: ffd_step.attribute_plain(problem, state, rows))
             if not torch.equal(words.cpu(), wp.cpu()):
                 raise AssertionError(f"explain {name}: attribute words differ from plain on the solve's rows")
@@ -2108,7 +2265,7 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
                 f"{on_launches['attribute']}/{off_launches['attribute']}; words == plain ({p_ms:.1f} ms plain); "
                 f"solve {off_ms:.1f} ms off, {on_ms:.1f} ms on; explain overhead {rep.overhead_s * 1e3:.2f} ms")
             if timed is None:
-                timed = (problem, state, rows, words, p_ms, rep, on_launches["attribute"])
+                timed = (problem, state, rows, words, tables, p_ms, rep, on_launches["attribute"])
     finally:
         ffd_step.attribute_pods = real
         os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
@@ -2117,25 +2274,52 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
 
     # the kernel alone, through its wrapper, and plain, on the limited
     # batch's rows
-    problem, state, rows, words, p_ms, rep, n_launch = timed
+    problem, state, rows, words, tables, p_ms, rep, n_launch = timed
     aprob, astate = _lane_align(problem, state)
-    sets = [ffd_step.attribute_args(aprob, astate, rows) for _ in range(5)]
-    k_ms, k_all = time_launches("attribute", sets)
-    for t, _ in sets:
-        if not torch.equal(t["words"], words):
-            raise AssertionError("explain: a timed attribute launch differs from the wrapper's")
-    wrap_ms, _ = time_ms(lambda: ffd_step.launch_attribute(aprob, astate, rows), 5)
-    work = dict(zip(ffd_step.ATTR_WORK_COUNTERS, sets[0][0]["work"].cpu().tolist()))
+    # the row plans: each run of byte-identical rows once (the problem's
+    # pod_eqprev, the default), and every row (the problem without it)
+    by_layout, works = {}, {}
+    for layout, lprob in (("dedup", aprob), ("every-row", dataclasses.replace(aprob, pod_eqprev=None))):
+        # the solve's own tables, as the explain pass hands them over
+        lsets = [ffd_step.attribute_args(lprob, astate, rows, tables) for _ in range(5)]
+        l_ms, l_all = time_launches("attribute", lsets)
+        l_wrap, _ = time_ms(lambda: ffd_step.launch_attribute(lprob, astate, rows, tables), 5)
+        for t, _ in lsets:
+            if not torch.equal(ffd_step.attribute_words(t), words):
+                raise AssertionError(f"explain: a timed attribute launch ({layout}) differs from the wrapper's")
+        t, args = lsets[0]
+        plan = t["plan"].cpu().tolist()
+        works[layout] = dict(zip(ffd_step.ATTR_WORK_COUNTERS, t["work"].cpu().tolist()))
+        # one launch, then a team's rows one after another, six team barriers a row
+        per_team = -(-args.B // (plan[0] * plan[1]))
+        floor = LATENCY["launch_ms"] + per_team * 6 * LATENCY["sync_ms"]
+        by_layout[layout] = {"ms": l_ms, "wrapper_ms": l_wrap, "rows_attributed": args.B, "team_warps": args.TW,
+                             "plan": plan, "latency_floor_ms": floor,
+                             "sections": {k: round(v, 5) for k, v in ffd_step.attr_section_split(
+                                 t["sections"].cpu(), l_ms).items()}}
+        if layout == "dedup":
+            # the timed launch's own inputs: the rows it attributes
+            nbytes = io_bytes(t, (), ffd_step.ATTR_SCRATCH + ("inverse",))
+        log(f"  attribute {layout}: {args.B} of {len(rows)} rows attributed, teams of {args.TW} warps, plan "
+            f"(blocks, teams; lanes, groups, types resident) {plan}: kernel {l_ms:.4f} ms median of "
+            f"{[round(x, 4) for x in l_all]}, wrapper {l_wrap:.4f} ms, == the wrapper's words; latency floor "
+            f"{floor:.5f} ms; by section {by_layout[layout]['sections']}")
+    if any(works[x][k] != works["every-row"][k] for x in works for k in ("entry_gates", "listed_type_tests")):
+        raise AssertionError(f"explain: the row plans count other work for every entry: {works}")
+    layout = "dedup"
+    k_ms, wrap_ms = by_layout[layout]["ms"], by_layout[layout]["wrapper_ms"]
+    # the bound counts what the timed launch needs: its attributed rows'
+    # gates, each bin's type tests up to its first survivor
+    work = works[layout]
     K, V, R = aprob.num_keys, aprob.num_lanes, aprob.num_resources
     Wd, O = V // 32, aprob.offer_ok.shape[1]
-    nbytes = io_bytes(sets[0][0], (), ffd_step.ATTR_SCRATCH)
     # per bin gate the merge and intersect over K x W words; per topology
     # lane a compare and a select; per type test the compat words and the
     # offerings in int32, an add and a compare per resource in float32
     int_ops = work["bin_gates"] * 2 * K * Wd + work["topo_lanes"] * 2 + work["type_tests"] * (K * Wd + O)
     flt_ops = work["type_tests"] * 2 * R
     b_ms, b_by = bound(nbytes, int_ops, flt_ops)
-    log(f"  attribute over {len(rows)} rows: kernel {k_ms:.4f} ms median of {[round(t, 4) for t in k_all]}, "
+    log(f"  attribute over {len(rows)} rows ({layout}): kernel {k_ms:.4f} ms, "
         f"wrapper {wrap_ms:.4f} ms, plain {p_ms:.1f} ms; work {work}; bytes {nbytes}, int ops {int_ops:.4g}, "
         f"float ops {flt_ops:.4g}; bound {b_ms:.5f} ms ({b_by})")
     log(f"  explain phase wall {time.perf_counter() - t_phase:.1f}s")
@@ -2154,6 +2338,9 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
         "wrapper_ms": wrap_ms,
         "rows": len(rows),
         "work": work,
+        "layout": layout,
+        "by_layout": by_layout,
+        "latency_floor_ms": by_layout[layout]["latency_floor_ms"],
         "explain_overhead_ms": rep.overhead_s * 1e3,
         "reasons": rep.counts(),
     }
@@ -2369,7 +2556,7 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     from karpenter_tpu_torch.cloudprovider.fake import instance_types
     from karpenter_tpu_torch.models.problem import problem_to_torch
     from karpenter_tpu_torch.ops import fused
-    from karpenter_tpu_torch.ops.ffd_sweeps import state_tensors
+    from karpenter_tpu_torch.ops.ffd_sweeps import forced_cluster, state_tensors
     from karpenter_tpu_torch.ops.padding import pad_problem
     from karpenter_tpu_torch.solver.encode import Encoder, template_from_nodepool
     from karpenter_tpu_torch.solver.torch_backend import TorchSolver
@@ -2410,6 +2597,16 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
         if not torch.equal(ck.cpu(), cp.cpu()) or ck.any():
             raise AssertionError(f"churn {tag}: fused counts {ck.tolist()} != plain {cp.tolist()} or nonzero")
         errs["gate"] = max(errs["gate"], int((ck.long() - cp.long()).abs().max()))
+        # the fused gate alone on the same final state, on every cluster size
+        t = dict(dw.world.t)
+        t.update(state_tensors(rk.state, problem.lane_valid, problem.lane_numeric))
+        t["kind"], t["index"] = rk.kind, rk.index
+        for blocks in GATE_CLUSTERS:
+            with forced_cluster(blocks):
+                cl = gdev.launch_gate_counts_fused(t, pc)
+            if not torch.equal(cl.cpu(), cp.cpu()):
+                raise AssertionError(f"churn {tag}: fused counts (cluster {blocks}) {cl.tolist()} != plain "
+                                     f"{cp.tolist()}")
         return rk, ck, pc, problem, ga, gbf
 
     records, totals = [], {name: 0 for name in kernels.LAUNCHES}
@@ -2454,9 +2651,8 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
                     not torch.equal(bits(dw.world.t[k]), bits(ref[k])) for k in ref):
                 raise AssertionError(f"churn cycle {cyc}: resident world != cold encode")
             world_checks += 1
-        if cyc in (1, CHURN_CYCLES - 1):
-            fused_check(pods, f"cycle {cyc}")
-            fused_checks += 1
+        fused_check(pods, f"cycle {cyc}")
+        fused_checks += 1
         t0 = time.perf_counter()
         ref_result = legacy.solve(pods, its, tpls)
         torch.cuda.synchronize()
@@ -2542,11 +2738,11 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     t = dict(w.t)
     t.update(state_tensors(rk.state, problem.lane_valid, problem.lane_numeric))
     t["kind"], t["index"] = rk.kind, rk.index
-    g_sets = [gdev.gate_fused_args(t, pc) for _ in range(10)]
-    g_ms, g_all = time_launches("gate_counts", g_sets)
-    if any(not torch.equal(gt["counts"].cpu(), ck.cpu()) for gt, _ in g_sets):
-        raise AssertionError("churn: a timed fused gate launch differs")
-    g_wrap_ms, _ = time_ms(lambda: gdev.launch_gate_counts_fused(t, pc), 5)
+    g_layouts, g_sets = gate_by_cluster("churn fused gate", lambda: gdev.gate_fused_args(t, pc),
+                                       lambda: gdev.launch_gate_counts_fused(t, pc), ck.cpu().numpy(),
+                                       time_ms, time_launches)
+    g_layout = "cluster%d" % gdev.gate_blocks()
+    g_ms, g_wrap_ms = g_layouts[g_layout]["ms"], g_layouts[g_layout]["wrapper_ms"]
     g_plain_ms, _ = time_ms(lambda: gdev.gate_counts_plain(gdev.gate_problem(problem), ga, gbf), 3)
     K, Wd = t["lvw"].shape
     P, R = t["pod_requests"].shape
@@ -2555,9 +2751,10 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     g_int = P * (K * (Wd + 3) + 2 * PT) + C * T * (K * Wd + O) + C * K * Wd
     g_flt = P * R + C * T * 2 * R
     g_bound, g_by = bound(g_bytes, g_int, g_flt)
-    log(f"  gate_counts fused: kernel {g_ms:.4f} ms median of {[round(x, 4) for x in g_all]}, wrapper "
-        f"{g_wrap_ms:.4f} ms, plain {g_plain_ms:.3f} ms; bytes {g_bytes}, int ops {g_int:.4g}, float ops "
-        f"{g_flt:.4g}; bound {g_bound:.5f} ms ({g_by})")
+    log(f"  gate_counts fused ({g_layout}): kernel {g_ms:.4f} ms, wrapper {g_wrap_ms:.4f} ms, plain "
+        f"{g_plain_ms:.3f} ms; P={P} C={C} N={t['node_avail'].shape[0]}; bytes {g_bytes}, int ops {g_int:.4g}, "
+        f"float ops {g_flt:.4g}; bound {g_bound:.5f} ms ({g_by}); latency floor "
+        f"{g_layouts[g_layout]['latency_floor_ms']:.5f} ms")
     summary["launches"] = totals
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"  churn phase wall {summary['phase_s']:.1f}s")
@@ -2594,6 +2791,10 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
             "wrapper_ms": g_wrap_ms,
             "bytes": g_bytes,
             "launches_per_cycle": 1,
+            "layout": g_layout,
+            "by_layout": g_layouts,
+            "latency_floor_ms": g_layouts[g_layout]["latency_floor_ms"],
+            "cycles_held_to_plain": fused_checks,
         },
     ], summary
 

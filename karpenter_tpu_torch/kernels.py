@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -185,3 +185,25 @@ def make_struct(name: str, pointer_fields: Iterable[str], int_fields: Iterable[s
     fields = ([(f, ctypes.c_void_p) for f in pointer_fields] + [(f, ctypes.c_int) for f in int_fields]
               + [(f, ctypes.c_float) for f in float_fields])
     return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+def workspace(spec: Iterable[Tuple[str, "torch.dtype", Tuple[int, ...]]], device) -> dict:
+    """One uninitialised allocation cut into a view per (name, dtype, shape),
+    each at a 16-byte boundary: a launch's scratch and outputs in one
+    allocator call."""
+    import torch
+
+    spec = list(spec)
+    offsets, at = [], 0
+    for _, dtype, shape in spec:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        nbytes = n * dtype.itemsize
+        offsets.append((at, nbytes))
+        at += (nbytes + 15) // 16 * 16
+    buf = torch.empty((max(at, 16),), dtype=torch.uint8, device=device)
+    out = {}
+    for (name, dtype, shape), (off, nbytes) in zip(spec, offsets):
+        out[name] = buf[off:off + nbytes].view(dtype).view(shape)
+    return out

@@ -84,6 +84,9 @@ class FFDResult:
     # i32[W + 1] iterations by the lanes they consumed (bin 1 + extra lanes;
     # bin 0 stays 0); None unless the sweeps loop ran with the wavefront on
     wave_hist: Any = None
+    # the problem's tables in the kernels' layout as a single-lane ffd_loop
+    # launch read them (ffd_sweeps.problem_tensors; kernel path only)
+    tables: Any = None
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from karpenter_tpu_torch import kernels
@@ -419,13 +420,15 @@ def attribute_plain(problem: SchedulingProblem, state: FFDState, rows) -> torch.
     return torch.stack([attr(pod_row(xs, r)) for r in rows])
 
 
-def attribute_pods(problem: SchedulingProblem, state: FFDState, rows) -> torch.Tensor:
+def attribute_pods(problem: SchedulingProblem, state: FFDState, rows, tables: Optional[dict] = None) -> torch.Tensor:
     """int32[B, 3] explain words (obs/explain.py wire format) for the pod rows
     ``rows``, evaluated against the final ``state``: one ``attribute`` launch
-    over all the rows for CUDA tensors, the plain version for CPU tensors."""
+    over all the rows for CUDA tensors, the plain version for CPU tensors.
+    ``tables``: the problem's tables in the kernels' layout as the solve's
+    ``ffd_loop`` launch read them (``FFDResult.tables``), else packed here."""
     if problem.lane_valid.is_cuda:
         problem, state = _lane_align(problem, state)
-        return launch_attribute(problem, state, rows)[0]
+        return launch_attribute(problem, state, rows, tables)[0]
     return attribute_plain(problem, state, rows)
 
 
@@ -446,58 +449,134 @@ _ATTR_INPUTS = (
     "node_requests", "node_ports", "node_vol_used", "remaining", "grp_counts", "grp_registered",
     "rows",
 )
-ATTR_SCRATCH = ("fin_adm", "fin_comp", "fin_def", "fin_gt", "fin_lt", "fin_neg")
-_ATTR_POINTERS = _ATTR_INPUTS + ATTR_SCRATCH + ("words", "work")
-_ATTR_INTS = ("K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "CH", "B", "NB")
+# the rows' plan (attr_row_plan): the words of each row stand for ``mult``
+# entries of ``rows``
+ATTR_PLAN = ("mult",)
+# written by the kernel and read by nothing after it (not counted as its bytes)
+ATTR_SCRATCH = ("sections", "next", "plan")
+_ATTR_POINTERS = _ATTR_INPUTS + ATTR_PLAN + ("words", "work") + ATTR_SCRATCH
+_ATTR_INTS = ("K", "V", "W", "C", "N", "T", "TPL", "R", "O", "PT", "D", "G", "CH", "B", "NB", "TW")
 _AttrArgs = kernels.make_struct("AttrArgs", _ATTR_POINTERS, _ATTR_INTS)
-# blocks of one launch, at most: each holds one row's merged bin rows in its
-# own slot of the scratch, and walks the rows block-strided
-ATTR_MAX_BLOCKS = 264
-# the kernel's work counters, in order (csrc/step.cuh WORK_*)
-ATTR_WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers", "cluster_barriers")
+# persistent blocks of one launch, at most: one per SM of an H100, each of
+# 16 warps in teams, a team a row at a time
+ATTR_BLOCKS = 132
+# the kernel's work counters, in order: csrc/step.cuh WORK_* (the work the
+# launch needs: the gates of the rows it attributes, the type tests up to
+# each bin's first survivor), then csrc/attribute.cu AW_*, for comparison
+# only: the gates of every entry of ``rows`` and every listed type tested
+# (the work of a launch that attributes every row and stops at no survivor)
+ATTR_WORK_COUNTERS = ("bin_gates", "topo_lanes", "type_tests", "barriers", "cluster_barriers",
+                      "entry_gates", "listed_type_tests")
+# the kernel's section counters (csrc/attribute.cu ASEC_*): each team's
+# cycles between its barriers (the first five, and the block's table load),
+# then the warps' own cycles by part of a bin
+ATTR_SECTIONS = ("prep", "bins", "prep_templates", "templates", "words",
+                 "node_gate", "claim_gate", "claim_types", "template_gate", "template_types", "load")
+_TEAM_SECTIONS = ("load", "prep", "bins", "prep_templates", "templates", "words")
+def attr_section_split(sections, kernel_ms: float) -> dict:
+    """The teams' sections' shares of their cycles times ``kernel_ms``, then
+    each part of a bin's share of the warps' cycles (``*_share``)."""
+    cyc = dict(zip(ATTR_SECTIONS, (int(x) for x in sections)))
+    team = sum(cyc[n] for n in _TEAM_SECTIONS) or 1
+    out = {n: cyc[n] / team * kernel_ms for n in _TEAM_SECTIONS if cyc[n]}
+    parts = [n for n in ATTR_SECTIONS if n not in _TEAM_SECTIONS]
+    warps = sum(cyc[n] for n in parts) or 1
+    out.update({f"{n}_share": cyc[n] / warps for n in parts if cyc[n]})
+    return out
 
 
-def attribute_args(problem: SchedulingProblem, state: FFDState, rows):
+def attr_row_plan(pod_eqprev, rows):
+    """The rows one launch attributes, on the host: ``rows`` (pod rows) and
+    ``pod_eqprev`` (bool[P]: the row's encoded tensors equal the previous
+    row's; None: every entry its own row). Rows of one run of byte-identical
+    rows get the same words, so each run among ``rows`` is attributed once,
+    at its first entry. Returns (the rows to attribute, how many entries
+    each stands for, each entry's index among them) as int32 numpy arrays."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    if pod_eqprev is None or rows.size < 2:
+        return rows.astype(np.int32), np.ones(rows.size, dtype=np.int32), np.arange(rows.size, dtype=np.int32)
+    eq = np.asarray(pod_eqprev, dtype=bool)
+    head = np.maximum.accumulate(np.where(eq, 0, np.arange(eq.size)))
+    _, first, inverse = np.unique(head[rows], return_index=True, return_inverse=True)
+    # keep the runs in the order of their first entries
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    inverse = rank[inverse.reshape(-1)]
+    return (rows[first[order]].astype(np.int32), np.bincount(inverse, minlength=order.size).astype(np.int32),
+            inverse.astype(np.int32))
+
+
+def attr_team_warps(n_rows: int) -> int:
+    """Warps a team for a launch over ``n_rows`` rows: a team a row at a time
+    and the teams of ATTR_BLOCKS blocks, so few rows get wide teams (each
+    row's bins over more warps), many rows narrow ones (more rows at once)."""
+    for tw in (16, 8, 4):
+        if n_rows <= ATTR_BLOCKS * (16 // tw):
+            return tw
+    return 4
+
+
+def attribute_words(t: dict) -> torch.Tensor:
+    """The launch's int32[B, 3] words, one row per entry of ``rows``: each
+    run's attributed row's words copied to its entries."""
+    return t["words"][t["inverse"]]
+
+
+def attribute_args(problem: SchedulingProblem, state: FFDState, rows, tables: Optional[dict] = None):
     """The ``attribute`` kernel's tensors by struct field name and its
-    argument struct (``problem``/``state`` lane-aligned)."""
-    from karpenter_tpu_torch.ops.ffd_sweeps import problem_tensors, state_tensors
+    argument struct (``problem``/``state`` lane-aligned). The problem's
+    tables are ``tables`` where the caller has them (the solve's own,
+    ``FFDResult.tables``), else ``problem_tensors``; the state is read where
+    it lies; the rows' plan is ``attr_row_plan`` over the problem's
+    ``pod_eqprev`` (``t["inverse"]`` maps each entry of ``rows`` to its
+    attributed row)."""
+    from karpenter_tpu_torch.ops.ffd_sweeps import check_tables, problem_tensors, state_tensors
 
     dev = problem.lane_valid.device
-    t = problem_tensors(problem)
-    t.update(state_tensors(state, problem.lane_valid, problem.lane_numeric))
-    t["rows"] = torch.as_tensor(rows, dtype=torch.int32).reshape(-1).to(dev).contiguous()
+    if tables is not None:
+        check_tables(tables, problem.num_pods, problem.num_instance_types, problem.num_keys, problem.num_lanes)
+        t = dict(tables)
+    else:
+        t = problem_tensors(problem)
+    t.update(state_tensors(state, problem.lane_valid, problem.lane_numeric, copy=False))
+    entries = torch.as_tensor(rows).reshape(-1).cpu().numpy()
+    eq = problem.pod_eqprev
+    eq = None if eq is None else np.asarray(eq.cpu() if isinstance(eq, torch.Tensor) else eq)
+    urows, mult, inverse = attr_row_plan(eq, entries)
+    B = int(urows.size)
+    plan = torch.from_numpy(np.concatenate([urows, mult, inverse])).to(dev)
+    t["rows"], t["mult"], t["inverse"] = plan[:B], plan[B:2 * B], plan[2 * B:].long()
     K, W = t["lvw"].shape
     V = t["ln"].shape[1]
-    B = t["rows"].shape[0]
     N, C, TPL = problem.num_nodes, state.claim_open.shape[0], problem.num_templates
-    NB = max(1, min(B, ATTR_MAX_BLOCKS))
-    bins = N + C + TPL
-    i32 = torch.int32
-    t["fin_adm"] = torch.empty((NB, bins, K, W), dtype=i32, device=dev)
-    t["fin_gt"] = torch.empty((NB, bins, K), dtype=i32, device=dev)
-    t["fin_lt"] = torch.empty((NB, bins, K), dtype=i32, device=dev)
-    for name in ("fin_comp", "fin_def", "fin_neg"):
-        t[name] = torch.empty((NB, bins, K), dtype=torch.bool, device=dev)
-    t["words"] = torch.empty((B, 3), dtype=i32, device=dev)
-    t["work"] = torch.zeros((len(ATTR_WORK_COUNTERS),), dtype=torch.int64, device=dev)
+    TW = attr_team_warps(B)
+    NB = max(1, min(ATTR_BLOCKS, -(-B // (16 // TW))))
+    t.update(kernels.workspace([("words", torch.int32, (B, 3)), ("next", torch.int32, (1,)),
+                                ("plan", torch.int32, (5,))], dev))
+    counters = torch.zeros((len(ATTR_WORK_COUNTERS) + len(ATTR_SECTIONS),), dtype=torch.int64, device=dev)
+    t["work"], t["sections"] = counters[:len(ATTR_WORK_COUNTERS)], counters[len(ATTR_WORK_COUNTERS):]
     G = problem.grp_key.shape[0]
     dims = dict(K=K, V=V, W=W, C=C, N=N, T=problem.num_instance_types, TPL=TPL, R=problem.num_resources,
                 O=t["offer_ok"].shape[1], PT=t["pod_ports"].shape[1], D=t["pod_vols"].shape[1], G=G,
-                CH=t["host_lane"].shape[0], B=B, NB=NB)
+                CH=t["host_lane"].shape[0], B=B, NB=NB, TW=TW)
+    inverse = t["inverse"]
     t = {name: t[name] for name in _ATTR_POINTERS}
     args = _AttrArgs(**{name: t[name].data_ptr() for name in _ATTR_POINTERS}, **dims)
+    t["inverse"] = inverse
     return t, args
 
 
-def launch_attribute(problem: SchedulingProblem, state: FFDState, rows):
+def launch_attribute(problem: SchedulingProblem, state: FFDState, rows, tables: Optional[dict] = None):
     """Run the ``attribute`` kernel on CUDA tensors: every row's words in one
     launch (the JAX package's 32-row chunks exist only for its static
-    shapes). ``problem``/``state`` lane-aligned. Returns (int32[B, 3] words,
-    int64[5] work counters, ATTR_WORK_COUNTERS)."""
+    shapes). ``problem``/``state`` lane-aligned; ``tables`` as in
+    ``attribute_pods``. Returns (int32[B, 3] words, int64[7] work counters,
+    ATTR_WORK_COUNTERS)."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_attribute needs CUDA tensors")
-    t, args = attribute_args(problem, state, rows)
-    if t["rows"].numel() > 0:
+    t, args = attribute_args(problem, state, rows, tables)
+    if args.B > 0:
         kernels.launch("attribute", args, torch.cuda.current_stream(dev).cuda_stream)
-    return t["words"], t["work"]
+    return attribute_words(t), t["work"]

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import os
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -392,13 +393,16 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     arm on problems without Gt/Lt bounds, so there is no separate bounds-free
     kernel path. ``order_scores`` (f32[P]) sorts each sweep's requeue;
     ``wavefront`` extra lanes follow each narrow iteration (csrc/wave.cuh;
-    not in the one-pass mode)."""
+    not in the one-pass mode). The result carries the problem's tables as
+    the launch read them (``FFDResult.tables``), for the solve's later
+    launches over the same problem (the gate, the explain pass)."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_ffd_loop needs CUDA tensors")
-    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0, order_scores, wavefront)
+    tables = problem_tensors(problem)
+    t, args = ffd_loop_args(problem, init, one_pass, kind0, index0, order_scores, wavefront, tables=tables)
     kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream, counter=loop_counter(args))
-    return result_of(t, problem.num_lanes, one_pass)
+    return dataclasses.replace(result_of(t, problem.num_lanes, one_pass), tables=tables)
 
 
 def loop_counter(args) -> str:
@@ -503,6 +507,15 @@ def pod_tensors(src, lv, ln) -> dict:
     return t
 
 
+def check_tables(tables: dict, P: int, T: int, K: int, V: int) -> None:
+    """Raise unless ``tables`` (a ``problem_tensors`` dict handed to a
+    launch's argument build) has ``P`` pod rows and ``T`` type rows over ``K``
+    keys of ``V`` lanes: the tables of the problem the launch reads."""
+    got = (tables["pod_adm"].shape[0], tables["it_adm"].shape[0], tuple(tables["lvw"].shape))
+    if got != (P, T, (K, V // 32)):
+        raise ValueError(f"the tables hold (pods, types, lane words) {got}, not {(P, T, (K, V // 32))}")
+
+
 def problem_tensors(problem: SchedulingProblem) -> dict:
     """The problem's tables in the kernels' layout, by struct field name:
     packed lane words, per-row polarities, int32 indices. Shared by the
@@ -547,14 +560,22 @@ _STATE_LEAVES = (
 )
 
 
-def state_tensors(init: FFDState, lv, ln, prefix: str = "") -> dict:
+def state_tensors(init: FFDState, lv, ln, prefix: str = "", copy: bool = True) -> dict:
     """A copy of the carried state in the kernels' layout (packed requirement
-    rows), by struct field name with ``prefix``."""
+    rows), by struct field name with ``prefix``; without ``copy``, the
+    leaves that need no conversion are the state's own tensors (a launch that
+    only reads the state)."""
     t: dict = {}
-    _req_tensors("claim", init.claim_req, lv, ln, t, state=True)
-    _req_tensors("node", init.node_req, lv, ln, t, state=True)
+    for side, r in (("claim", init.claim_req), ("node", init.node_req)):
+        if copy:
+            _req_tensors(side, r, lv, ln, t, state=True)
+            continue
+        t[side + "_adm"] = masks.pack_lanes(r.admitted).contiguous()
+        for name, src in (("_comp", r.comp), ("_def", r.defined), ("_gt", r.gt), ("_lt", r.lt)):
+            t[side + name] = (src.to(torch.int32) if name in ("_gt", "_lt") else src).contiguous()
     for name, leaf in _STATE_LEAVES:
-        t[name] = getattr(init, leaf).clone().contiguous()
+        src = getattr(init, leaf)
+        t[name] = src.clone().contiguous() if copy else src.contiguous()
     return {prefix + name: t[name] for name in FFD_STATE}
 
 
@@ -576,12 +597,14 @@ def state_back(t: dict, V: int) -> FFDState:
 
 
 def ffd_loop_args(problem: SchedulingProblem, init: FFDState, one_pass: bool, kind0=None, index0=None,
-                  order_scores=None, wavefront: int = 0, cluster: Optional[int] = None):
+                  order_scores=None, wavefront: int = 0, cluster: Optional[int] = None,
+                  tables: Optional[dict] = None):
     """The kernel's tensors by struct field name (inputs in its layout, a
     copy of the carried state to update in place, scratch, outputs) and its
     argument struct: one launch's worth, as ``launch_ffd_loop`` passes it,
-    planned for clusters of ``cluster`` blocks (else ``cluster_size()``)."""
-    t = problem_tensors(problem)
+    planned for clusters of ``cluster`` blocks (else ``cluster_size()``).
+    ``tables``: the problem's ``problem_tensors``, where the caller has them."""
+    t = dict(tables) if tables is not None else problem_tensors(problem)
     # the carried state, copied into the kernel's layout (updated in place)
     t.update(state_tensors(init, problem.lane_valid, problem.lane_numeric))
     return loop_args_from(t, one_pass, kind0, index0, order_scores, wavefront, cluster)

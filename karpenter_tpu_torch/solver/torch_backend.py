@@ -392,10 +392,10 @@ class TorchSolver(SolverBackend):
             return result
 
     def _explain(self, out, problem, state, meta, kinds, failed, failed_rows,
-                 pod_kinds, instance_types, total_pods):
+                 pod_kinds, instance_types, total_pods, tables=None):
         """The explain pass (the JAX backend's ``_explain``): attribute the
         failed rows against the final state (one ``attribute`` launch on the
-        card), decode reasons, attach the bounded winning-candidate rationale
+        card, reading the loop's ``tables``), decode reasons, attach the bounded winning-candidate rationale
         and publish the ExplainReport (ring and metrics) on ``out``. Returns
         the raw int32[B, 3] attribution words."""
         import time
@@ -406,7 +406,7 @@ class TorchSolver(SolverBackend):
 
         t0 = time.perf_counter()
         with trace.span("explain", failed=len(failed)):
-            words = attribute_pods(problem, state, failed_rows).cpu().numpy()
+            words = attribute_pods(problem, state, failed_rows, tables).cpu().numpy()
             report = obs_explain.ExplainReport(
                 backend=type(self).__name__,
                 trace_id=trace.current_trace_id(),
@@ -710,7 +710,7 @@ class TorchSolver(SolverBackend):
                 if obs_explain.enabled() and state is not None:
                     self._explain(
                         out, problem, state, meta, kinds, failed, failed_rows,
-                        pod_kinds, instance_types, len(pods),
+                        pod_kinds, instance_types, len(pods), result.tables,
                     )
                 break
             queue = failed
@@ -728,7 +728,7 @@ class TorchSolver(SolverBackend):
             out.verify_ctx = verify.make_context(
                 host_problem, meta, max_claims, len(pods),
                 pod_requirements_override is not None,
-                device_problem=problem, device=self.device,
+                device_problem=problem, device=self.device, device_tables=result.tables,
             )
         timing["decode"] += time.perf_counter() - t0
         return out

@@ -24,7 +24,7 @@ host-confirmed by the caller (verify/gate.py).
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -213,15 +213,76 @@ _GATE_POINTERS = (
     "claim_adm", "claim_comp", "claim_def", "claim_gt", "claim_lt", "claim_neg",
     "claim_tpl", "claim_active", "claim_reported", "claim_its", "claim_has_reqs",
     "pod_bin", "pod_check", "kind", "index",
-    "summed", "nsum", "ngot", "port_cnt", "neg_out", "counts",
+    "summed", "nsum", "ngot", "port_cnt", "neg_out", "order", "seg_cnt", "claim_flags", "blk_counts",
+    "counts", "sections",
 )
-# the kernel's zeroed accumulators, neither read before nor kept after it
-GATE_SCRATCH = ("summed", "nsum", "ngot", "port_cnt")
+# the kernel's workspace: written before it is read, neither zeroed before
+# nor kept after it (one allocation, cut into these views)
+GATE_SCRATCH = ("summed", "nsum", "ngot", "port_cnt", "order", "seg_cnt", "claim_flags", "blk_counts", "sections")
 # fused mode adds the claim rows' polarity, computed and read in the launch
 # (written as neg_out, read as claim_neg)
 GATE_FUSED_SCRATCH = GATE_SCRATCH + ("neg_out", "claim_neg")
-_GATE_INTS = ("P", "K", "W", "T", "TPL", "C", "N", "R", "O", "PT")
+_GATE_INTS = ("P", "K", "W", "T", "TPL", "C", "N", "R", "O", "PT", "NB")
 _GateKernelArgs = kernels.make_struct("GateKernelArgs", _GATE_POINTERS, _GATE_INTS)
+
+# the kernel's section counters (csrc/gate_counts.cu GS_*): the leader's
+# cycles by stage, each stage's work to its block barrier, then its wait at
+# the cluster barrier; then its block and cluster barriers (gate_barriers)
+GATE_SECTIONS = ("rows", "row_checks", "wait_a", "scatter", "wait_b1", "sums", "wait_b2", "checks", "fold")
+
+
+def gate_blocks() -> int:
+    """The blocks of the launch's one thread-block cluster: a lone solve's
+    cluster (ops/ffd_sweeps.cluster_size, 16 blocks), which
+    ``ffd_sweeps.forced_cluster`` overrides for the card tests and the
+    measurements. (A grid whose last block ran the dependent stages lost at
+    every shape: PERF.md.)"""
+    from karpenter_tpu_torch.ops.ffd_sweeps import cluster_size
+
+    return cluster_size()
+
+
+# a block's staging area for the request rows (csrc/gate_counts.cu: the
+# larger of NWARPS x WARP_STAGE and 2 x BLOCK_STAGE floats)
+GATE_STAGE_FLOATS = 18432
+# what a block of an H100 may opt into (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+H100_SMEM_OPTIN = 232448
+
+
+def gate_smem_bytes(P: int, C: int, N: int, K: int, NB: int) -> int:
+    """A block's dynamic shared memory in a gate launch (csrc/gate_counts.cu
+    ``carve``): the bins' running counts and starts, its segment's rows'
+    bins and ranks (P / NB rows), the staging area, the claim rows'
+    polarity. It grows with the segment: a launch over more rows than fit
+    is refused (KernelDeviceError), not run in another shape."""
+    def a16(x):
+        return (x + 15) // 16 * 16
+
+    B, seg = C + N, -(-P // NB)
+    return a16(4 * (B + 1)) + a16(4 * B) + 2 * a16(4 * seg) + a16(4 * GATE_STAGE_FLOATS) + a16(C * K)
+
+
+def gate_max_rows(C: int, N: int, K: int, NB: int, optin: int = H100_SMEM_OPTIN) -> int:
+    """The most rows a gate launch of NB blocks over C claims and N nodes
+    takes within ``optin`` bytes of shared memory a block."""
+    fixed = gate_smem_bytes(0, C, N, K, NB)
+    seg = (optin - fixed) // 8 // 4 * 4  # two int arrays of seg rows, each 16-byte aligned
+    return max(0, seg * NB)
+
+
+def gate_section_split(sections, kernel_ms: float) -> dict:
+    """Each stage's share of the leader's cycles times ``kernel_ms``: the
+    launch's split by section, the sections that counted any."""
+    cycles = [int(x) for x in sections][:len(GATE_SECTIONS)]
+    total = sum(cycles) or 1
+    return {name: c / total * kernel_ms for name, c in zip(GATE_SECTIONS, cycles) if c}
+
+
+def gate_barriers(sections) -> Tuple[int, int]:
+    """The leader's (block, cluster) barriers in the launch: the count of
+    its latency floor."""
+    block, cluster = (int(x) for x in sections[len(GATE_SECTIONS):len(GATE_SECTIONS) + 2])
+    return block, cluster
 
 
 def _packed_rows(prefix: str, r: ReqTensor, lv, ln, out: dict) -> None:
@@ -233,28 +294,45 @@ def _packed_rows(prefix: str, r: ReqTensor, lv, ln, out: dict) -> None:
     out[prefix + "_neg"] = masks.negative_polarity(r, lv, ln).contiguous()
 
 
-def launch_gate_counts(gp: GateProblem, ga: GateArgs) -> torch.Tensor:
+# the gate's inputs that a solve's ffd_loop launch packed the same way
+# (ops/ffd_sweeps.problem_tensors, FFDResult.tables)
+GATE_FROM_TABLES = ("lvw", "ln") + tuple(f"{side}_{part}" for side in ("pod", "it")
+                                         for part in ("adm", "comp", "def", "gt", "lt", "neg"))
+
+
+def launch_gate_counts(gp: GateProblem, ga: GateArgs, tables: Optional[dict] = None) -> torch.Tensor:
     """The ``gate_counts`` kernel on CUDA tensors (general bounded arm, equal
-    to the bounds-free arm on bounds-free problems)."""
+    to the bounds-free arm on bounds-free problems); ``tables`` as in
+    ``gate_counts_args``."""
     dev = gp.pod_requests.device
     if dev.type != "cuda":
         raise ValueError("launch_gate_counts needs CUDA tensors")
-    t, args = gate_counts_args(gp, ga)
+    t, args = gate_counts_args(gp, ga, tables)
     kernels.launch("gate_counts", args, torch.cuda.current_stream(dev).cuda_stream)
     return t["counts"]
 
 
-def gate_counts_args(gp: GateProblem, ga: GateArgs):
-    """The kernel's tensors by struct field name (inputs in its layout,
-    zeroed accumulators, the counts) and its argument struct: one launch's
-    worth, as ``launch_gate_counts`` passes it."""
+def gate_counts_args(gp: GateProblem, ga: GateArgs, tables: Optional[dict] = None):
+    """The kernel's tensors by struct field name (inputs in its layout, its
+    workspace, the counts) and its argument struct: one launch's worth, as
+    ``launch_gate_counts`` passes it. ``tables``: the solve's own tables of
+    the same problem (``FFDResult.tables``), whose lane words and pod and type
+    rows the gate reads as they are (GATE_FROM_TABLES); without them, those
+    are packed here. The node rows and the published claim rows are packed
+    here."""
     lv, ln = gp.lane_valid, gp.lane_numeric
-    V = lv.shape[1]
+    K, V = lv.shape
     if V % 32:
         raise ValueError(f"gate_counts needs a lane axis padded to a multiple of 32, got {V}")
-    t: dict = {"lvw": masks.pack_lanes(lv).contiguous(), "ln": ln.contiguous()}
-    _packed_rows("pod", gp.pod_reqs, lv, ln, t)
-    _packed_rows("it", gp.it_reqs, lv, ln, t)
+    if tables is not None:
+        from karpenter_tpu_torch.ops.ffd_sweeps import check_tables
+
+        check_tables(tables, gp.pod_requests.shape[0], gp.it_alloc.shape[0], K, V)
+        t: dict = {name: tables[name] for name in GATE_FROM_TABLES}
+    else:
+        t = {"lvw": masks.pack_lanes(lv).contiguous(), "ln": ln.contiguous()}
+        _packed_rows("pod", gp.pod_reqs, lv, ln, t)
+        _packed_rows("it", gp.it_reqs, lv, ln, t)
     _packed_rows("node", gp.node_reqs, lv, ln, t)
     _packed_rows("claim", ga.claim_req, lv, ln, t)
     for name, src in (
@@ -273,20 +351,29 @@ def gate_counts_args(gp: GateProblem, ga: GateArgs):
     return _gate_struct(t)
 
 
-def _gate_struct(t: dict):
-    """Zeroed accumulators and the counts added to ``t``, and the argument
-    struct, with the dimensions read from the tables' shapes."""
+def _gate_struct(t: dict, fused: bool = False):
+    """The workspace and the counts added to ``t`` (one allocation, cut into
+    views; fused mode adds the claim rows' polarity) and the argument
+    struct, with the dimensions read from the tables' shapes and the
+    cluster's blocks from ``gate_blocks``."""
     dev = t["ln"].device
     K, W = t["lvw"].shape
     P, R = t["pod_requests"].shape
     C, N, PT = t["claim_tpl"].shape[0], t["node_avail"].shape[0], t["pod_ports"].shape[1]
-    t["summed"] = torch.zeros((C, R), dtype=torch.float32, device=dev)
-    t["nsum"] = torch.zeros((N, R), dtype=torch.float32, device=dev)
-    t["ngot"] = torch.zeros((N,), dtype=torch.int32, device=dev)
-    t["port_cnt"] = torch.zeros((C + N, PT), dtype=torch.int32, device=dev)
-    t["counts"] = torch.zeros((len(INVARIANTS),), dtype=torch.int32, device=dev)
+    NB = gate_blocks()
+    B = C + N
+    f32, i32 = torch.float32, torch.int32
+    spec = [("summed", f32, (C, R)), ("nsum", f32, (N, R)), ("ngot", i32, (N,)), ("port_cnt", i32, (B, PT)),
+            ("order", i32, (P,)), ("seg_cnt", i32, (NB, B)), ("claim_flags", i32, (C, 4)),
+            ("blk_counts", i32, (NB, len(INVARIANTS))), ("counts", i32, (len(INVARIANTS),)),
+            ("sections", torch.int64, (len(GATE_SECTIONS) + 2,))]
+    if fused:
+        spec.append(("neg_out", torch.bool, (C, K)))
+    t.update(kernels.workspace(spec, dev))
+    if fused:
+        t["claim_neg"] = t["neg_out"]
     dims = dict(P=P, K=K, W=W, T=t["it_alloc"].shape[0], TPL=t["tpl_overhead"].shape[0],
-                C=C, N=N, R=R, O=t["offer_ok"].shape[1], PT=PT)
+                C=C, N=N, R=R, O=t["offer_ok"].shape[1], PT=PT, NB=NB)
     args = _GateKernelArgs(**{name: (t[name].data_ptr() if t[name] is not None else None)
                               for name in _GATE_POINTERS}, **dims)
     return t, args
@@ -344,12 +431,9 @@ def gate_fused_args(world: dict, pod_check):
     if pod_check.shape != (P,) or pod_check.dtype != torch.bool or pod_check.device != world["ln"].device:
         raise ValueError(f"pod_check must be bool[{P}] on {world['ln'].device}")
     t = {name: world[src] for name, src in _FUSED_FROM_WORLD}
-    C, K = t["claim_comp"].shape
-    t["neg_out"] = torch.empty((C, K), dtype=torch.bool, device=pod_check.device)
-    t["claim_neg"] = t["neg_out"]
     t["pod_bin"] = None
     t["pod_check"] = pod_check.contiguous()
-    return _gate_struct(t)
+    return _gate_struct(t, fused=True)
 
 
 def launch_gate_counts_fused(world: dict, pod_check) -> torch.Tensor:
@@ -363,11 +447,12 @@ def launch_gate_counts_fused(world: dict, pod_check) -> torch.Tensor:
     return t["counts"]
 
 
-def verify_gate(gp: GateProblem, ga: GateArgs, bounds_free: bool) -> torch.Tensor:
-    """i32[7] violation counts: the ``gate_counts`` kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+def verify_gate(gp: GateProblem, ga: GateArgs, bounds_free: bool, tables: Optional[dict] = None) -> torch.Tensor:
+    """i32[7] violation counts: the ``gate_counts`` kernel for CUDA tensors
+    (``tables`` as in ``gate_counts_args``), the plain version for CPU
+    tensors."""
     if gp.pod_requests.is_cuda:
-        return launch_gate_counts(gp, ga)
+        return launch_gate_counts(gp, ga, tables)
     return gate_counts_plain(gp, ga, bounds_free)
 
 

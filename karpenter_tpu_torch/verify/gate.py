@@ -90,6 +90,11 @@ class GateContext:
     # counts by invariant (empty = device-accept), which full_gate uses in
     # place of a gate_counts launch. None = no fused counts.
     fused_counts: Optional[Dict[str, int]] = None
+    # ``device_problem``'s tables in the kernels' layout as the solve's
+    # ffd_loop launch read them (ops/ffd_core.FFDResult.tables): the gate
+    # launch reads its lane words and pod and type rows from them instead of
+    # packing them again. None = packed by the gate.
+    device_tables: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -103,12 +108,13 @@ class GateOutcome:
 
 def make_context(
     problem, meta, max_claims, num_pods, has_override, device_problem=None, device="cpu",
-    fused_counts=None,
+    fused_counts=None, device_tables=None,
 ) -> GateContext:
     return GateContext(
         problem=problem, meta=meta, max_claims=int(max_claims),
         num_pods=int(num_pods), has_override=bool(has_override),
         device_problem=device_problem, device=device, fused_counts=fused_counts,
+        device_tables=device_tables,
     )
 
 
@@ -320,7 +326,7 @@ def _device_counts(ctx, result, pods, pod_requirements_override) -> Dict[str, in
     from karpenter_tpu_torch.verify import device as dev
 
     gp, ga, bf = _build_args(ctx, result, pods, pod_requirements_override)
-    counts = dev.verify_gate(gp, ga, bf).cpu().numpy()
+    counts = dev.verify_gate(gp, ga, bf, ctx.device_tables).cpu().numpy()
     return {
         dev.INVARIANTS[i]: int(counts[i])
         for i in range(len(dev.INVARIANTS))

@@ -134,8 +134,10 @@ def _screen_args():
 @pytest.mark.parametrize("kernel", ["ffd_loop", "gate_counts", "runs_screen", "attribute"])
 def test_args_builders_fill_every_pointer(kernel):
     """One launch's tensors: every struct pointer set from its tensor, the
-    carried state copied (a launch leaves its input state alone), scratch
-    accumulators zeroed. chip_smoke.py counts a launch's bytes from them."""
+    carried state copied (a launch leaves its input state alone), the
+    gate's workspace one allocation that the kernel writes before it reads
+    (nothing zeroed on the host side). chip_smoke.py counts a launch's bytes
+    from them."""
     if kernel == "ffd_loop":
         prob = problem_to_torch(_encode(W.fuzz_workload(6), 8), "cpu")
         init = initial_state(prob, 8)
@@ -155,11 +157,14 @@ def test_args_builders_fill_every_pointer(kernel):
         result = ffd_sweeps.solve_ffd_sweeps(prob, 8)
         t, args = ffd_step.attribute_args(prob, result.state, torch.arange(4))
         pointers, state, scratch = ffd_step._ATTR_POINTERS, (), ffd_step.ATTR_SCRATCH
-        assert t["rows"].tolist() == [0, 1, 2, 3] and args.B == 4 and args.NB == 4
+        inverse = t.pop("inverse")  # each entry's attributed row: host-side, not a kernel argument
+        assert t["rows"][inverse].tolist() == [0, 1, 2, 3] and args.B == t["rows"].numel() and args.NB >= 1
+        assert int(t["mult"].sum()) == 4 and not t["work"].any() and not t["sections"].any()
     else:
         t, args = gdev.gate_counts_args(*_gate_inputs())
         pointers, state, scratch = gdev._GATE_POINTERS, (), gdev.GATE_SCRATCH
-        assert all(not t[name].any() for name in scratch)
+        assert len({t[name].untyped_storage().data_ptr() for name in scratch + ("counts",)}) == 1
+        assert args.NB == gdev.gate_blocks() == ffd_sweeps.SOLO_CLUSTER and t["seg_cnt"].shape[0] == args.NB
     assert set(t) == set(pointers) and set(state) | set(scratch) <= set(pointers)
     for name in pointers:
         expected = t[name].data_ptr() if t[name] is not None else None
@@ -249,6 +254,23 @@ def screen_layout(request):
     """Every runs_screen launch of the test in this layout."""
     with mesh.forced_screen_plan(*request.param):
         yield request.param
+
+
+@pytest.fixture(params=[16, 8, 1])
+def gate_cluster(request):
+    """Every gate_counts launch of the test on a cluster of this many blocks."""
+    with ffd_sweeps.forced_cluster(request.param):
+        yield request.param
+
+
+@pytest.fixture(params=["dedup", "every-row"])
+def row_plan(request):
+    """The attribute launches' row plan: each run of byte-identical rows
+    attributed once (the problem's ``pod_eqprev``), or every row (the
+    problem without it)."""
+    if request.param == "dedup":
+        return lambda prob: prob
+    return lambda prob: dataclasses.replace(prob, pod_eqprev=None)
 
 
 CORPORA = {
@@ -474,20 +496,50 @@ ATTR_CORPORA = ("fuzz-6", "bounds-0", "topology-3", "chain-2001-overflow")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ATTR_CORPORA + tuple(WIDE_CORPORA))
-def test_attribute_matches_plain(cuda, name):
+def test_attribute_matches_plain(cuda, row_plan, name):
     """The attribute kernel against attribute_plain: the words of every
-    active row against the final state of the solve, exact."""
+    active row against the final state of the solve, exact. The work
+    counters count what the launch needs (the gates of the rows it
+    attributes, the type tests up to each bin's first survivor), and the
+    comparison counters what every entry and every listed type would be,
+    the same under either row plan."""
     make, slots = CORPORA[name] if name in CORPORA else (WIDE_CORPORA[name], 32)
     prob = problem_to_torch(_encode(make(), slots), cuda)
     result = ffd_sweeps.solve_ffd_sweeps(prob, slots)
     rows = torch.nonzero(prob.pod_active).reshape(-1)
     aprob, state = _lane_align(prob, result.state)
-    words, work = ffd_step.launch_attribute(aprob, state, rows)
+    words, work = ffd_step.launch_attribute(row_plan(aprob), state, rows)
     plain = ffd_step.attribute_plain(prob, result.state, rows)
     torch.cuda.synchronize()
     assert torch.equal(words.cpu(), plain.cpu())
     work = dict(zip(ffd_step.ATTR_WORK_COUNTERS, work.cpu().tolist()))
-    assert work["bin_gates"] >= rows.numel()
+    _, every = ffd_step.launch_attribute(dataclasses.replace(aprob, pod_eqprev=None), state, rows)
+    every = dict(zip(ffd_step.ATTR_WORK_COUNTERS, every.cpu().tolist()))
+    for key in ("entry_gates", "listed_type_tests"):
+        assert work[key] == every[key], key
+    assert every["bin_gates"] == every["entry_gates"] >= rows.numel()
+    assert work["bin_gates"] <= work["entry_gates"] and work["topo_lanes"] <= every["topo_lanes"]
+    assert every["type_tests"] <= every["listed_type_tests"] and work["type_tests"] <= every["type_tests"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chain-2000", "diverse-300-overflow", "homogeneous-48"])
+def test_attribute_repeated_rows_match_plain(cuda, row_plan, name):
+    """Rows repeated and out of order (byte-identical rows apart in the
+    list, the same row twice): every entry's words equal attribute_plain's
+    on the same list."""
+    make, slots = CORPORA[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    result = ffd_sweeps.solve_ffd_sweeps(prob, slots)
+    active = torch.nonzero(prob.pod_active).reshape(-1).cpu().numpy()
+    rng = np.random.default_rng(7)
+    rows = torch.from_numpy(np.concatenate([rng.permutation(active), rng.choice(active, 17)]))
+    assert prob.pod_eqprev.cpu().numpy()[rows.numpy()].any(), "the corpus has no run of byte-identical rows"
+    aprob, state = _lane_align(prob, result.state)
+    words, _ = ffd_step.launch_attribute(row_plan(aprob), state, rows)
+    plain = ffd_step.attribute_plain(prob, result.state, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(words.cpu(), plain.cpu())
 
 
 @pytest.mark.cuda
@@ -512,14 +564,48 @@ def test_shared_memory_beyond_the_card_is_a_device_error(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [16, 4, 1])
+def test_gate_shared_memory_mirror_matches_the_kernel(cuda, blocks):
+    """verify/device.gate_smem_bytes is the kernel's own carve, and a gate
+    over more rows than a block's shared memory holds is refused
+    (KernelDeviceError, nothing launched), the next launch running."""
+    import ctypes
+
+    pods, its, tpls, nodes = CORPORA["fuzz-6"][0]()
+    result = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=cuda).solve(pods, its, tpls, nodes)
+    gp, ga, bf = _build_args(result.verify_ctx, result, pods, None)
+    want = gdev.gate_counts_plain(gp, ga, bf)
+    with ffd_sweeps.forced_cluster(blocks):
+        t, args = gdev.gate_counts_args(gp, ga)
+    lib = kernels.library("gate_counts")
+    lib.gate_counts_smem.restype = ctypes.c_longlong
+    for P in (args.P, 10_240, 14_336, 100_000):
+        args.P = P
+        assert lib.gate_counts_smem(ctypes.byref(args)) == gdev.gate_smem_bytes(P, args.C, args.N, args.K, args.NB)
+    args.P = gdev.gate_max_rows(args.C, args.N, args.K, args.NB) + 16 * args.NB
+    before = kernels.LAUNCHES["gate_counts"]
+    with pytest.raises(kernels.KernelDeviceError, match="launch error"):
+        kernels.launch("gate_counts", args, torch.cuda.current_stream(cuda).cuda_stream)
+    assert kernels.LAUNCHES["gate_counts"] == before
+    with ffd_sweeps.forced_cluster(blocks):
+        got = gdev.launch_gate_counts(gp, ga)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fuzz-6", "bounds-0"])
-def test_gate_counts_matches_plain(cuda, name):
+def test_gate_counts_matches_plain(cuda, gate_cluster, name):
     pods, its, tpls, nodes = CORPORA[name][0]()
     result = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=cuda).solve(pods, its, tpls, nodes)
     gp, ga, bf = _build_args(result.verify_ctx, result, pods, None)
     ck = gdev.launch_gate_counts(gp, ga).cpu()
     assert torch.equal(ck, gdev.gate_counts_plain(gp, ga, bf).cpu())
     assert not ck.any()
+    # the solve's own tables (its ffd_loop launch's), as full_gate hands them over
+    tables = result.verify_ctx.device_tables
+    assert tables is not None
+    assert torch.equal(gdev.launch_gate_counts(gp, ga, tables).cpu(), ck)
     # the per-bin sums are the pod-order sums, bit for bit, on every launch
     C, N = ga.claim_tpl.shape[0], gp.node_avail.shape[0]
     pb = ga.pod_bin.long()
@@ -535,6 +621,67 @@ def test_gate_counts_matches_plain(cuda, name):
     rep[0, 0] += 1.0
     bad = ga._replace(claim_reported=rep)
     assert torch.equal(gdev.launch_gate_counts(gp, bad).cpu(), gdev.gate_counts_plain(gp, bad, bf).cpu())
+
+
+def _gate_corruptions(gp, ga):
+    """(name, gp, ga) variants of a result that each trip one invariant
+    (others may trip too), as chip_smoke.py phase 1 makes them; a variant
+    whose precondition the result lacks is left out."""
+    C = ga.claim_tpl.shape[0]
+    pod_bin = ga.pod_bin.cpu().numpy()
+    placed = np.flatnonzero(pod_bin >= 0)
+    on_claims = pod_bin[(pod_bin >= 0) & (pod_bin < C)]
+    c0 = int(np.bincount(on_claims).argmax())
+    on_c0 = np.flatnonzero(pod_bin == c0)
+    p0 = int(on_c0[0])
+    out = [("clean", gp, ga)]
+    rep = ga.claim_reported.clone()
+    rep[c0, 0] += 1.0
+    out.append(("claim-requests", gp, ga._replace(claim_reported=rep)))
+    out.append(("claim-capacity", gp._replace(it_alloc=torch.full_like(gp.it_alloc, -1.0)), ga))
+    out.append(("instance-type-survivor", gp, ga._replace(claim_its=torch.ones_like(ga.claim_its))))
+    tol, tn = gp.pod_tol_tpl.clone(), gp.pod_tol_node.clone()
+    tol[placed] = False
+    tn[placed] = False
+    out.append(("taint-admissibility", gp._replace(pod_tol_tpl=tol, pod_tol_node=tn), ga))
+    if len(on_c0) >= 2:
+        ports, conf = gp.pod_ports.clone(), gp.pod_port_conflict.clone()
+        ports[on_c0[0], 0] = True
+        conf[on_c0[1], 0] = True
+        out.append(("host-port", gp._replace(pod_ports=ports, pod_port_conflict=conf), ga))
+    cr, pr = ga.claim_req, gp.pod_reqs
+    cadm, ccomp, cdef = cr.admitted.clone(), cr.comp.clone(), cr.defined.clone()
+    cadm[c0, 0], ccomp[c0, 0], cdef[c0, 0] = False, False, True
+    padm, pcomp, pdef = pr.admitted.clone(), pr.comp.clone(), pr.defined.clone()
+    padm[p0, 0], pcomp[p0, 0], pdef[p0, 0] = gp.lane_valid[0], False, True
+    chk = ga.pod_check.clone()
+    chk[p0] = True
+    out.append(("requirement-intersection", gp._replace(pod_reqs=type(pr)(padm, pcomp, pr.gt, pr.lt, pdef)),
+                ga._replace(claim_req=type(cr)(cadm, ccomp, cr.gt, cr.lt, cdef), pod_check=chk)))
+    if (pod_bin >= C).any():
+        out.append(("node-capacity", gp._replace(node_avail=torch.zeros_like(gp.node_avail)), ga))
+    return out
+
+
+@pytest.mark.cuda
+def test_gate_counts_corruptions_match_plain(cuda, gate_cluster):
+    """Results corrupted to trip each of the seven invariants, on the
+    corpora of chip_smoke.py phase 1: the kernel's counts equal
+    gate_counts_plain's on every variant, and every invariant fires."""
+    tripped = set()
+    for wl in (W.fuzz_workload(1), W.topology_workload(0), W.bounds_workload(0), W.chain_workload(2000),
+               W.homogeneous_workload(48), W.diverse_workload(300, 40, seed=7)):
+        pods, its, tpls, nodes = wl
+        result = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=cuda, relax=False).solve(pods, its, tpls, nodes)
+        if result.verify_ctx is None:
+            continue  # a result the device gate does not apply to (as in chip_smoke.py)
+        gp, ga, bf = _build_args(result.verify_ctx, result, pods, None)
+        for name, g1, a1 in _gate_corruptions(gp, ga):
+            ck = gdev.launch_gate_counts(g1, a1).cpu()
+            assert torch.equal(ck, gdev.gate_counts_plain(g1, a1, bf).cpu()), name
+            assert (not ck.any()) if name == "clean" else ck[gdev.INVARIANTS.index(name)] > 0, name
+            tripped.add(name)
+    assert tripped == {"clean", *gdev.INVARIANTS}
 
 
 @pytest.mark.cuda
@@ -732,7 +879,7 @@ def _fused_corruptions(t, C):
 
 
 @pytest.mark.cuda
-def test_fused_gate_matches_plain(cuda):
+def test_fused_gate_matches_plain(cuda, gate_cluster):
     """The fused solve (ffd_loop fresh, then gate_counts in its fused mode)
     against the plain loop and gate_counts_plain over gate_args_from_state;
     then the fused gate alone on the loop's state corrupted to trip each
