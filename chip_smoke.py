@@ -91,8 +91,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      world bit-equal to the cold encode's on every fourth cycle and the
      last; the fused counts equal to ``gate_counts_plain`` over the same
      state on every cycle, on every cluster size. Then the cycle walls, their
-     split, the bytes up, and ``patch_world`` and the fused gate alone (on
-     every cluster size, with its split and latency floor), wrapped and plain.
+     split, the bytes up, and ``patch_world`` (its shipped rows packed on the
+     card; with its bytes up, bound and one launch beside it) and the fused
+     gate alone (on every cluster size, with its split and latency floor),
+     wrapped and plain.
   5. the supervised multi-tenant serve path (the JAX package's serve
      scenario): ``runs_screen`` in its stacked mode through
      ``serve.batch.stacked_solve`` (encode, stack, one launch, decode, full
@@ -131,7 +133,8 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      (``lane_scores``, program 6, and the scored ``ffd_loop``): each solve's
      launch counts, ``full_gate`` clean, IterCounts, scheduled pods, claims
      and phase-1 stats equal to the JAX package's (EXPECT_RELAX2,
-     EXPECT_POLICY); then the convex mode and ``lane_scores`` alone, wrapped
+     EXPECT_POLICY); then the convex mode and ``lane_scores`` (over the
+     tables the solve builds once for the scorer and the loop) alone, wrapped
      and plain at those shapes, each equal to plain, the homogeneous carried
      repair and the scored fresh loop against their plain loops; the convex
      mode also on clusters of CLUSTER_SIZES blocks, each launch equal to
@@ -1924,6 +1927,7 @@ def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
     from karpenter_tpu_torch.ops.ffd_core import _lane_align, _pad_lanes_mult32, initial_state, problem_bounds_free
     from karpenter_tpu_torch.ops.ffd_sweeps import (
         ffd_loop_args,
+        problem_tensors,
         solve_ffd_sweeps,
         solve_ffd_sweeps_carried,
         sweeps_plain,
@@ -2102,18 +2106,20 @@ def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
     prob = full_problem(result, MAIN_PODS)
     C = result.verify_ctx.max_claims
     lane_w = ordering.lane_weights_static()
-    scores = POL.lane_scores(prob, lane_w)
-    sets = [POL.lane_scores_args(prob, lane_w) for _ in range(10)]
+    # the tables the solve builds once for the scorer and the loop
+    tables = problem_tensors(prob)
+    scores = POL.lane_scores(prob, lane_w, tables=tables)
+    sets = [POL.lane_scores_args(prob, lane_w, tables=tables) for _ in range(10)]
     s_ms, s_all = time_launches("lane_scores", sets)
     if any(not torch.equal(t["scores"], scores) for t, _ in sets):
         raise AssertionError("lane_scores: a timed launch differs from the wrapper's")
-    s_wrap_ms, _ = time_ms(lambda: POL.lane_scores(prob, lane_w), 5)
+    s_wrap_ms, _ = time_ms(lambda: POL.lane_scores(prob, lane_w, tables=tables), 5)
     sp, s_plain_ms = plain_ms(lambda: POL.lane_scores_plain(prob, lane_w))
     err = float((scores - sp).abs().max())
     score_err = max(score_err, err)
     if err > SCORE_ATOL:
         raise AssertionError(f"lane_scores at full width: {err} from plain")
-    rf = solve_ffd_sweeps(prob, C, order_scores=scores)
+    rf = solve_ffd_sweeps(prob, C, order_scores=scores, tables=tables)
     if tuple(int(x) for x in rf.iters) != EXPECT_POLICY["fresh"]["iters"]:
         raise AssertionError(f"scored fresh loop iters {tuple(rf.iters)}")
     loop_sets = [ffd_loop_args(prob, initial_state(prob, C), False, order_scores=scores) for _ in range(2)]
@@ -2126,8 +2132,9 @@ def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
     int_ops = P * (2 * K * (V // 32) + K + prob.pod_ports.shape[1] + prob.num_templates + 2 * prob.num_groups)
     flt_ops = P * (2 * R + 2 * POL.N_LANE_FEATURES + 8)
     b_ms, b_by = bound(nbytes, int_ops, flt_ops)
-    log(f"  lane_scores: kernel {s_ms:.4f} ms median of {[round(x, 4) for x in s_all]}, wrapper {s_wrap_ms:.4f} ms, "
-        f"plain {s_plain_ms:.1f} ms, max |kernel - plain| {err:.3g}; bytes {nbytes}, bound {b_ms:.5f} ms ({b_by}); "
+    log(f"  lane_scores: kernel {s_ms:.4f} ms median of {[round(x, 4) for x in s_all]}, wrapper {s_wrap_ms:.4f} ms "
+        f"(the solve's tables), plain {s_plain_ms:.1f} ms, max |kernel - plain| {err:.3g}; bytes {nbytes}, bound "
+        f"{b_ms:.5f} ms ({b_by}); one launch {LATENCY['launch_ms']:.4f} ms; "
         f"scored fresh ffd_loop {l_ms:.3f} ms, plain {l_plain_ms:.1f} ms, kernel == plain, iters "
         f"{tuple(int(x) for x in rf.iters)}")
     log(f"  flags phase wall {time.perf_counter() - t_phase:.1f}s")
@@ -2161,6 +2168,7 @@ def flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         "bound_by": b_by,
         "library_ms": None,
         "wrapper_ms": s_wrap_ms,
+        "latency_floor_ms": LATENCY["launch_ms"],
         "scored_loop_ms": l_ms,
         "scored_loop_plain_ms": l_plain_ms,
         "runs": pol,
@@ -2718,20 +2726,20 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     pw_wrap_ms, _ = time_ms(wrapped_patch, 10)
     prev_rows = dict(w.spare)
     _, pw_plain_ms = plain_ms(lambda: fused.patch_world_plain(prev_rows, up))
-    survivors = int((~up.use_fresh).sum())
-    Pb = up.gather_idx.shape[0]
-    pw_bytes = Pb * (4 + 1 + 4)
-    for name in fused.PATCH_ROWS:
-        stk = up.stack[name]
-        if stk.numel():
-            row = stk.numel() * stk.element_size() // stk.shape[0]
-            pw_bytes += survivors * row + stk.numel() * stk.element_size() + Pb * row
-    pw_bytes += 2 * sum(x.numel() * x.element_size() for x in up.full.values())
+    # bytes: the survivors' rows read once, every row written once, the
+    # upload (work lists, shipped rows, full-ship leaves, leaf table) read
+    # once, the full-ship leaves written once
+    survivors = int(up.pieces[:, 2].sum())
+    Pb = int(w.t["pod_requests"].shape[0])
+    row_bytes = sum(w.t[n].numel() * w.t[n].element_size() // Pb for n in fused.PATCH_ROWS)
+    pw_bytes = row_bytes * (survivors + Pb) + up.nbytes + sum(x.numel() * x.element_size() for x in up.full.values())
     pw_bound, pw_by = bound(pw_bytes, 0, 0)
+    shipped = int(up.fresh[:, 1].max()) + 1 if up.fresh.shape[0] else 0
     log(f"  patch_world: kernel {pw_ms:.4f} ms median of {[round(x, 4) for x in pw_all]}, wrapper "
         f"{pw_wrap_ms:.4f} ms, plain {pw_plain_ms:.3f} ms; kernel == plain on {len(steady)} cycles; "
-        f"{survivors} survivors of {Pb} rows, {up.stack['pod_requests'].shape[0]} stack rows; "
-        f"bytes {pw_bytes}, bound {pw_bound:.5f} ms ({pw_by})")
+        f"{survivors} survivors of {Pb} rows in {up.pieces.shape[0]} pieces, {up.fresh.shape[0]} rows built from "
+        f"{shipped} shipped rows; bytes up {up.nbytes}; bytes {pw_bytes}, bound {pw_bound:.5f} ms ({pw_by}); one "
+        f"launch {LATENCY['launch_ms']:.4f} ms")
 
     # the fused gate alone and wrapped, over the last cycle's final state
     rk, ck, pc, problem, ga, gbf = fused_check(list(proc.pods), "timing")
@@ -2773,6 +2781,8 @@ def churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
             "library_ms": None,
             "wrapper_ms": pw_wrap_ms,
             "bytes": pw_bytes,
+            "h2d_bytes": up.nbytes,
+            "latency_floor_ms": LATENCY["launch_ms"],
             "launches_per_patched_cycle": 1,
         },
         {

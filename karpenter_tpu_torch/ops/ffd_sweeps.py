@@ -155,28 +155,30 @@ def sweeps_plain(problem: SchedulingProblem, init: FFDState, bounds_free: bool,
 
 
 def solve_ffd_sweeps(problem: SchedulingProblem, max_claims: int, order_scores=None,
-                     wavefront: Optional[int] = None) -> FFDResult:
+                     wavefront: Optional[int] = None, tables: Optional[dict] = None) -> FFDResult:
     """Run all retry sweeps of a solve from a fresh state: one ``ffd_loop``
     launch for CUDA tensors, the plain version for CPU tensors.
     ``order_scores`` as in ``sweeps_plain``; ``wavefront`` extra lanes, None
-    for what ``KARPENTER_TPU_WAVEFRONT`` asks (``wavefront_lanes``)."""
+    for what ``KARPENTER_TPU_WAVEFRONT`` asks (``wavefront_lanes``);
+    ``tables`` as in ``launch_ffd_loop``."""
     lanes = _lanes(wavefront)
     problem = _pad_lanes_mult32(problem)
     init = initial_state(problem, max_claims)
     if problem.lane_valid.is_cuda:
-        return launch_ffd_loop(problem, init, one_pass=False, order_scores=order_scores, wavefront=lanes)
+        return launch_ffd_loop(problem, init, one_pass=False, order_scores=order_scores, wavefront=lanes,
+                               tables=tables)
     return sweeps_plain(problem, init, problem_bounds_free(problem), order_scores=order_scores, wavefront=lanes)
 
 
 def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init, order_scores=None,
-                             wavefront: Optional[int] = None) -> FFDResult:
+                             wavefront: Optional[int] = None, tables: Optional[dict] = None) -> FFDResult:
     """The repair pass of the two-phase solve (ops/relax.py): ``init`` is
     (state, kind, index) from phase 1, ``problem.pod_active`` holds only the
     residue. The loop starts from phase 1's claim landscape, and phase 1's
     verdict rows ride through untouched because their pods are never stepped.
     One ``ffd_loop`` launch for CUDA tensors, the plain version for CPU
     tensors. ``max_claims`` must equal the carried state's claim axis.
-    ``order_scores`` and ``wavefront`` as in ``solve_ffd_sweeps``."""
+    ``order_scores``, ``wavefront`` and ``tables`` as in ``solve_ffd_sweeps``."""
     lanes = _lanes(wavefront)
     state, kind0, index0 = init
     if state.claim_open.shape[0] != max_claims:
@@ -184,7 +186,7 @@ def solve_ffd_sweeps_carried(problem: SchedulingProblem, max_claims: int, init, 
     problem, state = _lane_align(problem, state)
     if problem.lane_valid.is_cuda:
         return launch_ffd_loop(problem, state, one_pass=False, kind0=kind0, index0=index0,
-                               order_scores=order_scores, wavefront=lanes)
+                               order_scores=order_scores, wavefront=lanes, tables=tables)
     return sweeps_plain(problem, state, problem_bounds_free(problem), kind0, index0, order_scores, lanes)
 
 
@@ -384,7 +386,8 @@ def _req_tensors(prefix: str, r: ReqTensor, lv, ln, out: dict, state: bool = Fal
 
 
 def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
-                    kind0=None, index0=None, order_scores=None, wavefront: int = 0) -> FFDResult:
+                    kind0=None, index0=None, order_scores=None, wavefront: int = 0,
+                    tables: Optional[dict] = None) -> FFDResult:
     """Run the ``ffd_loop`` kernel on CUDA tensors: the requeue loop, or with
     ``one_pass`` a single scan over every row (the backend's per-pass mode).
     ``kind0``/``index0`` (i32[P], both or neither) seed the verdict rows, as
@@ -395,11 +398,18 @@ def launch_ffd_loop(problem: SchedulingProblem, init: FFDState, one_pass: bool,
     ``wavefront`` extra lanes follow each narrow iteration (csrc/wave.cuh;
     not in the one-pass mode). The result carries the problem's tables as
     the launch read them (``FFDResult.tables``), for the solve's later
-    launches over the same problem (the gate, the explain pass)."""
+    launches over the same problem (the gate, the explain pass).
+    ``tables``: the problem's ``problem_tensors`` where the caller built them
+    already (the learned order's scorer reads them first); the launch reads
+    its ``pod_active`` from ``problem``."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_ffd_loop needs CUDA tensors")
-    tables = problem_tensors(problem)
+    if tables is None:
+        tables = problem_tensors(problem)
+    else:
+        check_tables(tables, problem.num_pods, problem.num_instance_types, problem.num_keys, problem.num_lanes)
+        tables = dict(tables, pod_active=_i32(problem.pod_active))
     t, args = ffd_loop_args(problem, init, one_pass, kind0, index0, order_scores, wavefront, tables=tables)
     kernels.launch("ffd_loop", args, torch.cuda.current_stream(dev).cuda_stream, counter=loop_counter(args))
     return dataclasses.replace(result_of(t, problem.num_lanes, one_pass), tables=tables)

@@ -14,16 +14,19 @@ versions read, so that no cycle repacks the whole problem.
     its previous row ``gather_idx[r]`` or row ``fresh_sel[r]`` of a small
     shipped stack (arrivals, spec changes, and pad_problem's fill row for
     the pad rows), and the small full-ship leaves (``pod_active``, the
-    ``eqprev`` rows, the run tables) are replaced whole. The host converts
-    the stack into the kernels' layout (``pod_tensors`` on its few rows) and
-    ships everything in one pinned buffer, one copy. ``gather_idx`` is not
-    monotone (``ffd_order`` sorts arrivals into the middle of the batch), so
-    a patch in place could read a row another thread has already written:
-    each pod-axis leaf has two buffers, the patch writes the spare one, and
-    the two swap (the JAX package donates the world instead). The CUDA
-    kernel ``patch_world`` (csrc/patch_world.cu) runs for CUDA tensors,
-    ``patch_world_plain`` (the JAX package's per-leaf ``where``) for CPU
-    tensors.
+    ``eqprev`` rows, the run tables) are replaced whole. The host cuts the
+    splice into work lists (``patch_plan``: runs of survivors whose previous
+    rows are consecutive, and the rows built from a shipped row) and ships
+    them, the stack rows as the encoder gave them and the full-ship leaves
+    in one pinned buffer, one copy; the kernel packs the shipped rows into
+    the kernels' layout. ``gather_idx`` is not monotone (``ffd_order`` sorts
+    arrivals into the middle of the batch), so a patch in place could read a
+    row another thread has already written: each pod-axis leaf has two
+    buffers, the patch writes the spare one, and the two swap (the JAX
+    package donates the world instead). The CUDA kernel ``patch_world``
+    (csrc/patch_world.cu) runs for CUDA tensors, ``patch_world_plain`` (the
+    JAX package's per-leaf ``where`` over rows ``pod_tensors`` packs on the
+    host) for CPU tensors.
 
 ``solve_ffd_fused_gate``
     The fresh ``ffd_loop`` over the resident tables and ``gate_counts`` in
@@ -38,7 +41,8 @@ versions read, so that no cycle repacks the whole problem.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Any, Dict, NamedTuple
 
@@ -300,6 +304,9 @@ class World:
     lanes: tuple  # (lane_valid, lane_numeric) on the host: packs the shipped rows
     shapes: Dict[str, tuple]  # the padded problem's leaf shapes (leaf_shapes)
     max_claims: int
+    # how the patch kernel builds each row leaf (_leaf_ops), by the shipped
+    # stacks' types and row shapes
+    leaf_ops: dict = field(default_factory=dict, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -324,15 +331,38 @@ def adopt_world(padded: SchedulingProblem, max_claims: int, device) -> World:
 # -- the patch kernel's arguments (csrc/patch_world.cu) -------------------------
 
 _ALIGN = 16
-# one PatchLeaf {prev, out, stk, row_bytes} of the kernel's leaf table
-_LEAF_WORDS = 4
-_PATCH_POINTERS = ("leaves", "gather_idx", "use_fresh", "fresh_sel")
-_PATCH_INTS = ("L", "FL", "P")
+# how a shipped row becomes a row of a PATCH_ROWS leaf (csrc/patch_world.cu):
+# a byte copy; the admitted lanes packed into lane words (with the group's
+# polarity row where the group has one); a polarity row, written by its
+# group's OP_PACK item
+OP_COPY, OP_PACK, OP_NEG = 0, 1, 2
+# the kernel's PatchLeaf, one int64 word a field
+_LEAF_FIELDS = ("prev", "out", "stk", "row_bytes", "stk_row_bytes", "op", "aux")
+PIECE_ROWS = 64  # a survivor run is cut into pieces of at most this many rows, a warp's copy each
+FULL_CHUNK = 4096  # bytes of a full-ship leaf one work item copies (csrc/patch_world.cu)
+MAX_LEAVES = 32  # a fresh row's copies take a lane a leaf (csrc/patch_world.cu)
+_PATCH_POINTERS = ("leaves", "pieces", "fresh", "lvw", "ln")
+_PATCH_INTS = ("L", "FL", "NP", "NF", "FP", "FC", "K", "W")
 _PatchKernelArgs = kernels.make_struct("PatchKernelArgs", _PATCH_POINTERS, _PATCH_INTS)
+# the PatchArgs stack each PATCH_ROWS leaf is built from; pod_neg is built
+# from its group's shipped rows
+_SHIPPED = {
+    "pod_adm": "req_admitted", "pod_comp": "req_comp", "pod_def": "req_defined", "pod_gt": "req_gt",
+    "pod_lt": "req_lt", "pod_neg": None,
+    "pod_strict_adm": "strict_admitted", "pod_strict_comp": "strict_comp", "pod_strict_def": "strict_defined",
+    "pod_strict_gt": "strict_gt", "pod_strict_lt": "strict_lt",
+    "pod_requests": "requests", "pod_tol_tpl": "tol_tpl", "pod_tol_node": "tol_node", "pod_ports": "ports",
+    "pod_conflict": "port_conflict", "pod_match": "grp_match", "pod_selects": "grp_selects",
+    "pod_owned": "grp_owned", "pod_vols": "vol_counts",
+}
+# a requirement group's leaves in PATCH_ROWS order: the kernel finds the
+# comp, gt and lt rows that the polarity reads at +1, +3, +4 from the words
+_GROUP = ("_adm", "_comp", "_def", "_gt", "_lt")
 
 
 def _stack_rows(args: PatchArgs, lanes) -> dict:
-    """The shipped stack in the kernels' layout (``pod_tensors`` on its rows)."""
+    """The shipped stack in the kernels' layout (``pod_tensors`` on its rows,
+    on the host): the plain version's rows."""
     lv, ln = lanes
 
     def req(prefix: str) -> ReqTensor:
@@ -340,59 +370,150 @@ def _stack_rows(args: PatchArgs, lanes) -> dict:
                            for f in ("admitted", "comp", "gt", "lt", "defined")))
 
     rows = SimpleNamespace(pod_reqs=req("req"), pod_strict_reqs=req("strict"))
-    for (_, field), src in zip(POD_FIELDS, (
-        args.requests, args.tol_tpl, args.tol_node, args.ports, args.port_conflict,
-        args.grp_match, args.grp_selects, args.grp_owned, args.vol_counts,
-    )):
-        setattr(rows, field, torch.from_numpy(np.asarray(src)))
+    for name, field in POD_FIELDS:
+        setattr(rows, field, torch.from_numpy(np.asarray(getattr(args, _SHIPPED[name]))))
     t = pod_tensors(rows, lv, ln)
     t.update(_strict_rest(rows.pod_strict_reqs))
     return t
 
 
+def patch_plan(gather_idx, use_fresh, fresh_sel):
+    """The row splice as the kernel's work lists (numpy, O(P)): ``pieces``
+    i32[NP, 3] (destination row, previous row, rows), each a run of
+    survivors whose previous rows are consecutive, cut every PIECE_ROWS
+    rows; ``fresh`` i32[NF, 2] (destination row, shipped row), the rows built
+    from the shipped stack (arrivals, spec changes and pad rows)."""
+    gather = np.asarray(gather_idx, dtype=np.int32)
+    use = np.asarray(use_fresh, dtype=bool)
+    P = gather.shape[0]
+    # a survivor continues its predecessor's run when both survive and its
+    # previous row follows the predecessor's
+    follows = np.zeros(P, dtype=bool)
+    np.equal(gather[1:], gather[:-1] + 1, out=follows[1:])
+    follows[1:] &= ~use[:-1]
+    bounds = np.flatnonzero(use | ~follows)  # fresh rows and run heads
+    heads = ~use[bounds]
+    starts = bounds[heads]
+    lengths = np.diff(bounds, append=P)[heads]
+    cuts = -(-lengths // PIECE_ROWS)
+    if starts.shape[0] and cuts.max() > 1:  # long runs: a piece every PIECE_ROWS rows
+        run = np.repeat(np.arange(starts.shape[0]), cuts)
+        off = (np.arange(run.shape[0]) - np.repeat(np.cumsum(cuts) - cuts, cuts)) * PIECE_ROWS
+        starts, lengths = starts[run] + off, np.minimum(lengths[run] - off, PIECE_ROWS)
+    pieces = np.empty((starts.shape[0], 3), dtype=np.int32)
+    pieces[:, 0], pieces[:, 1], pieces[:, 2] = starts, gather[starts], lengths
+    rows = np.flatnonzero(use)
+    fresh = np.empty((rows.shape[0], 2), dtype=np.int32)
+    fresh[:, 0], fresh[:, 1] = rows, np.asarray(fresh_sel)[rows]
+    return pieces, fresh
+
+
 @dataclass
 class PatchUpload:
-    """One patch's arguments on the device: typed views into one buffer that
-    came over in one copy, and the kernel's argument struct."""
+    """One patch's arguments on the device: one buffer that came over in one
+    copy, the kernel's argument struct, and typed views into the buffer,
+    made when asked for (the plain version and the checks read them; the
+    kernel does not)."""
 
-    gather_idx: torch.Tensor
-    use_fresh: torch.Tensor
-    fresh_sel: torch.Tensor
-    stack: Dict[str, torch.Tensor]  # PATCH_ROWS leaf -> [S, ...] rows, kernel layout
-    full: Dict[str, torch.Tensor]  # PATCH_FULL leaf -> its new value
-    buffer: torch.Tensor  # the device buffer holding all of the above
+    patch: PatchArgs  # the host plan the upload came from (the plain version packs its rows)
+    lanes: tuple  # the world's (lane_valid, lane_numeric) on the host
+    buffer: torch.Tensor  # the device buffer
+    layout: Dict[str, tuple]  # key -> (byte offset, numpy dtype, shape) in ``buffer``
     args: Any  # _PatchKernelArgs, pointers into ``buffer`` and the world
     nbytes: int  # bytes copied host -> device
 
+    def view(self, key: str) -> torch.Tensor:
+        off, dtype, shape = self.layout[key]
+        nbytes = math.prod(shape) * dtype.itemsize
+        return self.buffer[off:off + nbytes].view(torch.from_numpy(np.empty(0, dtype=dtype)).dtype).view(shape)
+
+    @property
+    def pieces(self) -> torch.Tensor:
+        """i32[NP, 3] survivor pieces (``patch_plan``)."""
+        return self.view("pieces")
+
+    @property
+    def fresh(self) -> torch.Tensor:
+        """i32[NF, 2] rows built from a shipped row (``patch_plan``)."""
+        return self.view("fresh")
+
+    @property
+    def shipped(self) -> Dict[str, torch.Tensor]:
+        """PATCH_ROWS leaf -> its shipped rows, the encoder's form."""
+        return {key[4:]: self.view(key) for key in self.layout if key.startswith("stk:")}
+
+    @property
+    def full(self) -> Dict[str, torch.Tensor]:
+        """PATCH_FULL leaf -> its new value."""
+        return {name: self.view("full:" + name) for name, _ in PATCH_FULL}
+
+
+def _copies_as_is(stk_dtype: np.dtype, leaf_dtype: torch.dtype) -> bool:
+    """Whether a byte copy of shipped values gives the leaf's values: the
+    same type (bool and uint8 alike, the 0/1 bytes the encoder ships)."""
+    leaf = torch.empty(0, dtype=leaf_dtype).numpy().dtype
+    return stk_dtype == leaf or {stk_dtype, leaf} <= {np.dtype(np.bool_), np.dtype(np.uint8)}
+
+
+def _leaf_ops(world: World, rows, host_arrays) -> np.ndarray:
+    """(row bytes, shipped row bytes, op, aux) of each row leaf in ``rows``:
+    how the kernel builds a row of it from a shipped row. Raises where the
+    shipped stack does not fit the leaf."""
+    ops = np.zeros((len(rows), 4), dtype=np.int64)
+    for i, name in enumerate(rows):
+        prev = world.t[name]
+        row_bytes = prev.numel() // prev.shape[0] * prev.element_size()
+        if _SHIPPED[name] is None:
+            ops[i] = (row_bytes, 0, OP_NEG, -1)
+            continue
+        stk = host_arrays["stk:" + name]
+        op, aux = OP_COPY, -1
+        if name.endswith("_adm"):
+            group = name[: -len("_adm")]
+            if (rows[i:i + len(_GROUP)] != [group + g for g in _GROUP] or stk.dtype != np.bool_ or stk.ndim != 3
+                    or stk.shape[1] != prev.shape[1] or stk.shape[2] > 32 * prev.shape[2]):
+                raise ValueError(f"patch_world cannot pack {name} {stk.dtype}{list(stk.shape)} into "
+                                 f"{list(prev.shape)} from leaves {rows[i:i + len(_GROUP)]}")
+            op, aux = OP_PACK, (rows.index(group + "_neg") if group + "_neg" in rows else -1)
+        elif not _copies_as_is(stk.dtype, prev.dtype) or stk.shape[1:] != tuple(prev.shape[1:]):
+            raise ValueError(f"patch_world copies shipped rows of {name} as they are: "
+                             f"{stk.dtype}{list(stk.shape)} does not fit {prev.dtype}{list(prev.shape)}")
+        ops[i] = (row_bytes, math.prod(stk.shape[1:]) * stk.itemsize, op, aux)
+    return ops
+
 
 def upload_patch(args: PatchArgs, world: World) -> PatchUpload:
-    """Pack ``args`` into the kernels' layout, write it into one host buffer
-    (pinned for a CUDA world) and copy it to the world's device with one
-    non-blocking copy. The leaf table the kernel walks is part of the same
-    buffer: for each non-empty PATCH_ROWS leaf (previous buffer, spare
-    buffer, stack rows, row bytes), then for each PATCH_FULL leaf (-, its
-    destination, its new value, total bytes). A full-ship leaf whose length
-    changed (the run tables follow the run count's bucket) gets a new
-    destination tensor here."""
+    """Write one patch's kernel arguments into one host buffer (pinned for a
+    CUDA world) and copy it to the world's device with one non-blocking
+    copy: the work lists (``patch_plan``), the shipped rows as
+    ``build_patch_args`` gives them (up to the last one a row takes), the
+    full-ship leaves, and the leaf table the kernel walks: for each
+    non-empty PATCH_ROWS leaf (previous buffer, spare buffer, shipped rows,
+    row bytes, shipped row bytes, op, aux), then for each PATCH_FULL leaf
+    (-, its destination, its new value, total bytes, 0, OP_COPY, -1). The
+    kernel packs the shipped rows into the kernels' layout; the plain
+    version packs them on the host (``patch_world_plain``). A full-ship leaf
+    whose length changed (the run tables follow the run count's bucket) gets
+    a new destination tensor here."""
     dev = world.device
-    host_arrays: Dict[str, np.ndarray] = {
-        "gather_idx": np.asarray(args.gather_idx, dtype=np.int32),
-        "use_fresh": np.asarray(args.use_fresh, dtype=bool),
-        "fresh_sel": np.asarray(args.fresh_sel, dtype=np.int32),
-    }
-    stack = {name: x.numpy() for name, x in _stack_rows(args, world.lanes).items()}
-    for name in PATCH_ROWS:
-        host_arrays["stk:" + name] = stack[name]
+    pieces, fresh = patch_plan(args.gather_idx, args.use_fresh, args.fresh_sel)
+    S = int(fresh[:, 1].max()) + 1 if fresh.shape[0] else 0
+    rows = [name for name in PATCH_ROWS if world.t[name].numel()]
+    if len(rows) + len(PATCH_FULL) > MAX_LEAVES:
+        raise ValueError(f"patch_world holds {MAX_LEAVES} leaves, not {len(rows) + len(PATCH_FULL)}")
+    host_arrays: Dict[str, np.ndarray] = {"pieces": pieces, "fresh": fresh}
+    for name in rows:
+        if _SHIPPED[name] is not None:
+            host_arrays["stk:" + name] = np.asarray(getattr(args, _SHIPPED[name]))[:S]
     for name, field in PATCH_FULL:
         host_arrays["full:" + name] = np.asarray(getattr(args, field))
     offsets, total = {}, 0
     for key, arr in host_arrays.items():
         offsets[key] = total
         total += -(-arr.nbytes // _ALIGN) * _ALIGN
-    rows = [name for name in PATCH_ROWS if stack[name].nbytes]
     n_leaves = len(rows) + len(PATCH_FULL)
     table_off = total
-    total += n_leaves * _LEAF_WORDS * 8
+    total += n_leaves * len(_LEAF_FIELDS) * 8
 
     pinned = dev.type == "cuda"
     host = torch.empty((total,), dtype=torch.uint8, pin_memory=pinned)
@@ -402,51 +523,59 @@ def upload_patch(args: PatchArgs, world: World) -> PatchUpload:
         flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
         hview[offsets[key]:offsets[key] + flat.size] = flat
 
-    def device_view(key: str) -> torch.Tensor:
-        arr = host_arrays[key]
-        dtype = torch.from_numpy(arr[:0].copy()).dtype
-        return buf[offsets[key]:offsets[key] + arr.nbytes].view(dtype).view(arr.shape)
-
     for name, _ in PATCH_FULL:
         shape = host_arrays["full:" + name].shape
         if tuple(world.t[name].shape) != shape:
             world.t[name] = torch.empty(shape, dtype=world.t[name].dtype, device=dev)
-    table = np.zeros((n_leaves, _LEAF_WORDS), dtype=np.int64)
+    table = np.zeros((n_leaves, len(_LEAF_FIELDS)), dtype=np.int64)
     base = buf.data_ptr()
-    for i, name in enumerate(rows):
-        prev, out = world.t[name], world.spare[name]
-        table[i] = (prev.data_ptr(), out.data_ptr(), base + offsets["stk:" + name],
-                    stack[name].nbytes // stack[name].shape[0])
+    key = tuple((name, stk.dtype.str, stk.shape[1:]) for name, stk in host_arrays.items() if name.startswith("stk:"))
+    ops = world.leaf_ops.get(key)
+    if ops is None:
+        ops = world.leaf_ops[key] = _leaf_ops(world, rows, host_arrays)
+    L = len(rows)
+    table[:L, 0] = [world.t[name].data_ptr() for name in rows]
+    table[:L, 1] = [world.spare[name].data_ptr() for name in rows]
+    table[:L, 2] = [base + offsets["stk:" + name] if _SHIPPED[name] else 0 for name in rows]
+    table[:L, 3:] = ops
+    full_chunks = 0
     for j, (name, _) in enumerate(PATCH_FULL):
         dst = world.t[name]
-        table[len(rows) + j] = (0, dst.data_ptr(), base + offsets["full:" + name], dst.numel() * dst.element_size())
+        nbytes = dst.numel() * dst.element_size()
+        table[len(rows) + j] = (0, dst.data_ptr(), base + offsets["full:" + name], nbytes, 0, OP_COPY, -1)
+        full_chunks += -(-nbytes // FULL_CHUNK)
     hview[table_off:table_off + table.nbytes] = table.reshape(-1).view(np.uint8)
     if pinned:
         buf.copy_(host, non_blocking=True)
+    K, W = world.t["lvw"].shape
     kargs = _PatchKernelArgs(
-        leaves=base + table_off, gather_idx=base + offsets["gather_idx"],
-        use_fresh=base + offsets["use_fresh"], fresh_sel=base + offsets["fresh_sel"],
-        L=len(rows), FL=len(PATCH_FULL), P=int(host_arrays["gather_idx"].shape[0]),
+        leaves=base + table_off, pieces=base + offsets["pieces"], fresh=base + offsets["fresh"],
+        lvw=world.t["lvw"].data_ptr(), ln=world.t["ln"].data_ptr(),
+        L=len(rows), FL=len(PATCH_FULL), NP=int(pieces.shape[0]), NF=int(fresh.shape[0]),
+        FP=1 + int((ops[:, 2] == OP_PACK).sum()), FC=full_chunks, K=int(K), W=int(W),
     )
     return PatchUpload(
-        gather_idx=device_view("gather_idx"), use_fresh=device_view("use_fresh"),
-        fresh_sel=device_view("fresh_sel"),
-        stack={name: device_view("stk:" + name) for name in PATCH_ROWS},
-        full={name: device_view("full:" + name) for name, _ in PATCH_FULL},
-        buffer=buf, args=kargs, nbytes=total,
+        patch=args, lanes=world.lanes, buffer=buf,
+        layout={key: (offsets[key], arr.dtype, arr.shape) for key, arr in host_arrays.items()},
+        args=kargs, nbytes=total,
     )
 
 
 def patch_world_plain(prev: Dict[str, torch.Tensor], up: PatchUpload) -> Dict[str, torch.Tensor]:
     """The patched leaves, in plain PyTorch (the JAX package's per-leaf
-    ``where(use_fresh, stack[fresh_sel], prev[gather_idx])``): PATCH_ROWS
-    from ``prev`` and the stack, PATCH_FULL from the upload."""
+    ``where(use_fresh, stack[fresh_sel], prev[gather_idx])``) over the
+    shipped rows packed on the host (``pod_tensors``): PATCH_ROWS from
+    ``prev`` and the stack, PATCH_FULL from the upload."""
+    dev = up.buffer.device
+    stack = _stack_rows(up.patch, up.lanes)
+    idx = torch.from_numpy(np.asarray(up.patch.gather_idx, dtype=np.int64)).to(dev)
+    sel = torch.from_numpy(np.asarray(up.patch.fresh_sel, dtype=np.int64)).to(dev)
+    use = torch.from_numpy(np.asarray(up.patch.use_fresh, dtype=bool)).to(dev)
     out = {}
-    idx, sel = up.gather_idx.long(), up.fresh_sel.long()
     for name in PATCH_ROWS:
         leaf = prev[name]
-        mask = up.use_fresh.reshape((-1,) + (1,) * (leaf.dim() - 1))
-        out[name] = torch.where(mask, up.stack[name][sel], leaf[idx])
+        mask = use.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        out[name] = torch.where(mask, stack[name].to(dev)[sel], leaf[idx])
     for name, _ in PATCH_FULL:
         out[name] = up.full[name].clone()
     return out

@@ -14,8 +14,15 @@ one tanh hidden layer) turns them into a score; the sweeps solves
 Two implementations of the same function:
   * ``lane_scores_plain`` — plain PyTorch, taken for CPU tensors (the tests)
     and the yardstick on the card;
-  * the ``lane_scores`` CUDA kernel (csrc/lane_scores.cu), one warp per pod
+  * the ``lane_scores`` CUDA kernel (csrc/lane_scores.cu), a thread per pod
     row, taken for CUDA tensors. There is no fallback between the two.
+
+The kernel reads the problem's tables in the kernels' layout
+(``ops/ffd_sweeps.problem_tensors``): the solve builds them once and hands
+the same tables to the scorer and to the ``ffd_loop`` launch that reads the
+scores (``tables=``); without them the wrapper builds them itself. The
+head's device copy is made once per weights version (``head_weights``), as
+the JAX package bakes the weights into its program.
 
 Both add in one stated order: the request sum over resources, and the head's
 products over features (and over hidden units), in index order. The log1p
@@ -25,12 +32,14 @@ it within 1e-6.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from karpenter_tpu_torch import kernels
 from karpenter_tpu_torch.models.problem import SchedulingProblem
-from karpenter_tpu_torch.ops import masks
 from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32
+from karpenter_tpu_torch.ops.ffd_sweeps import check_tables, problem_tensors
 
 # bump when the feature columns change meaning (solver/ordering.py checks
 # the artifact's lane_feature_version against it)
@@ -98,11 +107,11 @@ def lane_scores_plain(problem: SchedulingProblem, weights_static) -> torch.Tenso
     return score_features(lane_features(problem), weights_static)
 
 
-def lane_scores(problem: SchedulingProblem, weights_static) -> torch.Tensor:
-    """The scores: one ``lane_scores`` launch for CUDA tensors, the plain
-    version for CPU tensors."""
+def lane_scores(problem: SchedulingProblem, weights_static, tables=None) -> torch.Tensor:
+    """The scores: one ``lane_scores`` launch for CUDA tensors (over the
+    solve's ``tables`` where given), the plain version for CPU tensors."""
     if problem.lane_valid.is_cuda:
-        return launch_lane_scores(_pad_lanes_mult32(problem), weights_static)[0]
+        return launch_lane_scores(_pad_lanes_mult32(problem), weights_static, tables=tables)[0]
     return lane_scores_plain(problem, weights_static)
 
 
@@ -113,6 +122,12 @@ _LANE_INPUTS = ("req", "defined", "adm", "lvw", "ports", "tol_tpl", "match", "ow
 _LANE_POINTERS = _LANE_INPUTS + ("feats", "scores")
 _LANE_INTS = ("P", "R", "K", "W", "PT", "TPL", "G", "hidden")
 _LaneArgs = kernels.make_struct("LaneArgs", _LANE_POINTERS, _LANE_INTS)
+# the kernel's table inputs: struct field <- problem_tensors name, dtype
+_LANE_TABLES = (
+    ("req", "pod_requests", torch.float32), ("defined", "pod_def", torch.bool), ("adm", "pod_adm", torch.int32),
+    ("lvw", "lvw", torch.int32), ("ports", "pod_ports", torch.bool), ("tol_tpl", "pod_tol_tpl", torch.bool),
+    ("match", "pod_match", torch.bool), ("owned", "pod_owned", torch.bool),
+)
 
 
 def pack_weights(weights_static, dev) -> torch.Tensor:
@@ -128,45 +143,55 @@ def pack_weights(weights_static, dev) -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float32, device=dev)
 
 
-def lane_scores_args(problem: SchedulingProblem, weights_static, with_features: bool = False):
+@functools.lru_cache(maxsize=16)
+def head_weights(weights_static, dev) -> torch.Tensor:
+    """``pack_weights`` on ``dev``, copied there once per weights version
+    (``weights_static`` is solver/ordering's tuple, its own key). The
+    kernels only read it."""
+    return pack_weights(weights_static, dev)
+
+
+def lane_scores_args(problem: SchedulingProblem, weights_static, with_features: bool = False, tables=None):
     """The kernel's tensors by struct field name and its argument struct:
-    one launch's worth, as ``launch_lane_scores`` passes it. The feature
-    columns are an output only ``with_features``."""
+    one launch's worth, as ``launch_lane_scores`` passes it. ``tables``: the
+    problem's ``problem_tensors``, where the caller has them (else built
+    here). The feature columns are an output only ``with_features``."""
     dev = problem.lane_valid.device
     arch, w, _, hidden = weights_static
     H = len(hidden[1]) if arch == "mlp" and hidden is not None else 0
     if len(w) != (H or N_LANE_FEATURES) or (H and any(len(r) != N_LANE_FEATURES for r in hidden[0])):
         raise ValueError(f"lane head does not fit {N_LANE_FEATURES} features (hidden {H})")
     P = problem.num_pods
-    t = {
-        "req": problem.pod_requests.to(torch.float32).contiguous(),
-        "defined": problem.pod_reqs.defined.contiguous(),
-        "adm": masks.pack_lanes(problem.pod_reqs.admitted).contiguous(),
-        "lvw": masks.pack_lanes(problem.lane_valid).contiguous(),
-        "ports": problem.pod_ports.contiguous(),
-        "tol_tpl": problem.pod_tol_tpl.contiguous(),
-        "match": problem.pod_grp_match.contiguous(),
-        "owned": problem.pod_grp_owned.contiguous(),
-        "eqprev_chain": None if problem.pod_eqprev_chain is None else problem.pod_eqprev_chain.contiguous(),
-        "eqprev_gate": None if problem.pod_eqprev_gate is None else problem.pod_eqprev_gate.contiguous(),
-        "weights": pack_weights(weights_static, dev),
-        "feats": torch.empty((P, N_LANE_FEATURES), dtype=torch.float32, device=dev) if with_features else None,
-        "scores": torch.empty((P,), dtype=torch.float32, device=dev),
-    }
-    dims = dict(P=P, R=problem.num_resources, K=problem.num_keys, W=t["adm"].shape[2],
-                PT=problem.pod_ports.shape[1], TPL=problem.num_templates, G=problem.num_groups, hidden=H)
+    if tables is None:
+        tables = problem_tensors(problem)
+    else:
+        check_tables(tables, P, problem.num_instance_types, problem.num_keys, problem.num_lanes)
+    t = {}
+    for name, table, dtype in _LANE_TABLES:
+        x = tables[table]
+        if x.dtype != dtype or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"lane_scores reads {table} as contiguous {dtype} on {dev}, not {x.dtype} on {x.device}")
+        t[name] = x
+    for name, src in (("eqprev_chain", problem.pod_eqprev_chain), ("eqprev_gate", problem.pod_eqprev_gate)):
+        t[name] = None if src is None else src.contiguous()
+    t["weights"] = head_weights(weights_static, dev)
+    t["feats"] = torch.empty((P, N_LANE_FEATURES), dtype=torch.float32, device=dev) if with_features else None
+    t["scores"] = torch.empty((P,), dtype=torch.float32, device=dev)
+    dims = dict(P=P, R=t["req"].shape[1], K=t["lvw"].shape[0], W=t["lvw"].shape[1], PT=t["ports"].shape[1],
+                TPL=t["tol_tpl"].shape[1], G=t["match"].shape[1], hidden=H)
     args = _LaneArgs(**{n: (t[n].data_ptr() if t[n] is not None else None) for n in _LANE_POINTERS}, **dims)
     return t, args
 
 
-def launch_lane_scores(problem: SchedulingProblem, weights_static, with_features: bool = False):
+def launch_lane_scores(problem: SchedulingProblem, weights_static, with_features: bool = False, tables=None):
     """Run the ``lane_scores`` kernel on CUDA tensors (lanes padded to a
-    multiple of 32): (scores f32[P], features f32[P, N_LANE_FEATURES] if
-    ``with_features`` else None)."""
+    multiple of 32), over the solve's ``tables`` where given: (scores
+    f32[P], features f32[P, N_LANE_FEATURES] if ``with_features`` else
+    None)."""
     dev = problem.lane_valid.device
     if dev.type != "cuda":
         raise ValueError("launch_lane_scores needs CUDA tensors")
-    t, args = lane_scores_args(problem, weights_static, with_features)
+    t, args = lane_scores_args(problem, weights_static, with_features, tables)
     kernels.launch("lane_scores", args, torch.cuda.current_stream(dev).cuda_stream)
     return t["scores"], t["feats"]
 

@@ -102,9 +102,14 @@ from karpenter_tpu_torch.apis.objects import Pod
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.metrics.registry import ORDER_POLICY_SOLVES, RELAX_FALLBACK
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, problem_to_torch
-from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
+from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT, _pad_lanes_mult32
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd
-from karpenter_tpu_torch.ops.ffd_sweeps import solve_ffd_sweeps, solve_ffd_sweeps_carried, wavefront_lanes
+from karpenter_tpu_torch.ops.ffd_sweeps import (
+    problem_tensors,
+    solve_ffd_sweeps,
+    solve_ffd_sweeps_carried,
+    wavefront_lanes,
+)
 from karpenter_tpu_torch.ops.padding import claim_axis_bucket, pad_problem
 from karpenter_tpu_torch.ops.policy import lane_scores
 from karpenter_tpu_torch.ops.relax import relax_applicable, relax_place
@@ -633,8 +638,13 @@ class TorchSolver(SolverBackend):
             wavefront = wavefront_lanes()
             # the learned requeue order: one score per row (the rows'
             # features do not depend on which are active), read by the
-            # fresh or the carried loop
-            scores = lane_scores(problem, ordering.lane_weights_static()) if lanes else None
+            # fresh or the carried loop; on the card both launches read one
+            # build of the problem's tables
+            scores = tables = None
+            if lanes:
+                if problem.lane_valid.is_cuda:
+                    tables = problem_tensors(_pad_lanes_mult32(problem))
+                scores = lane_scores(problem, ordering.lane_weights_static(), tables=tables)
             if rout is not None:
                 problem = dataclasses.replace(problem, pod_active=rout.residue_active)
                 host_problem = dataclasses.replace(
@@ -643,9 +653,10 @@ class TorchSolver(SolverBackend):
                 if lanes:
                     ORDER_POLICY_SOLVES.inc({"part": "lane"})
                 result = solve_ffd_sweeps_carried(problem, max_claims, init=(rout.state, rout.kind, rout.index),
-                                                  order_scores=scores, wavefront=wavefront)
+                                                  order_scores=scores, wavefront=wavefront, tables=tables)
             elif use_sweeps:
-                result = solve_ffd_sweeps(problem, max_claims, order_scores=scores, wavefront=wavefront)
+                result = solve_ffd_sweeps(problem, max_claims, order_scores=scores, wavefront=wavefront,
+                                          tables=tables)
             else:
                 result = solve_ffd(problem, max_claims, init=state)
             state = result.state

@@ -83,7 +83,7 @@ def test_supervisor_raises_a_kernel_shape_error_without_failing_over(monkeypatch
     never answers."""
     pods, its, tpls, nodes = W.wide_lanes_workload()
 
-    def refused(problem, max_claims, order_scores=None, wavefront=None):
+    def refused(problem, max_claims, order_scores=None, wavefront=None, tables=None):
         _, args = ffd_sweeps.ffd_loop_args(problem, initial_state(problem, max_claims), one_pass=False)
         kernels.launch("ffd_loop", args, 0)
 

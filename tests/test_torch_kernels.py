@@ -794,18 +794,27 @@ def test_resident_args_point_at_the_world():
     prev, args, _ = _churn_world()
     world = fused.adopt_world(prev, 8, "cpu")
     up = fused.upload_patch(args, world)
+    nf = len(fused._LEAF_FIELDS)
     table = up.buffer[up.args.leaves - up.buffer.data_ptr():].view(torch.int64)
-    rows = [n for n in fused.PATCH_ROWS if up.stack[n].numel()]
+    rows = [n for n in fused.PATCH_ROWS if world.t[n].numel()]
     assert up.args.L == len(rows) and up.args.FL == len(fused.PATCH_FULL)
+    assert (up.args.K, up.args.W) == tuple(world.t["lvw"].shape) and up.args.lvw == world.t["lvw"].data_ptr()
     for i, name in enumerate(rows):
-        prev_ptr, out_ptr, stk_ptr, row_bytes = table[4 * i: 4 * i + 4].tolist()
-        assert (prev_ptr, out_ptr, stk_ptr) == (
-            world.t[name].data_ptr(), world.spare[name].data_ptr(), up.stack[name].data_ptr())
-        assert row_bytes * up.stack[name].shape[0] == up.stack[name].numel() * up.stack[name].element_size()
+        prev_ptr, out_ptr, stk_ptr, row_bytes, stk_row, op, aux = table[nf * i: nf * i + nf].tolist()
+        assert (prev_ptr, out_ptr) == (world.t[name].data_ptr(), world.spare[name].data_ptr())
+        assert row_bytes * world.t[name].shape[0] == world.t[name].numel() * world.t[name].element_size()
+        if name == "pod_neg":
+            assert (stk_ptr, op) == (0, fused.OP_NEG)
+            continue
+        stk = up.shipped[name]
+        assert stk_ptr == stk.data_ptr() and stk_row * stk.shape[0] == stk.numel() * stk.element_size()
+        assert op == (fused.OP_PACK if name.endswith("_adm") else fused.OP_COPY)
+        assert aux == (rows.index("pod_neg") if name == "pod_adm" else -1)
     for j, (name, _) in enumerate(fused.PATCH_FULL):
-        _, out_ptr, src_ptr, nbytes = table[4 * (len(rows) + j): 4 * (len(rows) + j) + 4].tolist()
-        assert (out_ptr, src_ptr, nbytes) == (
-            world.t[name].data_ptr(), up.full[name].data_ptr(), up.full[name].numel() * up.full[name].element_size())
+        _, out_ptr, src_ptr, nbytes, _, op, _ = table[nf * (len(rows) + j): nf * (len(rows) + j) + nf].tolist()
+        assert (out_ptr, src_ptr, nbytes, op) == (
+            world.t[name].data_ptr(), up.full[name].data_ptr(), up.full[name].numel() * up.full[name].element_size(),
+            fused.OP_COPY)
     fused.patch_world(world, up)
     t = dict(world.t)
     t.update(ffd_sweeps.state_tensors(initial_state(fused.world_problem(world.t), 8), fused.world_problem(world.t).lane_valid,
@@ -842,6 +851,48 @@ def test_patch_world_matches_plain(cuda, permute):
     ref = fused.world_tensors(problem_to_torch(cold, cuda))
     for name in ref:
         assert torch.equal(_bits(world.t[name]), _bits(ref[name])), name
+
+
+def _self_splice(workload, pattern: str):
+    """(padded world, patch arguments) of a patch that ships some of a
+    problem's own rows again over its padded world (the patched world equals
+    the world): ``thirds`` every third row, ``ends`` the first and the last
+    rows, ``all`` every row, ``none`` only the pad rows."""
+    prob = Encoder().encode(*workload[:3], num_claim_slots=8).problem
+    prev = pad_problem(prob)
+    P = np.asarray(prob.pod_requests).shape[0]
+    rows_prev = np.arange(P)
+    if pattern == "thirds":
+        rows_prev[::3] = -1
+    elif pattern == "ends":
+        rows_prev[[0, P - 1]] = -1
+    elif pattern == "all":
+        rows_prev[:] = -1
+    return prev, fused.build_patch_args(prob, rows_prev, fused.leaf_shapes(prev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["thirds", "ends", "all", "none"])
+@pytest.mark.parametrize("name", ["bounds-0", "fuzz-6", "wide-keys", "wide-lanes"])
+def test_patch_world_packs_shipped_rows_on_the_card(cuda, name, pattern):
+    """The upload ships rows in the encoder's form and the kernel packs them
+    (lane words, polarity against the world's lanes, integer bounds among
+    them): on a patch that ships a problem's own rows, kernel == plain bit
+    for bit and the world is unchanged, at K > 32 and V > 2,048 too."""
+    make = {"bounds-0": lambda: W.bounds_workload(0), "fuzz-6": lambda: W.fuzz_workload(6), **WIDE_CORPORA}[name]
+    prev, args = _self_splice(make(), pattern)
+    world = fused.adopt_world(prev, 8, cuda)
+    before = {k: v.clone() for k, v in world.t.items()}
+    up = fused.upload_patch(args, world)
+    launches = kernels.LAUNCHES["patch_world"]
+    fused.patch_world(world, up)
+    assert kernels.LAUNCHES["patch_world"] == launches + 1
+    plain = fused.patch_world_plain(before, up)
+    torch.cuda.synchronize()
+    for name_, value in plain.items():
+        assert torch.equal(_bits(world.t[name_]), _bits(value)), name_
+        if name_ in fused.PATCH_ROWS:
+            assert torch.equal(_bits(world.t[name_]), _bits(before[name_])), name_
 
 
 def _fused_corruptions(t, C):
@@ -1241,6 +1292,61 @@ def test_lane_scores_matches_plain(cuda, name, head):
     # the solve's launch writes the scores alone, the same ones
     bare, none = policy.launch_lane_scores(prob, weights)
     assert none is None and torch.equal(bare, scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [0, 4, 70, 300])
+@pytest.mark.parametrize("name", ["fuzz-6", "topology-3", "diverse-300-overflow", "wide-keys", "wide-lanes"])
+def test_lane_scores_over_the_solves_tables_match_plain(cuda, name, hidden):
+    """The scorer over the tables the solve's loop reads (problem_tensors),
+    at K > 32 and V > 2,048 and with tanh heads wider than the kernel's
+    shared-memory tile: within 1e-6 of plain, one launch; the head's device
+    copy made once."""
+    make, slots = {**CORPORA, **{k: (v, 32) for k, v in WIDE_CORPORA.items()}}[name]
+    prob = problem_to_torch(_encode(make(), slots), cuda)
+    weights = policy_weights(hidden + 1, hidden=hidden)
+    if hidden:  # output weights scaled so that the scores stay a few units wide
+        weights = (weights[0], tuple(0.1 * x for x in weights[1]), weights[2], weights[3])
+    tables = ffd_sweeps.problem_tensors(prob)
+    launches = kernels.LAUNCHES["lane_scores"]
+    scores, feats = policy.launch_lane_scores(prob, weights, with_features=True, tables=tables)
+    assert kernels.LAUNCHES["lane_scores"] == launches + 1
+    torch.testing.assert_close(feats.cpu(), policy.lane_features(prob).cpu(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(scores.cpu(), policy.lane_scores_plain(prob, weights).cpu(), rtol=0, atol=1e-6)
+    assert policy.head_weights(weights, cuda) is policy.head_weights(weights, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relax", [False, True])
+def test_policy_solve_builds_its_tables_once(cuda, monkeypatch, relax):
+    """The learned order's solve on the card: the scorer and the loop read
+    one build of the problem's tables (problem_tensors runs once), with one
+    lane_scores and one ffd_loop launch, and places what the plain solve
+    places."""
+    from karpenter_tpu_torch.solver import ordering
+
+    monkeypatch.setenv("KARPENTER_TPU_ORDER_POLICY", "1")
+    ordering.reset_for_tests()
+    built = []
+    real = ffd_sweeps.problem_tensors
+
+    def counting(problem):
+        built.append(problem.num_pods)
+        return real(problem)
+
+    monkeypatch.setattr(ffd_sweeps, "problem_tensors", counting)
+    import karpenter_tpu_torch.solver.torch_backend as TB
+
+    monkeypatch.setattr(TB, "problem_tensors", counting)
+    workload = W.diverse_workload(300, 40, seed=7)
+    kernels.reset_launches()
+    r = TorchSolver(device=cuda, relax=relax, initial_claim_slots=32).solve(*workload)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lane_scores"] == 1 and kernels.LAUNCHES["ffd_loop"] == 1
+    assert len(built) == 1, built
+    rp = TorchSolver(device="cpu", relax=relax, initial_claim_slots=32).solve(*workload)
+    assert r.num_scheduled() == rp.num_scheduled() and len(r.new_claims) == len(rp.new_claims)
+    ordering.reset_for_tests()
 
 
 @pytest.mark.cuda

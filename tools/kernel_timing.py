@@ -21,7 +21,11 @@ needs and the shapes it runs at, all at the shapes ``chip_smoke.py`` runs
   partitions' gates (phase 8), the fused gate over the churn run's last
   cycle (phase 4);
 - ``attribute``: the explain pass over the 10,000-pod batch under an
-  8,000-cpu and a 4,000-cpu NodePool limit (phase 6).
+  8,000-cpu and a 4,000-cpu NodePool limit (phase 6);
+- ``patch_world``: the churn run's last row patch of the 10,000-pod world
+  (phase 4);
+- ``lane_scores``: the learned order's scorer over phase 7's policy
+  problem (10,240 rows), with the committed head and a 64-unit tanh head.
 
 ``make`` builds the inputs of the kernels named (all by default) with this
 checkout's package and saves them under DIR with ``torch.save``; ``--small``
@@ -32,9 +36,12 @@ argument sets with that tree's own functions, times the launches with CUDA
 events (the median of several, each on a fresh set), and prints one JSON line
 per shape: the times, a digest of every output (two trees that compute the
 same function print the same digest), and, where the tree has them, the work
-counters, the split by section and the plan. The gate and attribute shapes
-also time the wrapper end to end and its argument build, and name where the
-wrapper's host time goes. ``--sweep`` adds every cluster size, screen layout
+counters, the split by section and the plan. The gate, attribute,
+patch_world and lane_scores shapes also time the wrapper end to end and its
+steps, and name where the wrapper's host time goes; the last two also time
+one launch of the ``probe`` kernel (one warp), the floor of a launch, and
+each of the three again as the device time a launch adds to a stream of
+back-to-back launches (``batch_ms``). ``--sweep`` adds every cluster size, screen layout
 and row plan the tree has. Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -220,6 +227,38 @@ def _gates_of(run):
     return seen
 
 
+_CHURN = {}
+
+
+def _churn(dev, small):
+    """Phase 4's churn run through its last cycle, once per ``make``: the
+    churn process and the resident solver's DeviceWorld."""
+    if small not in _CHURN:
+        import chip_smoke as CS
+        from karpenter_tpu_torch.apis.nodepool import NodePool
+        from karpenter_tpu_torch.apis.objects import ObjectMeta
+        from karpenter_tpu_torch.cloudprovider.fake import instance_types
+        from karpenter_tpu_torch.solver.encode import template_from_nodepool
+        from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+        from karpenter_tpu_torch.streaming.churn import ChurnConfig, ChurnProcess, default_pod_factory
+
+        sz = _sizes(small)
+        its = instance_types(400)
+        tpls = [template_from_nodepool(NodePool(metadata=ObjectMeta(name="d")), its, range(len(its)))]
+        rng = random.Random(CS.CHURN_SEED)
+        n = sz["churn"]
+        proc = ChurnProcess([default_pod_factory(f"dw-{i}", rng) for i in range(n)],
+                            config=ChurnConfig(seed=CS.CHURN_SEED, arrivals_per_cycle=n * 2 // 100,
+                                               deletes_per_cycle=n * 2 // 100))
+        resident = TorchSolver(relax=False, device_world=True, device=dev, initial_claim_slots=CS.CHURN_SLOTS)
+        for cyc in range(sz["cycles"]):
+            if cyc:
+                proc.step()
+            resident.solve(list(proc.pods), its, tpls)
+        _CHURN[small] = (proc, resident._device_world)
+    return _CHURN[small]
+
+
 def make_gates(dev, small):
     """The gate of the 10k solve, the fleet's partitions' gates, and the
     fused gate's inputs over the churn run's last cycle as the solve hands
@@ -227,14 +266,9 @@ def make_gates(dev, small):
     import torch
 
     import chip_smoke as CS
-    from karpenter_tpu_torch.apis.nodepool import NodePool
-    from karpenter_tpu_torch.apis.objects import ObjectMeta
-    from karpenter_tpu_torch.cloudprovider.fake import instance_types
     from karpenter_tpu_torch.ops import fused
     from karpenter_tpu_torch.ops.ffd_sweeps import state_tensors
-    from karpenter_tpu_torch.solver.encode import template_from_nodepool
     from karpenter_tpu_torch.solver.torch_backend import TorchSolver
-    from karpenter_tpu_torch.streaming.churn import ChurnConfig, ChurnProcess, default_pod_factory
     from karpenter_tpu_torch.testing import workloads as W
 
     sz = _sizes(small)
@@ -249,19 +283,7 @@ def make_gates(dev, small):
     finally:
         for name in env:
             os.environ.pop(name, None)
-    its = instance_types(400)
-    tpls = [template_from_nodepool(NodePool(metadata=ObjectMeta(name="d")), its, range(len(its)))]
-    rng = random.Random(CS.CHURN_SEED)
-    n = sz["churn"]
-    proc = ChurnProcess([default_pod_factory(f"dw-{i}", rng) for i in range(n)],
-                        config=ChurnConfig(seed=CS.CHURN_SEED, arrivals_per_cycle=n * 2 // 100,
-                                           deletes_per_cycle=n * 2 // 100))
-    resident = TorchSolver(relax=False, device_world=True, device=dev, initial_claim_slots=CS.CHURN_SLOTS)
-    for cyc in range(sz["cycles"]):
-        if cyc:
-            proc.step()
-        resident.solve(list(proc.pods), its, tpls)
-    dw = resident._device_world
+    proc, dw = _churn(dev, small)
     pc = torch.from_numpy(dw._pod_check(list(proc.pods), dw.meta)).to(dev)
     rk, _ = fused.solve_ffd_fused_gate(dw.world, pc, CS.CHURN_SLOTS)
     problem = fused.world_problem(dw.world.t)
@@ -303,8 +325,47 @@ def make_explain(dev, small):
     return out
 
 
+def make_patch(dev, small):
+    """The churn run's last patch: its arguments (the delta encoder's splice
+    of the last cycle, ``build_patch_args``) and the resident world as it
+    stood before it (the previous rows, which the swap left in the spare
+    buffers)."""
+    from karpenter_tpu_torch.ops import fused
+
+    _, dw = _churn(dev, small)
+    w = dw.world
+    args = fused.build_patch_args(dw.delta._state.problem, dw.delta.last_rows_prev, w.shapes)
+    t = {k: (w.spare[k] if k in fused.PATCH_ROWS else v).clone() for k, v in w.t.items()}
+    return {"patch_world": {"args": args._asdict(), "t": t, "init": w.init, "lanes": w.lanes, "shapes": w.shapes,
+                            "max_claims": w.max_claims}}
+
+
+def make_policy(dev, small):
+    """Phase 7's scorer input: the ``ORDER_POLICY=1`` fresh solve's padded
+    problem with every pod active, and the committed lane head."""
+    import torch
+
+    from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32
+    from karpenter_tpu_torch.solver import ordering
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.testing import workloads as W
+
+    n = _sizes(small)["main"]
+    os.environ["KARPENTER_TPU_ORDER_POLICY"] = "1"
+    ordering.reset_for_tests()
+    try:
+        result = TorchSolver(initial_claim_slots=128, device=dev, relax=False).solve(*W.diverse_workload(n, 400, seed=42))
+        weights = ordering.lane_weights_static()
+    finally:
+        os.environ.pop("KARPENTER_TPU_ORDER_POLICY", None)
+        ordering.reset_for_tests()
+    prob = result.verify_ctx.device_problem
+    active = torch.arange(prob.num_pods, device=dev) < n
+    return {"lane_scores": (_pad_lanes_mult32(dataclasses.replace(prob, pod_active=active)), weights)}
+
+
 MAKERS = {"solved": make_solved, "fleet": make_fleet, "screens": make_screens, "stacked": make_stacked,
-          "gates": make_gates, "explain": make_explain}
+          "gates": make_gates, "explain": make_explain, "patch": make_patch, "policy": make_policy}
 
 
 def make(out: Path, names, small: bool = False) -> None:
@@ -380,6 +441,24 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times), times
 
+    def batch_ms(self, name, args, n=50):
+        """Device time a launch of ``args`` adds to a stream of ``n``
+        back-to-back launches: CUDA events around the run, over n (the
+        median of 7 runs); for kernels near the cost of a launch, where one
+        event pair a launch measures mostly the events."""
+        torch = self.torch
+        self.kernels.launch(name, args, self.stream)
+        times = []
+        for _ in range(7):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                self.kernels.launch(name, args, self.stream)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        return statistics.median(times)
+
     def host_ms(self, fn, n=7):
         """Host wall of ``fn`` to the end of its device work, median."""
         times = []
@@ -409,6 +488,17 @@ class Timer:
         cyc = [int(x) for x in sections]
         total = sum(cyc) or 1
         return {n: round(c / total * ms, 4) for n, c in zip(names, cyc) if c}
+
+    def launch_floor(self):
+        """One launch timed the same way: the ``probe`` kernel (one warp
+        summing 16 values), median of the repetitions; once per tree."""
+        if not hasattr(self, "_floor"):
+            from karpenter_tpu_torch.verify import device as gdev
+
+            x = self.torch.arange(16, dtype=self.torch.float32, device=self.dev)
+            sets = [gdev.probe_args(x) for _ in range(max(self.reps, 10))]
+            self._floor = {"ms": self.time_sets("probe", sets)[0], "batch_ms": self.batch_ms("probe", sets[0][1])}
+        return self._floor
 
     def emit(self, shape, ms, times, dig, extra=None):
         row = {"kind": "shape", "tag": self.tag, "shape": shape, "ms": ms, "times": [round(x, 4) for x in times],
@@ -688,6 +778,94 @@ def time_attribute(tm: Timer, inputs) -> None:
             tm.emit(f"{key.replace('_', ' ')} cpu" + (f" @{layout}" if layout else ""), ms, times, digs.pop(), extra)
 
 
+def time_patch_world(tm: Timer, inputs) -> None:
+    """The churn run's last patch: the kernel alone (the same launch again:
+    it reads the previous rows and writes the spare buffers), the wrapper
+    (upload and launch) and the wrapper's steps, on a copy of the world
+    before the patch; the kernel's output held to the plain version."""
+    from karpenter_tpu_torch.ops import fused
+
+    torch = tm.torch
+    rec = inputs["patch_world"]
+    args = fused.PatchArgs(**rec["args"])
+    w = fused.World(t={k: v.clone() for k, v in rec["t"].items()},
+                    spare={k: torch.empty_like(rec["t"][k]) for k in fused.PATCH_ROWS}, init=rec["init"],
+                    lanes=rec["lanes"], shapes=rec["shapes"], max_claims=rec["max_claims"])
+    prev = {k: v.clone() for k, v in w.t.items()}
+    up = fused.upload_patch(args, w)
+    ms, times = tm.time_sets("patch_world", [(None, up.args)] * tm.reps)
+    dig = digest(*(w.spare[n] for n in fused.PATCH_ROWS), *(w.t[n] for n, _ in fused.PATCH_FULL))
+    plain = fused.patch_world_plain(prev, up)
+    for name in fused.PATCH_ROWS:
+        got = w.spare[name]
+        if not torch.equal(got.view(torch.int32) if got.is_floating_point() else got,
+                           plain[name].view(torch.int32) if got.is_floating_point() else plain[name]):
+            raise AssertionError(f"patch_world: {name} != plain")
+
+    def swap():
+        for name in fused.PATCH_ROWS:
+            w.t[name], w.spare[name] = w.spare[name], w.t[name]
+
+    def wrapped():
+        fused.patch_world(w, fused.upload_patch(args, w))
+        swap()
+
+    def launch_only():
+        fused.patch_world(w, up)
+        swap()
+
+    steps = {"upload": lambda: fused.upload_patch(args, w), "launch_and_swap": launch_only,
+             "pinned_alloc": lambda: torch.empty((up.nbytes,), dtype=torch.uint8, pin_memory=True)}
+    if hasattr(fused, "_stack_rows") and not hasattr(fused, "patch_plan"):
+        steps["pack_stack_rows"] = lambda: fused._stack_rows(args, w.lanes)  # the host pack of the shipped rows
+    if hasattr(fused, "patch_plan"):
+        steps["plan"] = lambda: fused.patch_plan(args.gather_idx, args.use_fresh, args.fresh_sel)
+    use = args.use_fresh
+    extra = {"batch_ms": tm.batch_ms("patch_world", up.args),
+             "rows": int(use.shape[0]), "fresh_rows": int(use.sum()), "survivors": int((~use).sum()),
+             "stack_rows": int(args.requests.shape[0]), "h2d_bytes": up.nbytes,
+             "wrapper_ms": tm.host_ms(wrapped, 11), "steps_ms": {k: tm.host_ms(f, 11) for k, f in steps.items()},
+             "wrapper_ops": tm.wrapper_ops(wrapped), "launch_floor_ms": tm.launch_floor()}
+    for key in ("NP", "NF", "FC"):
+        if hasattr(up.args, key):
+            extra[key] = getattr(up.args, key)
+    tm.emit("patch_world churn last cycle", ms, times, dig, extra)
+
+
+def time_lane_scores(tm: Timer, inputs) -> None:
+    """Phase 7's scorer over 10,240 rows with the committed head and a
+    64-unit tanh head: the kernel alone, the wrapper (with the solve's
+    tables where the tree takes them) and its argument build, the scores
+    against the plain version's."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import ffd_sweeps as FS
+    from karpenter_tpu_torch.ops import policy as POL
+
+    prob, committed = inputs["lane_scores"]
+    kw = {"tables": FS.problem_tensors(prob)} if _takes(POL.lane_scores_args, "tables") else {}
+    rng = np.random.default_rng(64)
+    mlp = ("mlp", tuple(float(x) for x in rng.normal(size=64)), float(rng.normal()),
+           (tuple(tuple(float(x) for x in rng.normal(size=POL.N_LANE_FEATURES)) for _ in range(64)),
+            tuple(float(x) for x in rng.normal(size=64))))
+    for name, head in (("committed", committed), ("mlp64", mlp)):
+        sets = [POL.lane_scores_args(prob, head, **kw) for _ in range(tm.reps)]
+        ms, times = tm.time_sets("lane_scores", sets)
+        digs = {digest(t["scores"]) for t, _ in sets}
+        if len(digs) != 1:
+            raise AssertionError(f"lane_scores {name}: launches differ")
+        err = float((sets[0][0]["scores"] - POL.lane_scores_plain(prob, head)).abs().max())
+        steps = {"args": lambda: POL.lane_scores_args(prob, head, **kw)}
+        if hasattr(POL, "pack_weights"):
+            steps["pack_weights"] = lambda: POL.pack_weights(head, tm.dev)
+        extra = {"batch_ms": tm.batch_ms("lane_scores", sets[0][1]), "rows": prob.num_pods, "max_abs_err": err,
+                 "wrapper_ms": tm.host_ms(lambda: POL.lane_scores(prob, head, **kw), 11),
+                 "steps_ms": {k: tm.host_ms(f, 11) for k, f in steps.items()},
+                 "wrapper_ops": tm.wrapper_ops(lambda: POL.lane_scores(prob, head, **kw)),
+                 "launch_floor_ms": tm.launch_floor(), "with_tables": bool(kw)}
+        tm.emit(f"lane_scores 10k {name}", ms, times, digs.pop(), extra)
+
+
 # kernel -> (the input groups it needs, its timing)
 KERNELS = {
     "relax_place": (("solved", "fleet"), time_relax_place),
@@ -695,6 +873,8 @@ KERNELS = {
     "ffd_loop": (("solved",), time_ffd_loop),
     "gate_counts": (("gates",), time_gate_counts),
     "attribute": (("explain",), time_attribute),
+    "patch_world": (("patch",), time_patch_world),
+    "lane_scores": (("policy",), time_lane_scores),
 }
 
 
