@@ -178,7 +178,21 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      over JaxSolver (EXPECT_PROVISION), IterCounts as the JAX package's, the
      circuit closed and no fallback; the split build_inputs / solve
      (``last_timing``) / create_node_claims / wall.
- 11. a ``kernels`` JSON line: per kernel its launches on the main path, its
+ 11. the disruption pass: the port's harness (``testing.harness.Env``) on
+     the card over ``SupervisedSolver(TorchSolver(), fallback=
+     OracleSolver())``, a ``default`` NodePool (WhenUnderutilized, budget
+     100%) over the 100 catalog types, 1,000 candidate nodes in three zones
+     with 1-4 pods each (``build_bench_scorer``'s draws, seed 7) and 8 roomy
+     survivors annotated do-not-disrupt; ``Controller.reconcile()``, the
+     fake clock past the 15 s TTL, ``reconcile()`` again: a command executed,
+     exactly one ``runs_screen`` launch to screen, whose rows equal the plain
+     screen's on the card on every lane; every screened prefix the
+     screen accepts the sequential ``compute_consolidation`` (on the card)
+     accepts, agreeing on at least DISRUPT_AGREE prefixes including the
+     chosen k and k + 1; the pass's wall split (get_candidates, the scorer
+     build's inputs and encode, the screen alone and wrapped, confirmation,
+     validation) and screened candidates/s.
+ 12. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
@@ -191,7 +205,7 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      layout. Bytes are those of the kernel's own
      arguments. The churn, serve, shard and provisioning phases' records
      ride in the same line; the wavefront mode is an entry of its own.
- 12. the card's name and power limit; the last line is the device JSON.
+ 13. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -347,6 +361,15 @@ EXPECT_PROVISION = {
               sha256="9b8fe3a915a36c0fd7855d7538e682b65e31df6fcb43b667f8610d3f43d5b92b",
               iters=(1365, 2, 909, 3418, 1429, 1838, 1), wave_hist=[0, 72, 1161, 127, 5]),
 }
+# the disruption pass (phase 11): a mid-size cluster through the port's
+# harness, the candidates' pods drawn as build_bench_scorer draws them
+DISRUPT_CANDIDATES = 1000
+DISRUPT_SURVIVORS = 8
+DISRUPT_SEED = 7
+DISRUPT_CANDIDATE_TYPE = "fake-it-3"  # 4 cpu, 8 GiB, 40 pods: the bench's candidate node
+DISRUPT_SURVIVOR_TYPE = "fake-it-63"  # 64 cpu, 128 GiB
+DISRUPT_AGREE = 20  # prefixes the screen and the sequential path must agree on
+DISRUPT_PREFIXES = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16, 20, 25, 32, 40, 50, 64, 80, 99, 150, 200)
 # the convex phase's two float stats against the JAX package's: the float32
 # adds of the bin loads and the gradient step round in another order there
 # (its CPU build may contract a multiply and an add), by 1.5e-4 relative on
@@ -1304,6 +1327,8 @@ def run(dev) -> int:
                 residue=residue, astate=astate)
     wave_entry = wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, compare_results)
     provision = provision_phase(dev)
+    disruption = disruption_phase(dev, time_ms, time_launches, plain_ms)
+    rs["launches_disruption_pass"] = disruption["launches"]["runs_screen"]
 
     line = {
         "kernels": [
@@ -1397,6 +1422,7 @@ def run(dev) -> int:
         "churn": churn,
         "shard": shard,
         "provision": provision,
+        "disruption": disruption,
     }
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
@@ -1899,6 +1925,8 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
             "bound_by": p_by,
             "library_ms": p_lib_ms,
             "wrapper_ms": p_wrap_ms,
+            # no launch runs below one launch: phase 2's empty probe launch
+            "latency_floor_ms": LATENCY["launch_ms"],
         },
     ]
     return entries, summary
@@ -3475,6 +3503,263 @@ def provision_phase(dev):
             os.environ["KARPENTER_TPU_WAVEFRONT"] = old
     log(f"  phase 10 wall {time.perf_counter() - t_phase:.1f}s")
     return records
+
+
+def disruption_phase(dev, time_ms, time_launches, plain_ms):
+    """Phase 11 (see the module docstring). Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.apis.nodepool import Budget, Disruption, NodePool
+    from karpenter_tpu_torch.apis.objects import Container, ObjectMeta, Pod, PodSpec
+    from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, instance_types
+    from karpenter_tpu_torch.disruption import batch, consolidation, controller
+    from karpenter_tpu_torch.disruption.types import DECISION_NONE
+    from karpenter_tpu_torch.models.problem import numpy_fields
+    from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32, initial_state
+    from karpenter_tpu_torch.parallel import mesh as M
+    from karpenter_tpu_torch.solver.oracle import OracleSolver
+    from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.state.statenode import disruption_taint
+    from karpenter_tpu_torch.testing.harness import Env
+
+    t_phase = time.perf_counter()
+    log(f"phase 11: the disruption pass, {DISRUPT_CANDIDATES} candidates + {DISRUPT_SURVIVORS} survivors, "
+        f"100 types, 1 NodePool")
+    primary = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=dev)
+    sup = SupervisedSolver(primary, fallback=OracleSolver())
+    env = Env(solver=sup)
+    env.cloud_provider.instance_types = instance_types(100)
+    pool = NodePool(metadata=ObjectMeta(name="default", namespace=""))
+    pool.spec.disruption = Disruption(consolidation_policy="WhenUnderutilized", budgets=[Budget(nodes="100%")])
+    env.create(pool)
+    rng = random.Random(DISRUPT_SEED)
+    zones = ["test-zone-1", "test-zone-2", "test-zone-3"]
+    n_pods = 0
+    for i in range(DISRUPT_CANDIDATES):
+        name = f"cand-node-{i:04d}"
+        pods = [
+            Pod(metadata=ObjectMeta(name=f"p-{i}-{j}", labels={"app": f"a{j % 5}"}),
+                spec=PodSpec(containers=[Container(requests={
+                    "cpu": rng.choice([0.1, 0.25, 0.5]), "memory": rng.choice([128, 256, 512]) * 1024.0**2})]))
+            for j in range(rng.randint(1, 4))
+        ]
+        n_pods += len(pods)
+        env.create_candidate_node(name, it_name=DISRUPT_CANDIDATE_TYPE, zone=zones[i % 3], pods=pods)
+    for i in range(DISRUPT_SURVIVORS):
+        node, _ = env.create_candidate_node(f"big-node-{i}", it_name=DISRUPT_SURVIVOR_TYPE, zone=zones[i % 3])
+        node.metadata.annotations[wk.DO_NOT_DISRUPT_ANNOTATION_KEY] = "true"
+        env.kube.update(node)
+    log(f"  cluster built: {len(env.nodes())} nodes, {n_pods} candidate pods, "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    # the pass's split: each stage's wall, summed, by pass
+    split = {}
+    stage = {"pass": 1}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                k = f"{key}{stage['pass']}"
+                split[k] = split.get(k, 0.0) + time.perf_counter() - t0
+        return run
+
+    captured = {}
+    real = {
+        "ctrl_get": controller.get_candidates, "cons_get": consolidation.get_candidates,
+        "build": batch.build_scorer, "init": batch.UnionScorer.__init__, "score": batch.UnionScorer.score_subsets,
+        "compute": consolidation.ConsolidationBase.compute_consolidation, "lean": batch.lean_screen,
+        "residual": batch.residual_screen,
+    }
+
+    def lean(base, variants, C, passes=3):
+        out = real["lean"](base, variants, C, passes)
+        captured.setdefault("screens", []).append(("full", (base, variants, C, passes), out))
+        return out
+
+    def residual(base, carried, variants, run_idx, C):
+        out = real["residual"](base, carried, variants, run_idx, C)
+        captured.setdefault("screens", []).append(("residual", (base, carried, variants, run_idx, C), out))
+        return out
+
+    def build(prov, cands):
+        scorer = real["build"](prov, cands)
+        captured["scorer"] = scorer
+        return scorer
+
+    def score(self, subsets, passes=3):
+        out = real["score"](self, subsets, passes)
+        captured.setdefault("scored", []).append((list(map(tuple, subsets)), out))
+        return out
+
+    controller.get_candidates = timed("get_candidates", real["ctrl_get"])
+    consolidation.get_candidates = timed("get_candidates", real["cons_get"])
+    batch.build_scorer = timed("scorer_build", build)
+    batch.UnionScorer.__init__ = timed("scorer_encode", real["init"])
+    batch.UnionScorer.score_subsets = timed("screen", score)
+    consolidation.ConsolidationBase.compute_consolidation = timed("simulate", real["compute"])
+    batch.lean_screen, batch.residual_screen = lean, residual
+    ctrl = env.disruption_controller()
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = ctrl.reconcile()
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches1 = dict(kernels.LAUNCHES)
+        pending = ctrl.pending
+        if first is not None or pending is None:
+            raise AssertionError(f"disruption: the first pass returned {first}, pending {pending}")
+        # the screen's own check (step 4) runs between the passes, while the
+        # cluster is as the first pass saw it, outside the counted windows
+        screens, scored, scorer = captured.pop("screens", []), captured.pop("scored", []), captured["scorer"]
+        stats = {k: v for k, v in scorer.last_screen_stats.items() if "counts" not in k}
+        stage["pass"] = 0
+        check = disruption_screen_check(env, scorer, pending, scored, consolidation, DECISION_NONE)
+        env.clock.step(pending.method.validation_ttl + 0.1)
+        stage["pass"] = 2
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        cmd = ctrl.reconcile()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches2 = dict(kernels.LAUNCHES)
+    finally:
+        controller.get_candidates, consolidation.get_candidates = real["ctrl_get"], real["cons_get"]
+        batch.build_scorer, batch.UnionScorer.__init__ = real["build"], real["init"]
+        batch.UnionScorer.score_subsets = real["score"]
+        consolidation.ConsolidationBase.compute_consolidation = real["compute"]
+        batch.lean_screen, batch.residual_screen = real["lean"], real["residual"]
+    if cmd is None or cmd.decision == DECISION_NONE:
+        raise AssertionError(f"disruption: no command executed after the TTL ({cmd})")
+    launches = {k: launches1[k] + launches2[k] for k in launches1}
+    taint = disruption_taint()
+    tainted = sorted(n.metadata.name for n in env.nodes() if any(t.match(taint) for t in n.spec.taints))
+    marked = sorted(sn.name for sn in env.cluster.nodes() if sn.marked_for_deletion())
+    names = sorted(c.name for c in cmd.candidates)
+    replacements = [r.metadata.name for r in cmd.replacements]
+    created = [r for r in replacements if env.kube.get_opt(type(cmd.replacements[0]), r, "") is not None]
+    if tainted != names or marked != names or len(created) != len(replacements) or len(ctrl.queue.items) != 1:
+        raise AssertionError(f"disruption: the queue's changes differ from the command: tainted {len(tainted)}, "
+                             f"marked {len(marked)}, candidates {len(names)}, replacements created {created}")
+    log(f"  executed: {cmd.method} {cmd.decision}, {len(cmd.candidates)} candidates ({names[0]} ... {names[-1]}), "
+        f"{len(cmd.replacements)} replacements; the queue tainted {len(tainted)} nodes, marked {len(marked)}, "
+        f"created {len(created)} claims, holds {len(ctrl.queue.items)} command")
+
+    # step 3: one screening launch, its rows against the plain screen's on
+    # every lane (equal rows decode to equal verdicts)
+    if launches1["runs_screen"] != 1 or len(screens) != 1 or len(scored) != 1 or launches2["runs_screen"] != 0:
+        raise AssertionError(f"disruption: {launches1['runs_screen']} + {launches2['runs_screen']} runs_screen "
+                             f"launches, {len(screens)} screens, {len(scored)} score calls; expected one each")
+    mode, args, rk = screens[0]
+    subsets, verdicts = scored[0]
+    B = len(subsets)
+    checked = list(range(rk.kind.shape[0]))
+    if mode == "residual":
+        base, carried, variants, run_idx, C = args
+        plain = lambda: M.residual_screen_plain(base, carried, variants, run_idx, C, lanes=checked)  # noqa: E731
+        base = _pad_lanes_mult32(base)
+        p0 = M.trim_runs(base, run_idx)
+        make_args = lambda: M.runs_screen_args(p0, carried, variants.node_avail, variants.pod_active,  # noqa: E731
+                                               max_run=M.max_run_bucket(base), passes=1, with_topo=False)
+        wrap = lambda: M.residual_screen(args[0], carried, variants, run_idx, C)  # noqa: E731
+    else:
+        base, variants, C, passes = args
+        plain = lambda: M.lean_screen_plain(base, variants, C, passes, lanes=checked)  # noqa: E731
+        base = _pad_lanes_mult32(base)
+        init = initial_state(base, C)
+        make_args = lambda: M.runs_screen_args(  # noqa: E731
+            base, init, variants.node_avail, variants.pod_active, max_run=M.max_run_bucket(base), passes=passes,
+            with_topo=M.has_topo_runs(base), grp_counts0=variants.grp_counts0,
+            grp_registered0=variants.grp_registered0)
+        wrap = lambda: M.lean_screen(args[0], variants, C, passes)  # noqa: E731
+    rp, p_ms = plain_ms(plain)
+    sel = torch.tensor(checked, device=rk.kind.device)
+    if not (torch.equal(rk.kind[sel].cpu(), rp.kind.cpu()) and torch.equal(rk.index[sel].cpu(), rp.index.cpu())):
+        raise AssertionError(f"disruption: the pass's runs_screen ({mode}) rows differ from the plain screen's")
+    sk, sp = numpy_fields(rk.state), numpy_fields(rp.state)
+    for key in sp:
+        if not np.array_equal(sk[key][checked], sp[key], equal_nan=sk[key].dtype.kind == "f"):
+            raise AssertionError(f"disruption: the pass's runs_screen ({mode}) state {key} differs from plain")
+    sets = [make_args() for _ in range(5)]
+    k_ms, k_all = time_launches("runs_screen", sets)
+    for t, _ in sets:
+        if not (torch.equal(t["kind"], rk.kind) and torch.equal(t["index"], rk.index)):
+            raise AssertionError("disruption: a timed runs_screen launch differs from the pass's")
+    w_ms, _ = time_ms(wrap, 5)
+    log(f"  the pass's screen: {B} subsets ({mode}), one runs_screen launch; rows == plain on all {len(checked)} "
+        f"lanes (plain {p_ms:.1f} ms); kernel {k_ms:.3f} ms median of {[round(x, 3) for x in k_all]}, wrapper "
+        f"{w_ms:.3f} ms; stats {stats}")
+    log(f"  screen vs sequential: {check['agree']} of {len(check['prefixes'])} prefixes agree (k = {check['k']}); "
+        f"screen accepts {check['screen']}, sequential accepts {check['seq']}; {check['seconds']:.1f}s")
+
+    # step 5: the wall split and candidates/s
+    g = lambda key: split.get(key, 0.0) * 1e3  # noqa: E731
+    encode1 = g("scorer_encode1")
+    p1 = {"get_candidates": g("get_candidates1"), "scorer_inputs": g("scorer_build1") - encode1,
+          "scorer_encode": encode1, "screen": g("screen1"), "confirmation": g("simulate1")}
+    p1["rest"] = wall1 * 1e3 - sum(p1.values())
+    p2 = {"validation": g("get_candidates2") + g("simulate2")}
+    p2["rest"] = wall2 * 1e3 - p2["validation"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "not read"
+    log(f"  pass 1 wall {wall1 * 1e3:.1f} ms = " + ", ".join(f"{k} {v:.1f}" for k, v in p1.items())
+        + f" (screen kernel alone {k_ms:.3f} ms, wrapped {w_ms:.3f}); launches {launches1}")
+    log(f"  pass 2 wall {wall2 * 1e3:.1f} ms = " + ", ".join(f"{k} {v:.1f}" for k, v in p2.items())
+        + f"; launches {launches2}")
+    log(f"  {DISRUPT_CANDIDATES / wall1:.1f} candidates/s over the screened pass, {B / (p1['screen'] / 1e3):.1f} "
+        f"screened subsets/s ({card})")
+    log(f"  phase 11 wall {time.perf_counter() - t_phase:.1f}s")
+    return {
+        "candidates": DISRUPT_CANDIDATES, "pods": n_pods, "method": cmd.method, "decision": cmd.decision,
+        "disrupted": len(cmd.candidates), "replacements": len(cmd.replacements), "launches": launches,
+        "launches_pass1": launches1, "launches_pass2": launches2, "screen_mode": mode, "lanes": B,
+        "plain_lanes": len(checked), "screen_kernel_ms": k_ms, "screen_wrapper_ms": w_ms, "screen_plain_ms": p_ms,
+        "pass1_ms": wall1 * 1e3, "pass2_ms": wall2 * 1e3, "pass1_split_ms": p1, "pass2_split_ms": p2,
+        "candidates_per_s": DISRUPT_CANDIDATES / wall1, "screened_subsets_per_s": B / (p1["screen"] / 1e3), "card": card,
+        "screen_stats": stats, "k": check["k"], "prefixes": check["prefixes"], "agree": check["agree"],
+        "supervisor": dict(sup.counters),
+    }
+
+
+def disruption_screen_check(env, scorer, pending, scored, consolidation, decision_none):
+    """Phase 11's step 4: the screen's verdicts on DISRUPT_PREFIXES, the chosen
+    k and k + 1 (scored by the pass's scorer, beyond the pass's own lanes in a
+    launch of their own) against the sequential ``compute_consolidation`` on
+    the card, with the cluster as the first pass saw it. The screen may be
+    stricter, never more optimistic; they must agree on DISRUPT_AGREE."""
+    t0 = time.perf_counter()
+    cands = scorer.candidates
+    k = len(pending.command.candidates)
+    prefixes = sorted({p for p in DISRUPT_PREFIXES + (k, k + 1) if 1 <= p <= len(cands)})
+    subsets, verdicts = scored[0]
+    have = dict(zip(subsets, verdicts))
+    missing = [tuple(range(p)) for p in prefixes if tuple(range(p)) not in have]
+    if missing:
+        have.update(zip(missing, scorer.score_subsets([list(s) for s in missing])))
+    method = consolidation.MultiNodeConsolidation(env.provisioner, env.clock)
+    screen, seq, agree = [], [], 0
+    for p in prefixes:
+        ok = have[tuple(range(p))].consolidatable_with(cands[:p], scorer.inputs.instance_types)
+        sq = method.compute_consolidation(cands[:p]).decision != decision_none
+        if ok and not sq:
+            raise AssertionError(f"disruption: the screen accepts prefix {p}, the sequential path rejects it")
+        screen += [p] if ok else []
+        seq += [p] if sq else []
+        agree += ok == sq
+    ends = [p for p in (k, k + 1) if p in prefixes]
+    if agree < DISRUPT_AGREE or k not in screen or any((p in screen) != (p in seq) for p in ends):
+        raise AssertionError(f"disruption: screen and sequential agree on {agree} of {prefixes} (k = {k}; "
+                             f"screen {screen}, sequential {seq})")
+    return {"k": k, "prefixes": prefixes, "screen": screen, "seq": seq, "agree": agree,
+            "seconds": time.perf_counter() - t0}
 
 
 def screen_subsets(n, seed=SCREEN_SEED):

@@ -540,6 +540,27 @@ class UnionScorer:
         return {vals[vi] for vi in np.flatnonzero(adm_row[key_idx][: len(vals)])}
 
 
+def build_scorer(provisioner, candidates) -> Optional[UnionScorer]:
+    """A UnionScorer from the live provisioner state, assembled the way
+    simulate_scheduling assembles one probe (helpers.go:73-127): base pods are
+    pending and deleting-node pods; candidate pods join the input set so their
+    volume topology and CSI limits resolve as in the sequential path; nodes
+    keep the candidates (masked per subset). It runs on the device of the
+    provisioner's solver (``TorchSolver.device``, through
+    ``SupervisedSolver.primary``); a solver without one gets the package
+    default, CUDA, which raises without a card."""
+    primary = getattr(provisioner.solver, "primary", provisioner.solver)
+    device = resolve_device(getattr(primary, "device", None))
+    candidate_names = {c.name for c in candidates}
+    pending = provisioner.get_pending_pods()
+    deleting = [p for p in provisioner.get_deleting_node_pods() if p.spec.node_name not in candidate_names]
+    cand_pods = [p for c in candidates for p in c.reschedulable_pods()]
+    inputs = provisioner.build_inputs(pending + deleting + cand_pods)
+    if inputs is None:
+        return None
+    return UnionScorer(inputs, candidates, base_pod_count=len(pending) + len(deleting), device=device)
+
+
 # ---------------------------------------------------------------------------
 # synthetic benchmark entry: score all prefixes of a synthetic cluster the
 # way MultiNodeConsolidation would
@@ -687,14 +708,25 @@ class ScreenSession:
     """One reconcile pass's shared screen: every subset the Multi and Single
     methods ask about is scored in as few device launches as possible, on one
     scorer. Sound because the methods run back to back within a pass with no
-    command in between (controller.go:127-171). The scorer is set with
-    ``use``; building it from a live provisioner (``build_scorer``) comes
-    with the controller port."""
+    command in between (controller.go:127-171). The controller installs a
+    fresh session each pass; ``scorer_for`` builds the scorer from the live
+    provisioner (``build_scorer``) once per candidate basis, and ``use`` sets
+    a scorer built elsewhere."""
 
     def __init__(self):
         self._key = None
         self._scorer: Optional[UnionScorer] = None
         self._verdicts: Dict[tuple, SubsetVerdict] = {}
+
+    def scorer_for(self, provisioner, candidates) -> Optional[UnionScorer]:
+        """The pass's scorer over ``candidates``: built on the first call for
+        a basis, the same object (and its cached verdicts) after that."""
+        key = tuple(c.name for c in candidates)
+        if self._key != key:
+            self._scorer = build_scorer(provisioner, candidates)
+            self._key = key
+            self._verdicts = {}
+        return self._scorer
 
     def use(self, scorer: UnionScorer) -> UnionScorer:
         """Score with ``scorer`` from now on (cached verdicts are dropped when

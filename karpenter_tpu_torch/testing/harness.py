@@ -6,14 +6,18 @@ bundles the in-memory kube store, fake clock, cluster cache, fake cloud
 provider and a Provisioner; ``expect_provisioned`` drives a full
 schedule → launch → register → bind cycle the way ExpectProvisioned +
 ExpectMakeNodesReady + ExpectManualBinding do (expectations.go:242,375,460);
-no kubelet or kube-scheduler runs here either. The disruption helpers of the
-JAX harness stay with the disruption controllers, which are not ported.
+no kubelet or kube-scheduler runs here either. ``reconcile_disruption``
+drives the disruption controller (disruption/controller.py) through its
+two-phase validation TTL, and ``create_candidate_node`` makes the registered
+node and claim pair every disruption scenario starts from.
 
 ``Env(solver=...)`` takes the Provisioner's solver; without one the
 Provisioner builds its default, the supervised solve on the card
 (provisioning/provisioner.default_solver), which raises on a host without
 CUDA. On the CPU pass ``SupervisedSolver(TorchSolver(device="cpu",
-well_known=FAKE_WELL_KNOWN_LABELS), fallback=OracleSolver())``.
+well_known=FAKE_WELL_KNOWN_LABELS), fallback=OracleSolver())``; the
+disruption controller's screens then run on the CPU too (they take the
+solver's device).
 """
 
 from __future__ import annotations
@@ -21,7 +25,16 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from karpenter_tpu_torch.apis import labels as wk
-from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+from karpenter_tpu_torch.apis.conditions import ConditionSet
+from karpenter_tpu_torch.apis.nodeclaim import (
+    INITIALIZED,
+    LAUNCHED,
+    LIVING_CONDITIONS,
+    REGISTERED,
+    NodeClaim,
+    NodeClaimStatus,
+)
+from karpenter_tpu_torch.apis.nodepool import NodeClaimSpec
 from karpenter_tpu_torch.apis.objects import Node, NodeCondition, NodeSpec, NodeStatus, ObjectMeta, Pod
 from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
 from karpenter_tpu_torch.events import Recorder
@@ -110,6 +123,92 @@ class Env:
         stored.spec.node_name = node_name
         stored.status.phase = "Running"
         self.kube.update(stored)
+
+    # -- disruption -----------------------------------------------------------
+
+    def reconcile_disruption(self):
+        """Drive the controller through the two-phase consolidation TTL: the
+        compute pass, the fake clock stepped past the validation TTL, the
+        revalidation pass. Returns the executed command (or None), as the
+        10 s singleton poll does against a real clock."""
+        ctrl = self.disruption_controller()
+        cmd = ctrl.reconcile()
+        if cmd is None and ctrl.pending is not None:
+            self.clock.step(ctrl.pending.method.validation_ttl + 0.1)
+            cmd = ctrl.reconcile()
+        return cmd
+
+    def disruption_controller(self):
+        """The Env's disruption controller, built on first use."""
+        from karpenter_tpu_torch.disruption.controller import Controller
+
+        if not hasattr(self, "_disruption"):
+            self._disruption = Controller(
+                self.kube, self.cluster, self.provisioner, self.cloud_provider,
+                self.clock, self.recorder,
+            )
+        return self._disruption
+
+    def create_candidate_node(
+        self,
+        name: str,
+        nodepool: str = "default",
+        it_name: str = "default-instance-type",
+        zone: str = "test-zone-1",
+        capacity_type: str = wk.CAPACITY_TYPE_ON_DEMAND,
+        pods=(),
+        conditions=(),
+        creation_timestamp: Optional[float] = None,
+    ):
+        """A registered and initialized Node and NodeClaim pair of instance
+        type ``it_name``, shaped like what the lifecycle produces, holding
+        ``pods`` (bound and Running). Returns (node, claim)."""
+        it = next(i for i in self.cloud_provider.get_instance_types(None) if i.name == it_name)
+        labels = {
+            wk.NODEPOOL_LABEL_KEY: nodepool,
+            wk.LABEL_INSTANCE_TYPE_STABLE: it_name,
+            wk.LABEL_TOPOLOGY_ZONE: zone,
+            wk.CAPACITY_TYPE_LABEL_KEY: capacity_type,
+        }
+        provider_id = f"fake:///{name}"
+        claim = NodeClaim(
+            metadata=ObjectMeta(name=f"claim-{name}", namespace="", labels=dict(labels)),
+            spec=NodeClaimSpec(),
+            status=NodeClaimStatus(
+                provider_id=provider_id, node_name=name, capacity=dict(it.capacity),
+                allocatable=dict(it.allocatable()), conditions=ConditionSet(living=list(LIVING_CONDITIONS)),
+            ),
+        )
+        for cond in (LAUNCHED, REGISTERED, INITIALIZED):
+            claim.status.conditions.set_true(cond)
+        if creation_timestamp is not None:
+            claim.metadata.creation_timestamp = creation_timestamp
+        for cond, when in conditions:
+            claim.status.conditions.set_true(cond, now=when)
+        self.kube.create(claim)
+        # the fake cloud must know the instance exists: termination probes
+        # CloudProvider.Get for vanished instances (controller.go:90-97)
+        self.cloud_provider.created_nodeclaims[provider_id] = claim
+        node = Node(
+            metadata=ObjectMeta(name=name, namespace="", labels={
+                **labels,
+                wk.NODE_REGISTERED_LABEL_KEY: "true",
+                wk.NODE_INITIALIZED_LABEL_KEY: "true",
+                wk.LABEL_HOSTNAME: name,
+            }),
+            spec=NodeSpec(provider_id=provider_id),
+            status=NodeStatus(capacity=dict(it.capacity), allocatable=dict(it.allocatable()),
+                              conditions=[NodeCondition(type="Ready", status="True")]),
+        )
+        self.kube.create(node)
+        for p in pods:
+            p.spec.node_name = name
+            p.status.phase = "Running"
+            if self.kube.get_opt(Pod, p.metadata.name, p.metadata.namespace) is None:
+                self.kube.create(p)
+            else:
+                self.kube.update(p)
+        return node, claim
 
     # -- assertions -----------------------------------------------------------
 

@@ -12,7 +12,8 @@ random suffix, so they are compared by creation order.
 
 The scenarios build the JAX package's API objects (tests/factories.py); the
 port's harness converts each object it is handed into the port's class of the
-same name (``to_port``), field by field, at its kube boundary.
+same name (``to_port``), field by field, at its kube boundary
+(tests/torch_port.py).
 
 Left out of the 36 scenarios, and why:
   * ``test_batcher_window`` and ``test_pod_watch_triggers_batcher``: the
@@ -39,17 +40,13 @@ which needs the card and raises on this CPU-only host.
 
 from __future__ import annotations
 
-import enum
 import importlib
 import inspect
-import itertools
-import os
-import types
 
 import pytest
 
-import tests.factories as factories
 import tests.test_provisioning as TP
+import tests.torch_port as torch_port
 import tests.torch_threads  # noqa: F401  (one intra-op thread)
 from karpenter_tpu.apis import labels as wk
 from karpenter_tpu.apis.objects import (
@@ -64,102 +61,18 @@ from karpenter_tpu.apis.objects import (
 from karpenter_tpu.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS as J_FAKE_LABELS
 from tests.factories import make_anti_affinity_pod, make_node, make_nodepool, make_pod
 from tests.harness import Env as JEnv
+from tests.torch_port import BarePortEnv, PortEnv, to_port
+from tests.torch_port import relax as _relax
 from karpenter_tpu_torch.apis import validation as p_validation
 from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, FakeCloudProvider
 from karpenter_tpu_torch.events import Recorder
 from karpenter_tpu_torch.kube import KubeClient
 from karpenter_tpu_torch.provisioning import provisioner as p_provisioner
-from karpenter_tpu_torch.solver.oracle import OracleSolver
 from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
 from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 from karpenter_tpu_torch.state import Cluster
 from karpenter_tpu_torch.testing.harness import Env as PEnv
 from karpenter_tpu_torch.utils.clock import FakeClock
-
-_J, _P = "karpenter_tpu.", "karpenter_tpu_torch."
-
-
-def port_class(cls):
-    """The port's class of the same module path and name as a JAX-package
-    class; any other class as it is."""
-    if not cls.__module__.startswith(_J):
-        return cls
-    mod = importlib.import_module(_P + cls.__module__[len(_J):])
-    out = mod
-    for part in cls.__qualname__.split("."):
-        out = getattr(out, part)
-    return out
-
-
-def to_port(x):
-    """A copy of ``x`` with every JAX-package object replaced, field by
-    field, by an object of the port's class of the same name."""
-    if x is None or isinstance(x, (str, bytes, int, float, bool)):
-        return x
-    if isinstance(x, type):
-        return port_class(x)
-    if isinstance(x, list):
-        return [to_port(v) for v in x]
-    if isinstance(x, tuple):
-        return tuple(to_port(v) for v in x)
-    if isinstance(x, (set, frozenset)):
-        return type(x)(to_port(v) for v in x)
-    if isinstance(x, dict):
-        return {to_port(k): to_port(v) for k, v in x.items()}
-    cls = type(x)
-    if not cls.__module__.startswith(_J):
-        return x
-    pcls = port_class(cls)
-    if isinstance(x, enum.Enum):
-        return pcls(x.value)
-    y = object.__new__(pcls)
-    for k, v in vars(x).items():
-        y.__dict__[k] = to_port(v)
-    return y
-
-
-class _PortKube:
-    """The port's KubeClient, handed JAX-package objects and classes."""
-
-    def __init__(self, kube):
-        self._kube = kube
-
-    def __getattr__(self, name):
-        fn = getattr(self._kube, name)
-        if not callable(fn):
-            return fn
-
-        def call(*args, **kwargs):
-            return fn(*(to_port(a) for a in args), **{k: to_port(v) for k, v in kwargs.items()})
-
-        return call
-
-
-def _relax() -> bool:
-    # the JAX backend reads KARPENTER_TPU_RELAX (the suite's conftest turns
-    # it off); the port's backend takes it as an argument
-    return os.environ.get("KARPENTER_TPU_RELAX", "1") != "0"
-
-
-def port_solver(well_known=FAKE_WELL_KNOWN_LABELS):
-    return SupervisedSolver(TorchSolver(device="cpu", well_known=well_known, relax=_relax()),
-                            fallback=OracleSolver())
-
-
-class PortEnv(PEnv):
-    """The port's harness over the supervised CPU solve, with a kube that
-    converts what the scenario hands it."""
-
-    def __init__(self, solver=None):
-        super().__init__(solver=solver if solver is not None else port_solver())
-        self.kube = _PortKube(self.kube)
-
-
-class BarePortEnv(PortEnv):
-    """The port's harness over ``TorchSolver(device="cpu")`` alone."""
-
-    def __init__(self):
-        super().__init__(solver=TorchSolver(device="cpu", well_known=FAKE_WELL_KNOWN_LABELS, relax=_relax()))
 
 
 @pytest.fixture(autouse=True)
@@ -212,19 +125,7 @@ def digest(env) -> dict:
 def run_scenario(fn, env_cls, overrides=None):
     """Run scenario ``fn`` with its module's ``Env`` (and ``overrides``)
     replaced; the digests of the Envs it built, in order, and the Envs."""
-    envs = []
-
-    def factory(*args, **kwargs):
-        env = env_cls(*args, **kwargs)
-        envs.append(env)
-        return env
-
-    g = dict(fn.__globals__)
-    g["Env"] = factory
-    g.update(overrides or {})
-    factories._seq = itertools.count()  # the same generated pod names in both runs
-    types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__, fn.__closure__)()
-    return [digest(e) for e in envs], envs
+    return torch_port.run_scenario(fn, env_cls, overrides, digest=digest)
 
 
 # The scenarios below name ``Env``, which ``run_scenario`` binds to the harness

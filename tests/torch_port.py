@@ -1,0 +1,308 @@
+"""Running a JAX-package test scenario through the port.
+
+The port's test modules hold the port to the JAX package by running the same
+scenario twice: through the JAX package's harness (tests/harness.Env) and
+through the port's (karpenter_tpu_torch.testing.harness.Env). The scenarios
+build the JAX package's API objects (tests/factories.py); the port's harness
+converts each object it is handed into the port's class of the same name
+(``to_port``), field by field, at its kube boundary (``PortKube``).
+
+``run_scenario`` runs a scenario function with its ``Env`` bound to one
+harness (also where the function imports it from ``tests.harness``). With
+``port=True`` it also rebinds what the scenario names of the
+JAX package to the port: its module globals (classes, functions, modules and
+the helpers of the test modules that name them) and its function-level
+imports (``from karpenter_tpu.x import y`` resolves in
+``karpenter_tpu_torch.x``; ``from tests.harness import Env`` gives the port's
+Env).
+"""
+
+from __future__ import annotations
+
+import builtins
+import contextlib
+import enum
+import importlib
+import inspect
+import itertools
+import os
+import types
+import uuid
+
+import tests.factories as factories
+from karpenter_tpu.apis import labels as wk
+from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
+from karpenter_tpu_torch.solver.oracle import OracleSolver
+from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+from karpenter_tpu_torch.testing.harness import Env as PEnv
+
+_J, _P = "karpenter_tpu.", "karpenter_tpu_torch."
+
+
+def port_name(name: str) -> str:
+    """The port's module path for a JAX-package module path."""
+    if name == "karpenter_tpu" or name.startswith(_J):
+        return "karpenter_tpu_torch" + name[len("karpenter_tpu"):]
+    return name
+
+
+def port_class(cls):
+    """The port's class (or function) of the same module path and name as a
+    JAX-package one; anything else as it is."""
+    if not cls.__module__.startswith(_J):
+        return cls
+    out = importlib.import_module(port_name(cls.__module__))
+    for part in cls.__qualname__.split("."):
+        out = getattr(out, part)
+    return out
+
+
+def to_port(x):
+    """A copy of ``x`` with every JAX-package object replaced, field by
+    field, by an object of the port's class of the same name."""
+    if x is None or isinstance(x, (str, bytes, int, float, bool)):
+        return x
+    if isinstance(x, type):
+        return port_class(x)
+    if isinstance(x, list):
+        return [to_port(v) for v in x]
+    if isinstance(x, tuple):
+        return tuple(to_port(v) for v in x)
+    if isinstance(x, (set, frozenset)):
+        return type(x)(to_port(v) for v in x)
+    if isinstance(x, dict):
+        return {to_port(k): to_port(v) for k, v in x.items()}
+    cls = type(x)
+    if not cls.__module__.startswith(_J):
+        return x
+    pcls = port_class(cls)
+    if isinstance(x, enum.Enum):
+        return pcls(x.value)
+    y = object.__new__(pcls)
+    for k, v in vars(x).items():
+        y.__dict__[k] = to_port(v)
+    return y
+
+
+# what the kube writes back into the object it is handed (create, update)
+_WRITTEN_BACK = ("resource_version", "generation", "creation_timestamp")
+
+
+class PortKube:
+    """The port's KubeClient, handed JAX-package objects and classes. What
+    the store writes back into an object it is handed lands in the caller's
+    object too, so a scenario can update an object it created."""
+
+    def __init__(self, kube):
+        self._kube = kube
+
+    def __getattr__(self, name):
+        fn = getattr(self._kube, name)
+        if not callable(fn):
+            return fn
+
+        def call(*args, **kwargs):
+            ported = [to_port(a) for a in args]
+            out = fn(*ported, **{k: to_port(v) for k, v in kwargs.items()})
+            for a, p in zip(args, ported):
+                if a is not p and hasattr(a, "metadata") and hasattr(p, "metadata"):
+                    for field in _WRITTEN_BACK:
+                        setattr(a.metadata, field, getattr(p.metadata, field))
+            return out
+
+        return call
+
+
+def relax() -> bool:
+    # the JAX backend reads KARPENTER_TPU_RELAX (the suite's conftest turns
+    # it off); the port's backend takes it as an argument
+    return os.environ.get("KARPENTER_TPU_RELAX", "1") != "0"
+
+
+def port_solver(well_known=FAKE_WELL_KNOWN_LABELS):
+    return SupervisedSolver(TorchSolver(device="cpu", well_known=well_known, relax=relax()),
+                            fallback=OracleSolver())
+
+
+class PortEnv(PEnv):
+    """The port's harness over the supervised CPU solve, with a kube that
+    converts what the scenario hands it."""
+
+    def __init__(self, solver=None):
+        super().__init__(solver=solver if solver is not None else port_solver())
+        self.kube = PortKube(self.kube)
+
+
+class BarePortEnv(PortEnv):
+    """The port's harness over ``TorchSolver(device="cpu")`` alone."""
+
+    def __init__(self):
+        super().__init__(solver=TorchSolver(device="cpu", well_known=FAKE_WELL_KNOWN_LABELS, relax=relax()))
+
+
+class _Rebound:
+    """A scenario's functions made anew with ``Env`` (also as imported from
+    ``tests.harness`` inside a function) bound to ``env`` and ``overrides``
+    applied; with ``port``, also with its names of the JAX package rebound
+    to the port (see the module docstring). The helpers of the test modules
+    that a scenario names are made anew alike."""
+
+    def __init__(self, env, overrides, port):
+        self.env = env
+        self.overrides = overrides
+        self.port = port
+        self.done = {}
+        self.harness = types.SimpleNamespace(Env=env)
+        self.builtins = dict(vars(builtins), __import__=self.import_)
+
+    def import_(self, name, globals=None, locals=None, fromlist=(), level=0):
+        if name == "tests.harness" and fromlist:
+            return self.harness
+        return builtins.__import__(port_name(name) if self.port else name, globals, locals, fromlist, level)
+
+    def value(self, v):
+        if isinstance(v, types.FunctionType) and v.__module__.startswith("tests.test_"):
+            return self.function(v)
+        if not self.port:
+            return v
+        if isinstance(v, types.ModuleType):
+            return importlib.import_module(port_name(v.__name__)) if v.__name__.startswith(_J) else v
+        if isinstance(v, (type, types.FunctionType)) and v.__module__.startswith(_J):
+            return port_class(v)
+        return v
+
+    def function(self, fn):
+        if fn not in self.done:
+            # a function takes its builtins (and so ``__import__``) from its
+            # globals when it is made
+            g = {"__builtins__": self.builtins}
+            self.done[fn] = types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__, fn.__closure__)
+            g.update((k, self.value(v)) for k, v in fn.__globals__.items() if k != "__builtins__")
+            g.update(Env=self.env, **self.overrides)
+        return self.done[fn]
+
+
+def run_scenario(fn, env_cls, overrides=None, digest=None, port=False, args=()):
+    """Run scenario ``fn`` (on ``args``) with its module's ``Env`` (and
+    ``overrides``) replaced, and with ``port`` its names of the JAX package
+    rebound to the port; the digests of the Envs it built, in order, and the
+    Envs."""
+    envs = []
+
+    def factory(*args, **kwargs):
+        env = env_cls(*args, **kwargs)
+        envs.append(env)
+        return env
+
+    factories._seq = itertools.count()  # the same generated pod names in both runs
+    _Rebound(factory, overrides or {}, port).function(fn)(*args)
+    return [digest(e) for e in envs] if digest is not None else [], envs
+
+
+# -- disruption scenarios ----------------------------------------------------
+
+
+def _pkg(env) -> str:
+    return "karpenter_tpu_torch" if isinstance(env, PEnv) else "karpenter_tpu"
+
+
+def _reqs(reqs):
+    return sorted((r.key, r.operator, tuple(sorted(r.values or ()))) for r in reqs)
+
+
+def command_digest(cmd) -> tuple:
+    """An executed command: method, type, decision, candidates, and each
+    replacement's requirements and instance-type names."""
+    return (
+        cmd.method,
+        cmd.consolidation_type,
+        cmd.decision,
+        [c.name for c in cmd.candidates],
+        [
+            (_reqs(r.spec.requirements),
+             sorted(v for q in r.spec.requirements if q.key == wk.LABEL_INSTANCE_TYPE_STABLE for v in q.values))
+            for r in cmd.replacements
+        ],
+    )
+
+
+def disruption_digest(env) -> dict:
+    """What a disruption scenario left: every NodeClaim and Node with its
+    labels, requirements and taints, the pod bindings, the pending pods, the
+    recorder's event reasons in order, and the commands executed."""
+    objects = importlib.import_module(_pkg(env) + ".apis.objects")
+    claim_cls = importlib.import_module(_pkg(env) + ".apis.nodeclaim").NodeClaim
+    pods = env.kube.list(objects.Pod)
+    return {
+        "claims": [
+            (c.metadata.name, sorted(c.metadata.labels.items()), _reqs(c.spec.requirements),
+             [(t.key, t.value, t.effect) for t in c.spec.taints])
+            for c in env.kube.list(claim_cls)
+        ],
+        "nodes": [
+            (n.metadata.name, sorted(n.metadata.labels.items()), [(t.key, t.value, t.effect) for t in n.spec.taints])
+            for n in env.kube.list(objects.Node)
+        ],
+        "bindings": sorted((p.metadata.namespace, p.metadata.name, p.spec.node_name) for p in pods if p.spec.node_name),
+        "pending": sorted((p.metadata.namespace, p.metadata.name) for p in pods if not p.spec.node_name),
+        "events": [e.reason for e in env.recorder.events],
+    }
+
+
+@contextlib.contextmanager
+def _recorded_run(package: str, executed: list):
+    """Record every command a ``package`` Controller executes, and number the
+    uuids the run draws (NodeClaim names take their first 8 hex digits), so
+    both packages' runs name their claims alike."""
+    ctrl = importlib.import_module(package + ".disruption.controller").Controller
+    orig_execute, orig_uuid = ctrl._execute, uuid.uuid4
+    seq = itertools.count(1)
+
+    def execute(self, command):
+        executed.append(command_digest(command))
+        return orig_execute(self, command)
+
+    ctrl._execute = execute
+    uuid.uuid4 = lambda: uuid.UUID(int=next(seq) << 96)
+    try:
+        yield
+    finally:
+        ctrl._execute, uuid.uuid4 = orig_execute, orig_uuid
+
+
+def run_disruption(fn, port: bool, overrides=None, args=()):
+    """One run of disruption scenario ``fn`` through one package's harness:
+    the JAX package's (tests.harness.Env over JaxSolver) or the port's
+    (``PortEnv``, the supervised CPU solve). Returns (digests of its Envs,
+    the commands executed, the Envs)."""
+    from tests.harness import Env as JEnv
+
+    executed: list = []
+    with _recorded_run("karpenter_tpu_torch" if port else "karpenter_tpu", executed):
+        digests, envs = run_scenario(fn, PortEnv if port else JEnv, overrides, digest=disruption_digest,
+                                     port=port, args=args)
+    return digests, executed, envs
+
+
+def scenario_args(fn, request) -> tuple:
+    """The fixtures a scenario function takes (``monkeypatch``), from the
+    calling test's ``request``."""
+    return tuple(request.getfixturevalue(name) for name in inspect.signature(fn).parameters)
+
+
+def assert_same_disruption(fn, request, port_overrides=None):
+    """Run ``fn`` through both packages; its own assertions hold on each, and
+    the two must leave the same claims, nodes, bindings and events and
+    execute the same commands. The port's supervised solve never fails over."""
+    jd, jx, _ = run_disruption(fn, False, args=scenario_args(fn, request))
+    pd, px, envs = run_disruption(fn, True, port_overrides, args=scenario_args(fn, request))
+    assert px == jx, f"commands: port {px} != JAX {jx}"
+    assert len(pd) == len(jd)
+    for i, (p, j) in enumerate(zip(pd, jd)):
+        bad = [k for k in j if p[k] != j[k]]
+        assert not bad, f"Env {i}: " + "; ".join(f"{k}: port {p[k]} != JAX {j[k]}" for k in bad)
+    for env in envs:
+        sup = env.provisioner.solver
+        assert sup.counters["solve_fallbacks"] == 0 and sup.circuit_state() == "closed"
+    return jx
