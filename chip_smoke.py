@@ -192,7 +192,29 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      chosen k and k + 1; the pass's wall split (get_candidates, the scorer
      build's inputs and encode, the screen alone and wrapped, confirmation,
      validation) and screened candidates/s.
- 12. a ``kernels`` JSON line: per kernel its launches on the main path, its
+ 12. the operator: ``Operator(FakeCloudProvider(400 types), Options())``
+     (``SupervisedSolver(TorchSolver(), fallback=OracleSolver())`` on the
+     card, the ten lifecycle controllers, the batcher, the disruption
+     controller) on a FakeClock through ``operator_scenario``: 3,000
+     makeDiversePods pods (OPERATOR_PODS) provisioned by ``step()``, launched by
+     ``run_until_settled()``, registered by a fake kubelet and bound to
+     their nominated nodes until every claim is initialized; a seeded half of
+     the pods deleted; the clock stepped past the 15 s validation TTL round
+     after round while the disruption controller screens and commands, the
+     termination and eviction controllers drain and delete nodes, and a fake
+     ReplicaSet makes each evicted pod anew for the provisioner. The final
+     state (claims, nodes with their taints, bindings, pending pods, commands
+     executed, event reasons in order) must equal the JAX package's
+     (EXPECT_OPERATOR, tools/operator_digest.py); the circuit closed with no
+     fallback, retry or rejection; ``ffd_loop``, ``relax_place``,
+     ``gate_counts`` and ``runs_screen`` each launched by the run (the counts
+     set to 0 just before it and read just after). Prints each stage's wall,
+     the disruption passes' split and the launches. Then ``start()`` on two
+     free localhost ports: /readyz 200 once the kernel-build thread ends,
+     OPERATOR_THREADED_PODS pods nominated under the real batch window,
+     ``# TYPE`` in /metrics for every registered series, /statusz and
+     /debug/programs parsed, ``stop()``.
+ 13. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
@@ -204,13 +226,15 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      times by cluster size, for ``runs_screen`` the plan and the times by
      layout. Bytes are those of the kernel's own
      arguments. The churn, serve, shard and provisioning phases' records
-     ride in the same line; the wavefront mode is an entry of its own.
- 13. the card's name and power limit; the last line is the device JSON.
+     ride in the same line; the wavefront mode is an entry of its own. The
+     entries of the four kernels phase 12 runs carry ``launches_operator``.
+ 14. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
 """
 
+import copy
 import ctypes
 import dataclasses
 import json
@@ -370,6 +394,23 @@ DISRUPT_CANDIDATE_TYPE = "fake-it-3"  # 4 cpu, 8 GiB, 40 pods: the bench's candi
 DISRUPT_SURVIVOR_TYPE = "fake-it-63"  # 64 cpu, 128 GiB
 DISRUPT_AGREE = 20  # prefixes the screen and the sequential path must agree on
 DISRUPT_PREFIXES = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16, 20, 25, 32, 40, 50, 64, 80, 99, 150, 200)
+# the operator (phase 12): ``Operator.step()`` / ``run_until_settled()`` on a
+# FakeClock through a whole cluster lifecycle (``operator_scenario``), and
+# ``start()`` on two localhost ports. EXPECT_OPERATOR is the scenario's digest
+# through the JAX package's ``Operator(Options(solver_backend="jax"))`` on the
+# CPU (tools/operator_digest.py, the same function called with that package)
+# cut from the north-star 10,000: the cooperative run took 128.5, 93.5,
+# 128.0 and 482.1 s on the card at 2,500, 3,000, 3,500 and 5,000 pods
+# (host-bound consolidation; its rounds, not the pods alone, set the time),
+# and the whole smoke at 3,500 took 1,026 s of its 1,200 s limit with this
+# phase at 192.4 s, so 3,000 holds the phase well inside its ~180 s share
+OPERATOR_PODS = 3000
+OPERATOR_TYPES = 400
+OPERATOR_SEED = 12  # the seeded half of the pods that is deleted
+OPERATOR_THREADED_PODS = 300
+OPERATOR_THREADED_WAIT_S = 120.0
+EXPECT_OPERATOR = dict(claims=29, nodes=29, bound=1500, pending=0, commands=3, disrupted=35, evicted=736, events=4526,
+                       sha256="2adbc8f06f375fd7f3d2d62b3d3654c09fb506e94fef4e70bd6dcaf09244e1ee")
 # the convex phase's two float stats against the JAX package's: the float32
 # adds of the bin loads and the gradient step round in another order there
 # (its CPU build may contract a multiply and an add), by 1.5e-4 relative on
@@ -1328,6 +1369,7 @@ def run(dev) -> int:
     wave_entry = wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, compare_results)
     provision = provision_phase(dev)
     disruption = disruption_phase(dev, time_ms, time_launches, plain_ms)
+    operator = operator_phase(dev)
     rs["launches_disruption_pass"] = disruption["launches"]["runs_screen"]
 
     line = {
@@ -1423,7 +1465,12 @@ def run(dev) -> int:
         "shard": shard,
         "provision": provision,
         "disruption": disruption,
+        "operator": operator,
     }
+    for entry in line["kernels"]:
+        if entry["name"] in ("ffd_loop", "relax_place", "gate_counts", "runs_screen"):
+            # the kernel's launches over phase 12's cooperative run
+            entry["launches_operator"] = operator["launches"][entry["name"]]
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
     smi = subprocess.run(
@@ -3774,6 +3821,439 @@ def screen_subsets(n, seed=SCREEN_SEED):
 def verdict_key(v):
     return (v.all_pods_scheduled, v.n_new_claims, sorted(v.replacement_its or []),
             sorted(v.replacement_zones or []), sorted(v.replacement_cts or []))
+
+
+
+def operator_phase(dev):
+    """Phase 12 (see the module docstring). Returns the phase's record."""
+    import contextlib
+
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.disruption import batch, consolidation, controller
+    from karpenter_tpu_torch.provisioning import provisioner
+    from karpenter_tpu_torch.testing import workloads as W
+
+    t_phase = time.perf_counter()
+    log(f"phase 12: the operator, Operator.step() over {OPERATOR_PODS} pods, {OPERATOR_TYPES} types, 1 NodePool")
+
+    # the wall of each stage, and of the disruption passes' steps by stage
+    cur = {"stage": ""}
+    split: dict = {}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                k = (cur["stage"], key)
+                split[k] = split.get(k, 0.0) + time.perf_counter() - t0
+                calls = (cur["stage"], key + "#")
+                split[calls] = split.get(calls, 0) + 1
+        return run
+
+    @contextlib.contextmanager
+    def stage(name):
+        cur["stage"] = name
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+
+    real = {
+        "reconcile": controller.Controller.reconcile, "ctrl_get": controller.get_candidates,
+        "cons_get": consolidation.get_candidates, "build": batch.build_scorer, "init": batch.UnionScorer.__init__,
+        "score": batch.UnionScorer.score_subsets, "compute": consolidation.ConsolidationBase.compute_consolidation,
+        "provision": provisioner.Provisioner.reconcile,
+    }
+    controller.Controller.reconcile = timed("disruption_pass", real["reconcile"])
+    controller.get_candidates = timed("get_candidates", real["ctrl_get"])
+    consolidation.get_candidates = timed("get_candidates", real["cons_get"])
+    batch.build_scorer = timed("scorer_build", real["build"])
+    batch.UnionScorer.__init__ = timed("scorer_encode", real["init"])
+    batch.UnionScorer.score_subsets = timed("screen", real["score"])
+    consolidation.ConsolidationBase.compute_consolidation = timed("simulate", real["compute"])
+    provisioner.Provisioner.reconcile = timed("provisioner_pass", real["provision"])
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        digest, record, op = operator_scenario("karpenter_tpu_torch", {"solver_device": dev.type},
+                                               W.make_diverse_pods, hooks={"stage": stage})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        controller.Controller.reconcile = real["reconcile"]
+        controller.get_candidates, consolidation.get_candidates = real["ctrl_get"], real["cons_get"]
+        batch.build_scorer, batch.UnionScorer.__init__ = real["build"], real["init"]
+        batch.UnionScorer.score_subsets = real["score"]
+        consolidation.ConsolidationBase.compute_consolidation = real["compute"]
+        provisioner.Provisioner.reconcile = real["provision"]
+    sup = op.supervisor
+    if digest != EXPECT_OPERATOR:
+        raise AssertionError(f"operator: {digest} != the JAX package's {EXPECT_OPERATOR}")
+    if sup.circuit_state() != "closed" or any(sup.counters[k] for k in (
+            "solve_fallbacks", "solve_retries", "validator_rejections")):
+        raise AssertionError(f"operator: circuit {sup.circuit_state()}, {sup.counters}")
+    if not op.status.ready():
+        raise AssertionError(f"operator: not ready after the run: {op.status.statusz().get('device_faults')}")
+    path = ("ffd_loop", "relax_place", "gate_counts", "runs_screen")
+    if any(launches[k] < 1 for k in path):
+        raise AssertionError(f"operator: a kernel of the path did not launch: {launches}")
+    log(f"  final state == EXPECT_OPERATOR: {digest}")
+    log(f"  circuit closed, no fallback/retry/rejection; methods {record['methods']}; "
+        f"events {record['event_reasons']}")
+    log(f"  launches over the run: {launches}")
+    stages = record["stages_s"]
+    reprovision = split.get(("consolidate", "provisioner_pass"), 0.0)
+    log("  stage walls (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; re-provision (the provisioner's passes during consolidation) {reprovision:.2f}"
+        + f"; settle rounds {record['rounds']}")
+    passes = {}
+    for name in ("settle", "consolidate"):
+        n = split.get((name, "disruption_pass#"), 0)
+        w = split.get((name, "disruption_pass"), 0.0) * 1e3
+        parts = {k: split.get((name, k), 0.0) * 1e3 for k in ("get_candidates", "scorer_build", "scorer_encode",
+                                                              "screen", "simulate")}
+        parts["scorer_inputs"] = parts.pop("scorer_build") - parts["scorer_encode"]
+        parts["rest"] = w - sum(parts.values())
+        passes[name] = {"passes": n, "wall_ms": w, "split_ms": parts,
+                        "provisioner_passes": split.get((name, "provisioner_pass#"), 0),
+                        "provisioner_ms": split.get((name, "provisioner_pass"), 0.0) * 1e3}
+        log(f"  disruption passes during {name}: {n}, {w:.1f} ms = "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+            + f"; provisioner passes {passes[name]['provisioner_passes']} ({passes[name]['provisioner_ms']:.1f} ms)")
+
+    threaded = operator_threaded(dev)
+    log(f"  phase 12 wall {time.perf_counter() - t_phase:.1f}s")
+    return {"pods": OPERATOR_PODS, "types": OPERATOR_TYPES, "digest": digest, "wall_s": wall, "stages_s": stages,
+            "reprovision_s": reprovision, "rounds": record["rounds"], "launches": launches,
+            "disruption_passes": passes, "methods": record["methods"], "supervisor": dict(sup.counters),
+            "threaded": threaded}
+
+
+def operator_threaded(dev):
+    """Phase 12's threaded part: ``start()`` on two free localhost ports,
+    /readyz 200 once the build thread ends, OPERATOR_THREADED_PODS pods
+    provisioned under the real batch window, /metrics with ``# TYPE`` for
+    every registered series, /statusz and /debug/programs parsed, then
+    ``stop()``."""
+    import socket
+    import urllib.error
+    import urllib.request
+
+    from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.apis.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.metrics.registry import REGISTRY
+    from karpenter_tpu_torch.operator import Operator, Options
+    from karpenter_tpu_torch.testing import workloads as W
+
+    t0 = time.perf_counter()
+    socks = [socket.socket(), socket.socket()]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    cloud = FakeCloudProvider()
+    cloud.instance_types = instance_types(OPERATOR_TYPES)
+    cloud.drifted = ""
+    op = Operator(cloud, Options(metrics_port=ports[0], health_probe_port=ports[1], solver_device=dev.type))
+    base, health = f"http://127.0.0.1:{ports[0]}", f"http://127.0.0.1:{ports[1]}"
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read()
+
+    op.start()
+    try:
+        while op._warm_thread is not None and op._warm_thread.is_alive():
+            time.sleep(0.05)
+        t_ready = time.perf_counter() - t0
+        if get(f"{health}/readyz")[0] != 200 or get(f"{base}/readyz")[0] != 200:
+            raise AssertionError(f"operator threaded: /readyz not 200 after the build: {op.status.statusz()}")
+        op.kube.create(NodePool(metadata=ObjectMeta(name="default", namespace="")))
+        pods = W.make_diverse_pods(OPERATOR_THREADED_PODS, random.Random(7))
+        t1 = time.perf_counter()
+        for p in pods:
+            op.kube.create(p)
+        names = {p.metadata.name for p in pods}
+        nominated = set()
+        while time.perf_counter() - t1 < OPERATOR_THREADED_WAIT_S:
+            nominated = {e.involved_name for e in list(op.recorder.events) if e.reason == "Nominated"} & names
+            if len(nominated) == len(names):
+                break
+            time.sleep(0.2)
+        t_claims = time.perf_counter() - t1
+        claims = op.kube.list(NodeClaim)
+        if len(nominated) != len(names) or not claims:
+            raise AssertionError(f"operator threaded: {len(nominated)} of {len(names)} pods nominated, "
+                                 f"{len(claims)} NodeClaims after {t_claims:.1f}s")
+        code, body = get(f"{base}/metrics")
+        text = body.decode()
+        missing = [name for kind, name, _ in REGISTRY.describe() if f"# TYPE {name} {kind}" not in text]
+        if code != 200 or missing:
+            raise AssertionError(f"operator threaded: /metrics {code}, no # TYPE for {missing}")
+        code, body = get(f"{base}/statusz")
+        statusz = json.loads(body)
+        code2, body2 = get(f"{base}/debug/programs")
+        programs = json.loads(body2)
+        if code != 200 or code2 != 200 or not statusz["ready"] or programs["built"] != len(programs["kernels"]):
+            raise AssertionError(f"operator threaded: /statusz {code} ready {statusz.get('ready')}, "
+                                 f"/debug/programs {code2} built {programs.get('built')}")
+        launched = sum(1 for c in claims if c.status.provider_id)
+    finally:
+        op.stop()
+    out = {"ready_s": t_ready, "claims_s": t_claims, "claims": len(claims), "launched": launched,
+           "series": len(REGISTRY.describe()), "kernels_built": programs["built"],
+           "launches_total": programs["launches_total"], "solver": statusz.get("solver", {}).get("counters")}
+    log(f"  threaded: /readyz 200 {t_ready:.2f}s after start(); {len(names)} pods nominated onto {len(claims)} "
+        f"NodeClaims ({launched} launched) {t_claims:.2f}s after their creation under the real batch window; "
+        f"/metrics has # TYPE for all {out['series']} series; /statusz ready; /debug/programs "
+        f"{programs['built']} kernels built")
+    return out
+
+def operator_scenario(pkg, options, make_pods, n_pods=OPERATOR_PODS, seed=OPERATOR_SEED, n_types=OPERATOR_TYPES,
+                      hooks=None):
+    """Phase 12's cooperative lifecycle through one package's ``Operator``
+    (``pkg`` is the package's module name, ``options`` the keyword arguments
+    of its ``Options``, ``make_pods(n, rng)`` its makeDiversePods): a
+    FakeCloudProvider over ``n_types`` catalog types (no drift), one
+    ``default`` NodePool (WhenUnderutilized, budget 100%) and ``n_pods`` pods
+    on a FakeClock.
+
+      provision    ``step()``: the pod watch's trigger, one Provisioner pass;
+      launch       ``run_until_settled()``: the lifecycle controller launches;
+      settle       a fake kubelet registers a Ready Node per launched claim,
+                   each pod is bound to the node its last provisioning pass
+                   nominated (a claim's once it has registered), until every
+                   claim is initialized and every nominated pod bound (a pod
+                   the solve could not place stays pending);
+      scale-down   a seeded half of the pods is deleted;
+      consolidate  rounds of the clock stepped past the 15 s validation TTL,
+                   then settling as above with a fake ReplicaSet that
+                   creates each evicted pod anew (pending); until two rounds
+                   in a row change nothing.
+
+    uuid4 is numbered for the run (claim names, provider ids, uids), so both
+    packages name alike. Returns (digest, record, operator). ``hooks`` may
+    wrap stages: ``hooks["stage"](name)`` is a context manager, and
+    ``hooks["round"](stage, n, claims, commands)`` is called after each
+    round of settling or consolidation."""
+    import contextlib
+    import hashlib
+    import importlib
+    import itertools
+    import uuid
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    wk = mod("apis.labels")
+    NodeClaim = mod("apis.nodeclaim").NodeClaim
+    np_mod, objects = mod("apis.nodepool"), mod("apis.objects")
+    fake = mod("cloudprovider.fake")
+    operator = mod("operator")
+    FakeClock = mod("utils.clock").FakeClock
+    stage = (hooks or {}).get("stage") or (lambda name: contextlib.nullcontext())
+    on_round = (hooks or {}).get("round") or (lambda *args: None)
+
+    seq = itertools.count(1)
+    real_uuid4 = uuid.uuid4
+    uuid.uuid4 = lambda: uuid.UUID(int=next(seq) << 96)
+    try:
+        clock = FakeClock()
+        cloud = fake.FakeCloudProvider()
+        cloud.instance_types = fake.instance_types(n_types)
+        cloud.drifted = ""
+        op = operator.Operator(cloud, options=operator.Options(**options), clock=clock)
+        commands, nominated = [], {}
+        real_execute, real_reconcile = op.disruption._execute, op.provisioner.reconcile
+
+        def execute(command):
+            commands.append([command.method, command.decision, sorted(c.name for c in command.candidates),
+                             [sorted(v for r in c.spec.requirements if r.key == wk.LABEL_INSTANCE_TYPE_STABLE
+                                     for v in r.values) for c in command.replacements]])
+            return real_execute(command)
+
+        def reconcile():
+            pass_ = real_reconcile()
+            if pass_.inputs is not None:
+                for claim in pass_.created:
+                    for pi in pass_.claim_pods[claim.metadata.name]:
+                        pod = pass_.inputs.pods[pi]
+                        nominated[(pod.metadata.namespace, pod.metadata.name)] = ("claim", claim.metadata.name)
+                for node, idx in pass_.result.node_pods.items():
+                    for pi in idx:
+                        pod = pass_.inputs.pods[pi]
+                        nominated[(pod.metadata.namespace, pod.metadata.name)] = ("node", node)
+            return pass_
+
+        op.disruption._execute = execute
+        op.provisioner.reconcile = reconcile
+
+        pool = np_mod.NodePool(metadata=objects.ObjectMeta(name="default", namespace=""))
+        pool.spec.disruption = np_mod.Disruption(consolidation_policy="WhenUnderutilized",
+                                                 budgets=[np_mod.Budget(nodes="100%")])
+        op.kube.create(pool)
+        pods = make_pods(n_pods, random.Random(42))
+        specs = {(p.metadata.namespace, p.metadata.name): p for p in pods}
+        for p in pods:
+            op.kube.create(p)
+
+        def kubelet():
+            """A Ready Node for every launched claim without one."""
+            made = 0
+            for claim in op.kube.list(NodeClaim):
+                if not claim.status.provider_id or claim.status.node_name:
+                    continue
+                name = f"node-{claim.metadata.name}"
+                if op.kube.get_opt(objects.Node, name, "") is not None:
+                    continue
+                op.kube.create(objects.Node(
+                    metadata=objects.ObjectMeta(name=name, namespace="", labels={
+                        **claim.metadata.labels, wk.LABEL_HOSTNAME: name}),
+                    spec=objects.NodeSpec(provider_id=claim.status.provider_id),
+                    status=objects.NodeStatus(capacity=dict(claim.status.capacity),
+                                              allocatable=dict(claim.status.allocatable),
+                                              conditions=[objects.NodeCondition(type="Ready")]),
+                ))
+                made += 1
+            return made
+
+        def bind():
+            """Each pending pod onto the node its last pass nominated."""
+            claims = {c.metadata.name: c for c in op.kube.list(NodeClaim)}
+            nodes = {n.metadata.name: n for n in op.kube.list(objects.Node)}
+            bound = 0
+            for p in op.kube.list(objects.Pod):
+                if p.spec.node_name or p.metadata.deletion_timestamp is not None:
+                    continue
+                kind, target = nominated.get((p.metadata.namespace, p.metadata.name), (None, None))
+                if kind == "claim" or (kind == "node" and target not in nodes and target in claims):
+                    target = claims[target].status.node_name if target in claims else ""
+                node = nodes.get(target or "")
+                if node is None or node.metadata.deletion_timestamp is not None:
+                    continue
+                p.spec.node_name = target
+                p.status.phase = "Running"
+                op.kube.update(p)
+                bound += 1
+            return bound
+
+        def replicaset():
+            """Each pod of the workload that is not deleted by the scenario
+            and is gone from the store (evicted) comes back pending, as its
+            owner makes it anew."""
+            live = {(p.metadata.namespace, p.metadata.name) for p in op.kube.list(objects.Pod)}
+            made = 0
+            for key, spec in specs.items():
+                if key in live or key in gone:
+                    continue
+                fresh = copy.deepcopy(spec)
+                fresh.spec.node_name = ""
+                fresh.status.phase = "Pending"
+                op.kube.create(fresh)
+                made += 1
+            return made
+
+        def settle(limit=40, name="settle"):
+            rounds = 0
+            for rounds in range(1, limit + 1):
+                before = op.kube._rv
+                op.run_until_settled(max_steps=80)
+                replicaset()
+                kubelet()
+                bind()
+                on_round(name, rounds, len(op.kube.list(NodeClaim)), len(commands))
+                if op.kube._rv == before:
+                    break
+            return rounds
+
+        gone: set = set()
+        record = {"stages_s": {}, "rounds": {}}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            with stage(name):
+                out = fn()
+            record["stages_s"][name] = time.perf_counter() - t0
+            return out
+
+        timed("provision", op.step)
+        if not op.kube.list(NodeClaim):
+            raise AssertionError("operator: the first step created no NodeClaim")
+        timed("launch", op.run_until_settled)
+        record["rounds"]["settle"] = timed("settle", settle)
+        claims = op.kube.list(NodeClaim)
+        pending = [p for p in op.kube.list(objects.Pod) if not p.spec.node_name]
+        stuck = [p.metadata.name for p in pending if (p.metadata.namespace, p.metadata.name) in nominated]
+        if stuck or not all(c.is_initialized() for c in claims):
+            raise AssertionError(f"operator: after settling {len(stuck)} nominated pods pending ({stuck[:5]}), "
+                                 f"{sum(not c.is_initialized() for c in claims)} claims not initialized")
+        record["provisioned"] = {"claims": len(claims), "pods": n_pods, "unschedulable": len(pending)}
+
+        def scale_down():
+            names = sorted(specs)
+            for key in random.Random(seed).sample(names, len(names) // 2):
+                gone.add(key)
+                op.kube.delete(objects.Pod, key[1], key[0])
+
+        timed("scale_down", scale_down)
+
+        def consolidate():
+            # a round that resolves a pending command without a change to
+            # the store is followed by the pass that computes the next one:
+            # stop after two quiet rounds
+            rounds = quiet = 0
+            for rounds in range(1, 121):
+                before = (op.kube._rv, len(commands))
+                clock.step(16.0)
+                settle(name=f"consolidate {rounds}")
+                quiet = quiet + 1 if (op.kube._rv, len(commands)) == before and op.disruption.pending is None else 0
+                if quiet == 2:
+                    break
+            return rounds
+
+        record["rounds"]["consolidate"] = timed("consolidate", consolidate)
+
+        # the digest: claims, nodes with their taints, bindings, pending pods,
+        # the commands executed and the event reasons in order
+        claims = op.kube.list(NodeClaim)
+        nodes = op.kube.list(objects.Node)
+        pods_now = op.kube.list(objects.Pod)
+        state = {
+            "claims": sorted([c.metadata.name, c.metadata.labels.get(wk.NODEPOOL_LABEL_KEY, ""),
+                              c.metadata.labels.get(wk.LABEL_INSTANCE_TYPE_STABLE, ""),
+                              c.status.node_name, c.is_initialized()] for c in claims),
+            "nodes": sorted([n.metadata.name, sorted(n.metadata.labels.items()),
+                             [[t.key, t.value, t.effect] for t in n.spec.taints]] for n in nodes),
+            "bindings": sorted([p.metadata.namespace, p.metadata.name, p.spec.node_name]
+                               for p in pods_now if p.spec.node_name),
+            "pending": sorted([p.metadata.namespace, p.metadata.name] for p in pods_now if not p.spec.node_name),
+            "commands": commands,
+            "events": [e.reason for e in op.recorder.events],
+        }
+        blob = json.dumps(state, sort_keys=True, default=str).encode()
+        reasons = {}
+        for r in state["events"]:
+            reasons[r] = reasons.get(r, 0) + 1
+        digest = dict(claims=len(claims), nodes=len(nodes), bound=len(state["bindings"]),
+                      pending=len(state["pending"]), commands=len(commands),
+                      disrupted=sum(len(c[2]) for c in commands), evicted=reasons.get("Evicted", 0),
+                      events=len(state["events"]), sha256=hashlib.sha256(blob).hexdigest())
+        record["methods"] = sorted({c[0] + "/" + c[1] for c in commands})
+        record["event_reasons"] = reasons
+        return digest, record, op
+    finally:
+        uuid.uuid4 = real_uuid4
 
 
 if __name__ == "__main__":

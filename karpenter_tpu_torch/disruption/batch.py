@@ -38,6 +38,7 @@ from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.apis.objects import Pod
 from karpenter_tpu_torch.disruption import screen_delta
 from karpenter_tpu_torch.disruption.helpers import cheapest_existing_price_by_type, same_type_price_cap
+from karpenter_tpu_torch.metrics.registry import SCREEN_DELTA, SCREEN_DELTA_LANE
 from karpenter_tpu_torch.models.problem import problem_to_torch
 from karpenter_tpu_torch.ops.ffd_core import KIND_FAIL
 from karpenter_tpu_torch.ops.padding import pad_problem, screen_axis_bucket
@@ -443,6 +444,7 @@ class UnionScorer:
         ctx = self._delta_ctx
         reason = ctx.batch_standdown(base, passes)
         if reason is not None:
+            SCREEN_DELTA.inc({"outcome": reason}, float(len(subsets)))
             verdicts = self._score_full(subsets, passes)
             self.last_screen_stats["outcomes"] = {reason: len(subsets)}
             return verdicts
@@ -454,6 +456,7 @@ class UnionScorer:
         stats: Dict = {"mode": "delta", "lanes": len(subsets)}
         reason_counts: Dict[str, int] = {}
         for i in fb_ix:
+            SCREEN_DELTA.inc({"outcome": plan.reasons[i]})
             reason_counts[plan.reasons[i]] = reason_counts.get(plan.reasons[i], 0) + 1
         n_good = 0
         t_lane = 0.0
@@ -487,6 +490,7 @@ class UnionScorer:
             node_requests = result.state.node_requests.cpu().numpy()
             carried_requests = world.carried.node_requests.cpu().numpy()
             t_lane = time.perf_counter() - t1
+            SCREEN_DELTA_LANE.observe(t_lane / max(B, 1))
             scope = ScreenLaneScope(resident_mask=pod_active_b[:B], masked_nodes=member_node[:B])
             gate_ok = self.lane_gate(
                 kinds[:B], idxs[:B], scope, node_requests=node_requests[:B], node_avail=node_avail_b[:B],
@@ -496,6 +500,7 @@ class UnionScorer:
             bad = [bi for bi in range(B) if not gate_ok[bi]]
             n_good = len(good)
             if good:
+                SCREEN_DELTA.inc({"outcome": "delta"}, float(len(good)))
                 rows = np.array(good, dtype=np.int64)
                 for key, verdict in zip(good, self._decode_verdicts(
                     [subsets[delta_ix[bi]] for bi in good], member[rows], kinds[rows],
@@ -503,6 +508,7 @@ class UnionScorer:
                 )):
                     verdicts[delta_ix[key]] = verdict
             if bad:
+                SCREEN_DELTA.inc({"outcome": "gate-mismatch"}, float(len(bad)))
                 reason_counts["gate-mismatch"] = len(bad)
                 fb_ix = fb_ix + [delta_ix[bi] for bi in bad]
             stats.update({

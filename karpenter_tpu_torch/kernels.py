@@ -90,6 +90,10 @@ class KernelDeviceError(RuntimeError):
 
 
 _lock = threading.Lock()
+# one build at a time in a process: the operator's start() builds on a
+# thread of its own while a controller's first launch may build the same
+# library (each writes the same temporary file)
+_build_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -120,6 +124,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     build fails. The ptxas
     report (registers, shared memory, spills) lands in ``_build/<name>.log``."""
     names = list(SOURCES) if names is None else list(names)
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     procs = {}

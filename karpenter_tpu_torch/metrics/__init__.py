@@ -7,6 +7,7 @@ from karpenter_tpu_torch.metrics.registry import (  # noqa: F401
     Gauge,
     Histogram,
     Registry,
+    Store,
     measure,
     tenant_label,
 )

@@ -7,9 +7,13 @@ ported layers write are registered here: the solver supervisor's
 (solver/supervisor.py), the serve layer's (serve/), those of the
 observability hooks they call (obs/), the phase-1 fallbacks of the backend
 (solver/torch_backend.py), the learned order's (solver/ordering.py) and the
-event recorder's (events/recorder.py); the provisioner registers its own
-(provisioning/provisioner.py), timed with ``measure``. Names, labels and
-buckets equal the JAX package's.
+event recorder's (events/recorder.py), the verification gate's (verify/),
+the consolidation screen's (disruption/batch.py), the resident world's
+(streaming/device_world.py) and the SLO engine's (obs/slo.py); the
+provisioner and the lifecycle controllers register their own, timed with
+``measure``. Names, labels and buckets equal the JAX package's. ``Store`` is
+the diffing gauge store of the node, nodepool and pod exporters
+(controllers/metrics_exporters.py).
 """
 
 from __future__ import annotations
@@ -79,6 +83,10 @@ class Gauge(_Metric):
         with self._lock:
             self._values[_labels_key(labels)] = value
 
+    def delete(self, labels: Optional[Dict[str, str]] = None):
+        with self._lock:
+            self._values.pop(_labels_key(labels), None)
+
     def value(self, labels: Optional[Dict[str, str]] = None) -> float:
         return self._values.get(_labels_key(labels), 0.0)
 
@@ -115,6 +123,9 @@ class Histogram(_Metric):
 
     def count(self, labels: Optional[Dict[str, str]] = None) -> int:
         return self._totals.get(_labels_key(labels), 0)
+
+    def sum(self, labels: Optional[Dict[str, str]] = None) -> float:
+        return self._sums.get(_labels_key(labels), 0.0)
 
     def collect(self):
         return [
@@ -161,6 +172,17 @@ class Registry:
         for m in self._metrics.values():
             out.extend(m.collect())
         return out
+
+    def describe(self) -> List[Tuple[str, str, str]]:
+        """(kind, name, help) for every registered metric, sample or not:
+        the exposition's # HELP / # TYPE headers read this."""
+        with self._lock:
+            return [(m.kind, m.name, m.help) for m in self._metrics.values()]
+
+    def get(self, name: str):
+        """The registered metric object by name (None if absent)."""
+        with self._lock:
+            return self._metrics.get(name)
 
 
 REGISTRY = Registry()
@@ -246,6 +268,39 @@ MESH_RECOVERY_SECONDS = REGISTRY.histogram(
     "resilience contract trades for correctness",
 )
 
+# -- verification gate series (verify/) ----------------------------------------
+GATE_DURATION = REGISTRY.histogram(
+    "solver_gate_duration_seconds",
+    "Placement verification gate wall time, by mode (device = jitted "
+    "invariant program incl. host structural screen, host = full float64 "
+    "validator, incremental = row-scoped streaming re-check, audit = "
+    "sampled float64 spot-check)",
+)
+GATE_AUDIT = REGISTRY.counter(
+    "solver_gate_audit_total",
+    "Float64 audits of device-gate verdicts, by outcome (match / mismatch "
+    "on sampled rows of accepted results; reject_confirmed / "
+    "reject_overturned for host confirmation of device rejections)",
+)
+
+# -- incremental consolidation screen (disruption/batch.py) --------------------
+SCREEN_DELTA = REGISTRY.counter(
+    "solver_screen_delta_total",
+    "Incremental consolidation screen lane outcomes "
+    "(KARPENTER_TPU_SCREEN_DELTA), by classified outcome: delta (residual "
+    "verdict published), standdown-topology / standdown-ports / "
+    "standdown-pool / standdown-base-on-candidate / "
+    "standdown-resident-order / standdown-resident-overflow (lane or batch "
+    "fell back to the full screen), gate-mismatch (the row-scoped lane gate "
+    "rejected a residual verdict; the full screen re-solve was published "
+    "instead)",
+)
+SCREEN_DELTA_LANE = REGISTRY.histogram(
+    "solver_screen_delta_lane_seconds",
+    "Residual consolidation screen device wall time per lane (dispatch "
+    "wall / lane count, observed once per residual dispatch)",
+)
+
 # -- learned ordering policy series (solver/ordering.py, ops/policy.py) -------
 ORDER_POLICY_LOADS = REGISTRY.counter(
     "solver_order_policy_loads_total",
@@ -272,6 +327,24 @@ SOLVER_PHASE_DURATION = REGISTRY.histogram(
     "Per-phase solve-cycle self time, by phase span name and backend",
 )
 
+TRANSFER_BYTES = REGISTRY.counter(
+    "solver_transfer_bytes_total",
+    "Host-device transfer bytes on the solve path, by direction (h2d, d2h)",
+)
+
+# -- resident world series (streaming/device_world.py) -------------------------
+WORLD_PATCH = REGISTRY.counter(
+    "solver_world_patch_total",
+    "Device-resident world cycles (KARPENTER_TPU_DEVICE_WORLD) by outcome: "
+    "patched/repatched (delta applied as an on-device row patch into the "
+    "donated carried world), adopt-* (cold world re-uploaded, suffixed with "
+    "the delta cold reason or shape/node-axis drift), or standdown-* "
+    "(classified reason — the legacy host path served the cycle: "
+    "unsupported-args, topology, not-sweeps, runs-mode, shard, order-policy, "
+    "relax-applicable, slot-overflow, gate-reject, device-lost (the world's "
+    "device died mid-cycle; reset-then-re-adopt, never resurrected), error)",
+)
+
 # -- multi-tenant serve series (serve/) ----------------------------------------
 # Hot-path series carry the tenant CLASS label ("cls"), never tenant ids (a
 # bounded set at any fleet size); series that do carry a tenant label go
@@ -279,7 +352,7 @@ SOLVER_PHASE_DURATION = REGISTRY.histogram(
 SERVE_QUEUE_DEPTH = REGISTRY.gauge(
     "serve_queue_depth",
     "Queued solve requests per tenant class (each tenant's queue bounded by "
-    "KARPENTER_TPU_SERVE_QUEUE_DEPTH; per-tenant depth in the service snapshot)",
+    "KARPENTER_TPU_SERVE_QUEUE_DEPTH; per-tenant depth in /debug/tenants)",
 )
 SERVE_ADMISSION = REGISTRY.counter(
     "serve_admission_total",
@@ -293,7 +366,8 @@ SERVE_FAIRNESS_DEFICIT = REGISTRY.gauge(
     "serve_fairness_deficit",
     "Hierarchical-DWRR class-level balance: the pod-units of service a "
     "tenant class may still spend before yielding to the other classes "
-    "(flat single-class mode writes nothing here)",
+    "(flat single-class mode writes nothing here; per-tenant balances in "
+    "/debug/tenants)",
 )
 SERVE_CYCLES = REGISTRY.counter(
     "serve_cycles_total",
@@ -303,7 +377,9 @@ SERVE_CYCLES = REGISTRY.counter(
 )
 SERVE_ACTIVE = REGISTRY.gauge(
     "serve_active_streams",
-    "Backlogged (ready-ring) tenant streams per class",
+    "Backlogged (ready-ring) tenant streams per class — the population the "
+    "O(active) dispatcher actually sweeps, vs. registered tenants which "
+    "cost nothing while idle",
 )
 SERVE_POOL = REGISTRY.counter(
     "serve_pool_total",
@@ -320,10 +396,18 @@ SERVE_BATCH = REGISTRY.counter(
 SERVE_CYCLE_SECONDS = REGISTRY.histogram(
     "serve_cycle_seconds",
     "End-to-end serve request latency from admission to completed result "
-    "(queue wait included)",
+    "(queue wait included; per-tenant quantiles live in /debug/tenants)",
 )
 
 # -- fleet SLO engine + flight recorder (obs/slo.py, obs/flight.py) -----------
+SLO_BURN_RATE = REGISTRY.gauge(
+    "slo_burn_rate",
+    "Error-budget burn-rate multiple per SLO objective and window "
+    "(multi-window burn rate; breach requires both fast and slow windows "
+    "over the threshold). Labels {objective, window} are bounded: a fixed "
+    "objective set plus per-tenant-class serve objectives, window in "
+    "(fast, slow). SLO-gated (KARPENTER_TPU_SLO).",
+)
 SLO_BREACH = REGISTRY.counter(
     "slo_breach_total",
     "Edge-triggered SLO breach transitions by {objective} — each one also "
@@ -397,3 +481,34 @@ def tenant_label(tenant: str) -> str:
             )
             _tenant_label_seen[tenant] = mapped
         return mapped
+
+
+class Store:
+    """Diff-based gauge store (reference metrics/store.go:32-102): update
+    replaces the gauge series owned by a key, deleting series that vanished."""
+
+    def __init__(self):
+        self._owned: Dict[str, List[Tuple[Gauge, Dict[str, str]]]] = {}
+        self._lock = threading.Lock()
+
+    def update(self, key: str, series: List[Tuple[Gauge, Dict[str, str], float]]):
+        with self._lock:
+            for gauge, labels in self._owned.get(key, []):
+                gauge.delete(labels)
+            new_owned = []
+            for gauge, labels, value in series:
+                gauge.set(value, labels)
+                new_owned.append((gauge, labels))
+            self._owned[key] = new_owned
+
+    def delete(self, key: str):
+        with self._lock:
+            for gauge, labels in self._owned.pop(key, []):
+                gauge.delete(labels)
+
+    def replace_all(self, series_by_key: Dict[str, List[Tuple[Gauge, Dict[str, str], float]]]):
+        for key in list(self._owned):
+            if key not in series_by_key:
+                self.delete(key)
+        for key, series in series_by_key.items():
+            self.update(key, series)

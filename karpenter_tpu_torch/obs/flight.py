@@ -9,7 +9,9 @@ and knobs. ``record`` raises on a kind outside :data:`KINDS` and
 ``snapshot_dump`` on a reason outside :data:`DUMP_REASONS`; a dump that
 cannot be written returns None; dumps are debounced
 (``KARPENTER_TPU_FLIGHT_DEBOUNCE_S``) and capped
-(``KARPENTER_TPU_FLIGHT_MAX``), oldest evicted first.
+(``KARPENTER_TPU_FLIGHT_MAX``), oldest evicted first. ``load_dump`` and
+``scan_dumps`` read them back, and ``debug_payload`` is the operator's
+``/debug/flight`` body (operator/serving.py).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from karpenter_tpu_torch.obs import trace
-from karpenter_tpu_torch.utils.persist import write_framed
+from karpenter_tpu_torch.utils.persist import PersistError, load_framed, write_framed
 
 # Monkeypatchable clock so window/dump tests are deterministic.
 _wall = time.time
@@ -116,15 +118,26 @@ class FlightRing:
             capacity = _env_int("KARPENTER_TPU_FLIGHT_RING", 512)
         self._ring: deque = deque(maxlen=max(1, capacity))
         self._lock = threading.Lock()
+        self.recorded = 0  # lifetime count, beyond the ring bound
 
     def append(self, rec: Dict) -> None:
         with self._lock:
             self._ring.append(rec)
+            self.recorded += 1
 
     def snapshot(self) -> List[Dict]:
         """Chronological (oldest first) — the causal-timeline order."""
         with self._lock:
             return list(self._ring)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self.recorded = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
 
 
 _ring: Optional[FlightRing] = None
@@ -229,3 +242,42 @@ def snapshot_dump(reason: str, objective: Optional[str] = None) -> Optional[str]
     FLIGHT_DUMPS.inc({"reason": reason})
     record(KIND_DUMP, reason=reason, path=path, events=len(events))
     return path
+
+
+def load_dump(path: str) -> Dict:
+    """Load one dump; raises :class:`PersistError` with a classified reason
+    (missing / truncated / corrupt / checksum / version-skew) on damage."""
+    header, payload = load_framed(path, kind=DUMP_KIND, min_version=DUMP_VERSION)
+    try:
+        body = json.loads(payload.decode())
+    except (ValueError, UnicodeDecodeError) as exc:
+        raise PersistError("corrupt", "unparseable flight payload") from exc
+    body["header"] = header
+    return body
+
+
+def scan_dumps(directory: Optional[str] = None) -> List[str]:
+    """Dump paths, oldest first (filenames embed the capture time)."""
+    directory = directory or dump_dir()
+    try:
+        names = sorted(
+            f for f in os.listdir(directory)
+            if f.startswith("flight-") and f.endswith(".bin")
+        )
+    except OSError:
+        return []
+    return [os.path.join(directory, f) for f in names]
+
+
+def debug_payload() -> Dict:
+    """The ``/debug/flight`` body: ring contents plus the on-disk dump
+    inventory (each dump loadable offline with tools/flight_report.py)."""
+    r = ring()
+    return {
+        "enabled": enabled(),
+        "captured": len(r),
+        "recorded": r.recorded,
+        "dump_dir": dump_dir(),
+        "dumps": [os.path.basename(p) for p in scan_dumps()],
+        "events": r.snapshot(),
+    }

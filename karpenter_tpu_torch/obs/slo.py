@@ -9,7 +9,11 @@ fraction) and two sliding windows, fast (5 m) and slow (1 h); a breach needs
 both windows over the burn threshold (default 14.4) with at least
 ``min_events`` in each. A breach is edge-triggered: it counts
 ``karpenter_slo_breach_total{objective}``, records a ``slo-breach`` flight
-event and snapshots the flight ring (obs/flight.py).
+event and snapshots the flight ring (obs/flight.py). The read path serves
+the operator's endpoints (operator/serving.py): ``refresh_metrics`` writes
+the ``karpenter_slo_burn_rate{objective, window}`` gauges at scrape time,
+``rollup`` is the ``/statusz`` verdict and ``debug_payload`` the
+``/debug/slo`` body.
 """
 
 from __future__ import annotations
@@ -17,10 +21,17 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # Monkeypatchable clock so burn-rate window tests are deterministic.
 _wall = time.time
+
+WINDOW_FAST = "fast"
+WINDOW_SLOW = "slow"
+
+VERDICT_OK = "ok"
+VERDICT_WARN = "warn"
+VERDICT_BREACH = "breach"
 
 # Per-class serve objectives stay bounded like the serve metric labels:
 # classes are operator config, capped well under the lint's cls ceiling.
@@ -178,6 +189,32 @@ class Objective:
         )
 
 
+    def snapshot(self, now: float) -> Dict:
+        fast_burn, slow_burn, fast_n, slow_n = self.evaluate(now)
+        out: Dict[str, object] = {
+            "name": self.name,
+            "kind": self.kind,
+            "target": self.target,
+            "burn_threshold": self.burn_threshold,
+            "min_events": self.min_events,
+            "burn": {WINDOW_FAST: round(fast_burn, 4),
+                     WINDOW_SLOW: round(slow_burn, 4)},
+            "events": {WINDOW_FAST: fast_n, WINDOW_SLOW: slow_n},
+            "status": VERDICT_BREACH if self.breached else (
+                VERDICT_WARN if slow_burn >= 1.0 or fast_burn >= self.burn_threshold
+                else VERDICT_OK
+            ),
+            "breaches": self.breaches,
+        }
+        if self.threshold_s is not None:
+            out["threshold_s"] = self.threshold_s
+        if self.description:
+            out["description"] = self.description
+        if self.last_breach_unix is not None:
+            out["last_breach_unix"] = self.last_breach_unix
+        return out
+
+
 class SloEngine:
     """The objective set plus the edge-triggered breach machinery."""
 
@@ -216,6 +253,16 @@ class SloEngine:
             ),
         ):
             self._objectives[obj.name] = obj
+
+    # -- objective access -----------------------------------------------------
+
+    def objective(self, name: str) -> Optional[Objective]:
+        with self._lock:
+            return self._objectives.get(name)
+
+    def objectives(self) -> List[str]:
+        with self._lock:
+            return sorted(self._objectives)
 
     def _serve_objective(self, prefix: str, cls: str) -> Objective:
         """Per-class objective, created lazily and bounded: past
@@ -317,6 +364,78 @@ class SloEngine:
         self._record_latency(obj, seconds)
 
 
+    # -- read path ------------------------------------------------------------
+
+    def breached(self) -> List[str]:
+        with self._lock:
+            return sorted(n for n, o in self._objectives.items() if o.breached)
+
+    def snapshot(self) -> List[Dict]:
+        now = self._time()
+        with self._lock:
+            return [
+                self._objectives[name].snapshot(now)
+                for name in sorted(self._objectives)
+            ]
+
+    def rollup(self) -> Dict:
+        """The single fleet health verdict with worst-objective attribution:
+        ``breach`` if any objective breached, ``warn`` if any is burning
+        budget faster than allowed (slow burn >= 1, or the fast window past
+        the page threshold), else ``ok``."""
+        now = self._time()
+        verdict = VERDICT_OK
+        worst_name = None
+        worst_burn = -1.0
+        breached: List[str] = []
+        with self._lock:
+            for name in sorted(self._objectives):
+                obj = self._objectives[name]
+                fast_burn, slow_burn, fast_n, slow_n = obj.evaluate(now)
+                if fast_n + slow_n <= 0 and not obj.breached:
+                    continue
+                if obj.breached:
+                    breached.append(name)
+                    verdict = VERDICT_BREACH
+                elif verdict != VERDICT_BREACH and (
+                    slow_burn >= 1.0 or fast_burn >= obj.burn_threshold
+                ):
+                    verdict = VERDICT_WARN
+                score = max(fast_burn, slow_burn) + (1e9 if obj.breached else 0.0)
+                if score > worst_burn:
+                    worst_burn = score
+                    worst_name = name
+        out: Dict[str, object] = {
+            "verdict": verdict,
+            "objectives": len(self._objectives),
+            "breached": breached,
+        }
+        if worst_name is not None:
+            worst = self._objectives[worst_name]
+            fast_burn, slow_burn, _, _ = worst.evaluate(now)
+            out["worst"] = {
+                "objective": worst_name,
+                "burn": {WINDOW_FAST: round(fast_burn, 4),
+                         WINDOW_SLOW: round(slow_burn, 4)},
+            }
+        return out
+
+    def refresh_metrics(self) -> None:
+        """Write the burn-rate gauges for every objective (read path only —
+        /metrics scrape or an explicit call; never per event)."""
+        from karpenter_tpu_torch.metrics.registry import SLO_BURN_RATE
+
+        now = self._time()
+        with self._lock:
+            burns = [
+                (name, obj.evaluate(now)[:2])
+                for name, obj in self._objectives.items()
+            ]
+        for name, (fast_burn, slow_burn) in burns:
+            SLO_BURN_RATE.set(fast_burn, {"objective": name, "window": WINDOW_FAST})
+            SLO_BURN_RATE.set(slow_burn, {"objective": name, "window": WINDOW_SLOW})
+
+
 _engine: Optional[SloEngine] = None
 _engine_lock = threading.Lock()
 
@@ -369,3 +488,31 @@ def on_serve_latency(cls: str, seconds: float) -> None:
     if not enabled():
         return
     engine().record_serve_latency(cls, seconds)
+
+
+def refresh_metrics() -> None:
+    if not enabled():
+        return
+    engine().refresh_metrics()
+
+
+def rollup() -> Dict:
+    """The /statusz section; cheap and honest when off."""
+    if not enabled() and _engine is None:
+        return {"enabled": False, "verdict": VERDICT_OK}
+    out = engine().rollup()
+    out["enabled"] = enabled()
+    return out
+
+
+def debug_payload() -> Dict:
+    """The /debug/slo body."""
+    if not enabled() and _engine is None:
+        return {"enabled": False, "objectives": [],
+                "rollup": {"verdict": VERDICT_OK}}
+    eng = engine()
+    return {
+        "enabled": enabled(),
+        "objectives": eng.snapshot(),
+        "rollup": eng.rollup(),
+    }

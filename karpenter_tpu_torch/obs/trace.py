@@ -6,20 +6,23 @@ solve cycle's root, or a nested span when one is already open), ``span`` (a
 phase span under it), ``attr`` and ``current_trace_id``. The same span names and attributes, the same
 ``KARPENTER_TPU_TRACE`` flag (off: every call is a no-op), the same
 self-time accounting (``phase_totals`` sums to the root's wall clock), and
-the same per-phase histogram (``karpenter_solver_phase_duration_seconds``).
-The Chrome trace-event exporter is not ported.
+the same per-phase histogram (``karpenter_solver_phase_duration_seconds``),
+and the same Chrome trace-event exporter (``to_chrome_trace``,
+``chrome_trace_json``), which ``/debug/traces?format=chrome`` serves
+(operator/serving.py).
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
 import os
 import threading
 import time
 import uuid
 from collections import deque
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 # Monkeypatchable clocks so golden-file tests are deterministic.
 _perf = time.perf_counter
@@ -249,3 +252,69 @@ def attr(name: str, value) -> None:
 def current_trace_id() -> Optional[str]:
     tr = _cur_trace.get()
     return tr.trace_id if tr is not None else None
+
+
+def count(name: str, value: float) -> None:
+    """Add to a counter on the current span (no-op outside one)."""
+    sp = _cur_span.get()
+    if sp is not None:
+        sp.count(name, value)
+
+
+# -- Chrome trace-event exporter (sink c) ------------------------------------
+# https://docs.google.com/document/d/1CvAClvFfyA5R-PhYUmn5OOQtYMH4h6I0nSsKchNAySU
+# "X" complete events with ts/dur in microseconds; loads in Perfetto and
+# chrome://tracing. One tid per trace so concurrent cycles render as lanes.
+
+
+def to_chrome_trace(trace_dicts: Iterable[Dict]) -> Dict:
+    traces = list(trace_dicts)
+    events: List[Dict] = [
+        {
+            "name": "process_name",
+            "ph": "M",
+            "pid": 1,
+            "tid": 0,
+            "args": {"name": "karpenter-tpu solver"},
+        }
+    ]
+    if not traces:
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+    base_unix = min(t.get("start_unix", 0.0) for t in traces)
+    for tid, tr in enumerate(sorted(traces, key=lambda t: t.get("start_unix", 0.0)), 1):
+        events.append(
+            {
+                "name": "thread_name",
+                "ph": "M",
+                "pid": 1,
+                "tid": tid,
+                "args": {"name": f"{tr.get('name', 'cycle')} {tr.get('trace_id', '')}"},
+            }
+        )
+        trace_offset_us = (tr.get("start_unix", base_unix) - base_unix) * 1e6
+
+        def _emit(node: Dict, tid: int = tid, trace_offset_us: float = trace_offset_us):
+            args: Dict[str, object] = dict(node.get("attrs", {}))
+            counters = node.get("counters")
+            if counters:
+                args["counters"] = dict(counters)
+            events.append(
+                {
+                    "name": node["name"],
+                    "ph": "X",
+                    "pid": 1,
+                    "tid": tid,
+                    "ts": round(trace_offset_us + node["offset_s"] * 1e6, 3),
+                    "dur": round(node["duration_s"] * 1e6, 3),
+                    "args": args,
+                }
+            )
+            for child in node.get("children", ()):
+                _emit(child)
+
+        _emit(tr["root"])
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def chrome_trace_json(trace_dicts: Iterable[Dict], indent: Optional[int] = None) -> str:
+    return json.dumps(to_chrome_trace(trace_dicts), indent=indent, sort_keys=True)

@@ -24,10 +24,11 @@ tenant:
               supervised solve.
 
 The service and the default tenant stack run their ``TorchSolver`` on CUDA
-unless given ``device="cpu"``. Not ported: replica sets over carved mesh
-slices (serve/replica.py) and mesh health, which come with the multi-device
-programs; the operator wiring and ``/debug/tenants``, which come with the
-operator.
+unless given ``device="cpu"``. ``/debug/tenants`` and ``/statusz["serve"]``
+(operator/serving.py) read a wired service's snapshot, or the process-wide
+one (``current_service``). Not ported: replica sets over carved mesh slices
+(serve/replica.py). The port's Operator wires no service, as the JAX
+package's does not.
 
 Knobs (all read at construction; the JAX package's names and defaults):
 

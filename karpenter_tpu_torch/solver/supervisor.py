@@ -224,6 +224,9 @@ class SupervisedSolver(SolverBackend):
         self._consecutive_failures = 0
         self._opened_at = 0.0
         self._solve_seq = 0
+        # primary solves that passed their gate: what proves the device
+        # healthy again after a fault (operator/operator.py)
+        self.primary_solves = 0
         # previous cycle's trace id, threaded into the next cycle as
         # parent_trace_id: a churn stream greps as one lineage in
         # /debug/traces and in quarantine dumps
@@ -309,6 +312,7 @@ class SupervisedSolver(SolverBackend):
 
     def _record_primary_success(self) -> None:
         with self._lock:
+            self.primary_solves += 1
             self._consecutive_failures = 0
             if self._circuit != CIRCUIT_CLOSED:
                 log.info("solver circuit closed: primary backend recovered")

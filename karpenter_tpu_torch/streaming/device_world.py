@@ -47,8 +47,10 @@ dispatch hook, or the CUDA runtime's lost-device error) drops the world and
 stands down with ``device-lost``: the legacy path serves the cycle and a
 later cycle re-adopts from scratch.
 
-Not ported: the JAX package's ``runs-mode`` standdown (this package has no
-runs mode), and the program registry, AOT and metrics hooks.
+Each cycle's outcome is counted in ``solver_world_patch_total{outcome}``, and
+the bytes it moves in ``solver_transfer_bytes_total{direction}``, as in the
+JAX package. Not ported: the JAX package's ``runs-mode`` standdown (this
+package has no runs mode), and the program registry and AOT hooks.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.apis.objects import Pod
+from karpenter_tpu_torch.metrics.registry import TRANSFER_BYTES, WORLD_PATCH
 from karpenter_tpu_torch.models.problem import numpy_fields
 from karpenter_tpu_torch.ops.ffd_core import (
     KIND_CLAIM,
@@ -176,6 +179,7 @@ class DeviceWorld:
     def _record(self, outcome: str) -> None:
         self.counters[outcome] = self.counters.get(outcome, 0) + 1
         self.last_outcome = outcome
+        WORLD_PATCH.inc({"outcome": outcome})
 
     def _standdown(self, reason: str) -> None:
         self._record("standdown-" + reason)
@@ -323,6 +327,8 @@ class DeviceWorld:
         backend.last_iters = IterCounts(*(int(x) for x in iters))
         backend.last_wave_hist = [int(x) for x in whist] if wf else None
         d2h = sum(x.nbytes for x in fetched)
+        TRANSFER_BYTES.inc({"direction": "h2d"}, h2d + pod_check.nbytes)
+        TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
 
         # -- classified post-solve standdowns: reset, legacy serves the cycle --
         if (kinds[: len(pods)] == KIND_NO_SLOT).any():

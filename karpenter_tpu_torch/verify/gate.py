@@ -138,30 +138,35 @@ def full_gate(
         return None
     if ctx.has_override != (pod_requirements_override is not None):
         return None
+    from karpenter_tpu_torch.metrics.registry import GATE_AUDIT, GATE_DURATION, measure
+
     host_args = (
         result, pods, instance_types, templates, nodes,
         pod_requirements_override, cluster_pods, domains,
     )
-    reject = _screen(result, pods, templates, instance_types, nodes, ctx)
-    counts: Dict[str, int] = {}
-    if reject is None:
-        if ctx.fused_counts is not None:
-            # the fused solve + gate already reduced the invariants over the
-            # solver's own committed state; the screen above, the skew check
-            # and the sampled audit below still cover the published decode
-            counts = dict(ctx.fused_counts)
-        else:
-            counts = _device_counts(ctx, result, pods, pod_requirements_override)
-        if counts:
-            reject = "device:" + ",".join(sorted(counts))
-    if reject is None and _skew_check(*host_args):
-        reject = "topology-skew"
+    with measure(GATE_DURATION, {"mode": "device"}):
+        reject = _screen(result, pods, templates, instance_types, nodes, ctx)
+        counts: Dict[str, int] = {}
+        if reject is None:
+            if ctx.fused_counts is not None:
+                # the fused solve + gate already reduced the invariants over
+                # the solver's own committed state; the screen above, the
+                # skew check and the sampled audit below still cover the
+                # published decode
+                counts = dict(ctx.fused_counts)
+            else:
+                counts = _device_counts(ctx, result, pods, pod_requirements_override)
+            if counts:
+                reject = "device:" + ",".join(sorted(counts))
+        if reject is None and _skew_check(*host_args):
+            reject = "topology-skew"
 
     if reject is not None:
         # every reject is host-confirmed before anyone acts on it: the
         # canonical violation list (and hence strip/quarantine behavior)
         # always comes from the float64 validator
         violations = _host_full(*host_args)
+        GATE_AUDIT.inc({"outcome": "reject_confirmed" if violations else "reject_overturned"})
         return GateOutcome(
             violations=violations, mode="host-confirm", counts=counts,
             audited=True,
@@ -175,11 +180,13 @@ def full_gate(
         if audit:
             # float64 disagrees with the device accept on a sampled row:
             # the full host gate governs this cycle
+            GATE_AUDIT.inc({"outcome": "mismatch"})
             violations = _host_full(*host_args)
             return GateOutcome(
                 violations=violations, mode="host-confirm", counts=counts,
                 audited=True, audit_outcome="mismatch",
             )
+        GATE_AUDIT.inc({"outcome": "match"})
         outcome.audit_outcome = "match"
     return outcome
 
@@ -214,12 +221,14 @@ def _host_full(
     result, pods, instance_types, templates, nodes,
     pod_requirements_override, cluster_pods, domains,
 ) -> List[Any]:
+    from karpenter_tpu_torch.metrics.registry import GATE_DURATION, measure
     from karpenter_tpu_torch.solver.validator import validate_result
 
-    return validate_result(
-        result, pods, instance_types, templates, nodes,
-        pod_requirements_override, cluster_pods, domains, level="full",
-    )
+    with measure(GATE_DURATION, {"mode": "host"}):
+        return validate_result(
+            result, pods, instance_types, templates, nodes,
+            pod_requirements_override, cluster_pods, domains, level="full",
+        )
 
 
 def _skew_check(
@@ -250,14 +259,16 @@ def _maybe_audit(
     node_scope = {name for name in result.node_pods if rng.random() < AUDIT_FRAC}
     if not claim_scope and not node_scope:
         return None
+    from karpenter_tpu_torch.metrics.registry import GATE_DURATION, measure
     from karpenter_tpu_torch.solver.validator import validate_result
 
-    return validate_result(
-        result, pods, instance_types, templates, nodes,
-        pod_requirements_override, cluster_pods, domains, level="full",
-        claim_scope=claim_scope, node_scope=node_scope,
-        check_topology=False,
-    )
+    with measure(GATE_DURATION, {"mode": "audit"}):
+        return validate_result(
+            result, pods, instance_types, templates, nodes,
+            pod_requirements_override, cluster_pods, domains, level="full",
+            claim_scope=claim_scope, node_scope=node_scope,
+            check_topology=False,
+        )
 
 
 def _screen(result, pods, templates, instance_types, nodes, ctx) -> Optional[str]:
@@ -319,14 +330,36 @@ def _screen(result, pods, templates, instance_types, nodes, ctx) -> Optional[str
 
 # -- device dispatch -----------------------------------------------------------
 
+
+def _nbytes(tree) -> int:
+    """Bytes of every array or tensor leaf of a (nested) named tuple or
+    dataclass."""
+    if tree is None:
+        return 0
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
+    if hasattr(tree, "element_size"):
+        return int(tree.numel() * tree.element_size())
+    if isinstance(tree, tuple):
+        return sum(_nbytes(x) for x in tree)
+    if dataclasses.is_dataclass(tree):
+        return sum(_nbytes(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    return 0
+
+
 def _device_counts(ctx, result, pods, pod_requirements_override) -> Dict[str, int]:
     """Build the gate tensors for ``result`` against the stashed problem, run
     the invariant program on the solve's device, and return the nonzero
     per-invariant counts (empty dict = device-accept)."""
+    from karpenter_tpu_torch.metrics.registry import TRANSFER_BYTES
     from karpenter_tpu_torch.verify import device as dev
 
     gp, ga, bf = _build_args(ctx, result, pods, pod_requirements_override)
+    # what this wrapper hands to the device: the result's GateArgs, and the
+    # problem when the solve left no copy of it there
+    TRANSFER_BYTES.inc({"direction": "h2d"}, _nbytes(ga) + (_nbytes(ctx.problem) if ctx.device_problem is None else 0))
     counts = dev.verify_gate(gp, ga, bf, ctx.device_tables).cpu().numpy()
+    TRANSFER_BYTES.inc({"direction": "d2h"}, int(counts.nbytes))
     return {
         dev.INVARIANTS[i]: int(counts[i])
         for i in range(len(dev.INVARIANTS))

@@ -6,8 +6,8 @@ tests/test_consolidation_replace_families.py and
 tests/test_consolidation_ttl_families.py runs through both packages' harnesses
 as tests/test_torch_disruption.py runs its scenarios (tests/torch_port.py):
 its own assertions hold on both, and the commands executed, the NodeClaims
-and Nodes left with their taints, the pod bindings and the event reasons
-must be equal. None is left out.
+and Nodes left with their taints, the pod bindings, the event reasons and
+the counters moved must be equal. None is left out.
 
 Also:
   * ``build_scorer``'s verdicts against the JAX package's on the same

@@ -15,8 +15,9 @@ test_batch.py) call the port's class in the port's run. The scenario's own
 assertions hold on both. Then the two runs must agree exactly on the
 commands executed (method, decision, candidates, the replacements'
 requirements and instance types), every NodeClaim and Node left with its
-taints, the pod bindings, and the recorder's event reasons in order; and the
-port's supervised solve never fails over.
+taints, the pod bindings, the recorder's event reasons in order and the
+counters the run moved (tests/torch_port.assert_same_run); and the port's
+supervised solve never fails over.
 
 The port's ``UnionScorer.score_subsets`` takes no ``mesh``: test_batch.py's
 ``screen_decisions`` helper runs without it in the port's run, and
@@ -24,14 +25,9 @@ The port's ``UnionScorer.score_subsets`` takes no ``mesh``: test_batch.py's
 ``mesh=None`` itself, runs as a twin here with the keyword dropped for the
 port (``test_staying_candidate_twin``).
 
-Left out, and why: the four marker-controller scenarios of
-test_condition_method_families.py, which drive
-``controllers/nodeclaim_disruption.DisruptionMarkerController``, a lifecycle
-controller that is not ported yet:
-  * ``test_disabled_drift_gate_clears_stale_condition`` (:176);
-  * ``test_unlaunched_claim_cannot_be_drifted`` (:188);
-  * ``test_nominated_node_is_not_marked_empty`` (:202);
-  * ``test_adopted_node_age_drives_expiration`` (:218).
+The four scenarios of test_condition_method_families.py that drive the
+marker controller (``controllers/nodeclaim_disruption.
+DisruptionMarkerController``: :176, :188, :202, :218) run here like the rest.
 """
 
 from __future__ import annotations
@@ -53,12 +49,6 @@ from karpenter_tpu.disruption.types import DECISION_NONE
 from tests.factories import make_pod
 from tests.torch_port import assert_same_disruption
 
-MARKER_SCENARIOS = (
-    "test_disabled_drift_gate_clears_stale_condition",
-    "test_unlaunched_claim_cannot_be_drifted",
-    "test_nominated_node_is_not_marked_empty",
-    "test_adopted_node_age_drives_expiration",
-)
 TWINNED = ("test_staying_candidate_anti_affinity_blocks_subset",)
 
 
@@ -72,12 +62,12 @@ def scenarios(module, left_out=()):
     ]
 
 
-SCENARIOS = (scenarios(TD) + scenarios(TO) + scenarios(TC, MARKER_SCENARIOS) + scenarios(TB, TWINNED))
+SCENARIOS = (scenarios(TD) + scenarios(TO) + scenarios(TC) + scenarios(TB, TWINNED))
 
 
 def test_scenario_list_is_whole():
-    # 23 + 5 + 11 + 6 scenarios, less the 4 marker scenarios and the twin
-    assert len(SCENARIOS) + len(MARKER_SCENARIOS) + len(TWINNED) == 45
+    # 23 + 5 + 11 + 6 scenarios, less the twin
+    assert len(SCENARIOS) + len(TWINNED) == 45
 
 
 @pytest.fixture(autouse=True)

@@ -1498,3 +1498,32 @@ def test_probe_kernel_matches_plain(cuda):
     assert not gdev.probe_device(cuda, torch.arange(16, dtype=torch.float32) + 1)
     with pytest.raises(ValueError):
         gdev.launch_probe(torch.zeros(33, dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_operator_build_thread_holds_readyz(cuda):
+    """``Operator.start()`` on the card builds the kernels on a thread of its
+    own; /readyz answers 200 once it ends and /debug/programs lists every
+    library built."""
+    import json
+    import socket
+    import urllib.request
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.operator import Operator, Options
+
+    with socket.socket() as s1, socket.socket() as s2:
+        s1.bind(("127.0.0.1", 0))
+        s2.bind(("127.0.0.1", 0))
+        port, health = s1.getsockname()[1], s2.getsockname()[1]
+    op = Operator(FakeCloudProvider(), Options(metrics_port=port, health_probe_port=health))
+    op.start()
+    try:
+        assert op._warm_thread is not None
+        op._warm_thread.join(900)
+        assert urllib.request.urlopen(f"http://127.0.0.1:{health}/readyz", timeout=5).status == 200
+        programs = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/programs", timeout=5).read())
+        assert programs["built"] == len(kernels.SOURCES)
+    finally:
+        op.stop()
+

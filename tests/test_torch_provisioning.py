@@ -15,13 +15,11 @@ port's harness converts each object it is handed into the port's class of the
 same name (``to_port``), field by field, at its kube boundary
 (tests/torch_port.py).
 
-Left out of the 36 scenarios, and why:
-  * ``test_batcher_window`` and ``test_pod_watch_triggers_batcher``: the
-    batcher and the pod watch (provisioning/batcher.py, controller.py) are
-    the operator's lifecycle layer, not ported yet;
-  * ``test_full_pass_through_jax_backend``: it names the JAX backend; its
-    scenario runs here through the port's backend
-    (``test_full_pass_through_port_backend``).
+Left out of the 36 scenarios, and why: ``test_full_pass_through_jax_backend``,
+which names the JAX backend; its scenario runs here through the port's
+backend (``test_full_pass_through_port_backend``). ``test_batcher_window``
+and ``test_pod_watch_triggers_batcher`` drive the port's batcher and pod
+watch (provisioning/batcher.py, controller.py).
 
 One scenario runs the port's backend without the supervisor:
 ``test_packs_in_flight_claims_before_launching_new_nodes`` places a pod on a
@@ -136,9 +134,9 @@ _PORT_OVERRIDES = {
     "ValidationError": p_provisioner.ValidationError,
 }
 
-# tests/test_provisioning.py's scenarios in source order, less the three the
+# tests/test_provisioning.py's scenarios in source order, less the one the
 # module docstring names
-EXCLUDED = ("test_batcher_window", "test_pod_watch_triggers_batcher", "test_full_pass_through_jax_backend")
+EXCLUDED = ("test_full_pass_through_jax_backend",)
 SCENARIOS = sorted(
     (name for name, fn in vars(TP).items()
      if name.startswith("test_") and inspect.isfunction(fn) and name not in EXCLUDED),

@@ -11,10 +11,15 @@ converts each object it is handed into the port's class of the same name
 harness (also where the function imports it from ``tests.harness``). With
 ``port=True`` it also rebinds what the scenario names of the
 JAX package to the port: its module globals (classes, functions, modules and
-the helpers of the test modules that name them) and its function-level
-imports (``from karpenter_tpu.x import y`` resolves in
-``karpenter_tpu_torch.x``; ``from tests.harness import Env`` gives the port's
-Env).
+the helpers of the test modules and of tests/factories.py that name them, so
+the factories build the port's objects) and its function-level imports
+(``from karpenter_tpu.x import y`` resolves in ``karpenter_tpu_torch.x``;
+``from tests.harness import Env`` gives the port's Env).
+
+``assert_same_run`` runs a scenario through both packages and compares what
+it left: the Envs and Operators it built (claims, nodes with their taints,
+bindings, pending pods, event reasons in order), the disruption commands
+executed, and the counters it moved (label sets and values).
 """
 
 from __future__ import annotations
@@ -65,6 +70,11 @@ def to_port(x):
         return x
     if isinstance(x, type):
         return port_class(x)
+    if type(x).__module__.startswith(_J) and isinstance(x, (list, dict)):
+        # a JAX-package container class (scheduling.Taints is a list)
+        y = port_class(type(x))(to_port(list(x.items()) if isinstance(x, dict) else list(x)))
+        y.__dict__.update({k: to_port(v) for k, v in getattr(x, "__dict__", {}).items()})
+        return y
     if isinstance(x, list):
         return [to_port(v) for v in x]
     if isinstance(x, tuple):
@@ -80,6 +90,11 @@ def to_port(x):
     if isinstance(x, enum.Enum):
         return pcls(x.value)
     y = object.__new__(pcls)
+    if not hasattr(x, "__dict__"):
+        for k in (k for c in cls.__mro__ for k in getattr(c, "__slots__", ())):
+            if hasattr(x, k):
+                setattr(y, k, to_port(getattr(x, k)))
+        return y
     for k, v in vars(x).items():
         y.__dict__[k] = to_port(v)
     return y
@@ -141,6 +156,21 @@ class BarePortEnv(PortEnv):
         super().__init__(solver=TorchSolver(device="cpu", well_known=FAKE_WELL_KNOWN_LABELS, relax=relax()))
 
 
+class _NoCounterpart:
+    """What the port's run sees for a JAX class or function that has no
+    counterpart in the port and that no override names: using it fails the
+    scenario, so it never runs JAX code in the port's run."""
+
+    def __init__(self, jax_obj, exc):
+        self.__dict__["_what"] = f"{jax_obj.__module__}.{jax_obj.__qualname__} has no port counterpart ({exc})"
+
+    def __getattr__(self, attr):
+        raise AssertionError(self._what)
+
+    def __call__(self, *args, **kwargs):
+        raise AssertionError(self._what)
+
+
 class _Rebound:
     """A scenario's functions made anew with ``Env`` (also as imported from
     ``tests.harness`` inside a function) bound to ``env`` and ``overrides``
@@ -166,10 +196,15 @@ class _Rebound:
             return self.function(v)
         if not self.port:
             return v
+        if isinstance(v, types.FunctionType) and v.__module__ == "tests.factories":
+            return self.function(v)
         if isinstance(v, types.ModuleType):
             return importlib.import_module(port_name(v.__name__)) if v.__name__.startswith(_J) else v
         if isinstance(v, (type, types.FunctionType)) and v.__module__.startswith(_J):
-            return port_class(v)
+            try:
+                return port_class(v)
+            except (ImportError, AttributeError) as exc:
+                return _NoCounterpart(v, exc)
         return v
 
     def function(self, fn):
@@ -178,7 +213,8 @@ class _Rebound:
             # globals when it is made
             g = {"__builtins__": self.builtins}
             self.done[fn] = types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__, fn.__closure__)
-            g.update((k, self.value(v)) for k, v in fn.__globals__.items() if k != "__builtins__")
+            g.update((k, self.value(v)) for k, v in fn.__globals__.items()
+                     if k != "__builtins__" and k not in self.overrides)
             g.update(Env=self.env, **self.overrides)
         return self.done[fn]
 
@@ -204,7 +240,8 @@ def run_scenario(fn, env_cls, overrides=None, digest=None, port=False, args=()):
 
 
 def _pkg(env) -> str:
-    return "karpenter_tpu_torch" if isinstance(env, PEnv) else "karpenter_tpu"
+    return "karpenter_tpu_torch" if isinstance(env, PEnv) or type(env).__module__.startswith(_P) \
+        or getattr(env, "port", False) else "karpenter_tpu"
 
 
 def _reqs(reqs):
@@ -265,6 +302,9 @@ def _recorded_run(package: str, executed: list):
 
     ctrl._execute = execute
     uuid.uuid4 = lambda: uuid.UUID(int=next(seq) << 96)
+    # the gate's audit draws are seeded by a per-process call count: start
+    # both packages' runs from the same count
+    importlib.import_module(package + ".verify.gate")._audit_calls = 0
     try:
         yield
     finally:
@@ -276,33 +316,130 @@ def run_disruption(fn, port: bool, overrides=None, args=()):
     the JAX package's (tests.harness.Env over JaxSolver) or the port's
     (``PortEnv``, the supervised CPU solve). Returns (digests of its Envs,
     the commands executed, the Envs)."""
-    from tests.harness import Env as JEnv
-
-    executed: list = []
-    with _recorded_run("karpenter_tpu_torch" if port else "karpenter_tpu", executed):
-        digests, envs = run_scenario(fn, PortEnv if port else JEnv, overrides, digest=disruption_digest,
-                                     port=port, args=args)
+    digests, executed, _, envs = run_pair_side(fn, port, overrides, args)
     return digests, executed, envs
 
 
-def scenario_args(fn, request) -> tuple:
+def scenario_args(fn, request, skip_self=False) -> tuple:
     """The fixtures a scenario function takes (``monkeypatch``), from the
-    calling test's ``request``."""
-    return tuple(request.getfixturevalue(name) for name in inspect.signature(fn).parameters)
+    calling test's ``request`` (less ``self`` for a test class's method)."""
+    names = list(inspect.signature(fn).parameters)
+    return tuple(request.getfixturevalue(name) for name in names[1 if skip_self else 0:])
 
 
 def assert_same_disruption(fn, request, port_overrides=None):
-    """Run ``fn`` through both packages; its own assertions hold on each, and
-    the two must leave the same claims, nodes, bindings and events and
-    execute the same commands. The port's supervised solve never fails over."""
-    jd, jx, _ = run_disruption(fn, False, args=scenario_args(fn, request))
-    pd, px, envs = run_disruption(fn, True, port_overrides, args=scenario_args(fn, request))
+    """``assert_same_run`` of a disruption scenario; the port's supervised
+    solve never fails over."""
+    for env in assert_same_run(fn, request, p_overrides=port_overrides):
+        sup = env.provisioner.solver
+        assert sup.counters["solve_fallbacks"] == 0 and sup.circuit_state() == "closed"
+
+
+# -- operators and counters -------------------------------------------------
+
+
+def operator_class(port: bool):
+    """The Operator the scenario builds in one package's run. In the port's
+    run its ``kube`` converts what the scenario hands it (``PortKube``); its
+    controllers keep the store itself."""
+    from karpenter_tpu.operator import Operator as JOperator
+    from karpenter_tpu_torch.operator import Operator as POperator
+
+    if not port:
+        return JOperator
+
+    class PortOperator(POperator):
+        port = True
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.kube = PortKube(self.kube)
+
+    return PortOperator
+
+
+def forced_options(port: bool, **forced):
+    """One package's Options with ``forced`` fields over what the scenario
+    asks for (``Options.parse`` included)."""
+    cls = importlib.import_module((_P if port else _J) + "operator.options").Options
+
+    class Forced(cls):
+        def __init__(self, **kwargs):
+            super().__init__(**{**kwargs, **forced})
+
+    return Forced
+
+
+def counters(port: bool) -> dict:
+    """Every counter series of one package's registry: {name: {labels:
+    value}}."""
+    reg = importlib.import_module((_P if port else _J) + "metrics.registry").REGISTRY
+    return {m.name: {tuple(sorted(labels.items())): v for _, _, labels, v in m.collect()}
+            for _, m in sorted(reg._metrics.items()) if m.kind == "counter"}
+
+
+def moved(before: dict, after: dict, names) -> dict:
+    """The counters of ``names`` a run moved: {name: {labels: delta}}."""
+    out = {}
+    for name in names:
+        b, a = before.get(name, {}), after.get(name, {})
+        delta = {k: v - b.get(k, 0.0) for k, v in a.items() if v != b.get(k, 0.0)}
+        if delta:
+            out[name] = delta
+    return out
+
+
+# bytes moved between host and device: the two packages copy different
+# tensors, so only the directions are compared
+BYTES_COUNTERS = ("karpenter_solver_transfer_bytes_total",)
+
+
+def run_pair_side(fn, port: bool, overrides=None, args=()):
+    """One package's run of scenario ``fn``: (digests of the Envs and
+    Operators it built, in order, the commands executed, the counters it
+    moved, the Envs and Operators)."""
+    from tests.harness import Env as JEnv
+
+    built: list = []
+    op_cls = operator_class(port)
+
+    def operator(*a, **kw):
+        op = op_cls(*a, **kw)
+        built.append(op)
+        return op
+
+    executed: list = []
+    before = counters(port)
+    with _recorded_run(_P[:-1] if port else _J[:-1], executed):
+        _, envs = run_scenario(fn, PortEnv if port else JEnv, {"Operator": operator, **(overrides or {})},
+                               port=port, args=args)
+    after = counters(port)
+    return [disruption_digest(e) for e in envs + built], executed, (before, after), envs + built
+
+
+def assert_same_run(fn, request, j_overrides=None, p_overrides=None, digest=True, self_arg=False):
+    """Run ``fn`` through both packages: its own assertions hold on each,
+    and with ``digest`` the two must leave the same claims, nodes, bindings,
+    pending pods and events, execute the same commands and move the same
+    counters (of the series the port registers; the bytes counters by
+    label set). A scenario that is a test class's method gets
+    ``self_arg``."""
+    args = ((None,) if self_arg else ()) + scenario_args(fn, request, skip_self=self_arg)
+    jd, jx, (jb, ja), _ = run_pair_side(fn, False, j_overrides, args)
+    pargs = ((None,) if self_arg else ()) + tuple(to_port(a) for a in args[1 if self_arg else 0:])
+    pd, px, (pb, pa), built = run_pair_side(fn, True, p_overrides, pargs)
+    if not digest:
+        return built
     assert px == jx, f"commands: port {px} != JAX {jx}"
     assert len(pd) == len(jd)
     for i, (p, j) in enumerate(zip(pd, jd)):
         bad = [k for k in j if p[k] != j[k]]
-        assert not bad, f"Env {i}: " + "; ".join(f"{k}: port {p[k]} != JAX {j[k]}" for k in bad)
-    for env in envs:
-        sup = env.provisioner.solver
-        assert sup.counters["solve_fallbacks"] == 0 and sup.circuit_state() == "closed"
-    return jx
+        assert not bad, f"run {i}: " + "; ".join(f"{k}: port {p[k]} != JAX {j[k]}" for k in bad)
+    names = [n for n in pa if n in ja]
+    jm, pm = moved(jb, ja, names), moved(pb, pa, names)
+    for name in BYTES_COUNTERS:
+        for m in (jm, pm):
+            if name in m:
+                m[name] = sorted(m[name])
+    assert pm == jm, f"counters: port {pm} != JAX {jm}"
+    return built
