@@ -214,7 +214,30 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      OPERATOR_THREADED_PODS pods nominated under the real batch window,
      ``# TYPE`` in /metrics for every registered series, /statusz and
      /debug/programs parsed, ``stop()``.
- 13. a ``kernels`` JSON line: per kernel its launches on the main path, its
+ 13. the streaming layer (``streaming_phase``, STREAM_* and the constants
+     after them): phase 4's stream (10,000 ``default_pod_factory`` pods,
+     seed 21, 400 types, 200 arrivals and 200 deletes a cycle) through
+     ``SupervisedSolver(TorchSolver(relax=False), fallback=OracleSolver(),
+     streaming=True)`` for STREAM_CYCLES cycles beside a cold
+     ``TorchSolver(relax=False)`` on the same snapshots: ``cold-first``,
+     then ``warm`` every cycle, every result clean under the full host
+     validator with every pod accounted once, every certified pod where the
+     cold solve puts it (node for node, claim co-location and template);
+     the same stream under the default flags for STREAM_RELAX_CYCLES; each
+     cycle's launches (counts set to 0 just before it and read just after),
+     the warm p50/p99 beside the cold p50, the warm cycle's split (diff,
+     sub-solve, incremental gate, certify, accept), the reuse ratio and the
+     sub-solve's pods. Then the journal on the card (``KARPENTER_TPU_STATE_
+     DIR``): a fresh ``StreamingSolver`` restores and its first cycle is
+     warm; and a restart storm over ``TorchSolver`` on the card
+     (``testing.restart.run_restart_storm``, STORM_*). Then phase 2's batch
+     through the ``KARPENTER_TPU_RUNS`` solve: validator-clean, its
+     scheduled count beside the sweeps path's, its first pass's
+     ``runs_screen`` launch (one lane of 10,240 rows) equal to ``ffd_loop``'s
+     one pass on the same problem, and over the batch's first
+     RUNS_CHECK_PODS pods bit-equal to ``runs_scan_plain`` (kind, index,
+     every state leaf); the launch timed alone and wrapped, with its bound.
+ 14. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
@@ -227,8 +250,11 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      layout. Bytes are those of the kernel's own
      arguments. The churn, serve, shard and provisioning phases' records
      ride in the same line; the wavefront mode is an entry of its own. The
-     entries of the four kernels phase 12 runs carry ``launches_operator``.
- 14. the card's name and power limit; the last line is the device JSON.
+     entries of the four kernels phase 12 runs carry ``launches_operator``,
+     those of ``ffd_loop``, ``relax_place`` and ``gate_counts`` their
+     launches per warm cycle of phase 13 (``launches_warm_cycle``), and
+     ``runs_screen``'s the ``RUNS`` solve (``runs_solve``).
+ 15. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -411,6 +437,26 @@ OPERATOR_THREADED_PODS = 300
 OPERATOR_THREADED_WAIT_S = 120.0
 EXPECT_OPERATOR = dict(claims=29, nodes=29, bound=1500, pending=0, commands=3, disrupted=35, evicted=736, events=4526,
                        sha256="2adbc8f06f375fd7f3d2d62b3d3654c09fb506e94fef4e70bd6dcaf09244e1ee")
+# the streaming layer (phase 13): phase 4's churn stream (10,000
+# default_pod_factory pods, seed 21, 400 catalog types, 200 arrivals and 200
+# deletes a cycle: 4% churn, under the 0.15 cold threshold) through
+# SupervisedSolver(streaming=True) over TorchSolver, relax off for
+# STREAM_CYCLES cycles against a cold TorchSolver in lockstep, then under the
+# default flags for STREAM_RELAX_CYCLES; the journal restored on the card;
+# a restart storm of STORM_* over TorchSolver on the card; and phase 2's
+# batch through the KARPENTER_TPU_RUNS solve, whose runs_screen launch is
+# held bit for bit to runs_scan_plain over the batch's first RUNS_CHECK_PODS
+# pods (the plain scan steps one run at a time in Python: ~24 s for 2,000
+# pods on a CPU), and at full width to ffd_loop's one-pass launch
+STREAM_PODS = CHURN_PODS
+STREAM_SEED = CHURN_SEED
+STREAM_RATE = CHURN_RATE
+STREAM_CYCLES = 12
+STREAM_RELAX_CYCLES = 6
+STORM_PODS = 300
+STORM_CYCLES = 4
+STORM_KILLS = 2
+RUNS_CHECK_PODS = 1000
 # the convex phase's two float stats against the JAX package's: the float32
 # adds of the bin loads and the gradient step round in another order there
 # (its CPU build may contract a multiply and an add), by 1.5e-4 relative on
@@ -1371,6 +1417,9 @@ def run(dev) -> int:
     disruption = disruption_phase(dev, time_ms, time_launches, plain_ms)
     operator = operator_phase(dev)
     rs["launches_disruption_pass"] = disruption["launches"]["runs_screen"]
+    streaming = streaming_phase(dev, main, time_ms, time_launches, plain_ms, io_bytes, bound)
+    rs["runs_solve"] = streaming.pop("runs_solve")
+    rs["launches_runs_solve"] = rs["runs_solve"]["launches"]
 
     line = {
         "kernels": [
@@ -1466,11 +1515,16 @@ def run(dev) -> int:
         "provision": provision,
         "disruption": disruption,
         "operator": operator,
+        "streaming": streaming,
     }
     for entry in line["kernels"]:
         if entry["name"] in ("ffd_loop", "relax_place", "gate_counts", "runs_screen"):
             # the kernel's launches over phase 12's cooperative run
             entry["launches_operator"] = operator["launches"][entry["name"]]
+        if entry["name"] in ("ffd_loop", "relax_place", "gate_counts"):
+            # its launches per warm cycle of phase 13's streams
+            entry["launches_warm_cycle"] = {arm: streaming[arm]["launches_per_warm_cycle"][entry["name"]]
+                                            for arm in ("relax_off", "relax_on")}
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
     smi = subprocess.run(
@@ -4254,6 +4308,336 @@ def operator_scenario(pkg, options, make_pods, n_pods=OPERATOR_PODS, seed=OPERAT
         return digest, record, op
     finally:
         uuid.uuid4 = real_uuid4
+
+
+def streaming_phase(dev, main, time_ms, time_launches, plain_ms, io_bytes, bound):
+    """Phase 13 (see the module docstring): the warm stream with relax off
+    and on, the journal and a restart storm on the card, and the
+    KARPENTER_TPU_RUNS solve. Returns the phase's record; its ``runs_solve``
+    rides in the runs_screen entry."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.apis.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS, instance_types
+    from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
+    from karpenter_tpu_torch.ops.ffd_core import _pad_lanes_mult32, initial_state
+    from karpenter_tpu_torch.ops.ffd_runs import has_topo_runs, max_run_bucket, runs_scan_plain
+    from karpenter_tpu_torch.ops.ffd_step import solve_ffd
+    from karpenter_tpu_torch.ops.padding import pad_problem
+    from karpenter_tpu_torch.parallel import mesh as M
+    from karpenter_tpu_torch.solver import torch_backend as TB
+    from karpenter_tpu_torch.solver import validator as val
+    from karpenter_tpu_torch.provisioning.topology import Topology
+    from karpenter_tpu_torch.solver.encode import Encoder, domains_from_instance_types, template_from_nodepool
+    from karpenter_tpu_torch.solver.oracle import OracleSolver
+    from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.streaming.churn import ChurnConfig, ChurnProcess, default_pod_factory
+    from karpenter_tpu_torch.streaming.warm import StreamingSolver
+    from karpenter_tpu_torch.testing import restart
+
+    t_phase = time.perf_counter()
+    log(f"phase 13: streaming, {STREAM_PODS} pods, {STREAM_RATE} arrivals + {STREAM_RATE} deletes a cycle")
+    for name in ("KARPENTER_TPU_STATE_DIR", "KARPENTER_TPU_DELTA", "KARPENTER_TPU_RUNS", "KARPENTER_TPU_FAULTS"):
+        os.environ.pop(name, None)
+    its = instance_types(400)
+    tpls = [template_from_nodepool(NodePool(metadata=ObjectMeta(name="s")), its, range(len(its)))]
+
+    def stream():
+        rng = random.Random(STREAM_SEED)
+        return ChurnProcess([default_pod_factory(f"st-{i}", rng) for i in range(STREAM_PODS)],
+                            config=ChurnConfig(seed=STREAM_SEED, arrivals_per_cycle=STREAM_RATE,
+                                               deletes_per_cycle=STREAM_RATE))
+
+    def where(pods, result):
+        out = {}
+        for name, idxs in result.node_pods.items():
+            for i in idxs:
+                out[pods[i].uid] = ("node", name)
+        for ci, c in enumerate(result.new_claims):
+            for i in c.pod_indices:
+                out[pods[i].uid] = ("claim", ci)
+        for i in result.failures:
+            out[pods[i].uid] = ("fail", None)
+        return out
+
+    def accounted(pods, result):
+        seen = [i for v in result.node_pods.values() for i in v] + list(result.failures)
+        seen += [i for c in result.new_claims for i in c.pod_indices]
+        return sorted(seen) == list(range(len(pods)))
+
+    def p(vals, q):
+        vals = sorted(vals)
+        return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+    def warm_stream(tag, relax, cycles, cold_arm):
+        """One supervised streaming run over the stream; per cycle the
+        outcome, walls, launches and split; ``cold_arm`` also solves every
+        snapshot cold and holds the certified pods to it."""
+        sup = SupervisedSolver(TorchSolver(relax=relax, device=dev), fallback=OracleSolver(), streaming=True)
+        streaming = sup.primary
+        inner_s = []  # the streaming layer's own wall per call, inside the supervisor's
+        real_solve = streaming.solve
+
+        def timed_solve(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return real_solve(*a, **kw)
+            finally:
+                inner_s.append(time.perf_counter() - t)
+
+        streaming.solve = timed_solve
+        cold = TorchSolver(relax=relax, device=dev) if cold_arm else None
+        proc = stream()
+        records = []
+        for cyc in range(cycles):
+            proc.step()
+            pods = list(proc.pods)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = sup.solve(pods, its, tpls)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            outcome = streaming.last_outcome
+            expect = "cold-first" if cyc == 0 else "warm"
+            if outcome != expect:
+                raise AssertionError(f"{tag} cycle {cyc}: outcome {outcome}, expected {expect}")
+            if sup.counters["solve_fallbacks"] or sup.counters["validator_rejections"]:
+                raise AssertionError(f"{tag} cycle {cyc}: supervisor counters {sup.counters}")
+            if not accounted(pods, result):
+                raise AssertionError(f"{tag} cycle {cyc}: a pod dropped or placed twice")
+            t0 = time.perf_counter()
+            violations = val.validate_result(result, pods, its, tpls, level="full")
+            val_ms = (time.perf_counter() - t0) * 1e3
+            if violations:
+                raise AssertionError(f"{tag} cycle {cyc}: {len(violations)} violations, first {violations[0]}")
+            rec = dict(cycle=cyc, outcome=outcome, wall_ms=wall * 1e3, launches=launches,
+                       stream_ms=inner_s[-1] * 1e3,
+                       reuse_ratio=streaming.last_reuse_ratio, sub_pods=streaming.last_sub_pods,
+                       certified=len(streaming.last_certified_uids), claims=len(result.new_claims),
+                       scheduled=result.num_scheduled(), validate_ms=val_ms,
+                       split_ms={k: v * 1e3 for k, v in streaming.last_warm_timing.items()})
+            if cold is not None:
+                t0 = time.perf_counter()
+                ref = cold.solve(pods, its, tpls)
+                torch.cuda.synchronize()
+                rec["cold_ms"] = (time.perf_counter() - t0) * 1e3
+                w, c = where(pods, result), where(pods, ref)
+                certified = streaming.last_certified_uids
+                for uid in certified:
+                    if w[uid][0] != c[uid][0] or (w[uid][0] == "node" and w[uid][1] != c[uid][1]):
+                        raise AssertionError(f"{tag} cycle {cyc}: certified pod {uid} at {w[uid]}, cold {c[uid]}")
+                claim_uids = [u for u in certified if w[u][0] == "claim"]
+                groups_w, groups_c = {}, {}
+                for u in claim_uids:
+                    if result.new_claims[w[u][1]].template_index != ref.new_claims[c[u][1]].template_index:
+                        raise AssertionError(f"{tag} cycle {cyc}: certified pod {u} on another template")
+                    groups_w.setdefault(w[u][1], set()).add(u)
+                    groups_c.setdefault(c[u][1], set()).add(u)
+                if sorted(map(sorted, groups_w.values())) != sorted(map(sorted, groups_c.values())):
+                    raise AssertionError(f"{tag} cycle {cyc}: certified claim co-location differs from cold")
+            records.append(rec)
+            log(f"  {tag} cycle {cyc:2d} {outcome:10s} wall {wall * 1e3:8.1f} ms (streaming layer "
+                f"{rec['stream_ms']:.1f})"
+                + (f" (cold {rec['cold_ms']:8.1f})" if cold is not None else "")
+                + f"; reuse {rec['reuse_ratio']:.4f}, sub-solve {rec['sub_pods']} pods, certified "
+                f"{rec['certified']}; split { {k: round(v, 2) for k, v in rec['split_ms'].items()} } ms; "
+                f"launches { {k: v for k, v in launches.items() if v} }; validator {val_ms:.1f} ms; "
+                f"{rec['scheduled']}/{len(pods)} on {rec['claims']} claims")
+        warm = [r for r in records if r["outcome"] == "warm"]
+        per_cycle = {name: [r["launches"][name] for r in warm] for name in ("ffd_loop", "relax_place", "gate_counts")}
+        out = dict(
+            cycles=cycles, relax=relax, outcomes=dict(streaming.counters),
+            warm_ms_p50=statistics.median(r["wall_ms"] for r in warm), warm_ms_p99=p([r["wall_ms"] for r in warm], 0.99),
+            cold_first_ms=records[0]["wall_ms"],
+            reuse_ratio_p50=statistics.median(r["reuse_ratio"] for r in warm),
+            sub_pods_p50=statistics.median(r["sub_pods"] for r in warm),
+            certified_p50=statistics.median(r["certified"] for r in warm),
+            split_ms_p50={k: statistics.median(r["split_ms"][k] for r in warm)
+                          for k in ("diff", "sub_solve", "gate", "certify", "accept")},
+            stream_ms_p50=statistics.median(r["stream_ms"] for r in warm),
+            validate_ms_p50=statistics.median(r["validate_ms"] for r in warm),
+            launches_per_warm_cycle={name: (min(v), max(v)) for name, v in per_cycle.items()},
+            launches_first=records[0]["launches"],
+            launches_total={name: sum(r["launches"][name] for r in records) for name in kernels.LAUNCHES},
+        )
+        if cold is not None:
+            out["cold_ms_p50"] = statistics.median(r["cold_ms"] for r in warm)
+        log(f"  {tag}: warm p50 {out['warm_ms_p50']:.1f} ms, p99 {out['warm_ms_p99']:.1f} ms"
+            + (f", paired cold p50 {out['cold_ms_p50']:.1f} ms" if cold is not None else "")
+            + f"; the streaming layer p50 {out['stream_ms_p50']:.1f} ms of it, split p50 {out['split_ms_p50']} ms "
+            f"(the rest: the supervisor's validation and bookkeeping); reuse p50 {out['reuse_ratio_p50']:.4f}; sub-solve p50 "
+            f"{out['sub_pods_p50']} pods; launches per warm cycle (min, max) {out['launches_per_warm_cycle']}; "
+            f"outcomes {out['outcomes']}")
+        return out, streaming
+
+    # -- (a) the warm stream, relax off, against the cold arm ------------------
+    # every warm cycle's sub-solve launches ffd_loop; the gate launches on
+    # the cold-first cycle (the supervisor's gate of a sweeps result, and
+    # with relax on the two-phase solve's own) and in a warm cycle only when
+    # the sub-solve's phase 1 placed pods (a merged warm result carries no
+    # GateContext: the incremental gate and the supervisor's validator are
+    # host checks, as in the JAX package)
+    relax_off, _ = warm_stream("warm relax off", False, STREAM_CYCLES, True)
+    if relax_off["launches_per_warm_cycle"]["ffd_loop"][0] < 1 or relax_off["launches_total"]["gate_counts"] < 1:
+        raise AssertionError(f"warm relax off: launches {relax_off['launches_total']}")
+    # -- (b) the same stream under the default flags ---------------------------
+    relax_on, _ = warm_stream("warm relax on", True, STREAM_RELAX_CYCLES, False)
+    if relax_on["launches_per_warm_cycle"]["ffd_loop"][0] < 1 or any(
+            relax_on["launches_total"][name] < 1 for name in ("relax_place", "gate_counts")):
+        raise AssertionError(f"warm relax on: launches {relax_on['launches_total']}")
+
+    # -- (c) the journal on the card, then a restart storm ----------------------
+    state_dir = tempfile.mkdtemp(prefix="ktpu-stream-journal-")
+    os.environ["KARPENTER_TPU_STATE_DIR"] = state_dir
+    try:
+        proc = stream()
+        first = StreamingSolver(TorchSolver(relax=False, device=dev))
+        for _ in range(2):
+            proc.step()
+            first.solve(list(proc.pods), its, tpls)
+        if first.last_outcome != "warm":
+            raise AssertionError(f"journal: the writer's second cycle was {first.last_outcome}")
+        t0 = time.perf_counter()
+        fresh = StreamingSolver(TorchSolver(relax=False, device=dev))
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if fresh.last_restore_outcome != "restored":
+            raise AssertionError(f"journal: restore outcome {fresh.last_restore_outcome}")
+        proc.step()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = fresh.solve(list(proc.pods), its, tpls)
+        torch.cuda.synchronize()
+        restored_ms = (time.perf_counter() - t0) * 1e3
+        if fresh.last_outcome != "warm" or kernels.LAUNCHES["ffd_loop"] < 1:
+            raise AssertionError(f"journal: the restored stream's first cycle was {fresh.last_outcome}, "
+                                 f"launches {dict(kernels.LAUNCHES)}")
+        if val.validate_result(result, list(proc.pods), its, tpls, level="full"):
+            raise AssertionError("journal: the restored stream's first cycle is not validator-clean")
+        tag = fresh._tag()
+    finally:
+        os.environ.pop("KARPENTER_TPU_STATE_DIR", None)
+        shutil.rmtree(state_dir, ignore_errors=True)
+    journal = dict(restore_ms=restore_ms, first_cycle_ms=restored_ms, tag=tag)
+    log(f"  journal: restored in {restore_ms:.1f} ms (tag {tag}); its first cycle warm in {restored_ms:.1f} ms")
+    storm = restart.run_restart_storm(pod_count=STORM_PODS, cycles=STORM_CYCLES, kills=STORM_KILLS,
+                                      backend="torch", device="cuda")
+    log(f"  restart storm: {storm}")
+    if not storm["ok"] or storm["kills"] < STORM_KILLS or "restored" not in storm["restores"]:
+        raise AssertionError(f"restart storm failed: {storm}")
+    journal["storm"] = {k: storm[k] for k in ("cycles", "kills", "children", "restores", "seconds")}
+
+    # -- (d) the KARPENTER_TPU_RUNS solve on phase 2's batch ---------------------
+    pods, its2, tpls2, nodes = main["workload"]
+    passes = []
+    real_pass = TB.runs_pass
+
+    def recording(problem, max_claims, init=None):
+        out = real_pass(problem, max_claims, init)
+        passes.append((problem, max_claims, init, out))
+        return out
+
+    os.environ["KARPENTER_TPU_RUNS"] = "1"
+    TB.runs_pass = recording
+    try:
+        solver = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device=dev, initial_claim_slots=main["C"])
+        if not solver.runs:
+            raise AssertionError("KARPENTER_TPU_RUNS=1 did not turn the runs solve on")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs_result = solver.solve(pods, its2, tpls2, nodes)
+        torch.cuda.synchronize()
+        runs_wall = time.perf_counter() - t0
+        runs_launches = dict(kernels.LAUNCHES)
+    finally:
+        TB.runs_pass = real_pass
+        os.environ.pop("KARPENTER_TPU_RUNS", None)
+    if runs_launches["runs_screen"] != len(passes) or runs_launches["runs_screen"] < 1 or runs_launches["ffd_loop"]:
+        raise AssertionError(f"runs solve: launches {runs_launches} over {len(passes)} passes")
+    violations = val.validate_result(runs_result, pods, its2, tpls2, nodes, level="full")
+    if violations:
+        raise AssertionError(f"runs solve: {len(violations)} violations, first {violations[0]}")
+    sweeps = main["result_off"]
+    log(f"  runs solve: {len(passes)} passes, wall {runs_wall * 1e3:.1f} ms, scheduled {runs_result.num_scheduled()}"
+        f" on {len(runs_result.new_claims)} claims (sweeps path {sweeps.num_scheduled()} on "
+        f"{len(sweeps.new_claims)}); launches { {k: v for k, v in runs_launches.items() if v} }; validator-clean")
+    # the first pass's launch at full width against ffd_loop's one-pass mode
+    # on the same problem: the same FFD, one run at a time against one pod
+    # at a time (tests/test_runs_solver.py's parity)
+    problem, C, init, rk = passes[0]
+    if init is not None:
+        raise AssertionError("runs solve: the first pass carried a state")
+    prob = _pad_lanes_mult32(problem)
+    one = solve_ffd(prob, C)
+    act = prob.pod_active
+    if not (torch.equal(one.kind[act], rk.kind[act]) and torch.equal(one.index[act], rk.index[act])):
+        bad = torch.nonzero(act & ((one.kind != rk.kind) | (one.index != rk.index))).flatten()[:10].tolist()
+        raise AssertionError(f"runs solve: the runs_screen launch differs from ffd_loop's one pass at rows {bad}")
+    P = prob.num_pods
+    modes = np.bincount(prob.run_mode[prob.run_len > 0].cpu().numpy(), minlength=3).tolist()
+    # the launch alone and through its wrapper, at full width
+    kw = dict(max_run=max_run_bucket(prob), passes=1, with_topo=has_topo_runs(prob))
+    batch1 = M.stack_problems([prob])
+    sets = [M.stacked_screen_args(batch1, C, **kw) for _ in range(3)]
+    k_ms, k_all = time_launches("runs_screen", sets)
+    for t, _ in sets:
+        if not (torch.equal(t["kind"][0], rk.kind) and torch.equal(t["index"][0], rk.index)):
+            raise AssertionError("runs solve: a timed launch differs from the wrapper's")
+    w_ms, _ = time_ms(lambda: real_pass(problem, C), 3)
+    plan = sets[0][0]["plan"].cpu().tolist()
+    work = dict(zip(M.RS_WORK_COUNTERS, rk.work.sum(dim=0).cpu().tolist()))
+    nbytes = io_bytes(sets[0][0], (), M.RS_SCRATCH)
+    K, Wd, O, R = prob.num_keys, prob.num_lanes // 32, prob.offer_ok.shape[1], prob.num_resources
+    int_ops = work["bin_gates"] * 2 * K * Wd + work["topo_lanes"] * 2 + work["type_tests"] * (K * Wd + O)
+    flt_ops = work["type_tests"] * 2 * R
+    b_ms, b_by = bound(nbytes, int_ops, flt_ops)
+    # bit for bit against runs_scan_plain over the batch's first
+    # RUNS_CHECK_PODS pods, encoded alone: the launch through the wrapper on
+    # the card, the plain scan on the host
+    cut = list(pods[:RUNS_CHECK_PODS])
+    topo = Topology(domains_from_instance_types(its2, tpls2), batch_pods=cut, cluster_pods=[])
+    for n in nodes:
+        topo.register("kubernetes.io/hostname", n.name)
+    enc = Encoder(FAKE_WELL_KNOWN_LABELS).encode(cut, its2, tpls2, nodes, topology=topo, num_claim_slots=C)
+    host = pad_problem(enc.problem)
+    cut_dev = _pad_lanes_mult32(problem_to_torch(host, dev))
+    ck = real_pass(cut_dev, C)
+    cut_cpu = _pad_lanes_mult32(problem_to_torch(host, "cpu"))
+    t0 = time.perf_counter()
+    cp = runs_scan_plain(cut_cpu, initial_state(cut_cpu, C), max_run_bucket(cut_cpu), has_topo_runs(cut_cpu))
+    cut_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(ck.kind.cpu(), cp.kind) and torch.equal(ck.index.cpu(), cp.index)):
+        raise AssertionError("runs solve: the cut's runs_screen kind/index differ from runs_scan_plain")
+    sk, sp = numpy_fields(ck.state), numpy_fields(cp.state)
+    for key in sp:
+        if not np.array_equal(sk[key], sp[key], equal_nan=sp[key].dtype.kind == "f"):
+            raise AssertionError(f"runs solve: the cut's state {key} differs from runs_scan_plain")
+    cut_sets = [M.stacked_screen_args(M.stack_problems([cut_dev]), C, max_run=max_run_bucket(cut_dev), passes=1,
+                                      with_topo=has_topo_runs(cut_dev)) for _ in range(3)]
+    cut_ms, _ = time_launches("runs_screen", cut_sets)
+    runs_solve = dict(
+        launches=runs_launches["runs_screen"], passes=len(passes), wall_ms=runs_wall * 1e3, rows=P,
+        runs_by_mode=modes, max_run=kw["max_run"], plan=plan, ms=k_ms, wrapper_ms=w_ms, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, int_ops=int_ops, flt_ops=flt_ops, work=work,
+        scheduled=runs_result.num_scheduled(), claims=len(runs_result.new_claims),
+        sweeps_scheduled=sweeps.num_scheduled(), sweeps_claims=len(sweeps.new_claims),
+        check_pods=RUNS_CHECK_PODS, check_ms=cut_ms, check_plain_ms=cut_plain_ms, max_abs_err=0.0,
+    )
+    log(f"  runs_screen one lane of {P} rows (runs single/analytic/topo {modes}, max_run {kw['max_run']}), plan "
+        f"{plan}: kernel {k_ms:.3f} ms median of {[round(x, 3) for x in k_all]}, wrapper {w_ms:.3f} ms; == ffd_loop "
+        f"one pass; bytes {nbytes}, int ops {int_ops:.4g}, float ops {flt_ops:.4g}, bound {b_ms:.5f} ms ({b_by}); "
+        f"work {work}; over the first {RUNS_CHECK_PODS} pods kernel {cut_ms:.3f} ms, plain {cut_plain_ms:.1f} ms, "
+        f"bit-equal")
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 13 wall {wall:.1f}s")
+    return dict(relax_off=relax_off, relax_on=relax_on, journal=journal, runs_solve=runs_solve, phase_s=wall)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ observability hooks they call (obs/), the phase-1 fallbacks of the backend
 (solver/torch_backend.py), the learned order's (solver/ordering.py) and the
 event recorder's (events/recorder.py), the verification gate's (verify/),
 the consolidation screen's (disruption/batch.py), the resident world's
-(streaming/device_world.py) and the SLO engine's (obs/slo.py); the
+(streaming/device_world.py), the streaming layer's (streaming/warm.py,
+streaming/snapshot.py) and the SLO engine's (obs/slo.py); the
 provisioner and the lifecycle controllers register their own, timed with
 ``measure``. Names, labels and buckets equal the JAX package's. ``Store`` is
 the diffing gauge store of the node, nodepool and pod exporters
@@ -330,6 +331,32 @@ SOLVER_PHASE_DURATION = REGISTRY.histogram(
 TRANSFER_BYTES = REGISTRY.counter(
     "solver_transfer_bytes_total",
     "Host-device transfer bytes on the solve path, by direction (h2d, d2h)",
+)
+
+# -- streaming solve series (streaming/warm.py, streaming/snapshot.py) --------
+DELTA_REUSE_RATIO = REGISTRY.gauge(
+    "solver_delta_reuse_ratio",
+    "Fraction of the batch pinned to its previous placement by the last "
+    "streaming solve cycle (0 on a cold cycle)",
+)
+WARM_SOLVES = REGISTRY.counter(
+    "solver_warm_solves_total",
+    "Streaming solve cycles, by outcome (warm, warm-rejected, warm-error, "
+    "cold-first, cold-threshold, cold-unsupported, cold-world-changed) and, "
+    "under the multi-tenant serve layer, tenant (label values capped via "
+    "tenant_label(); overflow tenants aggregate into 'other')",
+)
+STATE_RESTORE = REGISTRY.counter(
+    "solver_state_restore_total",
+    "Streaming-state journal restore attempts, by outcome (restored, "
+    "missing, truncated, corrupt, checksum, version-skew, isa-mismatch, "
+    "stale, validator, error)",
+)
+RESTORE_FALLBACK = REGISTRY.counter(
+    "restore_fallback_total",
+    "Restore paths that degraded to a cold start, by classified reason "
+    "(aot-* for executable-snapshot failures, journal-* for streaming-state "
+    "failures; every recovery is classified — 'unknown' never appears)",
 )
 
 # -- resident world series (streaming/device_world.py) -------------------------

@@ -1,8 +1,8 @@
 """Flight recorder: a bounded ring of classified events, dumped on incident.
 
 Counterpart of the JAX package's ``obs/flight.py``, ported for what the
-solver supervisor and the serve layer call: ``record`` (one classified event
-into the ring) and ``snapshot_dump`` (the ring to disk through the framed
+solver supervisor, the serve layer, the gate's audit and the streaming layer
+call: ``record`` (one classified event into the ring) and ``snapshot_dump`` (the ring to disk through the framed
 files of utils/persist.py), with the JAX package's ``KIND_*`` names and
 dump reasons for what those callers emit, its flag (``KARPENTER_TPU_SLO``: off, every call is one flag check)
 and knobs. ``record`` raises on a kind outside :data:`KINDS` and
@@ -35,9 +35,8 @@ DUMP_VERSION = 1
 
 # -- the bounded event vocabulary ---------------------------------------------
 # One kind per instrumented decision point. record() raises on anything else:
-# an unclassified flight event is a bug. The JAX package's kinds whose
-# emitters are not ported (streaming cycles, the gate audit) join when their
-# emitters do.
+# an unclassified flight event is a bug. The vocabulary is the JAX
+# package's, every kind with an emitter in this package.
 KIND_SOLVE_CYCLE = "solve-cycle"
 KIND_SOLVE_RETRY = "solve-retry"
 KIND_SOLVE_FALLBACK = "solve-fallback"
@@ -45,8 +44,10 @@ KIND_SOLVE_SALVAGE = "solve-salvage"
 KIND_CIRCUIT = "circuit"
 KIND_VALIDATOR_REJECT = "validator-reject"
 KIND_QUARANTINE = "quarantine"
+KIND_GATE_AUDIT = "gate-audit"
 KIND_ADMISSION = "admission"
 KIND_SERVE_COMPLETE = "serve-complete"
+KIND_STREAM_CYCLE = "stream-cycle"
 KIND_MESH_FAULT = "mesh-fault"
 KIND_MESH_RECARVE = "mesh-recarve"
 KIND_MESH_RECOVERED = "mesh-recovered"
@@ -57,8 +58,9 @@ KIND_DUMP = "flight-dump"
 KINDS = frozenset({
     KIND_SOLVE_CYCLE, KIND_SOLVE_RETRY, KIND_SOLVE_FALLBACK,
     KIND_SOLVE_SALVAGE, KIND_CIRCUIT, KIND_VALIDATOR_REJECT, KIND_QUARANTINE,
-    KIND_ADMISSION, KIND_SERVE_COMPLETE, KIND_MESH_FAULT, KIND_MESH_RECARVE,
-    KIND_MESH_RECOVERED, KIND_SHARD_STANDDOWN, KIND_SLO_BREACH, KIND_DUMP,
+    KIND_GATE_AUDIT, KIND_ADMISSION, KIND_SERVE_COMPLETE, KIND_STREAM_CYCLE,
+    KIND_MESH_FAULT, KIND_MESH_RECARVE, KIND_MESH_RECOVERED,
+    KIND_SHARD_STANDDOWN, KIND_SLO_BREACH, KIND_DUMP,
 })
 
 # What may trigger a dump — the incident classes, not the event kinds.

@@ -1,8 +1,9 @@
 """Fleet SLO engine: multi-window burn-rate objectives over live streams.
 
 Counterpart of the JAX package's ``obs/slo.py``, ported for the hooks the
-solver supervisor and the serve layer call: ``on_solve_cycle``, ``on_gate``,
-``on_serve_admission`` and ``on_serve_latency`` (each one flag check when
+solver supervisor, the streaming layer and the serve layer call:
+``on_solve_cycle``, ``on_gate``, ``on_stream``, ``on_serve_admission`` and
+``on_serve_latency`` (each one flag check when
 ``KARPENTER_TPU_SLO`` is off), over the same objectives, windows, budgets
 and knobs. Each objective owns an error budget (``target`` = allowed bad
 fraction) and two sliding windows, fast (5 m) and slow (1 h); a breach needs
@@ -36,6 +37,12 @@ VERDICT_BREACH = "breach"
 # Per-class serve objectives stay bounded like the serve metric labels:
 # classes are operator config, capped well under the lint's cls ceiling.
 _MAX_SERVE_CLASSES = 64
+
+# Stream outcomes that count as good service (streaming/warm.py _finish): a
+# warm hit, or the legitimate first cold solve of a stream. Everything else
+# (warm-rejected, warm-error, cold-threshold, cold-unsupported,
+# cold-world-changed) is a cold-solve leak against the stream-warm budget.
+_STREAM_GOOD = frozenset({"warm", "cold-first"})
 
 _enabled_override: Optional[bool] = None
 
@@ -353,6 +360,13 @@ class SloEngine:
             1.0 if ok else 0.0, 0.0 if ok else 1.0,
         )
 
+    def record_stream(self, outcome: str) -> None:
+        good = outcome in _STREAM_GOOD
+        self._record(
+            self._objectives["stream-warm"],
+            1.0 if good else 0.0, 0.0 if good else 1.0,
+        )
+
     def record_serve_admission(self, cls: str, accepted: bool) -> None:
         with self._lock:
             obj = self._serve_objective("serve-shed", cls)
@@ -476,6 +490,12 @@ def on_gate(ok: bool) -> None:
     if not enabled():
         return
     engine().record_gate(ok)
+
+
+def on_stream(outcome: str) -> None:
+    if not enabled():
+        return
+    engine().record_stream(outcome)
 
 
 def on_serve_admission(cls: str, accepted: bool) -> None:

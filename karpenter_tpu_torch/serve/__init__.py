@@ -6,8 +6,10 @@ one warmed-up solver process and one card; everything stateful is per
 tenant:
 
   isolation   every tenant gets its OWN SupervisedSolver stack (circuit
-              breaker, quarantine namespace, deadline budget, fault scope:
-              ``SupervisedSolver(tenant=...)``, ``faults.tenant_scope``). A
+              breaker, quarantine namespace, deadline budget, fault scope,
+              and with ``KARPENTER_TPU_DELTA=1`` its warm streaming state
+              and journal namespace: ``SupervisedSolver(tenant=...)``,
+              ``faults.tenant_scope``). A
               fault in one tenant's stream trips that tenant's circuit and
               quarantines into that tenant's ring.
   fairness    a single dispatcher thread drains the per-tenant bounded

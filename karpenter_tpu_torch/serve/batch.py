@@ -12,10 +12,14 @@ Strictly opportunistic:
 
   * only structurally simple requests qualify (``batchable``): no existing
     nodes, no overrides/volumes/topology arguments, nothing relaxable, a
-    closed circuit, and a ``TorchSolver`` at the bottom of the tenant's
-    stack. Everything else takes the tenant's own supervised solve.
+    cold warm-state stream, a closed circuit, and a ``TorchSolver`` at the
+    bottom of the tenant's stack. Everything else takes the tenant's own
+    supervised solve.
   * every decoded lane passes the FULL-level validator before it is
     returned.
+  * stacked results never seed streaming state: the tenant's
+    ``StreamingSolver`` stays cold, so a later warm cycle diffs against
+    nothing this path produced.
   * fault injection disables stacking wholesale (``faults.active()``): a
     chaos run's per-tenant blast radius must see one stream per solve site.
 
@@ -83,12 +87,21 @@ _GENERIC_KWARGS = {
 
 
 def _unwrap_inner(solver):
-    """Walk SupervisedSolver.primary to the backend that would run."""
+    """Walk SupervisedSolver.primary and StreamingSolver.inner to the backend
+    that would run; returns it and the streaming layer, if any."""
+    streaming = None
     seen = set()
-    while id(solver) not in seen and hasattr(solver, "primary"):
+    while id(solver) not in seen:
         seen.add(id(solver))
-        solver = solver.primary
-    return solver
+        if hasattr(solver, "primary"):
+            solver = solver.primary
+            continue
+        if hasattr(solver, "inner") and hasattr(solver, "reset_streaming_state"):
+            streaming = solver
+            solver = solver.inner
+            continue
+        break
+    return solver, streaming
 
 
 def batchable(request, solver) -> bool:
@@ -119,7 +132,12 @@ def batchable(request, solver) -> bool:
     circuit = getattr(solver, "circuit_state", None)
     if circuit is not None and circuit() != "closed":
         return False
-    return isinstance(_unwrap_inner(solver), TorchSolver)
+    inner, streaming = _unwrap_inner(solver)
+    if streaming is not None and streaming._prev is not None:
+        # a warm stream's next answer depends on carried state; only cold
+        # streams can take the stateless stacked path
+        return False
+    return isinstance(inner, TorchSolver)
 
 
 def _shape_key(problem) -> tuple:

@@ -78,6 +78,7 @@ from karpenter_tpu_torch.metrics.registry import (
     SHARD_MERGE_REJECTIONS,
     SHARD_PAD_FRACTION,
     SHARD_PARTITIONS,
+    TRANSFER_BYTES,
 )
 from karpenter_tpu_torch.obs import flight, trace
 from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
@@ -231,11 +232,18 @@ def _fetch_lanes(results, relax2_stats):
     from karpenter_tpu_torch.ops.relax2 import host_stats
     from karpenter_tpu_torch.solver.torch_backend import fetch_claims
 
+    from karpenter_tpu_torch.verify.gate import _nbytes
+
     kinds = [r.kind.cpu().numpy() for r in results]
     indices = [r.index.cpu().numpy() for r in results]
     claims = [fetch_claims(r.state) for r in results]
     iters = [tuple(int(x) for x in r.iters) for r in results]
     stats = None if relax2_stats is None else [host_stats(s) for s in relax2_stats]
+    # host_stats fetches one int32 word per stat
+    d2h = (sum(k.nbytes + i.nbytes + _nbytes(c) for k, i, c in zip(kinds, indices, claims))
+           + sum(4 * len(r.iters) for r in results)  # the loop's int32 counter words
+           + (0 if relax2_stats is None else sum(4 * len(s) for s in relax2_stats)))
+    TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
     return kinds, indices, claims, iters, stats
 
 
@@ -243,7 +251,7 @@ def _try_shard_solve(
     solver, pods, instance_types, templates, nodes,
     pod_requirements_override, topology, cluster_pods, domains, pod_volumes,
 ) -> Optional[SolveResult]:
-    from karpenter_tpu_torch.models.problem import problem_to_torch
+    from karpenter_tpu_torch.models.problem import numpy_fields, problem_to_torch
     from karpenter_tpu_torch.parallel.mesh import (
         default_mesh,
         lane_problem,
@@ -369,6 +377,7 @@ def _try_shard_solve(
         bucket_pods = int(np.asarray(padded[0].pod_active).shape[0])
         pad_frac = 1.0 - len(pods) / float(max(1, len(padded) * bucket_pods))
         dev_batch = problem_to_torch(batch, solver.device)
+        TRANSFER_BYTES.inc({"direction": "h2d"}, sum(x.nbytes for x in numpy_fields(batch).values()))
         timing["encode"] += time.perf_counter() - t0
 
         # KARPENTER_TPU_RELAX2 rides the lanes too: when the stacked batch

@@ -46,9 +46,10 @@ baseline) with:
 
 On the fault-free path the supervisor wraps, never alters, the primary's
 result: the same object comes back. Counters, circuit states, flight record
-kinds and trace span names are the JAX package's. The warm-state streaming
-layer (``streaming=True`` / ``KARPENTER_TPU_DELTA``) is not ported: asking
-for it raises.
+kinds and trace span names are the JAX package's. ``streaming=True`` (or
+``KARPENTER_TPU_DELTA=1``) wraps the primary in the warm-state streaming
+layer (streaming/warm.StreamingSolver), as the JAX package does; a
+quarantine resets its carried state and removes its journal.
 """
 
 from __future__ import annotations
@@ -173,17 +174,20 @@ class SupervisedSolver(SolverBackend):
         # tenant-selected fault rules. None (the default) is byte-identical
         # to the pre-tenant behavior — no label, shared ring, global faults.
         self.tenant = tenant
-        # KARPENTER_TPU_DELTA=1 (or streaming=True) asks for the JAX package's
-        # warm-state streaming layer (streaming/warm.py), which is not ported:
-        # refuse rather than run cold solves under a warm-path contract
+        # KARPENTER_TPU_DELTA=1 (or streaming=True) wraps the primary in the
+        # warm-state streaming layer: delta-diffed snapshots re-solve only the
+        # churned frontier, with a cold solve above KARPENTER_TPU_DELTA_MAX_FRAC.
+        # The fallback stays unwrapped: it is the reference answer the
+        # streaming path degrades to.
         if streaming is None:
             streaming = os.environ.get("KARPENTER_TPU_DELTA", "") not in ("", "0")
         if streaming:
-            raise NotImplementedError(
-                "the streaming solver (StreamingSolver, KARPENTER_TPU_DELTA) is "
-                "not ported to karpenter_tpu_torch; unset KARPENTER_TPU_DELTA "
-                "or pass streaming=False"
-            )
+            from karpenter_tpu_torch.streaming.warm import StreamingSolver
+
+            if not isinstance(primary, StreamingSolver):
+                primary = StreamingSolver(primary, tenant=tenant)
+            elif tenant is not None and primary.tenant is None:
+                primary.set_tenant(tenant)
         self.primary = primary
         self.fallback = fallback
         self.deadline_s = (

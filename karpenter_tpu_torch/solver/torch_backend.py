@@ -82,9 +82,28 @@ scored, resident and partitioned alike. Placements are those of the flag-off
 solve; ``last_iters`` then counts the extra lanes' work and
 ``last_wave_hist`` holds the iterations by lanes consumed.
 
+With ``KARPENTER_TPU_RUNS`` true (``1``/``true``/``yes``; read when the
+solver is built, where the JAX package reads it at import; off by default in
+both), the sweeps fast path is off and every pass of the per-pass loop runs
+the run-compressed scan (ops/ffd_runs.py): on the card a fresh pass is one
+lane of ``runs_screen``'s stacked mode (parallel/mesh.launch_stacked_screen)
+and a carried pass one lane of its full mode from the carried state
+(launch_runs_screen); on the CPU the plain ``solve_ffd_runs``. The resident
+world stands down with ``runs-mode``.
+
+With ``KARPENTER_TPU_TRACE`` on, a solve opens the JAX backend's spans at the
+same stage boundaries (obs/trace.py): ``encode``, ``bucket`` (pad, group
+remap and the problem's upload), ``relax`` / ``relax2`` (phase 1 and its
+stats fetch), ``sweeps`` / ``narrow`` (the loop and its fetch), ``decode``,
+and the markers ``escalate``, ``relax_fallback`` and ``relax2_standdown``;
+the JAX backend's ``compile`` span has no counterpart (the kernels build
+once per process, obs/programs.py is not ported). Every host-device copy of
+the solve is counted in ``solver_transfer_bytes_total{direction}``: the
+padded problem once per encode pass (phase 1 and the loop read the one
+upload), the stats, verdicts, iteration counts and claim rows fetched.
+
 These are the environment flags the backend reads, as the JAX backend
-reads them. Not ported: the JAX backend's other flag-gated subsystems
-(runs mode, AOT, program registry, its trace spans).
+reads them. Not ported: the JAX backend's AOT and program registry.
 """
 
 from __future__ import annotations
@@ -100,9 +119,19 @@ import torch
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.apis.objects import Pod
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
-from karpenter_tpu_torch.metrics.registry import ORDER_POLICY_SOLVES, RELAX_FALLBACK
+from karpenter_tpu_torch.metrics.registry import ORDER_POLICY_SOLVES, RELAX_FALLBACK, TRANSFER_BYTES
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, problem_to_torch
-from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT, _pad_lanes_mult32
+from karpenter_tpu_torch.obs import trace
+from karpenter_tpu_torch.ops.ffd_core import (
+    KIND_CLAIM,
+    KIND_NEW_CLAIM,
+    KIND_NODE,
+    KIND_NO_SLOT,
+    FFDResult,
+    IterCounts,
+    _pad_lanes_mult32,
+)
+from karpenter_tpu_torch.ops.ffd_runs import has_topo_runs, max_run_bucket, solve_ffd_runs
 from karpenter_tpu_torch.ops.ffd_step import solve_ffd
 from karpenter_tpu_torch.ops.ffd_sweeps import (
     problem_tensors,
@@ -129,10 +158,42 @@ from karpenter_tpu_torch.solver.encode import (
     TemplateInfo,
     domains_from_instance_types,
 )
+from karpenter_tpu_torch.verify.gate import _nbytes
 
 
 class _SlotOverflow(Exception):
     pass
+
+
+def runs_enabled() -> bool:
+    """KARPENTER_TPU_RUNS with the JAX backend's truth rules (off by
+    default)."""
+    return os.environ.get("KARPENTER_TPU_RUNS", "0").lower() in ("1", "true", "yes")
+
+
+def runs_pass(problem, max_claims: int, init=None) -> FFDResult:
+    """One pass of the run-compressed scan (``KARPENTER_TPU_RUNS``): on CUDA
+    tensors one lane of ``runs_screen``, in its stacked mode from the initial
+    state for a fresh pass and in its full mode from ``init`` for a carried
+    one; on CPU tensors the plain ``solve_ffd_runs``."""
+    if not problem.lane_valid.is_cuda:
+        return solve_ffd_runs(problem, max_claims, init=init)
+    from karpenter_tpu_torch.parallel.mesh import (
+        _map_leaves,
+        launch_runs_screen,
+        launch_stacked_screen,
+        stack_problems,
+    )
+
+    p = _pad_lanes_mult32(problem)
+    if init is None:
+        r = launch_stacked_screen(stack_problems([p]), max_claims, passes=1)
+    else:
+        r = launch_runs_screen(
+            p, init, p.node_avail[None], p.pod_active[None],
+            max_run=max_run_bucket(p), passes=1, with_topo=has_topo_runs(p),
+        )
+    return FFDResult(kind=r.kind[0], index=r.index[0], state=_map_leaves(lambda x: x[0], r.state), work=r.work)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -252,6 +313,9 @@ class TorchSolver(SolverBackend):
     def __init__(self, well_known=None, initial_claim_slots: int = 32, device=None,
                  relax: bool = True, device_world: bool = False):
         self.device = resolve_device(device)
+        # the run-compressed per-pass solve (module docstring,
+        # KARPENTER_TPU_RUNS)
+        self.runs = runs_enabled()
         # the two-phase solve (module docstring); the JAX package's
         # KARPENTER_TPU_RELAX, on by default there too
         self.relax = relax
@@ -330,6 +394,17 @@ class TorchSolver(SolverBackend):
             domains = domains_from_instance_types(instance_types, templates)
         max_claims = min(self.claim_slots, claim_axis_bucket(len(pods)))
         self.last_relax2 = None  # never report a prior solve's convex phase 1
+        # passthrough: under a caller's open cycle (the supervisor's, the
+        # provisioner's) the phases land under its span; a direct call is its
+        # own cycle root
+        with trace.cycle("solve", backend=type(self).__name__, passthrough=True, pods=len(pods)):
+            return self._solve(
+                pods, instance_types, templates, nodes, pod_requirements_override, topology,
+                cluster_pods, domains, caller_domains, pod_volumes, max_claims,
+            )
+
+    def _solve(self, pods, instance_types, templates, nodes, pod_requirements_override, topology,
+               cluster_pods, domains, caller_domains, pod_volumes, max_claims) -> SolveResult:
         if self._device_world is not None:
             resident = self._device_world.try_solve(
                 pods, instance_types, templates, nodes, pod_requirements_override,
@@ -368,6 +443,8 @@ class TorchSolver(SolverBackend):
                 max_claims = min(claim_axis_bucket(max_claims + 1), claim_axis_bucket(len(pods)))
                 self.claim_slots = max(self.claim_slots, max_claims)
                 self.claim_escalations += 1
+                with trace.span("escalate", max_claims=max_claims):
+                    pass
                 continue
             relax2_used = self.last_relax2 is not None and self.last_relax2.get("reason") is None
             if self.last_relax is not None or relax2_used:
@@ -393,6 +470,8 @@ class TorchSolver(SolverBackend):
                         self.last_relax2 = {"reason": "gate-rejected"}
                     else:
                         allow_relax = False
+                    with trace.span("relax_fallback", violations=len(violations)):
+                        pass
                     continue
             return result
 
@@ -406,7 +485,6 @@ class TorchSolver(SolverBackend):
         import time
 
         from karpenter_tpu_torch.obs import explain as obs_explain
-        from karpenter_tpu_torch.obs import trace
         from karpenter_tpu_torch.ops.ffd_step import attribute_pods
 
         t0 = time.perf_counter()
@@ -483,9 +561,14 @@ class TorchSolver(SolverBackend):
     def _relax_phase(self, problem, max_claims):
         """Phase 1 over the padded device problem: its RelaxOut, or None when
         it placed nothing (the plain sweeps solve is then the whole solve)."""
-        rout = relax_place(problem, max_claims)
-        stats = torch.stack(list(rout.stats)).cpu().tolist()
-        self.last_relax = dict(zip(("eligible", "placed", "demoted", "claims"), stats))
+        with trace.span("relax", program="relax_place") as sp:
+            rout = relax_place(problem, max_claims)
+            fetched = torch.stack(list(rout.stats)).cpu()
+            TRANSFER_BYTES.inc({"direction": "d2h"}, _nbytes(fetched))
+            self.last_relax = dict(zip(("eligible", "placed", "demoted", "claims"), fetched.tolist()))
+            if sp is not None:
+                for name, value in self.last_relax.items():
+                    sp.count(name, value)
         if self.last_relax["placed"] <= 0:
             self.last_relax = None
             return None
@@ -497,6 +580,8 @@ class TorchSolver(SolverBackend):
         off."""
         RELAX_FALLBACK.inc({"reason": reason})
         self.last_relax2 = {"reason": reason, **info}
+        with trace.span("relax2_standdown", reason=reason):
+            pass
         return None
 
     def _relax2_phase(self, problem, max_claims):
@@ -514,8 +599,11 @@ class TorchSolver(SolverBackend):
         try:
             if not relax2.relax_applicable(problem):
                 return self._relax2_standdown("finite-pool")
-            rout = relax2.relax2_place(problem, max_claims)
-            stats = relax2.host_stats(rout.stats)
+            with trace.span("relax2", program="relax2_place"):
+                rout = relax2.relax2_place(problem, max_claims)
+                stats = relax2.host_stats(rout.stats)
+                # host_stats fetches one int32 word per stat
+                TRANSFER_BYTES.inc({"direction": "d2h"}, 4 * len(rout.stats))
             if stats.eligible <= 0:
                 return self._relax2_standdown(relax2.classify_ineligible(problem))
             if not relax2.converged(stats.residual, stats.capviol):
@@ -573,8 +661,10 @@ class TorchSolver(SolverBackend):
         )
         encoder = Encoder(self.well_known)
         # nothing relaxable: the requeue passes are one kernel launch; any
-        # relaxable pod keeps the per-pass loop (host re-encode per rung)
-        use_sweeps = not prefs.tolerate_prefer_no_schedule and not any(
+        # relaxable pod keeps the per-pass loop (host re-encode per rung), as
+        # does the run-compressed solve (KARPENTER_TPU_RUNS)
+        use_runs = self.runs
+        use_sweeps = not use_runs and not prefs.tolerate_prefer_no_schedule and not any(
             Preferences.is_relaxable(p) for p in work
         )
         out = SolveResult()
@@ -586,33 +676,37 @@ class TorchSolver(SolverBackend):
         queue = list(range(len(work)))
         while queue:
             t0 = time.perf_counter()
-            encoded = encoder.encode(
-                [work[i] for i in queue],
-                instance_types,
-                templates,
-                nodes,
-                pod_reqs_override=(
-                    [pod_requirements_override[i] for i in queue]
-                    if pod_requirements_override is not None
-                    else None
-                ),
-                topology=topo,
-                num_claim_slots=max_claims,
-                vocab_pods=vocab_pods,
-                vocab_reqs=pod_requirements_override,
-                pod_volumes=(
-                    [pod_volumes[i] for i in queue] if pod_volumes is not None else None
-                ),
-            )
-            host_problem, meta = pad_problem(encoded.problem), encoded.meta
-            group_keys = [
-                tg.hash_key()
-                for tg in list(topo.topologies.values()) + list(topo.inverse_topologies.values())
-            ]
-            if state is not None and group_keys != prev_group_keys:
-                state = _remap_group_state(state, prev_group_keys, group_keys, host_problem)
-            prev_group_keys = group_keys
-            problem = problem_to_torch(host_problem, self.device)
+            with trace.span("encode", queue=len(queue)):
+                encoded = encoder.encode(
+                    [work[i] for i in queue],
+                    instance_types,
+                    templates,
+                    nodes,
+                    pod_reqs_override=(
+                        [pod_requirements_override[i] for i in queue]
+                        if pod_requirements_override is not None
+                        else None
+                    ),
+                    topology=topo,
+                    num_claim_slots=max_claims,
+                    vocab_pods=vocab_pods,
+                    vocab_reqs=pod_requirements_override,
+                    pod_volumes=(
+                        [pod_volumes[i] for i in queue] if pod_volumes is not None else None
+                    ),
+                )
+            with trace.span("bucket", max_claims=max_claims):
+                host_problem, meta = pad_problem(encoded.problem), encoded.meta
+                group_keys = [
+                    tg.hash_key()
+                    for tg in list(topo.topologies.values()) + list(topo.inverse_topologies.values())
+                ]
+                if state is not None and group_keys != prev_group_keys:
+                    state = _remap_group_state(state, prev_group_keys, group_keys, host_problem)
+                prev_group_keys = group_keys
+                # the pass's one upload: phase 1 and the loop read it
+                problem = problem_to_torch(host_problem, self.device)
+                TRANSFER_BYTES.inc({"direction": "h2d"}, _nbytes(host_problem))
             timing["encode"] += time.perf_counter() - t0
 
             lanes = use_sweeps and ordering.lanes_enabled()
@@ -636,66 +730,84 @@ class TorchSolver(SolverBackend):
 
             t0 = time.perf_counter()
             wavefront = wavefront_lanes()
-            # the learned requeue order: one score per row (the rows'
-            # features do not depend on which are active), read by the
-            # fresh or the carried loop; on the card both launches read one
-            # build of the problem's tables
-            scores = tables = None
-            if lanes:
-                if problem.lane_valid.is_cuda:
-                    tables = problem_tensors(_pad_lanes_mult32(problem))
-                scores = lane_scores(problem, ordering.lane_weights_static(), tables=tables)
-            if rout is not None:
-                problem = dataclasses.replace(problem, pod_active=rout.residue_active)
-                host_problem = dataclasses.replace(
-                    host_problem, pod_active=rout.residue_active.cpu().numpy()
-                )
-                if lanes:
-                    ORDER_POLICY_SOLVES.inc({"part": "lane"})
-                result = solve_ffd_sweeps_carried(problem, max_claims, init=(rout.state, rout.kind, rout.index),
-                                                  order_scores=scores, wavefront=wavefront, tables=tables)
-            elif use_sweeps:
-                result = solve_ffd_sweeps(problem, max_claims, order_scores=scores, wavefront=wavefront,
-                                          tables=tables)
-            else:
-                result = solve_ffd(problem, max_claims, init=state)
-            state = result.state
-            kinds = result.kind.cpu().numpy()
-            indices = result.index.cpu().numpy()
             if use_sweeps:
-                np_final = fetch_claims(state)
-                self.last_iters = type(result.iters)(*(int(x) for x in result.iters))
-                self.last_wave_hist = None if result.wave_hist is None else result.wave_hist.cpu().tolist()
+                program = "solve_ffd_sweeps_carried" if rout is not None else "solve_ffd_sweeps"
             else:
-                np_final = None
-                self.last_iters = None
-                self.last_wave_hist = None
+                program = "solve_ffd_runs" if use_runs else "solve_ffd"
+            with trace.span("sweeps" if use_sweeps else "narrow", program=program) as sp:
+                # the learned requeue order: one score per row (the rows'
+                # features do not depend on which are active), read by the
+                # fresh or the carried loop; on the card both launches read
+                # one build of the problem's tables
+                scores = tables = None
+                if lanes:
+                    if problem.lane_valid.is_cuda:
+                        tables = problem_tensors(_pad_lanes_mult32(problem))
+                    scores = lane_scores(problem, ordering.lane_weights_static(), tables=tables)
+                if rout is not None:
+                    problem = dataclasses.replace(problem, pod_active=rout.residue_active)
+                    host_problem = dataclasses.replace(
+                        host_problem, pod_active=rout.residue_active.cpu().numpy()
+                    )
+                    if lanes:
+                        ORDER_POLICY_SOLVES.inc({"part": "lane"})
+                    result = solve_ffd_sweeps_carried(problem, max_claims, init=(rout.state, rout.kind, rout.index),
+                                                      order_scores=scores, wavefront=wavefront, tables=tables)
+                elif use_sweeps:
+                    result = solve_ffd_sweeps(problem, max_claims, order_scores=scores, wavefront=wavefront,
+                                              tables=tables)
+                elif use_runs:
+                    result = runs_pass(problem, max_claims, init=state)
+                else:
+                    result = solve_ffd(problem, max_claims, init=state)
+                state = result.state
+                kinds = result.kind.cpu().numpy()
+                indices = result.index.cpu().numpy()
+                d2h = kinds.nbytes + indices.nbytes
+                if use_sweeps:
+                    np_final = fetch_claims(state)
+                    iters = tuple(int(x) for x in result.iters)
+                    self.last_iters = type(result.iters)(*iters)
+                    self.last_wave_hist = None if result.wave_hist is None else result.wave_hist.cpu().tolist()
+                    # the iteration counts are the loop's int32 counter words
+                    d2h += _nbytes(np_final) + 4 * len(iters) + _nbytes(result.wave_hist)
+                else:
+                    np_final = None
+                    self.last_iters = None
+                    self.last_wave_hist = None
+                TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
+                if sp is not None:
+                    sp.count("d2h_bytes", d2h)
+                    if self.last_iters is not None:
+                        for name, value in zip(IterCounts._fields, self.last_iters):
+                            sp.count(name, value)
             timing["device"] += time.perf_counter() - t0
             if (kinds[: len(queue)] == KIND_NO_SLOT).any():
                 raise _SlotOverflow()
 
             t0 = time.perf_counter()
-            failed = []
-            failed_rows = []  # device row per failed orig (the explain pass)
-            progress = False
-            for row in range(len(meta.pod_order)):
-                orig = queue[meta.pod_order[row]]
-                kind, index = int(kinds[row]), int(indices[row])
-                if kind in (KIND_NODE, KIND_CLAIM, KIND_NEW_CLAIM):
-                    pod_kinds[orig] = (kind, index)
-                    progress = True
-                else:
-                    failed.append(orig)
-                    failed_rows.append(row)
-            relaxed_any = False
-            if not use_sweeps:  # sweeps imply nothing is relaxable
-                for orig in failed:
-                    if orig not in copied:
-                        work[orig] = copy.deepcopy(work[orig])
-                        copied.add(orig)
-                    if prefs.relax(work[orig]) is not None:
-                        relaxed_any = True
-                        topo.update(work[orig])
+            with trace.span("decode"):
+                failed = []
+                failed_rows = []  # device row per failed orig (the explain pass)
+                progress = False
+                for row in range(len(meta.pod_order)):
+                    orig = queue[meta.pod_order[row]]
+                    kind, index = int(kinds[row]), int(indices[row])
+                    if kind in (KIND_NODE, KIND_CLAIM, KIND_NEW_CLAIM):
+                        pod_kinds[orig] = (kind, index)
+                        progress = True
+                    else:
+                        failed.append(orig)
+                        failed_rows.append(row)
+                relaxed_any = False
+                if not use_sweeps:  # sweeps imply nothing is relaxable
+                    for orig in failed:
+                        if orig not in copied:
+                            work[orig] = copy.deepcopy(work[orig])
+                            copied.add(orig)
+                        if prefs.relax(work[orig]) is not None:
+                            relaxed_any = True
+                            topo.update(work[orig])
             timing["decode"] += time.perf_counter() - t0
             if use_sweeps or (not progress and not relaxed_any):
                 # terminal failures: the reference's per-template forensics,
@@ -727,9 +839,11 @@ class TorchSolver(SolverBackend):
             queue = failed
 
         t0 = time.perf_counter()
-        if state is not None and np_final is None:
-            np_final = fetch_claims(state)
-        decode_claim_placements(out, meta, max_claims, np_final if state is not None else None, pod_kinds)
+        with trace.span("decode", final=True):
+            if state is not None and np_final is None:
+                np_final = fetch_claims(state)
+                TRANSFER_BYTES.inc({"direction": "d2h"}, _nbytes(np_final))
+            decode_claim_placements(out, meta, max_claims, np_final if state is not None else None, pod_kinds)
         if use_sweeps and meta is not None:
             # single-pass solves hand the device gate the exact padded tensors
             # this result decoded from (the repair pass's residue problem after

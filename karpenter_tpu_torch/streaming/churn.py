@@ -1,13 +1,16 @@
-"""Seeded churn load generator: arrivals and deletes, one solve cycle at a time.
+"""Seeded churn load generator: arrivals, deletes and spot reclaims, one
+solve cycle at a time.
 
 Counterpart of the JAX package's ``streaming/churn.py``: the same config and
 the same seed give the same pod stream (names, shapes, labels, delete
 positions), which is what lets the tests and ``chip_smoke.py`` drive both
 packages, or two solvers of this one, through byte-identical snapshots.
+Provider-initiated spot reclaims come through the shared fault grammar
+(testing/faults.py, ``cloud.reclaim``): one 'cloud' draw per cycle, its
+targets picked by ``faults.reclaim_targets`` from the injector's own
+(seed, call#) hash, so a chaos spec replays the same reclaims:
 
-Not ported: the provider spot-reclaim hook (``cloud.reclaim`` of the JAX
-package's fault grammar, which testing/faults.py parses), which waits for
-the cloud provider's reclaim path.
+    KARPENTER_TPU_FAULTS="seed=7;cloud.reclaim=2@p0.1"
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from karpenter_tpu_torch.apis.objects import Container, ObjectMeta, Pod, PodSpec
 from karpenter_tpu_torch.solver.encode import NodeInfo
+from karpenter_tpu_torch.testing import faults
 from karpenter_tpu_torch.utils import resources as res
 
 
@@ -49,6 +53,7 @@ class ChurnEvent:
     cycle: int
     arrived: List[Pod] = field(default_factory=list)
     deleted: List[Pod] = field(default_factory=list)
+    reclaimed: List[str] = field(default_factory=list)  # node names
 
 
 class ChurnProcess:
@@ -87,6 +92,17 @@ class ChurnProcess:
             p = self.pod_factory(f"churn-{ev.cycle}-{j}", self.rng)
             ev.arrived.append(p)
             self.pods.append(p)
+        # provider-initiated spot reclaim, through the shared fault grammar:
+        # one 'cloud' draw per cycle, width = rule.param
+        inj = faults.active()
+        if inj is not None and self.nodes:
+            rule = inj.draw("cloud")
+            if rule is not None and rule.kind == "reclaim":
+                ev.reclaimed = faults.reclaim_targets(
+                    rule, [n.name for n in self.nodes], inj.seed, inj.calls("cloud")
+                )
+                gone = set(ev.reclaimed)
+                self.nodes = [n for n in self.nodes if n.name not in gone]
         self.events.append(ev)
         return ev
 
@@ -100,8 +116,10 @@ def run_churn(
     validate: bool = False,
 ) -> List[Dict[str, object]]:
     """Drive ``solver`` through ``cycles`` churn steps. Returns one record per
-    cycle: pod count, wall seconds, and, when the solver serves cycles from a
-    resident world (``TorchSolver(device_world=True)``), that cycle's outcome.
+    cycle: pod count, wall seconds, and the cycle's outcome: the streaming
+    layer's outcome and reuse ratio when the solver is (or supervises) a
+    ``StreamingSolver``, else the resident world's when it serves cycles from
+    one (``TorchSolver(device_world=True)``).
     ``validate=True`` runs the full-level host validator on every cycle's
     result and records the violation count."""
     records: List[Dict[str, object]] = []
@@ -118,13 +136,23 @@ def run_churn(
             "nodes": len(process.nodes),
             "arrived": len(ev.arrived),
             "deleted": len(ev.deleted),
+            "reclaimed": len(ev.reclaimed),
             "scheduled": result.num_scheduled(),
             "failures": len(result.failures),
             "seconds": seconds,
         }
-        outcome = getattr(solver, "last_world_outcome", None)
+        # streaming telemetry: the solver itself, or the supervised primary
+        src = solver
+        if getattr(src, "last_outcome", None) is None:
+            src = getattr(solver, "primary", solver)
+        outcome = getattr(src, "last_outcome", None)
         if outcome is not None:
             rec["outcome"] = outcome
+            rec["reuse_ratio"] = getattr(src, "last_reuse_ratio", 0.0)
+        else:
+            outcome = getattr(solver, "last_world_outcome", None)
+            if outcome is not None:
+                rec["outcome"] = outcome
         if validate:
             from karpenter_tpu_torch.solver import validator as val
 

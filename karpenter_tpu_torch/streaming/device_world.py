@@ -47,10 +47,17 @@ dispatch hook, or the CUDA runtime's lost-device error) drops the world and
 stands down with ``device-lost``: the legacy path serves the cycle and a
 later cycle re-adopts from scratch.
 
+With the run-compressed solve on (``KARPENTER_TPU_RUNS``, read when the
+``TorchSolver`` is built), every cycle stands down with ``runs-mode``, as in
+the JAX package.
+
 Each cycle's outcome is counted in ``solver_world_patch_total{outcome}``, and
 the bytes it moves in ``solver_transfer_bytes_total{direction}``, as in the
-JAX package. Not ported: the JAX package's ``runs-mode`` standdown (this
-package has no runs mode), and the program registry and AOT hooks.
+JAX package. With ``KARPENTER_TPU_TRACE`` on, a cycle opens the JAX
+package's spans: ``encode`` (the delta encode), ``patch`` or
+``world_adopt``, ``fused`` (the fused launch and its fetch) and ``decode``,
+and sets the ``world_outcome`` attribute. Not ported: the program registry
+and AOT hooks.
 """
 
 from __future__ import annotations
@@ -62,8 +69,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.apis.objects import Pod
 from karpenter_tpu_torch.metrics.registry import TRANSFER_BYTES, WORLD_PATCH
+from karpenter_tpu_torch.obs import trace
 from karpenter_tpu_torch.models.problem import numpy_fields
 from karpenter_tpu_torch.ops.ffd_core import (
     KIND_CLAIM,
@@ -89,23 +96,9 @@ from karpenter_tpu_torch.provisioning.preferences import Preferences
 from karpenter_tpu_torch.solver.backend import FAIL_INCOMPATIBLE, SolveResult
 from karpenter_tpu_torch.solver import ordering
 from karpenter_tpu_torch.streaming.delta import DeltaEncoder, pod_digest
-
-
-def _has_topology_constraints(p: Pod) -> bool:
-    """The pod spreads or (anti-)affines (the JAX package's
-    streaming/warm.py:69): delta worlds have no topology groups."""
-    if p.spec.topology_spread_constraints:
-        return True
-    aff = p.spec.affinity
-    if aff is None:
-        return False
-    return bool(
-        (aff.pod_affinity and (aff.pod_affinity.required or aff.pod_affinity.preferred))
-        or (
-            aff.pod_anti_affinity
-            and (aff.pod_anti_affinity.required or aff.pod_anti_affinity.preferred)
-        )
-    )
+# the warm path's test (the JAX package's streaming/warm.py:69): delta worlds
+# have no topology groups
+from karpenter_tpu_torch.streaming.warm import _has_topology_constraints
 
 
 def _relax_would_fire(templates) -> bool:
@@ -180,6 +173,7 @@ class DeviceWorld:
         self.counters[outcome] = self.counters.get(outcome, 0) + 1
         self.last_outcome = outcome
         WORLD_PATCH.inc({"outcome": outcome})
+        trace.attr("world_outcome", outcome)
 
     def _standdown(self, reason: str) -> None:
         self._record("standdown-" + reason)
@@ -213,6 +207,8 @@ class DeviceWorld:
             or pod_volumes is not None
         ):
             return self._standdown("unsupported-args")
+        if self.backend.runs:
+            return self._standdown("runs-mode")
         if os.environ.get("KARPENTER_TPU_SHARD", "0") not in ("", "0"):
             return self._standdown("shard")
         if ordering.lanes_enabled():
@@ -257,9 +253,10 @@ class DeviceWorld:
         backend = self.backend
         dev = backend.device
         t0 = time.perf_counter()
-        encoded = self.delta.encode(
-            pods, instance_types, templates, nodes=nodes, num_claim_slots=max_claims,
-        )
+        with trace.span("encode", queue=len(pods)):
+            encoded = self.delta.encode(
+                pods, instance_types, templates, nodes=nodes, num_claim_slots=max_claims,
+            )
         spliced, meta = encoded.problem, encoded.meta
         mode = self.delta.last_patch.get("mode")
         rows_prev = self.delta.last_rows_prev
@@ -273,24 +270,33 @@ class DeviceWorld:
         if drift is None:
             stage_outcome = "patched" if self.patched_streak == 0 else "repatched"
             self.patched_streak += 1
-            up = upload_patch(build_patch_args(spliced, rows_prev, self.world.shapes), self.world)
-            patch_world(self.world, up)
-            self.last_patch = up
-            h2d = up.nbytes
-            # the spare buffers the patch writes: this package's counterpart
-            # of the JAX package's donated world
-            donated = sum(self.world.t[n].numel() * self.world.t[n].element_size() for n in PATCH_ROWS)
+            with trace.span("patch", program="patch_world") as sp:
+                up = upload_patch(build_patch_args(spliced, rows_prev, self.world.shapes), self.world)
+                patch_world(self.world, up)
+                self.last_patch = up
+                h2d = up.nbytes
+                # the spare buffers the patch writes: this package's
+                # counterpart of the JAX package's donated world
+                donated = sum(self.world.t[n].numel() * self.world.t[n].element_size() for n in PATCH_ROWS)
+                if not self.pipelined:
+                    _sync(dev)
+                if sp is not None:
+                    sp.count("h2d_bytes", h2d)
+                    sp.count("donated_bytes", donated)
         else:
             stage_outcome = "adopt-" + drift
             self.patched_streak = 0
             self.cold_solves += 1
-            padded = pad_problem(spliced)
-            self.world = adopt_world(padded, max_claims, dev)
-            self.last_patch = None
-            h2d = sum(x.nbytes for x in numpy_fields(padded).values())
-            donated = 0
-        if not self.pipelined:
-            _sync(dev)
+            with trace.span("world_adopt", reason=drift) as sp:
+                padded = pad_problem(spliced)
+                self.world = adopt_world(padded, max_claims, dev)
+                self.last_patch = None
+                h2d = sum(x.nbytes for x in numpy_fields(padded).values())
+                donated = 0
+                if not self.pipelined:
+                    _sync(dev)
+                if sp is not None:
+                    sp.count("h2d_bytes", h2d)
         self.meta = meta
         self.node_names = list(meta.node_names)
         t_patch = time.perf_counter()
@@ -306,29 +312,35 @@ class DeviceWorld:
         t_prep = time.perf_counter()
 
         # -- stage 2: fused solve + gate, then one batched fetch ----------------
-        result, counts = solve_ffd_fused_gate(self.world, pc, max_claims, bf, gbf, wf)
-        if not self.pipelined:
-            _sync(dev)
-        t_dispatch = time.perf_counter()
-        state = result.state
-        iters = torch.stack([torch.as_tensor(x, device=dev).reshape(()) for x in result.iters])
-        whist = result.wave_hist if result.wave_hist is not None else torch.zeros(0, dtype=torch.int32, device=dev)
-        fetched = _fetch(
-            (
-                result.kind, result.index, iters, whist, counts,
-                state.claim_open, state.claim_tpl, state.claim_it_ok, state.claim_requests,
-                state.claim_req.admitted, state.claim_req.comp, state.claim_req.gt,
-                state.claim_req.lt, state.claim_req.defined,
-            ),
-            dev,
-        )
-        t_fetch = time.perf_counter()
-        kinds, indices, iters, whist, counts_np, *np_final = fetched
-        backend.last_iters = IterCounts(*(int(x) for x in iters))
-        backend.last_wave_hist = [int(x) for x in whist] if wf else None
-        d2h = sum(x.nbytes for x in fetched)
-        TRANSFER_BYTES.inc({"direction": "h2d"}, h2d + pod_check.nbytes)
-        TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
+        with trace.span("fused", program="solve_ffd_fused_gate") as sp:
+            result, counts = solve_ffd_fused_gate(self.world, pc, max_claims, bf, gbf, wf)
+            if not self.pipelined:
+                _sync(dev)
+            t_dispatch = time.perf_counter()
+            state = result.state
+            iters = torch.stack([torch.as_tensor(x, device=dev).reshape(()) for x in result.iters])
+            whist = result.wave_hist if result.wave_hist is not None else torch.zeros(0, dtype=torch.int32, device=dev)
+            fetched = _fetch(
+                (
+                    result.kind, result.index, iters, whist, counts,
+                    state.claim_open, state.claim_tpl, state.claim_it_ok, state.claim_requests,
+                    state.claim_req.admitted, state.claim_req.comp, state.claim_req.gt,
+                    state.claim_req.lt, state.claim_req.defined,
+                ),
+                dev,
+            )
+            t_fetch = time.perf_counter()
+            kinds, indices, iters, whist, counts_np, *np_final = fetched
+            backend.last_iters = IterCounts(*(int(x) for x in iters))
+            backend.last_wave_hist = [int(x) for x in whist] if wf else None
+            d2h = sum(x.nbytes for x in fetched)
+            TRANSFER_BYTES.inc({"direction": "h2d"}, h2d + pod_check.nbytes)
+            TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
+            if sp is not None:
+                sp.count("h2d_bytes", pod_check.nbytes)
+                sp.count("d2h_bytes", d2h)
+                for name, value in zip(IterCounts._fields, backend.last_iters):
+                    sp.count(name, value)
 
         # -- classified post-solve standdowns: reset, legacy serves the cycle --
         if (kinds[: len(pods)] == KIND_NO_SLOT).any():
@@ -346,29 +358,30 @@ class DeviceWorld:
         from karpenter_tpu_torch.solver.torch_backend import decode_claim_placements
 
         out = SolveResult()
-        pod_kinds: Dict[int, tuple] = {}
-        failed, failed_rows = [], []
-        for row in range(len(meta.pod_order)):
-            orig = meta.pod_order[row]  # the batch is the full pod list
-            kind, index = int(kinds[row]), int(indices[row])
-            if kind in (KIND_NODE, KIND_CLAIM, KIND_NEW_CLAIM):
-                pod_kinds[orig] = (kind, index)
-            else:
-                failed.append(orig)
-                failed_rows.append(row)
-        for orig in failed:
-            out.failures[orig] = failure_reason(
-                pods[orig], instance_types, templates, well_known=backend.well_known,
-            ) or FAIL_INCOMPATIBLE
-        from karpenter_tpu_torch.obs import explain as obs_explain
+        with trace.span("decode"):
+            pod_kinds: Dict[int, tuple] = {}
+            failed, failed_rows = [], []
+            for row in range(len(meta.pod_order)):
+                orig = meta.pod_order[row]  # the batch is the full pod list
+                kind, index = int(kinds[row]), int(indices[row])
+                if kind in (KIND_NODE, KIND_CLAIM, KIND_NEW_CLAIM):
+                    pod_kinds[orig] = (kind, index)
+                else:
+                    failed.append(orig)
+                    failed_rows.append(row)
+            for orig in failed:
+                out.failures[orig] = failure_reason(
+                    pods[orig], instance_types, templates, well_known=backend.well_known,
+                ) or FAIL_INCOMPATIBLE
+            from karpenter_tpu_torch.obs import explain as obs_explain
 
-        if obs_explain.enabled():
-            # attribution reads the resident tables: no host re-upload
-            backend._explain(
-                out, world_problem(self.world.t), state, meta, kinds, failed, failed_rows,
-                pod_kinds, instance_types, len(pods),
-            )
-        decode_claim_placements(out, meta, max_claims, np_final, pod_kinds)
+            if obs_explain.enabled():
+                # attribution reads the resident tables: no host re-upload
+                backend._explain(
+                    out, world_problem(self.world.t), state, meta, kinds, failed, failed_rows,
+                    pod_kinds, instance_types, len(pods),
+                )
+            decode_claim_placements(out, meta, max_claims, np_final, pod_kinds)
         # the composite gate takes the fused counts instead of launching its
         # own; screen, skew and audit still run on the published decode
         out.verify_ctx = verify.make_context(

@@ -15,7 +15,8 @@ Grammar — ``;``-separated entries, optional leading ``seed=N``:
               cloud: reclaim
               proc: crash
               device: loss | degraded
-    param  := float   (solve.hang: duration in seconds, default 30)
+    param  := float   (solve.hang: duration in seconds, default 30;
+                       cloud.reclaim: nodes reclaimed per firing, default 1)
     sched  := N       fire on the N-th call to the site (1-based)
             | N..M    fire on calls N through M inclusive
             | pP      fire with probability P per call (seeded, per-call
@@ -24,11 +25,14 @@ Grammar — ``;``-separated entries, optional leading ``seed=N``:
             | *       fire on every call
 
 Every site of the grammar parses, so a spec written for the JAX package
-parses here too; this package draws the solve site, the mesh-device site
-(solver/mesh_health.py: one draw per health-hooked dispatch or probe) and
-the fake cloud provider's create and delete sites
-(cloudprovider/fake.FakeCloudProvider, raising ``cloud_exception``); the
-cloud and process sites belong to layers not ported yet. The optional
+parses here too, and this package draws every one: the solve site, the
+mesh-device site (solver/mesh_health.py: one draw per health-hooked dispatch
+or probe), the fake cloud provider's create and delete sites
+(cloudprovider/fake.FakeCloudProvider, raising ``cloud_exception``), the
+cloud site (the churn generator's spot reclaims, streaming/churn.py, over
+``reclaim_targets``) and the process site (``crash_point``: the crash-point
+visits of the streaming cycle, its journal and utils/persist.py, which the
+restart harness testing/restart.py schedules). The optional
 ``[tenant]`` selector scopes a rule to one tenant stream of the serve layer:
 it matches only while that tenant's scope is active (``tenant_scope``) and
 counts that tenant's visits to the site. Probabilistic draws hash
@@ -54,8 +58,11 @@ SOLVE_KINDS = ("compile", "device", "encode", "nan", "hang")
 CLOUD_KINDS = ("ice", "ratelimit", "timeout")
 # the sites below parse as in the JAX package. 'device' models one mesh
 # device failing (its selector is the device index; drawn by
-# solver/mesh_health.py), 'cloud' provider-initiated events and 'proc'
-# process death (not drawn by this package).
+# solver/mesh_health.py), 'cloud' provider-initiated events (drawn once per
+# churn cycle, streaming/churn.py) and 'proc' process death: 'crash' SIGKILLs
+# the process at the N-th crash-point visit. Only the subprocess restart
+# harness (testing/restart.py) schedules it: an in-process test that
+# schedules proc.crash kills the test runner.
 DEVICE_KINDS = ("loss", "degraded")
 RECLAIM_KINDS = ("reclaim",)
 PROC_KINDS = ("crash",)
@@ -232,6 +239,13 @@ class FaultInjector:
         rules, seed = parse_spec(spec)
         return cls(rules, seed)
 
+    def reset(self) -> None:
+        self._counts.clear()
+        self.fired.clear()
+
+    def calls(self, site: str) -> int:
+        return self._counts.get(site, 0)
+
     def draw(self, site: str) -> Optional[FaultRule]:
         """Advance the site's call counter and return the first matching rule
         (or None). Call exactly once per hooked operation. Inside a
@@ -311,6 +325,38 @@ def corrupt_result(result) -> None:
     for claim in result.new_claims:
         for key in list(claim.requests):
             claim.requests[key] = float("nan")
+
+
+def reclaim_targets(rule: FaultRule, names: Sequence[str], seed: int, call: int) -> List[str]:
+    """Pick which live nodes a ``cloud.reclaim`` firing takes: a pure
+    function of (seed, call#) over the sorted name list, so a replay with the
+    same spec reclaims the same nodes whatever the listing order upstream.
+    ``rule.param`` is the reclaim width (default 1)."""
+    pool = sorted(names)
+    if not pool:
+        return []
+    count = min(int(rule.param) if rule.param else 1, len(pool))
+    rng = random.Random(zlib.crc32(f"{seed}:cloud.reclaim:{call}".encode()))
+    return rng.sample(pool, count)
+
+
+def crash_point(point: str) -> None:
+    """Phase-boundary hook for ``proc.crash``: callers mark kill-eligible
+    sites (cycle entry, journal pre/post-write, persist pre-rename) with a
+    named visit. Each visit advances the shared 'proc' counter; the scheduled
+    firing SIGKILLs the process (no atexit, no cleanup: the death an OOM kill
+    or a node preemption delivers). With no injector it is one attribute
+    read."""
+    injector = active()
+    if injector is None:
+        return
+    rule = injector.draw("proc")
+    if rule is not None and rule.kind == "crash":
+        import logging
+        import signal
+
+        logging.getLogger(__name__).warning("proc.crash firing at %s (call %d)", point, injector.calls("proc"))
+        os.kill(os.getpid(), signal.SIGKILL)
 
 
 def cloud_exception(rule: FaultRule) -> Exception:

@@ -1,13 +1,16 @@
 """Crash-consistent framed files: a magic line, a JSON header (kind,
 version, payload length and sha256), then the payload.
 
-Counterpart of the JAX package's ``utils/persist.py``, ported for the flight
-recorder's dumps (obs/flight.py). ``write_framed`` writes a temporary file,
-fsyncs it and renames it into place, so a reader sees the previous file or
-the new one, never a torn one. ``load_framed`` raises :class:`PersistError`
-with a classified reason: ``missing``, ``truncated``, ``corrupt``,
-``checksum`` or ``version-skew``. The process-crash hook the JAX package
-calls before the rename (its ``proc.crash`` fault site) is not ported.
+Counterpart of the JAX package's ``utils/persist.py``, for the flight
+recorder's dumps (obs/flight.py) and the streaming journal
+(streaming/snapshot.py). ``write_framed`` writes a temporary file, fsyncs it
+and renames it into place, so a reader sees the previous file or the new
+one, never a torn one. ``load_framed`` raises :class:`PersistError` with a
+classified reason: ``missing``, ``truncated``, ``corrupt``, ``checksum`` or
+``version-skew``. The ``persist.pre-rename`` crash point
+(testing/faults.crash_point, the ``proc.crash`` site) fires between the
+temporary write and the rename: a kill scheduled there must leave the
+previous file intact.
 """
 
 from __future__ import annotations
@@ -67,6 +70,11 @@ def write_framed(
         f.write(blob)
         f.flush()
         os.fsync(f.fileno())
+    # the torn-write crash site: a SIGKILL here must leave the previous file
+    # untouched (loaders ignore temporary files)
+    from karpenter_tpu_torch.testing import faults
+
+    faults.crash_point("persist.pre-rename")
     os.replace(tmp, path)
     try:
         dir_fd = os.open(directory, os.O_RDONLY)

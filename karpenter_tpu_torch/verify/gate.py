@@ -17,7 +17,8 @@ The flow for one result (``full_gate``):
   3. host topology-skew check — cheap after the validator's content-keyed
      cohort dedup, and it needs exact python cohort semantics, so it stays
      on the host.
-  4. sampled float64 audit — a seeded random subset (AUDIT_FRAC) of
+  4. sampled float64 audit — a seeded random subset
+     (``KARPENTER_TPU_VERIFY_AUDIT_FRAC``, default AUDIT_FRAC) of
      claims/nodes re-run through solver/validator.py at full level every
      cycle; solver/validator.py remains ground truth, the device program is
      only ever an accelerator of it.
@@ -40,6 +41,7 @@ tensors are on the card.
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -49,13 +51,38 @@ _ABS_TOL = 1e-6
 _REL_TOL = 1e-4
 
 
-# per-cycle probability that each accepted claim/node is re-checked by the
-# float64 host validator, and the seed of that draw
+# the default per-cycle probability that each accepted claim/node is
+# re-checked by the float64 host validator, and the default seed of that draw
 AUDIT_FRAC = 0.05
 AUDIT_SEED = 0
 
 
-# deterministic per-process audit cadence: (AUDIT_SEED, call ordinal) seeds the
+def enabled() -> bool:
+    """KARPENTER_TPU_DEVICE_GATE (default on), as the JAX package reads it.
+    The streaming warm path (streaming/warm.py) reads it to choose its exit
+    gate: the incremental row-scoped check when on, the full host validator
+    when off. ``full_gate`` itself always applies."""
+    return os.environ.get("KARPENTER_TPU_DEVICE_GATE", "1") not in ("", "0")
+
+
+def audit_frac() -> float:
+    """KARPENTER_TPU_VERIFY_AUDIT_FRAC (default AUDIT_FRAC), clamped to
+    [0, 1]; an unparsable value is the default."""
+    raw = os.environ.get("KARPENTER_TPU_VERIFY_AUDIT_FRAC", str(AUDIT_FRAC))
+    try:
+        return max(0.0, min(1.0, float(raw)))
+    except ValueError:
+        return AUDIT_FRAC
+
+
+def _audit_seed() -> int:
+    try:
+        return int(os.environ.get("KARPENTER_TPU_VERIFY_AUDIT_SEED", str(AUDIT_SEED)))
+    except ValueError:
+        return AUDIT_SEED
+
+
+# deterministic per-process audit cadence: (seed, call ordinal) seeds the
 # sampler so a replayed cycle audits the same rows (restart journals replay
 # cycles in order) while successive cycles walk different subsets
 _audit_calls = 0
@@ -64,7 +91,7 @@ _audit_calls = 0
 def _audit_rng() -> random.Random:
     global _audit_calls
     _audit_calls += 1
-    return random.Random((AUDIT_SEED << 20) ^ _audit_calls)
+    return random.Random((_audit_seed() << 20) ^ _audit_calls)
 
 
 @dataclasses.dataclass
@@ -139,12 +166,13 @@ def full_gate(
     if ctx.has_override != (pod_requirements_override is not None):
         return None
     from karpenter_tpu_torch.metrics.registry import GATE_AUDIT, GATE_DURATION, measure
+    from karpenter_tpu_torch.obs import trace
 
     host_args = (
         result, pods, instance_types, templates, nodes,
         pod_requirements_override, cluster_pods, domains,
     )
-    with measure(GATE_DURATION, {"mode": "device"}):
+    with trace.span("gate") as sp, measure(GATE_DURATION, {"mode": "device"}):
         reject = _screen(result, pods, templates, instance_types, nodes, ctx)
         counts: Dict[str, int] = {}
         if reject is None:
@@ -160,6 +188,8 @@ def full_gate(
                 reject = "device:" + ",".join(sorted(counts))
         if reject is None and _skew_check(*host_args):
             reject = "topology-skew"
+        if sp is not None and reject is not None:
+            sp.attrs["reject"] = reject
 
     if reject is not None:
         # every reject is host-confirmed before anyone acts on it: the
@@ -181,6 +211,9 @@ def full_gate(
             # float64 disagrees with the device accept on a sampled row:
             # the full host gate governs this cycle
             GATE_AUDIT.inc({"outcome": "mismatch"})
+            from karpenter_tpu_torch.obs import flight
+
+            flight.record(flight.KIND_GATE_AUDIT, outcome="mismatch")
             violations = _host_full(*host_args)
             return GateOutcome(
                 violations=violations, mode="host-confirm", counts=counts,
@@ -248,15 +281,18 @@ def _maybe_audit(
     pod_requirements_override, cluster_pods, domains,
 ) -> Optional[List[Any]]:
     """Float64 spot-check of an accepted result: every claim/node is drawn
-    into the sample at AUDIT_FRAC, and the sampled subset runs through the
+    into the sample at ``audit_frac()``, and the sampled subset runs through the
     host validator at full level (accounting always rides along — it is
     O(P) and the one cross-bin invariant). Returns None when nothing was
     sampled, else the sampled violations (empty = match)."""
+    frac = audit_frac()
+    if frac <= 0.0:
+        return None
     rng = _audit_rng()
     claim_scope = {
-        ci for ci in range(len(result.new_claims)) if rng.random() < AUDIT_FRAC
+        ci for ci in range(len(result.new_claims)) if rng.random() < frac
     }
-    node_scope = {name for name in result.node_pods if rng.random() < AUDIT_FRAC}
+    node_scope = {name for name in result.node_pods if rng.random() < frac}
     if not claim_scope and not node_scope:
         return None
     from karpenter_tpu_torch.metrics.registry import GATE_DURATION, measure
@@ -352,19 +388,25 @@ def _device_counts(ctx, result, pods, pod_requirements_override) -> Dict[str, in
     the invariant program on the solve's device, and return the nonzero
     per-invariant counts (empty dict = device-accept)."""
     from karpenter_tpu_torch.metrics.registry import TRANSFER_BYTES
+    from karpenter_tpu_torch.obs import trace
     from karpenter_tpu_torch.verify import device as dev
 
     gp, ga, bf = _build_args(ctx, result, pods, pod_requirements_override)
     # what this wrapper hands to the device: the result's GateArgs, and the
     # problem when the solve left no copy of it there
     TRANSFER_BYTES.inc({"direction": "h2d"}, _nbytes(ga) + (_nbytes(ctx.problem) if ctx.device_problem is None else 0))
-    counts = dev.verify_gate(gp, ga, bf, ctx.device_tables).cpu().numpy()
-    TRANSFER_BYTES.inc({"direction": "d2h"}, int(counts.nbytes))
-    return {
-        dev.INVARIANTS[i]: int(counts[i])
-        for i in range(len(dev.INVARIANTS))
-        if counts[i]
-    }
+    with trace.span("gate_program", program="verify_gate") as sp:
+        counts = dev.verify_gate(gp, ga, bf, ctx.device_tables).cpu().numpy()
+        TRANSFER_BYTES.inc({"direction": "d2h"}, int(counts.nbytes))
+        nonzero = {
+            dev.INVARIANTS[i]: int(counts[i])
+            for i in range(len(dev.INVARIANTS))
+            if counts[i]
+        }
+        if sp is not None:
+            for name, n in nonzero.items():
+                sp.count(name, n)
+    return nonzero
 
 
 def _build_args(ctx, result, pods, pod_requirements_override):

@@ -192,3 +192,70 @@ def test_full_gate_is_none_only_where_it_does_not_apply():
     assert t_full_gate(tres, t_pods[:-1], t_its, t_tpls, t_nodes) is None  # another batch
     tres.verify_ctx = None  # a multi-pass solve attaches no context
     assert t_full_gate(tres, t_pods, t_its, t_tpls, t_nodes) is None
+
+
+def test_audit_mismatch_records_a_flight_event(monkeypatch):
+    """A device accept the float64 audit overturns (a result corrupted past
+    float32 error, the device program's counts forced to accept, the audit
+    at rate 1.0): both packages count the mismatch, record one ``gate-audit``
+    flight event with equal fields, and answer with the host's violations."""
+    from karpenter_tpu.obs import flight as j_flight
+    from karpenter_tpu.verify import gate as j_gate
+    from karpenter_tpu_torch.obs import flight as t_flight
+    from karpenter_tpu_torch.verify import gate as t_gate
+
+    (pods, its, tpls, nodes), (t_pods, t_its, t_tpls, t_nodes), jres, _, _, _ = _jax_case("fuzz-6")
+    tres = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", relax=False).solve(
+        t_pods, t_its, t_tpls, t_nodes)
+    monkeypatch.setenv("KARPENTER_TPU_VERIFY_AUDIT_FRAC", "1.0")
+    outcomes, records = [], []
+    for gate, flight, res, args in ((j_gate, j_flight, jres, (pods, its, tpls, nodes)),
+                                    (t_gate, t_flight, tres, (t_pods, t_its, t_tpls, t_nodes))):
+        monkeypatch.setattr(gate, "_device_counts", lambda *a, **k: {})
+        res.new_claims[0].requests["cpu"] = res.new_claims[0].requests.get("cpu", 0.0) + 5.0
+        flight.set_enabled(True)
+        flight.reset()
+        try:
+            outcome = gate.full_gate(res, *args)
+            records.append([{k: v for k, v in r.items() if k not in ("t", "trace_id")}
+                            for r in flight.ring().snapshot()])
+        finally:
+            flight.set_enabled(None)
+            flight.reset()
+            res.new_claims[0].requests["cpu"] -= 5.0
+        outcomes.append((outcome.mode, outcome.audit_outcome, [str(v) for v in outcome.violations]))
+    assert outcomes[1] == outcomes[0] and outcomes[1][:2] == ("host-confirm", "mismatch") and outcomes[1][2]
+    assert records[1] == records[0] == [{"kind": "gate-audit", "outcome": "mismatch"}]
+
+
+def test_gate_spans_match_jax():
+    """ROADMAP C8: a traced full gate opens ``gate`` over ``gate_program`` in both
+    packages, with the reject reason on a rejected result."""
+    from karpenter_tpu.obs import trace as j_trace
+    from karpenter_tpu_torch.obs import trace as t_trace
+
+    (pods, its, tpls, nodes), (t_pods, t_its, t_tpls, t_nodes), jres, _, _, _ = _jax_case("fuzz-6")
+    tres = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", relax=False).solve(
+        t_pods, t_its, t_tpls, t_nodes)
+    j_full_gate(jres, pods, its, tpls, nodes)  # the JAX gate program's compile, outside the trace
+
+    def spans(node):
+        return (node["name"], node.get("attrs", {}).get("reject"), tuple(spans(c) for c in node.get("children", ())))
+
+    trees = []
+    for trace, gate, res, args in ((j_trace, j_full_gate, jres, (pods, its, tpls, nodes)),
+                                   (t_trace, t_full_gate, tres, (t_pods, t_its, t_tpls, t_nodes))):
+        trace.set_enabled(True)
+        trace.reset_ring()
+        try:
+            for bump in (0.0, 5.0):
+                res.new_claims[0].requests["cpu"] = res.new_claims[0].requests.get("cpu", 0.0) + bump
+                with trace.cycle("verify"):
+                    gate(res, *args)
+                res.new_claims[0].requests["cpu"] -= bump
+            trees.append([spans(t["root"]) for t in reversed(trace.ring().snapshot())])
+        finally:
+            trace.set_enabled(None)
+    assert trees[1] == trees[0]
+    assert trees[1][0] == ("verify", None, (("gate", None, (("gate_program", None, ()),)),))
+    assert trees[1][1][2][0][1] is not None  # the rejected gate names its reason

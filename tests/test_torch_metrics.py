@@ -6,16 +6,19 @@ documented in README.md or docs/*.md, appears in the port's /metrics
 exposition with ``# HELP`` and ``# TYPE``, has help text, follows the
 ``_seconds``/``_total`` conventions, and is a series of the JAX package of
 the same kind (and buckets); the JAX package's series the port does not
-register are exactly the twelve that wait for their layers (``WAITING``).
+register are exactly the eight that wait for their layers (``WAITING``).
 
 Then each of the seven series the gate, the screen, the resident world and
 the SLO engine write (``solver_gate_duration_seconds``,
 ``solver_gate_audit_total``, ``solver_transfer_bytes_total``,
 ``solver_screen_delta_total``, ``solver_screen_delta_lane_seconds``,
-``solver_world_patch_total``, ``slo_burn_rate``): the same scenario through
-both packages moves it by the same labels and counts (observation counts for
-the duration histograms, whose values are wall times; label sets for the
-bytes counter, whose values are what each package copies).
+``solver_world_patch_total``, ``slo_burn_rate``), and the four of the
+streaming layer (``STREAMING``) with the gate's incremental mode: the same
+scenario through both packages moves it by the same labels and counts
+(observation counts for the duration histograms, whose values are wall
+times; label sets for the gate's bytes, whose values are what each package
+copies). The solve's own copies follow a stated rule per site
+(``test_solve_transfer_bytes_follow_the_rule``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import random
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 import tests.torch_threads  # noqa: F401  (one intra-op thread)
 from tests.test_torch_encode import draw
@@ -36,13 +40,8 @@ from karpenter_tpu_torch.testing import workloads as W
 REPO = Path(__file__).resolve().parent.parent
 
 # the JAX package's series that wait for the port of their layers
-# (ROADMAP.md A3-A5)
+# (ROADMAP.md A4-A5)
 WAITING = {
-    # A3, streaming
-    "karpenter_solver_delta_reuse_ratio": "A3",
-    "karpenter_solver_warm_solves_total": "A3",
-    "karpenter_solver_state_restore_total": "A3",
-    "karpenter_restore_fallback_total": "A3",
     # A4, replicas
     "karpenter_serve_replica_placements_total": "A4",
     # A5, program lifecycle
@@ -54,12 +53,16 @@ WAITING = {
     "karpenter_solver_device_bytes": "A5",
     "karpenter_solver_restart_recovery_seconds": "A5",
 }
-# label values of R1's series whose emitters wait for their layers
-WAITING_MODES = {
-    # solver_gate_duration_seconds{mode="incremental"}: verify/incremental
-    # incremental_gate, called by streaming/warm.py (A3)
-    "incremental": "A3",
-}
+# label values of R1's series whose emitters wait for their layers (none:
+# the incremental mode came with the streaming layer)
+WAITING_MODES: dict = {}
+# the streaming layer's series (streaming/warm.py, streaming/snapshot.py)
+STREAMING = (
+    "karpenter_solver_delta_reuse_ratio",
+    "karpenter_solver_warm_solves_total",
+    "karpenter_solver_state_restore_total",
+    "karpenter_restore_fallback_total",
+)
 R1 = (
     "karpenter_solver_gate_duration_seconds",
     "karpenter_solver_gate_audit_total",
@@ -117,7 +120,7 @@ def test_port_series_are_documented_exposed_and_the_jax_packages():
 
 def test_r1_series_equal_the_jax_packages():
     port, jax = _registry("karpenter_tpu_torch"), _registry("karpenter_tpu")
-    for name in R1:
+    for name in R1 + STREAMING:
         p, j = port.get(name), jax.get(name)
         assert p is not None, name
         assert (p.kind, p.help) == (j.kind, j.help), name
@@ -181,7 +184,7 @@ def test_gate_series_move_alike():
     """Forty full gates of one clean result (device mode, with the sampled
     audits the shared seed draws), one of a corrupted result (the device
     reject and its host confirmation), and the bytes each gate's wrapper
-    moves. The incremental mode waits with the warm path (``WAITING_MODES``)."""
+    moves. The incremental mode is test_streaming_series_move_alike's."""
     from karpenter_tpu.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS as JFAKE
     from karpenter_tpu.solver.jax_backend import JaxSolver
     from karpenter_tpu.verify import full_gate as j_full_gate
@@ -349,3 +352,116 @@ def test_exposition_renders_burn_rates_at_scrape(monkeypatch):
     lines = [line for line in body.splitlines() if line.startswith("karpenter_slo_burn_rate{")]
     assert any('objective="solve-scheduled"' in line and 'window="fast"' in line for line in lines)
     assert np.isfinite([float(line.rsplit(" ", 1)[1]) for line in lines]).all()
+
+
+def test_streaming_series_move_alike(tmp_path, monkeypatch):
+    """Six churn cycles through each package's StreamingSolver over its
+    oracle, journaled (cold-first, then warm with the incremental gate and
+    its audit sample at rate 0.5), then a fresh stream that restores the
+    journal and one that finds it corrupt: the streaming series and the
+    gate's incremental mode move by the same labels and counts."""
+    monkeypatch.setenv("KARPENTER_TPU_VERIFY_AUDIT_FRAC", "0.5")
+
+    def run(pkg):
+        restart = importlib.import_module(pkg + ".testing.restart")
+        warm = importlib.import_module(pkg + ".streaming.warm")
+        oracle = importlib.import_module(pkg + ".solver.oracle").OracleSolver
+        snapshot = importlib.import_module(pkg + ".streaming.snapshot")
+
+        def go():
+            monkeypatch.setenv("KARPENTER_TPU_STATE_DIR", str(tmp_path / pkg))
+            pods, its, tpls = restart.base_problem(40, 4)
+            proc = restart._churn(pods, 3, 2, 1)
+            solver = warm.StreamingSolver(oracle())
+            for _ in range(6):
+                proc.step()
+                solver.solve(proc.pods, its, tpls)
+            assert warm.StreamingSolver(oracle()).last_restore_outcome == "restored"
+            path = snapshot.journal_path()
+            blob = open(path, "rb").read()
+            open(path, "wb").write(blob[:-1] + bytes([blob[-1] ^ 0xFF]))
+            assert warm.StreamingSolver(oracle()).last_restore_outcome == "checksum"
+        return go
+
+    names = STREAMING + ("karpenter_solver_gate_duration_seconds", "karpenter_solver_gate_audit_total")
+    _reset_audits()
+    jm = _moves(False, names, run("karpenter_tpu"))
+    _reset_audits()
+    pm = _moves(True, names, run("karpenter_tpu_torch"))
+    assert pm == jm
+    assert pm["karpenter_solver_warm_solves_total"] == {(("outcome", "cold-first"),): 1.0,
+                                                         (("outcome", "warm"),): 5.0}
+    assert (("mode", "incremental"),) in pm["karpenter_solver_gate_duration_seconds"]
+    assert pm["karpenter_solver_state_restore_total"] == {
+        (("outcome", "missing"),): 1.0, (("outcome", "restored"),): 1.0, (("outcome", "checksum"),): 1.0}
+    assert pm["karpenter_restore_fallback_total"] == {(("reason", "journal-checksum"),): 1.0}
+
+
+# the files whose TRANSFER_BYTES increments are the solve's own copies
+SOLVE_SITES = {"jax_backend.py", "torch_backend.py", "solve.py"}
+
+
+def _solve_copies(reg, monkeypatch) -> list:
+    """Record (direction, bytes) of every solve-site increment of ``reg``'s
+    TRANSFER_BYTES, in order."""
+    import os
+    import sys
+
+    log = []
+    real = reg.TRANSFER_BYTES.inc
+
+    def inc(labels=None, value=1.0):
+        if os.path.basename(sys._getframe(1).f_code.co_filename) in SOLVE_SITES:
+            log.append((labels["direction"], int(value)))
+        return real(labels, value)
+
+    monkeypatch.setattr(reg.TRANSFER_BYTES, "inc", inc)
+    return log
+
+
+@pytest.mark.parametrize("case", ["default", "relax-off", "relax2", "shard"])
+def test_solve_transfer_bytes_follow_the_rule(case, monkeypatch):
+    """ROADMAP C7: the solve's own copies, increment by increment. The rule: the
+    port counts the padded problem once per encode pass (phase 1 and the
+    loop read one upload) and never the carried state, which stays on the
+    device; the JAX package counts the problem at each dispatch and the
+    carried phase-1 state at the repair dispatch. So the port's increments
+    are the JAX package's without the repair dispatch's host-to-device
+    entry; every fetch is equal, byte for byte. The sharded solve (claims-40:
+    8 partitions on the port's one device, 8 lanes on the JAX package's 8
+    host devices) is equal."""
+    import karpenter_tpu.metrics.registry as j_reg
+    import karpenter_tpu_torch.metrics.registry as t_reg
+    from karpenter_tpu.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS as JFAKE
+    from karpenter_tpu.solver.jax_backend import JaxSolver
+    from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from tests.test_torch_shard import CORPORA, _Env
+
+    relax = case in ("default", "relax2")
+    monkeypatch.setenv("KARPENTER_TPU_RELAX", "1" if relax else "0")
+    if case == "relax2":
+        monkeypatch.setenv("KARPENTER_TPU_RELAX2", "1")
+    if case == "shard":
+        jw, tw = CORPORA["claims-40"](RW), CORPORA["claims-40"](W)
+    else:
+        jw, tw, _ = draw("fuzz-6")
+    jlog, tlog = _solve_copies(j_reg, monkeypatch), _solve_copies(t_reg, monkeypatch)
+    js, ts = JaxSolver(well_known=JFAKE), TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", relax=relax)
+    if case == "shard":
+        with _Env():
+            js.solve(*jw)
+        with _Env():
+            ts.solve(*tw)
+        assert ts.last_shard["reason"] is None and js.last_shard["lanes"] == ts.last_shard["partitions"]
+    else:
+        js.solve(*jw)
+        ts.solve(*tw)
+    if case in ("default", "relax2"):
+        # phase 1 (upload, stats), the repair dispatch (upload + carried
+        # state), the loop's fetch
+        assert [d for d, _ in jlog] == ["h2d", "d2h", "h2d", "d2h"] and jlog[2][1] > jlog[0][1]
+        assert tlog == [jlog[0], jlog[1], jlog[3]]
+    else:
+        assert [d for d, _ in jlog] == ["h2d", "d2h"]
+        assert tlog == jlog

@@ -90,3 +90,74 @@ def test_topology_run_without_the_topology_commit_raises():
     assert has_topo_runs(tp)
     with pytest.raises(ValueError, match="RUN_TOPO"):
         runs_scan_plain(tp, initial_state(tp, 32), max_run_bucket(tp), with_topo=False)
+
+
+# -- the KARPENTER_TPU_RUNS solve ------------------------------------------------
+
+
+def _runs_corpus(pkg, seed):
+    """tests/test_runs_solver.py's fuzz corpus (identical-pod-heavy batches
+    with host ports and existing nodes) built by ``pkg``'s constructors;
+    seed None is its claim-slot case (twelve 0.9-cpu pods, one a claim,
+    against four initial slots)."""
+    import importlib
+    import random
+
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+    o, wk = mod("apis.objects"), mod("apis.labels")
+    its_of, encode = mod("cloudprovider.fake").instance_types, mod("solver.encode")
+    label_requirements, Taints = mod("scheduling.requirements").label_requirements, mod("scheduling").Taints
+
+    def pod(i, cpu=0.5, mem=1e8, ports=None):
+        return o.Pod(metadata=o.ObjectMeta(name=f"p{i}"), spec=o.PodSpec(containers=[o.Container(
+            requests={"cpu": cpu, "memory": mem}, ports=[o.ContainerPort(host_port=p) for p in (ports or [])])]))
+
+    def node(name, cpu):
+        labels = {wk.LABEL_HOSTNAME: name, wk.LABEL_TOPOLOGY_ZONE: "test-zone-1",
+                  wk.CAPACITY_TYPE_LABEL_KEY: wk.CAPACITY_TYPE_ON_DEMAND}
+        return encode.NodeInfo(name=name, requirements=label_requirements(labels), taints=Taints([]),
+                               available={"cpu": cpu, "memory": 8e9, "pods": 110.0}, daemon_overhead={})
+
+    def template(its):
+        np_mod = mod("apis.nodepool")
+        pool = np_mod.NodePool(metadata=o.ObjectMeta(name="pool"), spec=np_mod.NodePoolSpec(
+            template=np_mod.NodeClaimTemplateSpec(spec=np_mod.NodeClaimSpec())))
+        return encode.template_from_nodepool(pool, its, range(len(its)))
+
+    if seed is None:
+        its = its_of(4)
+        return [pod(i, cpu=0.9, mem=2e9) for i in range(12)], its, [template(its)], []
+    rng = random.Random(seed)
+    its = its_of(rng.randint(3, 12))
+    tpl = template(its)
+    nodes = [node(f"n-{i}", rng.choice([0.5, 1.0, 4.0])) for i in range(rng.randint(0, 3))]
+    pods = [pod(i, cpu=rng.choice([0.1, 0.25, 0.5, 1.0]), mem=rng.choice([1e8, 5e8, 1e9]),
+                ports=[8080] if rng.random() < 0.1 else None) for i in range(rng.randint(10, 60))]
+    return pods, its, [tpl], nodes
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, None])
+def test_runs_solve_matches_jax(seed, monkeypatch):
+    """``KARPENTER_TPU_RUNS=1`` (the plain ``solve_ffd_runs`` per pass on
+    the CPU) against ``JaxSolver`` with its ``_USE_RUNS`` on: equal claims,
+    node placements and failures, the same claim-slot escalations, no
+    IterCounts (the per-pass loop)."""
+    import karpenter_tpu.solver.jax_backend as jb
+    from karpenter_tpu.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS as JFAKE
+    from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from tests.test_torch_solver import assert_same_results
+
+    monkeypatch.setattr(jb, "_USE_RUNS", True)
+    monkeypatch.setenv("KARPENTER_TPU_RUNS", "1")
+    slots = 4 if seed is None else 32
+    pods, its, tpls, nodes = _runs_corpus("karpenter_tpu", seed)
+    js = jb.JaxSolver(well_known=JFAKE, initial_claim_slots=slots)
+    jr = js.solve(pods, its, tpls, nodes)
+    pods, its, tpls, nodes = _runs_corpus("karpenter_tpu_torch", seed)
+    ts = TorchSolver(well_known=FAKE_WELL_KNOWN_LABELS, device="cpu", initial_claim_slots=slots)
+    assert ts.runs
+    tr = ts.solve(pods, its, tpls, nodes)
+    assert_same_results(jr, tr)
+    assert ts.claim_escalations == js.claim_escalations and ts.last_iters is None
+    assert tr.verify_ctx is None  # a per-pass solve leaves the host validator to its caller

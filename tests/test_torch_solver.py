@@ -81,3 +81,75 @@ def test_csi_attach_limit_parity():
     _, jr, _, tr = _solve_both("volumes-0")
     assert jr.node_pods
     assert_same_results(jr, tr)
+
+
+# -- the solve's trace spans (ROADMAP C8) ----------------------------------------
+
+# Span names only one package opens, and why. The JAX package names the first
+# dispatch of a program in a process ``compile`` (its XLA trace and compile),
+# with the program in the span's attributes; the port's kernels build once per
+# process outside any solve, so the port names that dispatch as every other:
+# the name the JAX package gives the program's later dispatches.
+JAX_COMPILE_SPAN = {
+    "relax_place": "relax", "relax2_place": "relax2", "verify_gate": "gate_program",
+    "solve_ffd_sweeps": "sweeps", "solve_ffd_sweeps_carried": "sweeps", "solve_ffd": "narrow",
+    "solve_ffd_runs": "narrow", "patch_world": "patch", "solve_ffd_fused_gate": "fused",
+}
+
+
+def span_tree(node, jax: bool = False):
+    """(name, children) of a published trace's span, the JAX package's
+    ``compile`` spans renamed by JAX_COMPILE_SPAN."""
+    name = node["name"]
+    if jax and name == "compile":
+        name = JAX_COMPILE_SPAN[node["attrs"]["program"]]
+    return (name, tuple(span_tree(c, jax) for c in node.get("children", ())))
+
+
+def traced(trace, run):
+    """The span trees of the cycles ``run`` publishes, oldest first."""
+    trace.set_enabled(True)
+    trace.reset_ring()
+    try:
+        run()
+        return [span_tree(t["root"], jax=trace.__name__.startswith("karpenter_tpu.")) for t in
+                reversed(trace.ring().snapshot())]
+    finally:
+        trace.set_enabled(None)
+        trace.reset_ring()
+
+
+@pytest.mark.parametrize("case", ["default", "relax-off", "relax2", "supervised"])
+def test_solve_span_trees_match_jax(case, monkeypatch):
+    """One traced solve of fuzz-6 in each package: the two-phase default, the
+    plain sweeps solve (``relax=False`` / ``KARPENTER_TPU_RELAX=0``), the
+    convex phase 1 (``KARPENTER_TPU_RELAX2=1``) and a solve under the
+    supervisor, whose gate opens ``gate`` / ``gate_program``: equal span
+    names and nesting."""
+    from karpenter_tpu.obs import trace as j_trace
+    from karpenter_tpu.solver.oracle import OracleSolver as JOracle
+    from karpenter_tpu.solver.supervisor import SupervisedSolver as JSupervised
+    from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS as T_LABELS
+    from karpenter_tpu_torch.obs import trace as t_trace
+    from karpenter_tpu_torch.solver.oracle import OracleSolver
+    from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+
+    relax = case in ("default", "relax2")
+    monkeypatch.setenv("KARPENTER_TPU_RELAX", "1" if relax else "0")
+    if case == "relax2":
+        monkeypatch.setenv("KARPENTER_TPU_RELAX2", "1")
+    workload, t_workload, _ = draw("fuzz-6")
+    js = JaxSolver(well_known=FAKE_WELL_KNOWN_LABELS)
+    ts = TorchSolver(well_known=T_LABELS, device="cpu", relax=relax)
+    if case == "supervised":
+        js = JSupervised(js, fallback=JOracle(), validate="full")
+        ts = SupervisedSolver(ts, fallback=OracleSolver(), validate="full")
+    jt = traced(j_trace, lambda: js.solve(*workload))
+    tt = traced(t_trace, lambda: ts.solve(*t_workload))
+    assert tt == jt and len(tt) == 1
+    names = str(tt)
+    for stage in ("encode", "bucket", "sweeps", "decode"):
+        assert f"'{stage}'" in names
+    assert ("'relax'" in names) == (case == "default")
+    assert ("'relax2'" in names) == (case == "relax2")
+    assert ("'gate_program'" in names) == (case != "relax-off")

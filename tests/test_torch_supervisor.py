@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import os
 import random
 from types import SimpleNamespace
 
@@ -438,12 +439,45 @@ def test_oracle_refuses_explain(monkeypatch):
         obs_explain.reset_ring()
 
 
-def test_streaming_layer_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="StreamingSolver"):
-        PORT.sup.SupervisedSolver(PORT.Oracle(), streaming=True)
-    monkeypatch.setenv("KARPENTER_TPU_DELTA", "1")
-    with pytest.raises(NotImplementedError, match="KARPENTER_TPU_DELTA"):
-        PORT.sup.SupervisedSolver(PORT.Oracle())
+@pytest.mark.parametrize("how", ["argument", "environment"])
+def test_streaming_layer_wraps_the_primary(how, tmp_path, monkeypatch):
+    """``streaming=True`` or ``KARPENTER_TPU_DELTA=1`` wraps the primary in
+    the StreamingSolver, as in the JAX package: a churn stream goes cold-first
+    then warm with equal spans, flight records and counters in both packages,
+    and its journal is written. A quarantine (a lying primary under the
+    streaming layer) resets the streaming state and removes the journal."""
+
+    def scenario(s):
+        warm = importlib.import_module(f"{s.name}.streaming.warm")
+        churn = importlib.import_module(f"{s.name}.streaming.churn")
+        snapshot = importlib.import_module(f"{s.name}.streaming.snapshot")
+        monkeypatch.setenv("KARPENTER_TPU_STATE_DIR", str(tmp_path / s.name))
+        kwargs = {"streaming": True} if how == "argument" else {}
+        if how == "environment":
+            monkeypatch.setenv("KARPENTER_TPU_DELTA", "1")
+        pods, its, tpls = build_problem(s, pod_count=40)
+        sup = s.sup.SupervisedSolver(s.Oracle(), fallback=s.Oracle(), tenant="t", **kwargs)
+        assert isinstance(sup.primary, warm.StreamingSolver) and sup.primary.tenant == "t"
+        proc = churn.ChurnProcess(pods, config=churn.ChurnConfig(seed=4, arrivals_per_cycle=2, deletes_per_cycle=1))
+        results, outcomes = [], []
+        for _ in range(3):
+            proc.step()
+            results.append(sup.solve(proc.pods, its, tpls))
+            outcomes.append(sup.primary.last_outcome)
+        journaled = os.path.exists(snapshot.journal_path("t"))
+        liar = s.sup.SupervisedSolver(warm.StreamingSolver(LyingSolver(s.Oracle())), fallback=s.Oracle(),
+                                      tenant="liar", **kwargs)
+        liar.solve(proc.pods, its, tpls)
+        return observed(s, sup, results, dict(
+            outcomes=outcomes, journaled=journaled, liar=dict(liar.counters),
+            reset=liar.primary._prev is None, journal_left=os.path.exists(snapshot.journal_path("liar")),
+            kept=os.path.exists(snapshot.journal_path("t")),
+        ))
+
+    view = both(scenario)
+    assert view["outcomes"] == ["cold-first", "warm", "warm"] and view["journaled"]
+    assert view["liar"]["validator_rejections"] == 1 and view["reset"] and not view["journal_left"]
+    assert view["kept"]
 
 
 def test_torch_primary_passes_the_device_gate_unaltered():

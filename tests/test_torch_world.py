@@ -614,3 +614,39 @@ def test_resident_cycles_explain_like_the_ordinary_solve_and_jax(monkeypatch, li
         for ox in (jox, tox):
             ox.set_enabled(None)
             ox.reset_ring()
+
+
+def test_standdown_runs_mode(monkeypatch):
+    """The run-compressed solve (KARPENTER_TPU_RUNS) keeps the per-pass
+    loop: every cycle stands down with ``runs-mode`` before the delta
+    encoder advances."""
+    monkeypatch.setenv("KARPENTER_TPU_RUNS", "1")
+    pods, its, tpls = _small()
+    dw = TorchSolver(device="cpu", relax=False, device_world=True)
+    ref = TorchSolver(device="cpu", relax=False).solve(pods, its, tpls)
+    r = dw.solve(pods, its, tpls)
+    assert dw.last_world_outcome == "standdown-runs-mode"
+    assert dw._device_world.world is None and dw._device_world.delta._state is None
+    assert _placements(pods, r) == _placements(pods, ref)
+
+
+def test_world_span_trees_match_jax(monkeypatch):
+    """ROADMAP C8 for the resident path: the first cycle's adopt and the next
+    cycle's patch, traced in both packages, open the same spans (the JAX
+    package's ``compile`` spans renamed as tests/test_torch_solver.py
+    lists)."""
+    from karpenter_tpu.obs import trace as j_trace
+    from karpenter_tpu_torch.obs import trace as t_trace
+    from tests.test_torch_solver import traced
+
+    monkeypatch.setenv("KARPENTER_TPU_DEVICE_WORLD", "1")
+    monkeypatch.setenv("KARPENTER_TPU_RELAX", "0")
+    trees = []
+    for pkg, trace in (("jax", j_trace), ("port", t_trace)):
+        its, tpls = _catalog(pkg)
+        snaps = _stream(pkg)[:2]
+        solver = JaxSolver() if pkg == "jax" else TorchSolver(device="cpu", relax=False, device_world=True)
+        trees.append(traced(trace, lambda: [solver.solve(pods, its, tpls, nodes=nodes) for pods, nodes, _ in snaps]))
+    assert trees[1] == trees[0] and len(trees[1]) == 2
+    for tree, stage in zip(trees[1], ("world_adopt", "patch")):
+        assert [name for name, _ in tree[1]] == ["encode", stage, "fused", "decode"]
