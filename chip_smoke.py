@@ -73,8 +73,8 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      The delta verdicts must equal the full screen's on every lane, the
      counts must equal the JAX package's on the same subsets, and
      ``runs_screen`` must equal its plain version exactly (kind, index, every
-     state leaf) in each mode on 50 lanes (every 10th, the last, the 20 large
-     random subsets); then the kernel alone, through its wrapper, and its
+     state leaf) in each mode on 26 lanes (every 20th, the last, 10 of the
+     large random subsets); then the kernel alone, through its wrapper, and its
      plain version are timed, with the plan's layout and its slowest lane's
      split by section; then each mode again in every layout and cluster
      size of SCREEN_PLANS, each launch bit-equal to the plan's own.
@@ -167,8 +167,10 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      (the counts set to 0 just before the solve and read just after), the
      gate clean, IterCounts and ``wave_hist`` equal to the JAX package's
      (EXPECT_WAVE) and placements equal to phase 2's flag-off solves; then
-     the mode alone, through its wrapper and plain at phase 2's inputs, each
-     beside the flag-off loop's times on the same run.
+     the mode alone and through its wrapper at phase 2's inputs, each
+     beside the flag-off loop's times on the same run, the carried launch
+     held to its plain loop (the fresh one to EXPECT_WAVE here, and to its
+     plain loop on phase 1's corpora).
  10. the entry point at the 10k shape: ``Provisioner.reconcile()`` over a
      ``FakeCloudProvider`` with the 400 catalog types, one ``default``
      NodePool and 10,000 makeDiversePods pods in the ``KubeClient``, through
@@ -210,8 +212,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      ``gate_counts`` and ``runs_screen`` each launched by the run (the counts
      set to 0 just before it and read just after). Prints each stage's wall,
      the disruption passes' split and the launches. Then ``start()`` on two
-     free localhost ports: /readyz 200 once the kernel-build thread ends,
-     OPERATOR_THREADED_PODS pods nominated under the real batch window,
+     free localhost ports: /readyz 200 once the warm thread (the kernel
+     build, then the standard buckets) ends, OPERATOR_THREADED_PODS pods
+     nominated under the real batch window,
      ``# TYPE`` in /metrics for every registered series, /statusz and
      /debug/programs parsed, ``stop()``.
  13. the streaming layer (``streaming_phase``, STREAM_* and the constants
@@ -237,7 +240,35 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      one pass on the same problem, and over the batch's first
      RUNS_CHECK_PODS pods bit-equal to ``runs_scan_plain`` (kind, index,
      every state leaf); the launch timed alone and wrapped, with its bound.
- 14. a ``kernels`` JSON line: per kernel its launches on the main path, its
+ 14. the program lifecycle and serve replicas (``lifecycle_phase``,
+     ``replica_phase``): child processes of this script
+     (``--lifecycle-child``) with ``KARPENTER_TPU_AOT_RESTORE``,
+     ``KARPENTER_TPU_STATE_DIR`` (a temporary directory) and
+     ``KARPENTER_TPU_PROGRAMS`` set. (a) ``Operator.start()`` with
+     ``prewarm_max_pods`` MAIN_PODS and ``prewarm_screen_candidates``
+     SCREEN_CANDIDATES under ``KARPENTER_TPU_DEVICE_WORLD=1``: /readyz 503 on
+     every poll while the warm runs and 200 after; then ``prewarm_claim_
+     buckets`` and ``prewarm_shard`` under ``SHARD=1``; ``ffd_loop``,
+     ``relax_place``, ``gate_counts``, ``runs_screen``, ``patch_world`` and
+     ``ffd_loop_lanes`` launched; all eight libraries loaded from phase 0's
+     ``_build/`` (source ``persistent``, no nvcc) and snapshotted; then phase
+     2's batch, whose wall is printed beside a process that did not warm,
+     with equal placements. (b) a restart with no nvcc on ``PATH``,
+     ``CUDA_HOME`` pointing nowhere and an empty build directory:
+     ``Operator.start()`` answers /readyz 503 through ``restoring`` and
+     ``probing`` and 200 after; the probe passed; every library restored,
+     nvcc never run, every program's source ``restored`` or ``memory``; phase
+     2's batch bit-equal to (a)'s; the recovery seconds and each library's
+     restore beside its nvcc build. (c) one byte of ``probe``'s entry
+     flipped: without nvcc /readyz stays 503 with ``kernel_build_error``; with
+     nvcc the entry is ``checksum``, the other seven restored, ``probe``
+     alone rebuilt and the probe passes. (d) phase 5's serve scenario with
+     stacking off through a flat ``SolveService``, ``ReplicaSet(1)`` and
+     ``ReplicaSet(2)`` (both replicas busy at once), every tenant's
+     placements equal to the flat service's, aggregate pods/s of each; then
+     ``ReplicaSet(2)`` with ``failover(1)`` after the third cycle: every
+     ticket ok, the moved tenants placed with reason ``failover``.
+ 15. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
@@ -253,8 +284,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      entries of the four kernels phase 12 runs carry ``launches_operator``,
      those of ``ffd_loop``, ``relax_place`` and ``gate_counts`` their
      launches per warm cycle of phase 13 (``launches_warm_cycle``), and
-     ``runs_screen``'s the ``RUNS`` solve (``runs_solve``).
- 15. the card's name and power limit; the last line is the device JSON.
+     ``runs_screen``'s the ``RUNS`` solve (``runs_solve``). Every entry
+     carries ``restored``: whether phase 14's restart restored its library.
+ 16. the card's name and power limit; the last line is the device JSON.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -366,15 +398,16 @@ EXPECT_POLICY = {
 # (bench.py:1345-1356, run_shard_child): make_fleet_pods(n, Random(42),
 # neighborhoods=32) against the 400 catalog types and one default NodePool,
 # in the 8 partitions of its 8-device mesh, here 8 lanes on one card. The
-# fresh and the relax2 lanes are held against their plain twins on two lanes
-# (the plain loops step every chain in Python). EXPECT_SHARD: the JAX
+# fresh and the relax2 lanes are held against their plain twins on lane 0,
+# the deepest (the plain loops step every chain in Python; every lane is also
+# held to its single-lane launch). EXPECT_SHARD: the JAX
 # package's own sharded solve of the 10,000-pod fleet on the CPU (8 host
 # devices, the same knobs, EXPLAIN off).
 SHARD_PODS = 100000
 SHARD_CHECK_PODS = 10000
 SHARD_NEIGHBORHOODS = 32
 SHARD_PARTITIONS = 8
-SHARD_PLAIN_LANES = (0, SHARD_PARTITIONS - 1)
+SHARD_PLAIN_LANES = (0,)
 SHARD_ENV = {"KARPENTER_TPU_SHARD": "1", "KARPENTER_TPU_SHARD_MIN_DEVICES": "1",
              "KARPENTER_TPU_SHARD_PARTITIONS": str(SHARD_PARTITIONS), "KARPENTER_TPU_EXPLAIN": "0"}
 EXPECT_SHARD = {
@@ -418,8 +451,11 @@ DISRUPT_SURVIVORS = 8
 DISRUPT_SEED = 7
 DISRUPT_CANDIDATE_TYPE = "fake-it-3"  # 4 cpu, 8 GiB, 40 pods: the bench's candidate node
 DISRUPT_SURVIVOR_TYPE = "fake-it-63"  # 64 cpu, 128 GiB
-DISRUPT_AGREE = 20  # prefixes the screen and the sequential path must agree on
-DISRUPT_PREFIXES = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16, 20, 25, 32, 40, 50, 64, 80, 99, 150, 200)
+# the prefixes the screen and the sequential path must agree on (each a
+# sequential compute_consolidation on the card: 10 of them, with the chosen k
+# and k + 1, so that the smoke keeps its time with phase 14)
+DISRUPT_AGREE = 10
+DISRUPT_PREFIXES = (1, 2, 4, 8, 16, 32, 50, 80, 150, 200)
 # the operator (phase 12): ``Operator.step()`` / ``run_until_settled()`` on a
 # FakeClock through a whole cluster lifecycle (``operator_scenario``), and
 # ``start()`` on two localhost ports. EXPECT_OPERATOR is the scenario's digest
@@ -631,6 +667,8 @@ def gate_floors(rows):
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--lifecycle-child":
+        return lifecycle_child(sys.argv[2], json.loads(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -696,7 +734,8 @@ def run(dev) -> int:
     # -- 0. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels.build()
-    log(f"build: {time.perf_counter() - t0:.1f}s")
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f}s (per library {({k: round(v, 1) for k, v in kernels.BUILD_SECONDS.items()})})")
     for name in kernels.SOURCES:
         for line in (kernels.BUILD_DIR / f"{name}.log").read_text(errors="replace").splitlines():
             if "registers" in line or "spill" in line:
@@ -1420,6 +1459,7 @@ def run(dev) -> int:
     streaming = streaming_phase(dev, main, time_ms, time_launches, plain_ms, io_bytes, bound)
     rs["runs_solve"] = streaming.pop("runs_solve")
     rs["launches_runs_solve"] = rs["runs_solve"]["launches"]
+    lifecycle = lifecycle_phase(dev, build_s)
 
     line = {
         "kernels": [
@@ -1516,6 +1556,7 @@ def run(dev) -> int:
         "disruption": disruption,
         "operator": operator,
         "streaming": streaming,
+        "lifecycle": lifecycle,
     }
     for entry in line["kernels"]:
         if entry["name"] in ("ffd_loop", "relax_place", "gate_counts", "runs_screen"):
@@ -1525,6 +1566,14 @@ def run(dev) -> int:
             # its launches per warm cycle of phase 13's streams
             entry["launches_warm_cycle"] = {arm: streaming[arm]["launches_per_warm_cycle"][entry["name"]]
                                             for arm in ("relax_off", "relax_on")}
+    for entry in line["kernels"]:
+        # whether phase 14's restart restored the entry's library from its
+        # snapshot (a mode's entry follows its library)
+        name = entry["name"]
+        lib = kernels._LIBRARY_OF.get(name) or {"relax2_place": "relax_place", "ffd_loop_wavefront": "ffd_loop",
+                                               "gate_counts_fused": "gate_counts",
+                                               "runs_screen_stacked": "runs_screen"}.get(name, name)
+        entry["restored"] = bool(lifecycle["restored"].get(lib, False))
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
     smi = subprocess.run(
@@ -2501,8 +2550,10 @@ def consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound):
     n = SCREEN_CANDIDATES
     subsets = screen_subsets(n)
     B = len(subsets)
-    # the checked lanes: every 10th, the last, and the large random subsets
-    checked = sorted(set(range(0, B, 10)) | {B - 1} | set(range(B - 20, B)))
+    # the checked lanes: every 20th, the last, and the last 10 large random
+    # subsets (26 lanes: the checks' depth, cut so that the smoke keeps its
+    # time with phase 14)
+    checked = sorted(set(range(0, B, 20)) | {B - 1} | set(range(B - 10, B)))
     captured = {}
     real_lean, real_res = batch.lean_screen, batch.residual_screen
 
@@ -3355,8 +3406,9 @@ def wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, comp
     around each solve: one ``ffd_loop_wavefront`` launch, ``full_gate``
     clean, IterCounts and wave_hist equal to the JAX package's
     (EXPECT_WAVE), placements equal to phase 2's flag-off solves. Then the
-    mode alone, through its wrapper and plain at phase 2's inputs, beside the
-    flag-off loop's times on this run. Returns the kernels-line entry."""
+    mode alone and through its wrapper at phase 2's inputs, beside the
+    flag-off loop's times on this run, and the carried launch against its
+    plain loop. Returns the kernels-line entry."""
     import torch
 
     from karpenter_tpu_torch import kernels
@@ -3423,9 +3475,12 @@ def wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, comp
     bf = problem_bounds_free(prob)
     init_c = (rxk.state, rxk.kind, rxk.index)
     out = {}
+    # the carried launch (the default path's mode) is held to its plain loop
+    # here; the fresh one to the JAX package's IterCounts and wave_hist
+    # (EXPECT_WAVE) and to its plain loop on phase 1's corpora (its 10k plain
+    # loop, ~24 s, is left out so that the smoke keeps its time with phase 14)
     for tag, run_k, run_p, arg_sets in (
-        ("fresh", lambda w: solve_ffd_sweeps(prob, C, wavefront=w),
-         lambda w: sweeps_plain(prob, initial_state(prob, C), bf, wavefront=w),
+        ("fresh", lambda w: solve_ffd_sweeps(prob, C, wavefront=w), None,
          lambda w: [ffd_loop_args(prob, initial_state(prob, C), False, wavefront=w) for _ in range(3)]),
         ("carried", lambda w: solve_ffd_sweeps_carried(residue, C, init_c, wavefront=w),
          lambda w: sweeps_plain(residue, astate, problem_bounds_free(residue), rxk.kind, rxk.index, wavefront=w),
@@ -3440,11 +3495,17 @@ def wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, comp
         wrap_ms, _ = time_ms(lambda: run_k(lanes), 2)
         off_ms, off_all = time_launches("ffd_loop", arg_sets(0))
         off_wrap_ms, _ = time_ms(lambda: run_k(0), 2)
-        rp, p_ms = plain_ms(lambda: run_p(lanes))
-        err = compare_results(f"wavefront {tag} kernel vs plain", rk, rp)
-        if wave_hist_of(rk) != wave_hist_of(rp) or tuple(int(x) for x in rk.iters) != solves[tag]["iters"]:
-            raise AssertionError(f"wavefront {tag}: kernel {tuple(rk.iters)} {wave_hist_of(rk)} vs plain "
-                                 f"{tuple(rp.iters)} {wave_hist_of(rp)}")
+        if run_p is None:
+            p_ms, err = None, 0.0
+            iters = tuple(int(x) for x in rk.iters)
+            if wave_hist_of(rk) != EXPECT_WAVE[tag]["wave_hist"] or iters != solves[tag]["iters"]:
+                raise AssertionError(f"wavefront {tag}: kernel {iters} {wave_hist_of(rk)} vs {EXPECT_WAVE[tag]}")
+        else:
+            rp, p_ms = plain_ms(lambda: run_p(lanes))
+            err = compare_results(f"wavefront {tag} kernel vs plain", rk, rp)
+            if wave_hist_of(rk) != wave_hist_of(rp) or tuple(int(x) for x in rk.iters) != solves[tag]["iters"]:
+                raise AssertionError(f"wavefront {tag}: kernel {tuple(rk.iters)} {wave_hist_of(rk)} vs plain "
+                                     f"{tuple(rp.iters)} {wave_hist_of(rp)}")
         work = dict(zip(WORK_COUNTERS, rk.work.cpu().tolist()))
         b_ms, b_by, b_bytes, b_int, b_flt = ffd_bound(work, sets[0][0])
         out[tag] = dict(ms=ms, all_ms=all_ms, wrap_ms=wrap_ms, off_ms=off_ms, off_all_ms=off_all,
@@ -3452,7 +3513,8 @@ def wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, comp
                         iters=tuple(int(x) for x in rk.iters), wave_hist=wave_hist_of(rk))
         log(f"  ffd_loop {tag} with the wavefront: kernel {ms:.3f} ms median of {[round(x, 3) for x in all_ms]}, "
             f"wrapper {wrap_ms:.3f} ms; flag off on this run: kernel {off_ms:.3f} ms median of "
-            f"{[round(x, 3) for x in off_all]}, wrapper {off_wrap_ms:.3f} ms; plain {p_ms:.1f} ms, kernel == plain; "
+            f"{[round(x, 3) for x in off_all]}, wrapper {off_wrap_ms:.3f} ms; "
+            f"{'== EXPECT_WAVE' if p_ms is None else f'plain {p_ms:.1f} ms, kernel == plain'}; "
             f"work {work}; bytes {b_bytes}, int ops {b_int:.4g}, float ops {b_flt:.4g}, bound {b_ms:.5f} ms ({b_by})")
     log(f"  phase 9 wall {time.perf_counter() - t_phase:.1f}s")
     c = out["carried"]
@@ -4058,7 +4120,7 @@ def operator_threaded(dev):
         code, body = get(f"{base}/statusz")
         statusz = json.loads(body)
         code2, body2 = get(f"{base}/debug/programs")
-        programs = json.loads(body2)
+        programs = json.loads(body2)["kernels"]  # the kernel inventory beside the program registry
         if code != 200 or code2 != 200 or not statusz["ready"] or programs["built"] != len(programs["kernels"]):
             raise AssertionError(f"operator threaded: /statusz {code} ready {statusz.get('ready')}, "
                                  f"/debug/programs {code2} built {programs.get('built')}")
@@ -4638,6 +4700,409 @@ def streaming_phase(dev, main, time_ms, time_launches, plain_ms, io_bytes, bound
     wall = time.perf_counter() - t_phase
     log(f"  phase 13 wall {wall:.1f}s")
     return dict(relax_off=relax_off, relax_on=relax_on, journal=journal, runs_solve=runs_solve, phase_s=wall)
+
+
+# -- phase 14: the program lifecycle and serve replicas ------------------------
+
+
+def _free_ports(n=2):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s_ in socks:
+            s_.bind(("127.0.0.1", 0))
+        return [s_.getsockname()[1] for s_ in socks]
+    finally:
+        for s_ in socks:
+            s_.close()
+
+
+def _http(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _placement_digest(result):
+    import hashlib
+
+    rows = ([(c.template_index, list(c.pod_indices), list(c.instance_type_indices)) for c in result.new_claims],
+            sorted((k, list(v)) for k, v in result.node_pods.items()), sorted(result.failures))
+    return hashlib.sha256(repr(rows).encode()).hexdigest()[:16], result.num_scheduled(), len(result.new_claims)
+
+
+def _main_solve():
+    """Phase 2's batch, solved once as phase 2 solves it: (wall s, digest)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+    from karpenter_tpu_torch.testing import workloads as W
+
+    pods, its, tpls, nodes = W.diverse_workload(MAIN_PODS, 400, seed=42)
+    solver = TorchSolver(initial_claim_slots=128, device=torch.device("cuda"))
+    t0 = time.perf_counter()
+    result = solver.solve(pods, its, tpls, nodes)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, _placement_digest(result)
+
+
+def _operator(prewarm=None):
+    """A started Operator on the card (400 catalog types) and its ports."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.operator import Operator, Options
+
+    ports = _free_ports()
+    cloud = FakeCloudProvider()
+    cloud.instance_types = instance_types(400)
+    cloud.drifted = ""
+    op = Operator(cloud, Options(metrics_port=ports[0], health_probe_port=ports[1], **(prewarm or {})))
+    t0 = time.perf_counter()
+    op.start()
+    return op, f"http://127.0.0.1:{ports[1]}", t0
+
+
+def _poll_ready(op, health, t0, limit_s=600.0):
+    """Poll /readyz every 20 ms until the warm and recovery threads are done:
+    [(seconds, recovery phase, status, warm alive)], and the wall until the
+    threads ended."""
+    from karpenter_tpu_torch.solver import aot
+
+    threads = [t for t in (op._warm_thread, op._recovery_thread) if t is not None]
+    polls = []
+    while time.perf_counter() - t0 < limit_s:
+        # a poll counts as during the warm (or in a recovery phase) only
+        # where that held both before and after its request
+        alive, phase = any(t.is_alive() for t in threads), aot.recovery_phase()
+        code, _ = _http(f"{health}/readyz")
+        alive_after, phase_after = any(t.is_alive() for t in threads), aot.recovery_phase()
+        polls.append((round(time.perf_counter() - t0, 3), phase if phase == phase_after else "changing", code,
+                      alive and alive_after))
+        if not alive:
+            return polls, time.perf_counter() - t0
+        time.sleep(0.02)
+    raise AssertionError(f"lifecycle: the warm did not end within {limit_s:.0f}s")
+
+
+def lifecycle_child(mode, args):
+    """One child process of phase 14 (``chip_smoke.py --lifecycle-child MODE
+    ARGS``): the program registry, the snapshot entries, /readyz and the
+    solves of one process, as JSON on the last line."""
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.obs import programs
+    from karpenter_tpu_torch.solver import aot, warmup
+
+    if args.get("build_dir"):
+        from pathlib import Path
+
+        kernels.BUILD_DIR = Path(args["build_dir"])
+    out = {"mode": mode}
+    t_proc = time.perf_counter()
+    if mode == "warm":
+        # steps 1 and 4: the operator's warm, then the claim ladder, then
+        # the first real 10k solve
+        op, health, t0 = _operator({"prewarm_max_pods": MAIN_PODS,
+                                    "prewarm_screen_candidates": SCREEN_CANDIDATES})
+        try:
+            out["polls"], out["warm_s"] = _poll_ready(op, health, t0)
+            out["ready_after"] = _http(f"{health}/readyz")[0]
+        finally:
+            op.stop()
+        t1 = time.perf_counter()
+        out["claim_buckets"] = warmup.prewarm_claim_buckets()
+        torch.cuda.synchronize()
+        out["claim_buckets_s"] = time.perf_counter() - t1
+        # the partitioned solve's warm under SHARD=1 (the resident world
+        # stands down under it, so it runs after the operator's warm)
+        os.environ.pop("KARPENTER_TPU_DEVICE_WORLD", None)
+        shard_env = {"KARPENTER_TPU_SHARD": "1", "KARPENTER_TPU_SHARD_MIN_DEVICES": "1",
+                     "KARPENTER_TPU_SHARD_PARTITIONS": "2"}
+        os.environ.update(shard_env)
+        t1 = time.perf_counter()
+        out["shard"] = warmup.prewarm_shard()
+        torch.cuda.synchronize()
+        out["shard_s"] = time.perf_counter() - t1
+        for name in shard_env:
+            os.environ.pop(name)
+        out["launches_warm"] = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        out["solve_s"], out["digest"] = _main_solve()
+        out["launches_solve"] = dict(kernels.LAUNCHES)
+    elif mode == "cold":
+        out["solve_s"], out["digest"] = _main_solve()
+    elif mode == "restart":
+        # step 2: no nvcc, an empty build directory
+        op, health, t0 = _operator()
+        try:
+            out["polls"], out["ready_s"] = _poll_ready(op, health, t0)
+            out["ready_after"] = _http(f"{health}/readyz")[0]
+            out["statusz"] = json.loads(_http(f"{health}/statusz")[1])
+        finally:
+            op.stop()
+        out["solve_s"], out["digest"] = _main_solve()
+    elif mode == "corrupt":
+        # step 3 without nvcc: the operator must hold /readyz at 503
+        nvcc_env = {k: os.environ.get(k) for k in ("PATH", "CUDA_HOME")}
+        os.environ.update(_no_nvcc_env(dict(os.environ)))
+        op, health, t0 = _operator()
+        try:
+            out["polls"], out["ready_s"] = _poll_ready(op, health, t0)
+            out["ready_after"] = _http(f"{health}/readyz")[0]
+            out["statusz"] = json.loads(_http(f"{health}/statusz")[1])
+        finally:
+            op.stop()
+        out["no_nvcc"] = {"recovery": aot.last_recovery(), "nvcc_runs": list(kernels.NVCC_RUNS)}
+        # then with nvcc back, in an empty build directory: the corrupted
+        # library alone is rebuilt
+        for k, v in nvcc_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        from pathlib import Path
+
+        kernels.BUILD_DIR = Path(args["rebuild_dir"])
+        kernels.evict(list(kernels.SOURCES))
+        aot.reset_table()
+        out["recovery"] = warmup.restore_and_probe()
+    else:
+        raise SystemExit(f"unknown lifecycle child {mode}")
+    torch.cuda.synchronize()
+    out["recovery_record"] = aot.last_recovery()
+    out["origins"] = kernels.library_origins()
+    out["nvcc_runs"] = list(kernels.NVCC_RUNS)
+    out["build_s"] = dict(kernels.BUILD_SECONDS)
+    out["registry"] = programs.registry().summary()
+    out["programs"] = programs.sources_by_program()
+    out["entries"] = sorted(os.path.basename(f) for f in aot.snapshot_files())
+    out["process_s"] = time.perf_counter() - t_proc
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def _child(mode, env, args=None, timeout=900):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--lifecycle-child", mode,
+                           json.dumps(args or {})], env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"lifecycle child {mode} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - t0
+    out["stderr_tail"] = proc.stderr[-2000:]
+    return out
+
+
+def _brief(record):
+    """A child's record without its long lists, for an error message."""
+    return {k: v for k, v in record.items() if k not in ("polls", "programs")}
+
+
+def _no_nvcc_env(env):
+    """``env`` with no nvcc on PATH and CUDA_HOME pointing nowhere."""
+    import shutil
+
+    path = [d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    out = dict(env, PATH=os.pathsep.join(path), CUDA_HOME="/nonexistent-cuda")
+    assert shutil.which("nvcc", path=out["PATH"]) is None
+    return out
+
+
+def _flip_byte(path):
+    with open(path, "r+b") as f:
+        data = bytearray(f.read())
+        at = len(data) - 4096  # inside the library's bytes, past the frame's header
+        data[at] ^= 0x5A
+        f.seek(0)
+        f.write(data)
+
+
+def lifecycle_phase(dev, build_s):
+    """Phase 14 (see the module docstring): the lifecycle children, then the
+    serve replicas in this process. Returns the phase's record."""
+    import shutil
+    import tempfile
+
+    from karpenter_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    state = tempfile.mkdtemp(prefix="ktpu-state-")
+    builds = [tempfile.mkdtemp(prefix="ktpu-build-") for _ in range(3)]
+    try:
+        base = {k: v for k, v in os.environ.items() if not k.startswith("KARPENTER_TPU_")}
+        base.update(KARPENTER_TPU_AOT_RESTORE="1", KARPENTER_TPU_STATE_DIR=state, KARPENTER_TPU_PROGRAMS="1",
+                    PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        # 1 + 4. the operator's warm writes the snapshot (its libraries from
+        # phase 0's _build/: persistent); a process that did not warm
+        warm = _child("warm", dict(base, KARPENTER_TPU_DEVICE_WORLD="1"))
+        cold = _child("cold", base)
+        lw = warm["launches_warm"]
+        missing = [k for k in ("ffd_loop", "relax_place", "gate_counts", "runs_screen", "patch_world",
+                               "ffd_loop_lanes") if not lw.get(k)]
+        sources = warm["registry"]["by_source"]
+        if (missing or not warm["shard"] or warm["ready_after"] != 200
+                or any(code != 503 for _, _, code, alive in warm["polls"] if alive)
+                or len(warm["entries"]) != len(kernels.SOURCES) or warm["nvcc_runs"]
+                or set(warm["origins"].values()) != {"persistent"} or not sources.get("persistent")
+                or set(sources) - {"persistent", "memory"} or warm["digest"] != cold["digest"]):
+            raise AssertionError(f"lifecycle warm: launches missing {missing}, {_brief(warm)}, cold {_brief(cold)}")
+        entries = os.path.join(state, "aot")
+        entries = os.path.join(entries, os.listdir(entries)[0])
+        # 2. a restart with no nvcc and an empty build directory
+        restart = _child("restart", _no_nvcc_env(base), {"build_dir": builds[0]})
+        rec = restart["recovery_record"] or {}
+        blocking = [(ph, code) for _, ph, code, _ in restart["polls"] if ph in ("restoring", "probing")]
+        rsrc = restart["registry"]["by_source"]
+        if (restart["ready_after"] != 200 or not blocking or any(code != 503 for _, code in blocking)
+                or rec.get("probe") != "passed" or rec.get("aot", {}).get("restored") != len(kernels.SOURCES)
+                or restart["statusz"]["recovery"]["last_restart_recovery"]["probe"] != "passed"
+                or restart["nvcc_runs"] or set(restart["origins"].values()) != {"restored"}
+                or len(restart["origins"]) != len(kernels.SOURCES) or not rsrc.get("restored")
+                or set(rsrc) - {"restored", "memory"} or restart["digest"] != warm["digest"]):
+            raise AssertionError(f"lifecycle restart: blocking polls {blocking}, {_brief(restart)}")
+        # 3. one corrupted entry: without nvcc /readyz stays 503; with it
+        # that library alone is rebuilt
+        _flip_byte(os.path.join(entries, "probe.aot"))
+        broken = _child("corrupt", base, {"build_dir": builds[1], "rebuild_dir": builds[2]})
+        brec = broken["no_nvcc"]["recovery"] or {}
+        if (broken["ready_after"] != 503 or "KernelCompileError" not in broken["statusz"].get("kernel_build_error", "")
+                or brec.get("aot", {}).get("failures") != {"checksum": 1} or brec.get("probe") != "error"
+                or brec.get("phase") != "failed" or broken["no_nvcc"]["nvcc_runs"]):
+            raise AssertionError(f"lifecycle corrupt without nvcc: {_brief(broken)}")
+        rrec = broken["recovery"] or {}
+        if (rrec.get("aot", {}).get("failures") != {"checksum": 1}
+                or rrec.get("aot", {}).get("restored") != len(kernels.SOURCES) - 1 or rrec.get("probe") != "passed"
+                or broken["nvcc_runs"] != ["probe"] or broken["origins"].get("probe") != "cold"):
+            raise AssertionError(f"lifecycle corrupt with nvcc: {_brief(broken)}")
+        children_s = time.perf_counter() - t_phase
+        replicas = replica_phase(dev)
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+        for b in builds:
+            shutil.rmtree(b, ignore_errors=True)
+    restore_ms = rec["aot"]["library_ms"]
+    out = {
+        "warm_s": warm["warm_s"], "claim_buckets_s": warm["claim_buckets_s"],
+        "warm_programs": warm["registry"]["programs"], "warm_by_source": warm["registry"]["by_source"],
+        "first_solve_after_warm_s": warm["solve_s"], "first_solve_cold_process_s": cold["solve_s"],
+        "digest": warm["digest"], "entries": warm["entries"],
+        "recovery_s": rec["seconds"], "restart_ready_s": restart["ready_s"], "restart_solve_s": restart["solve_s"],
+        "restart_by_source": rsrc, "restore_ms": restore_ms, "restore_ms_total": sum(restore_ms.values()),
+        "nvcc_build_s": {k: round(v, 3) for k, v in kernels.BUILD_SECONDS.items()}, "nvcc_build_wall_s": build_s,
+        "rebuild_s": broken["build_s"], "rebuild_recovery_s": rrec.get("seconds"),
+        "corrupt_ready_s": broken["ready_s"], "children_s": children_s,
+        "restored": {k: v == "restored" for k, v in restart["origins"].items()},
+        "process_s": {c["mode"]: round(c["process_s"], 3) for c in (warm, cold, restart, broken)},
+        "child_wall_s": {c["mode"]: round(c["wall_s"], 3) for c in (warm, cold, restart, broken)},
+        "replicas": replicas,
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    log(f"  lifecycle warm: Operator warm (prewarm_max_pods {MAIN_PODS}, screen {SCREEN_CANDIDATES}) "
+        f"{warm['warm_s']:.2f}s, /readyz 503 on all {sum(1 for p in warm['polls'] if p[3])} polls during it, 200 "
+        f"after; claim ladder {warm['claim_buckets']} buckets {warm['claim_buckets_s']:.2f}s; "
+        f"{warm['registry']['programs']} programs by source {warm['registry']['by_source']}; "
+        f"{len(warm['entries'])} snapshot entries; launches {lw}")
+    log(f"  lifecycle first 10k solve: {warm['solve_s'] * 1e3:.1f} ms after the warm, {cold['solve_s'] * 1e3:.1f} ms "
+        f"in a process that did not warm; placements {warm['digest']} == {cold['digest']}")
+    log(f"  lifecycle restart (no nvcc, empty build dir): recovery {rec['seconds']:.3f}s (restore "
+        f"{sum(restore_ms.values()):.1f} ms over {len(restore_ms)} libraries: "
+        f"{ {k: round(v, 2) for k, v in restore_ms.items()} }) against the cold build's {build_s:.1f}s (per "
+        f"library {out['nvcc_build_s']}); /readyz 503 through {len(blocking)} polls in restoring/probing, 200 "
+        f"after {restart['ready_s']:.2f}s; probe passed; 10k solve {restart['solve_s'] * 1e3:.1f} ms, sources "
+        f"{rsrc}, nvcc runs {restart['nvcc_runs']}, placements {restart['digest']} == the warm process's")
+    log(f"  lifecycle corrupted probe.aot: without nvcc /readyz {broken['ready_after']} "
+        f"({broken['statusz'].get('kernel_build_error', '')[:60]}...), recovery {brec.get('phase')}; with nvcc "
+        f"checksum 1, restored {rrec['aot']['restored']}, rebuilt {broken['nvcc_runs']} in "
+        f"{broken['build_s']}, probe {rrec.get('probe')}, recovery {rrec.get('seconds')}s")
+    log(f"  phase 14 wall {out['wall_s']:.1f}s (children {children_s:.1f}s: {out['child_wall_s']})")
+    return out
+
+
+def replica_phase(dev):
+    """Phase 14's replicas: phase 5's serve scenario through a flat
+    SolveService, ReplicaSet(1) and ReplicaSet(2) (stacking off: each
+    tenant's stream is solved by its own supervised TorchSolver, so its
+    placements depend on its stream alone), then ReplicaSet(2) with
+    ``failover(1)`` after the third cycle."""
+    import torch
+
+    from karpenter_tpu_torch import kernels, serve
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.apis.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.serve.replica import PLACE_FAILOVER, ReplicaSet
+    from karpenter_tpu_torch.solver.encode import template_from_nodepool
+    from karpenter_tpu_torch.streaming.churn import default_pod_factory
+
+    its = instance_types(SERVE_ITS)
+    tpls = [template_from_nodepool(NodePool(metadata=ObjectMeta(name="serve")), its, range(len(its)))]
+    rng = random.Random(SERVE_SEED)
+    problems = [[[default_pod_factory(f"sv-{c}-{t}-{i}", rng) for i in range(SERVE_PODS)]
+                 for t in range(SERVE_TENANTS)] for c in range(SERVE_CYCLES)]
+    tenants = [f"tenant-{t}" for t in range(SERVE_TENANTS)]
+    pods_total = SERVE_TENANTS * SERVE_CYCLES * SERVE_PODS
+
+    def run(service, failover_at=None):
+        for name in tenants:
+            service.register_tenant(name)
+        service.start()
+        digests, moved = {}, {}
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            for c, cycle in enumerate(problems):
+                if failover_at is not None and c == failover_at:
+                    moved = service.failover(1)
+                tickets = [service.submit(name, cycle[t], its, tpls) for t, name in enumerate(tenants)]
+                for name, tk in zip(tenants, tickets):
+                    o = tk.wait(timeout=300.0)
+                    if o.status != "ok":
+                        raise AssertionError(f"replicas: {name} cycle {c}: {o.status} {o.reason}")
+                    digests[(name, c)] = _placement_digest(o.result)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            service.close()
+        return wall, digests, launches, moved
+
+    flat_wall, flat, flat_launches, _ = run(serve.SolveService(device=dev, batching=False))
+    arms = {}
+    for n in (1, 2):
+        rs = ReplicaSet(n, device=dev, batching=False)
+        wall, digests, launches, _ = run(rs)
+        bad = [k for k in flat if digests[k] != flat[k]]
+        if bad:
+            raise AssertionError(f"replicas: ReplicaSet({n}) placements differ from the flat service's: {bad[:4]}")
+        if not launches.get("ffd_loop"):
+            raise AssertionError(f"replicas: ReplicaSet({n}) launched no ffd_loop: {launches}")
+        arms[n] = dict(wall_s=wall, pods_per_s=pods_total / wall, launches=launches,
+                       per_replica=sorted(i for i, _ in rs.placements().values()))
+    rs = ReplicaSet(2, device=dev, batching=False)
+    wall, digests, launches, moved = run(rs, failover_at=3)
+    placed = rs.placements()
+    if (not moved or any(placed[t] != (0, PLACE_FAILOVER) for t in moved)
+            or len(digests) != len(flat) or rs.dead_replicas() != [1]):
+        raise AssertionError(f"replicas: failover moved {moved}, placements {placed}")
+    out = {"flat_pods_per_s": pods_total / flat_wall, "flat_wall_s": flat_wall, "flat_launches": flat_launches,
+           "replicas": {str(n): arm for n, arm in arms.items()},
+           "failover": {"moved": len(moved), "wall_s": wall, "tickets": len(digests),
+                        "reasons": rs.snapshot()["placement_reasons"]}}
+    log(f"  replicas ({SERVE_TENANTS} tenants x {SERVE_CYCLES} cycles x {SERVE_PODS} pods, stacking off): flat "
+        f"{out['flat_pods_per_s']:.1f} pods/s; ReplicaSet(1) {arms[1]['pods_per_s']:.1f} pods/s, ReplicaSet(2) "
+        f"{arms[2]['pods_per_s']:.1f} pods/s (tenants per replica "
+        f"{[arms[2]['per_replica'].count(i) for i in (0, 1)]}); every tenant's placements equal the flat "
+        f"service's; failover(1) after cycle 3 moved {len(moved)} tenants (reason failover), all "
+        f"{len(digests)} tickets ok")
+    return out
 
 
 if __name__ == "__main__":

@@ -19,6 +19,16 @@ same way again), a launch that the CUDA runtime refuses raises
 dynamic shared memory exceeds what a block of the card may opt into is such a
 refused launch: each ``*_launch`` sizes its shared memory from the shape and
 returns the runtime's error when the card cannot hold it.
+
+Each loaded library keeps its origin (``library_origins``): ``cold`` when
+``nvcc`` built it in this process, ``persistent`` when it was loaded from an
+existing ``_build/`` file, ``restored`` when solver/aot.py restored it from
+a snapshot (``install``). Each library's first launch on a thread after
+its load is recorded for the program registry (obs/programs.py:
+``first_uses``), and a library's first load writes its snapshot entry when
+solver/aot.py is on.
+``nvcc`` is found on ``PATH``, else under ``$CUDA_HOME/bin`` (default
+``/usr/local/cuda``); ``NVCC_RUNS`` lists the libraries it built here.
 """
 
 from __future__ import annotations
@@ -29,8 +39,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -95,6 +106,22 @@ _lock = threading.Lock()
 # library (each writes the same temporary file)
 _build_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+# per loaded library: its file and its origin (cold, persistent, restored)
+_paths: Dict[str, Path] = {}
+_origin: Dict[str, str] = {}
+# libraries some thread has used since they were loaded
+_used: set = set()
+# the libraries nvcc built in this process, in build order, and each
+# build's wall (seconds from the start of its batch of builds to its exit)
+NVCC_RUNS: List[str] = []
+BUILD_SECONDS: Dict[str, float] = {}
+# per thread: (library, origin) of each library's first use on that thread
+_tls = threading.local()
+
+ORIGIN_COLD = "cold"
+ORIGIN_PERSISTENT = "persistent"
+ORIGIN_RESTORED = "restored"
 
 
 def reset_launches() -> None:
@@ -103,25 +130,56 @@ def reset_launches() -> None:
 
 
 def nvcc_path() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    path = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "nvcc")
     if not os.path.exists(path):
         raise KernelCompileError("nvcc not found: the CUDA kernels need the CUDA toolkit")
     return path
 
 
-def library_path(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """The digest of a library's sources and flags (its file name's)."""
     digest = hashlib.sha256()
     for f in (SOURCES[name], *sorted(p.name for p in CSRC.glob("*.cuh"))):
         digest.update((CSRC / f).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+
+
+def symbols(name: str) -> List[Tuple[str, str]]:
+    """The (launch, args-size) symbols a library must export."""
+    return [syms for entry, syms in _SYMBOLS.items() if _LIBRARY_OF.get(entry, entry) == name]
+
+
+def library_origins() -> Dict[str, str]:
+    """Each loaded library's origin."""
+    with _lock:
+        return dict(_origin)
+
+
+def loaded_path(name: str) -> Optional[Path]:
+    with _lock:
+        return _paths.get(name)
+
+
+def first_uses() -> List[Tuple[str, str]]:
+    """This thread's record of first uses: (library, origin) each time a
+    library was used for the first time since it was loaded."""
+    uses = getattr(_tls, "uses", None)
+    if uses is None:
+        uses = _tls.uses = []
+    return uses
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` process per source, all started together. Returns the library
-    paths; raises KernelCompileError with the compiler's output if any
-    build fails. The ptxas
+    ``nvcc`` process per source, all started together. A library that is
+    loaded already (restored from a snapshot, say) is built. Returns the
+    library paths; raises KernelCompileError with the compiler's output if
+    any build fails. The ptxas
     report (registers, shared memory, spills) lands in ``_build/<name>.log``."""
     names = list(SOURCES) if names is None else list(names)
     with _build_lock:
@@ -129,51 +187,117 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 
 def _build(names) -> Dict[str, Path]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
+    loaded = {n: p for n, p in list(_paths.items()) if n in names}
+    paths = {n: library_path(n) for n in names if n not in loaded}
+    if paths:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for n, out in paths.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
+        with open(BUILD_DIR / f"{n}.log", "wb") as log:
+            procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp)
+        NVCC_RUNS.append(n)
+    # each build's wall from the common start to its own exit
+    pending = dict(procs)
+    while pending:
+        for n, (proc, _) in list(pending.items()):
+            if proc.poll() is not None:
+                BUILD_SECONDS[n] = time.perf_counter() - t0
+                del pending[n]
+        if pending:
+            time.sleep(0.05)
     failures = []
     for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        (BUILD_DIR / f"{n}.log").write_bytes(log)
         if proc.returncode != 0:
+            log = (BUILD_DIR / f"{n}.log").read_bytes()
             failures.append(f"{n}: nvcc exit {proc.returncode}\n{log.decode(errors='replace')}")
         else:
             os.replace(tmp, paths[n])
     if failures:
         raise KernelCompileError("kernel build failed:\n" + "\n".join(failures))
-    return paths
+    return {**paths, **loaded}
+
+
+def _open(name: str, path: Path) -> ctypes.CDLL:
+    """dlopen a library and type its exported symbols; a missing symbol
+    raises AttributeError."""
+    lib = ctypes.CDLL(str(path))
+    for launch, size in symbols(name):
+        getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        getattr(lib, launch).restype = ctypes.c_int
+        getattr(lib, size).argtypes = []
+        getattr(lib, size).restype = ctypes.c_int
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built on first use."""
+    """The loaded library of one kernel, built on first use. Its first load
+    writes its snapshot entry (solver/aot.py) when snapshots are on."""
+    fresh = False
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = build([name])[name]
-            lib = ctypes.CDLL(str(path))
-            for entry, (launch, size) in _SYMBOLS.items():
-                if _LIBRARY_OF.get(entry, entry) != name:
-                    continue
-                getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-                getattr(lib, launch).restype = ctypes.c_int
-                getattr(lib, size).argtypes = []
-                getattr(lib, size).restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
+            lib = _open(name, path)
+            _libs[name], _paths[name] = lib, path
+            _origin[name] = ORIGIN_COLD if name in NVCC_RUNS else ORIGIN_PERSISTENT
+            fresh = True
+    if fresh:
+        from karpenter_tpu_torch.solver import aot
+
+        aot.persist_library(name, path)
+    return lib
+
+
+def install(name: str, path: Path) -> ctypes.CDLL:
+    """Load a restored library (solver/aot.py) in place of a build: later
+    calls of ``library(name)`` return it, with origin ``restored``. Raises
+    OSError or AttributeError when the file does not load or lacks a
+    symbol."""
+    lib = _open(name, path)
+    with _lock:
+        _libs[name], _paths[name] = lib, path
+        _origin[name] = ORIGIN_RESTORED
+        _used.discard(name)
+    return lib
+
+
+def evict(names: Iterable[str]) -> None:
+    """Forget loaded libraries: the next use of each builds or loads it
+    under ``_build/`` again (ctypes cannot unload a library, so the evicted
+    file stays mapped but is never called again)."""
+    with _lock:
+        for name in names:
+            _libs.pop(name, None)
+            _paths.pop(name, None)
+            _origin.pop(name, None)
+            _used.discard(name)
+
+
+def load_all() -> Dict[str, str]:
+    """Build every library that is not loaded (one nvcc per source, all at
+    once) and load each: the operator's startup step. Returns the origins."""
+    build()
+    for name in SOURCES:
+        library(name)
+    return library_origins()
 
 
 def launch(name: str, args: ctypes.Structure, stream: int, counter: Optional[str] = None) -> None:
     """Launch kernel ``name`` (a library, or a lanes mode of one) with its
     argument struct on a CUDA stream handle; raises KernelDeviceError on a
     launch error. Counts the launch under ``counter`` (default ``name``)."""
-    lib = library(_LIBRARY_OF.get(name, name))
+    lib_name = _LIBRARY_OF.get(name, name)
+    lib = library(lib_name)
+    if lib_name not in _used:
+        with _lock:
+            if lib_name not in _used and lib_name in _origin:
+                _used.add(lib_name)
+                first_uses().append((lib_name, _origin[lib_name]))
     launch_sym, size_sym = _SYMBOLS[name]
     expected = getattr(lib, size_sym)()
     if expected != ctypes.sizeof(args):
@@ -183,7 +307,10 @@ def launch(name: str, args: ctypes.Structure, stream: int, counter: Optional[str
     rc = getattr(lib, launch_sym)(ctypes.addressof(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise KernelDeviceError(f"{name}: CUDA launch error {rc}")
-    LAUNCHES[counter or name] += 1
+    # two dispatcher threads (serve replicas) may launch at once: a bare
+    # += on the dict can lose a count
+    with _count_lock:
+        LAUNCHES[counter or name] += 1
 
 
 def make_struct(name: str, pointer_fields: Iterable[str], int_fields: Iterable[str],

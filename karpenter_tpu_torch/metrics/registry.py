@@ -328,9 +328,35 @@ SOLVER_PHASE_DURATION = REGISTRY.histogram(
     "Per-phase solve-cycle self time, by phase span name and backend",
 )
 
+COMPILE_CACHE = REGISTRY.counter(
+    "solver_compile_cache_total",
+    "Solver program-cache lookups, by result (hit, miss)",
+)
 TRANSFER_BYTES = REGISTRY.counter(
     "solver_transfer_bytes_total",
     "Host-device transfer bytes on the solve path, by direction (h2d, d2h)",
+)
+
+# -- program registry series (obs/programs.py) ---------------------------------
+PROGRAM_COMPILE_SECONDS = REGISTRY.histogram(
+    "solver_compile_seconds",
+    "Per-program compile wall time by program (fn/claim-bucket) and cache "
+    "source (persistent = on-disk AOT reload, cold = full trace+compile)",
+)
+PROGRAM_LAUNCHES = REGISTRY.counter(
+    "solver_program_launches_total",
+    "Dispatches of each compiled solver program (fn/claim-bucket)",
+)
+DEVICE_BYTES = REGISTRY.gauge(
+    "solver_device_bytes",
+    "Device memory at the last solve-cycle sample, by kind (live, peak, "
+    "carried_state, donated = carried bytes reclaimed in place by "
+    "donate_argnums on the carried solve entries)",
+)
+PERSISTENT_CACHE = REGISTRY.counter(
+    "solver_persistent_cache_total",
+    "Process-cold program dispatches by persistent-cache result (hit = AOT "
+    "executable reloaded from disk, miss = cold trace+compile)",
 )
 
 # -- streaming solve series (streaming/warm.py, streaming/snapshot.py) --------
@@ -351,6 +377,18 @@ STATE_RESTORE = REGISTRY.counter(
     "Streaming-state journal restore attempts, by outcome (restored, "
     "missing, truncated, corrupt, checksum, version-skew, isa-mismatch, "
     "stale, validator, error)",
+)
+RESTART_RECOVERY_SECONDS = REGISTRY.histogram(
+    "solver_restart_recovery_seconds",
+    "Wall time of the restart-recovery sequence (AOT executable restore + "
+    "probe solve + streaming-journal restore) after a process exec",
+)
+AOT_RESTORE = REGISTRY.counter(
+    "solver_aot_restore_total",
+    "AOT executable snapshot entries processed at restore, by result "
+    "(restored, or the classified failure: missing, truncated, corrupt, "
+    "checksum, version-skew, isa-mismatch, flag-mismatch, "
+    "deserialize-error, probe-failed)",
 )
 RESTORE_FALLBACK = REGISTRY.counter(
     "restore_fallback_total",
@@ -413,6 +451,11 @@ SERVE_POOL = REGISTRY.counter(
     "Shared program-pool gather outcomes per dispatch (hit = the shape-"
     "family index produced co-batch riders, alone = the lead dispatched "
     "solo)",
+)
+SERVE_REPLICA_PLACEMENTS = REGISTRY.counter(
+    "serve_replica_placements_total",
+    "Tenant-to-replica placement decisions by classified reason (pinned, "
+    "big-tenant = routed to the largest mesh slice, hash = stable default)",
 )
 SERVE_BATCH = REGISTRY.counter(
     "serve_batch_total",

@@ -18,9 +18,14 @@ Where the port differs:
     it is ``"1"``, the default) and ``KARPENTER_TPU_DEVICE_WORLD`` (on when
     it is neither empty nor ``"0"``) at each solve; the Operator reads both
     here, with the same rules, and hands them to ``TorchSolver``;
-  * the prewarm: with ``prewarm_solver`` and the torch backend on CUDA,
-    ``start()`` builds the kernels (``kernels.build()``) on a daemon thread;
-    /readyz answers 503 until it ends, and for good if it failed;
+  * the prewarm and the restart recovery (solver/warmup.py): with the
+    torch backend, ``start()`` first starts the restart recovery (the
+    kernel-library snapshots of solver/aot.py, when on), then, with
+    ``prewarm_solver`` and the solver on CUDA, the warm thread: after the
+    recovery it builds and loads every library not restored, then warms the
+    buckets. /readyz answers 503 until both end; a kernel build error (the
+    warm's or the recovery probe's) keeps it at 503 for good and shows in
+    /statusz, and so does a device fault in a warm (``solver-prewarm``);
   * readiness after a device fault: the port's supervisor raises an error
     of the kernels or the CUDA runtime (``supervisor.device_fault``) instead
     of failing it over, so a controller pass that raises one records it in
@@ -279,13 +284,24 @@ class Operator:
         self.wire()
         self._stop.clear()
         logger = oplog.configure(self.options.log_level)
-        warm_thread = None
-        if (self.options.prewarm_solver and self.options.solver_backend == "torch"
-                and _kernels_on_card(self.supervisor)):
-            warm_thread = threading.Thread(target=self._build_kernels, args=(logger,), daemon=True,
-                                           name="karpenter-tpu/kernel-build")
-            warm_thread.start()
+        warm_thread = recovery_thread = None
+        if self.options.solver_backend == "torch":
+            from karpenter_tpu_torch.solver.warmup import (
+                maybe_prewarm_in_background,
+                maybe_recover_in_background,
+            )
+
+            # restart recovery first (solver/aot.py): marks /readyz blocked
+            # synchronously, then restores the kernel libraries and
+            # probe-solves on a daemon thread
+            recovery_thread = maybe_recover_in_background(on_fault=self._warm_fault)
+            if _kernels_on_card(self.supervisor):
+                warm_thread = maybe_prewarm_in_background(
+                    self.options, self.cloud_provider, on_fault=self._warm_fault,
+                    after=recovery_thread, build=True,
+                )
         self._warm_thread = warm_thread
+        self._recovery_thread = recovery_thread
         self.status.warmup_ready = lambda: warm_thread is None or not warm_thread.is_alive()
         self._servers = [serving.serve(self.options.metrics_port, status=self.status)]
         if self.options.health_probe_port != self.options.metrics_port:
@@ -325,16 +341,16 @@ class Operator:
         for t in self._threads:
             t.start()
 
-    def _build_kernels(self, logger) -> None:
-        """The startup build: every kernel's nvcc at once. A failure keeps
-        /readyz at 503 and shows in /statusz."""
-        from karpenter_tpu_torch import kernels
+    def _warm_fault(self, exc: BaseException) -> None:
+        """A fault of the startup build, the warm or the recovery probe: a
+        device fault of a warm is recorded as one of ``solver-prewarm``,
+        anything else as the build error. Either keeps /readyz at 503."""
+        from karpenter_tpu_torch.kernels import KernelCompileError
 
-        try:
-            kernels.build()
-        except Exception as exc:
+        if device_fault(exc) and not isinstance(exc, KernelCompileError):
+            self.status.record_device_fault("solver-prewarm", exc)
+        else:
             self.status.record_build_error(exc)
-            logger.exception("kernel build failed")
 
     def stop(self) -> None:
         self._stop.set()

@@ -9,9 +9,9 @@ explicitly).
 Where the port differs: ``solver_backend`` is ``"torch"`` (the default: the
 hand-written kernels on ``solver_device``) or ``"oracle"``, and any other
 value raises; ``solver_device`` (env ``SOLVER_DEVICE``) is ``"cuda"`` unless
-the caller asks for ``"cpu"``; the bucket prewarm (``prewarm_max_pods``,
-``prewarm_screen_candidates``) is not ported and a value above 0 raises.
-The JAX package's fields that nothing reads (the apiserver client's QPS and
+the caller asks for ``"cpu"``. The bucket prewarm (``prewarm_max_pods``,
+``prewarm_screen_candidates``, solver/warmup.py) means what it means in the
+JAX package, on the solver's device. The JAX package's fields that nothing reads (the apiserver client's QPS and
 burst, leader election, the memory limit fraction) are left out.
 """
 
@@ -52,23 +52,21 @@ class Options:
     # the torch backend's device: "cuda" (the kernels), or "cpu" (their
     # plain PyTorch versions) when the caller asks for it
     solver_device: str = "cuda"
-    # build the kernels at startup, on a thread of its own that holds
-    # /readyz at 503 until it ends (torch backend on CUDA only)
+    # build and load the kernels at startup, then warm the solver's
+    # buckets, on a thread of its own that holds /readyz at 503 until it
+    # ends (torch backend on CUDA only; solver/warmup.py)
     prewarm_solver: bool = True
-    # the JAX package's bucket ladder (solver/warmup.py); not ported here,
-    # so only 0 is accepted
+    # largest pod batch to warm solver buckets for (0 = only the small
+    # standard buckets); solver/warmup.py walks the bucket ladder up to it
     prewarm_max_pods: int = 0
+    # candidate-subset counts to warm the consolidation screen for
+    # (solver/warmup.py prewarm_screen); 0 disables
     prewarm_screen_candidates: int = 0
 
     def __post_init__(self):
         if self.solver_backend not in SOLVER_BACKENDS:
             raise ValueError(
                 f"solver_backend {self.solver_backend!r} is not one of {', '.join(SOLVER_BACKENDS)}"
-            )
-        if self.prewarm_max_pods > 0 or self.prewarm_screen_candidates > 0:
-            raise NotImplementedError(
-                "the solver bucket prewarm (prewarm_max_pods, prewarm_screen_candidates) is not "
-                "ported to karpenter_tpu_torch (ROADMAP.md A5, program lifecycle); leave both at 0"
             )
 
     def drift_enabled(self) -> bool:

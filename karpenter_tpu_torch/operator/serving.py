@@ -8,18 +8,18 @@ OperatorStatus in, and /statusz exposes the supervisor's circuit and failure
 state as JSON.
 
 Where the port differs:
-  * readiness also needs the kernels built (the operator's build thread,
-    ``warmup_ready``), no kernel build error, and no device fault
+  * readiness also needs no kernel build error and no device fault
     (``solver/supervisor.device_fault``) recorded by a controller since its
-    last clean pass that did device work: the port's supervisor raises such errors instead of
-    failing them over, so its circuit alone would leave /readyz at 200
-    while every pass raises. /statusz names the build error and each
-    recorded fault;
-  * /debug/programs and /statusz["programs"] answer from the kernel
-    inventory (``kernel_inventory``): each kernel's name, library, whether
-    that library is built, and ``kernels.LAUNCHES``;
-  * /statusz has no restart-recovery section and readiness no AOT check
-    (the JAX package's solver/aot.py is not ported);
+    last clean pass that did device work, or by the warm: the port's
+    supervisor raises such errors instead of failing them over, so its
+    circuit alone would leave /readyz at 200 while every pass raises.
+    /statusz names the build error and each recorded fault;
+  * /debug/programs answers from the program registry (obs/programs.py) as
+    in the JAX package, with the kernel inventory (``kernel_inventory``:
+    each kernel's name, library, whether that library is built or loaded
+    and from where, and ``kernels.LAUNCHES``) under its own key,
+    ``kernels``; /statusz["programs"] is the registry's summary and
+    /statusz["kernels"] the inventory;
   * --enable-profiling runs ``torch.profiler`` over the host and the card
     (the JAX package runs ``jax.profiler``).
 """
@@ -92,9 +92,11 @@ def kernel_inventory() -> dict:
     from karpenter_tpu_torch import kernels
 
     rows = []
+    origins = kernels.library_origins()
     for name in kernels.SOURCES:
-        path = kernels.library_path(name)
-        rows.append({"name": name, "source": kernels.SOURCES[name], "library": path.name, "built": path.exists()})
+        path = kernels.loaded_path(name) or kernels.library_path(name)
+        rows.append({"name": name, "source": kernels.SOURCES[name], "library": path.name,
+                     "built": name in origins or path.exists(), "origin": origins.get(name)})
     launches = dict(kernels.LAUNCHES)
     return {
         "kernels": rows,
@@ -147,11 +149,18 @@ class OperatorStatus:
             return dict(self._faults)
 
     def ready(self) -> bool:
-        """Ready to serve traffic: the kernel build done and clean, no
-        device fault outstanding, and the primary solve path not hard-open.
+        """Ready to serve traffic: the warm (the kernel build first) done
+        and clean, no restart recovery in flight, no device fault
+        outstanding, and the primary solve path not hard-open.
         Half-open counts as ready: the next solve probes the primary and the
         fallback still answers either way."""
         if self.warmup_ready is not None and not self.warmup_ready():
+            return False
+        from karpenter_tpu_torch.solver import aot
+
+        if aot.recovery_blocking():
+            # restored kernel libraries must pass the probe solve before any
+            # traffic can land on them (solver/warmup.py restore_and_probe)
             return False
         if self.build_error is not None or self._faults:
             return False
@@ -188,8 +197,21 @@ class OperatorStatus:
                 for k in ("trace_id", "name", "backend", "duration_s", "phases")
             }
         out["traces"] = summary
-        # the kernel inventory (/debug/programs has the same rows)
-        out["programs"] = kernel_inventory()
+        # restart recovery (solver/aot.py): current phase plus the last
+        # completed recovery record: restore summary, probe verdict, wall
+        # seconds, and the recovery trace id
+        from karpenter_tpu_torch.obs import programs
+        from karpenter_tpu_torch.solver import aot
+
+        recovery = {"phase": aot.recovery_phase()}
+        last = aot.last_recovery()
+        if last is not None:
+            recovery["last_restart_recovery"] = last
+        out["recovery"] = recovery
+        # program registry one-liner (obs/programs.py), and the kernel
+        # inventory (/debug/programs has both in full)
+        out["programs"] = programs.registry().summary()
+        out["kernels"] = kernel_inventory()
         from karpenter_tpu_torch.obs import explain
 
         # unschedulable summary over the report ring (/debug/explain drills in)
@@ -238,8 +260,13 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_response(200)
             self.send_header("Content-Type", "application/json")
         elif self.path.startswith("/debug/programs"):
-            # the kernel inventory: libraries, built or not, launch counts
-            body = (json.dumps(kernel_inventory(), indent=1, default=str) + "\n").encode()
+            from karpenter_tpu_torch.obs import programs
+
+            # the program registry: per-program launches, load sources and
+            # bytes, memory samples; the kernel inventory beside it
+            payload = programs.registry().snapshot()
+            payload["kernels"] = kernel_inventory()
+            body = (json.dumps(payload, indent=1, default=str) + "\n").encode()
             self.send_response(200)
             self.send_header("Content-Type", "application/json")
         elif self.path.startswith("/debug/explain"):

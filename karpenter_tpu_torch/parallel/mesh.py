@@ -41,8 +41,14 @@ lanes mode for program 14. Each lane exits its loop when it converges,
 which is ``shard_map``'s per-device semantics (the JAX package's vmap
 lockstep gives the same per-lane results). ``healthy_devices`` and
 ``default_mesh`` give the device list the JAX package carves its mesh from;
-the lanes all run on the solver's device. ``carve_meshes`` (the serve
-replicas) is not ported.
+the lanes all run on the solver's device. ``carve_meshes`` carves the
+CUDA devices into the serve replicas' slices (serve/replica.py).
+
+Each screen and stacked dispatch (``lean_screen``, ``residual_screen``,
+``batched_screen``, ``batched_solve``) is recorded in the program registry
+(obs/programs.py) under the JAX package's program name, as its
+counterparts are; like them it is not counted in
+``solver_compile_cache_total``.
 """
 
 from __future__ import annotations
@@ -182,13 +188,15 @@ def lean_screen(base: SchedulingProblem, variants: ScreenVariants, max_claims: i
     version on CPU tensors. Results carry a leading lane axis."""
     base = _pad_lanes_mult32(base)
     max_run, with_topo = max_run_bucket(base), has_topo_runs(base)
-    if base.lane_valid.is_cuda:
-        return launch_runs_screen(
-            base, initial_state(base, max_claims), variants.node_avail, variants.pod_active,
-            max_run=max_run, passes=passes, with_topo=with_topo,
-            grp_counts0=variants.grp_counts0, grp_registered0=variants.grp_registered0,
-        )
-    return lean_screen_plain(base, variants, max_claims, passes)
+    with _dispatch("lean_screen", max_claims, (base, variants),
+                   {"passes": passes, "max_run": max_run, "with_topo": with_topo}):
+        if base.lane_valid.is_cuda:
+            return launch_runs_screen(
+                base, initial_state(base, max_claims), variants.node_avail, variants.pod_active,
+                max_run=max_run, passes=passes, with_topo=with_topo,
+                grp_counts0=variants.grp_counts0, grp_registered0=variants.grp_registered0,
+            )
+        return lean_screen_plain(base, variants, max_claims, passes)
 
 
 def residual_screen(base: SchedulingProblem, carried: FFDState, variants: ResidualVariants,
@@ -200,13 +208,28 @@ def residual_screen(base: SchedulingProblem, carried: FFDState, variants: Residu
     base = _pad_lanes_mult32(base)
     if carried.claim_open.shape[0] != max_claims:
         raise ValueError(f"carried state has {carried.claim_open.shape[0]} claim slots, not {max_claims}")
-    if base.lane_valid.is_cuda:
-        p0 = trim_runs(base, run_idx)
-        return launch_runs_screen(
-            p0, carried, variants.node_avail, variants.pod_active,
-            max_run=max_run_bucket(base), passes=1, with_topo=False,
-        )
-    return residual_screen_plain(base, carried, variants, run_idx, max_claims)
+    with _dispatch("residual_screen", max_claims, (base, carried, variants, run_idx),
+                   {"max_run": max_run_bucket(base), "with_topo": False}):
+        if base.lane_valid.is_cuda:
+            p0 = trim_runs(base, run_idx)
+            return launch_runs_screen(
+                p0, carried, variants.node_avail, variants.pod_active,
+                max_run=max_run_bucket(base), passes=1, with_topo=False,
+            )
+        return residual_screen_plain(base, carried, variants, run_idx, max_claims)
+
+
+@contextlib.contextmanager
+def _dispatch(name: str, max_claims: int, tree, statics: dict):
+    """One screen or stacked dispatch in the program registry (off: one
+    flag check)."""
+    from karpenter_tpu_torch.obs import programs
+    from karpenter_tpu_torch.verify.gate import _nbytes
+
+    obs = programs.begin_dispatch(name, max_claims, tree, statics=statics, kernel="runs_screen")
+    yield
+    if obs is not None:
+        obs.finish(problem_bytes=_nbytes(tree))
 
 
 # -- the batched programs: B whole problems, one per lane ---------------------
@@ -274,17 +297,25 @@ def batched_screen(batch: SchedulingProblem, max_claims: int, passes: int = 3) -
     leave ``pod_active``; kind/index keep the first placement): one
     ``runs_screen`` launch in its stacked mode on CUDA tensors, the plain
     version on CPU tensors. Results carry a leading lane axis."""
-    if passes < 1:
-        raise ValueError("passes must be >= 1")
-    if batch.lane_valid.is_cuda:
-        return launch_stacked_screen(batch, max_claims, passes=passes)
-    return batched_screen_plain(batch, max_claims, passes)
+    return _batched("batched_screen", batch, max_claims, passes)
 
 
 def batched_solve(batch: SchedulingProblem, max_claims: int, passes: int = 1) -> FFDResult:
     """The JAX package's ``batched_solve``: ``batched_screen`` with one pass
     by default."""
-    return batched_screen(batch, max_claims, passes=passes)
+    return _batched("batched_solve", batch, max_claims, passes)
+
+
+def _batched(name: str, batch: SchedulingProblem, max_claims: int, passes: int) -> FFDResult:
+    if passes < 1:
+        raise ValueError("passes must be >= 1")
+    statics = {"max_run": max_run_bucket(batch), "with_topo": has_topo_runs(batch)}
+    if name == "batched_screen":
+        statics["passes"] = passes
+    with _dispatch(name, max_claims, batch, statics):
+        if batch.lane_valid.is_cuda:
+            return launch_stacked_screen(batch, max_claims, passes=passes)
+        return batched_screen_plain(batch, max_claims, passes)
 
 
 # -- the partitioned solve (KARPENTER_TPU_SHARD, shard/) ----------------------
@@ -313,6 +344,30 @@ def default_mesh(min_devices: int = 2, device=None) -> Optional[list]:
     if len(devices) < min_devices:
         return None
     return devices
+
+
+def carve_meshes(n_slices: int, devices=None) -> list:
+    """Carve the devices (default ``healthy_devices()``: every healthy CUDA
+    device) into ``n_slices`` contiguous slices, one per serve replica
+    (serve/replica.py), as the JAX package carves its meshes: sorted by
+    index, balanced, the remainder devices to the first slices (slice 0 is
+    the largest, the big-tenant home), and None for a slice of fewer than 2
+    devices. A slice is a list of devices; its replica runs on the first."""
+    from karpenter_tpu_torch.solver.mesh_health import device_id
+
+    if devices is None:
+        devices = healthy_devices()
+    devices = sorted(devices, key=device_id)
+    n_slices = max(1, int(n_slices))
+    base, extra = divmod(len(devices), n_slices)
+    out = []
+    start = 0
+    for i in range(n_slices):
+        size = base + (1 if i < extra else 0)
+        chunk = devices[start:start + size]
+        start += size
+        out.append(list(chunk) if len(chunk) >= 2 else None)
+    return out
 
 
 def _shard_lanes(batch: SchedulingProblem) -> list:

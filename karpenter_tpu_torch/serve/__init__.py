@@ -28,9 +28,9 @@ tenant:
 The service and the default tenant stack run their ``TorchSolver`` on CUDA
 unless given ``device="cpu"``. ``/debug/tenants`` and ``/statusz["serve"]``
 (operator/serving.py) read a wired service's snapshot, or the process-wide
-one (``current_service``). Not ported: replica sets over carved mesh slices
-(serve/replica.py). The port's Operator wires no service, as the JAX
-package's does not.
+one (``current_service``). ``ReplicaSet`` (serve/replica.py) runs N services
+over carved device slices with classified sticky tenant placement. The
+port's Operator wires no service, as the JAX package's does not.
 
 Knobs (all read at construction; the JAX package's names and defaults):
 
@@ -47,6 +47,8 @@ Knobs (all read at construction; the JAX package's names and defaults):
   KARPENTER_TPU_SERVE_BATCH_LANES      max lanes per stacked dispatch (8)
   KARPENTER_TPU_SERVE_EWMA_HALF_LIFE_S wait-estimate decay half-life (5)
   KARPENTER_TPU_SERVE_EWMA_FLOOR       wait-estimate staleness floor (0.25)
+  KARPENTER_TPU_SERVE_REPLICAS         ReplicaSet replicas (1)
+  KARPENTER_TPU_SERVE_BIG_PODS         big-tenant placement threshold (1024)
 """
 
 from __future__ import annotations
@@ -100,6 +102,22 @@ def batch_lanes() -> int:
         return max(2, int(os.environ.get("KARPENTER_TPU_SERVE_BATCH_LANES", "8")))
     except ValueError:
         return 8
+
+
+def replicas() -> int:
+    try:
+        return max(1, int(os.environ.get("KARPENTER_TPU_SERVE_REPLICAS", "1")))
+    except ValueError:
+        return 1
+
+
+def big_tenant_pods() -> int:
+    """Expected-pods threshold above which a tenant is placed on the replica
+    owning the largest device slice."""
+    try:
+        return max(1, int(os.environ.get("KARPENTER_TPU_SERVE_BIG_PODS", "1024")))
+    except ValueError:
+        return 1024
 
 
 def ewma_half_life_s() -> float:

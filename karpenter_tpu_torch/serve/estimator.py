@@ -74,6 +74,20 @@ class WaitEstimator:
             self._observed_at = now
             self.observations += 1
 
+    def seed(self, service_s: float, now: Optional[float] = None) -> None:
+        """Pessimistically pre-load the estimate (replica failover: a
+        survivor absorbing a dead replica's tenants should meet the surge
+        with backpressure BEFORE the first migrated solve completes). Only
+        raises the estimate — a survivor that already learned it is slower
+        keeps its own number."""
+        if service_s <= 0:
+            return
+        now = self._time() if now is None else now
+        with self._lock:
+            if service_s > self._ewma:
+                self._ewma = float(service_s)
+                self._observed_at = now
+
     def per_request_s(self, now: Optional[float] = None) -> float:
         """The decayed per-request service estimate; 0.0 before any sample
         (no estimate means no predicted-wait shedding — admission falls back

@@ -53,8 +53,10 @@ fleet schedules 9,862 sharded against 9,829 with its FFD control, and the
 Differences from the JAX package: the lanes are blocks of one launch on the
 solver's device, not devices of a mesh, so the lane axis is not padded to a
 device multiple (``lanes`` equals ``partitions``, and ``pad_frac`` counts
-only the bucket padding); the JAX package's AOT, program registry and
-compile-cache accounting (its ``_program_key``) are not ported. An error of
+only the bucket padding). The dispatch is counted in
+``solver_compile_cache_total`` and the program registry (obs/programs.py)
+as the JAX package's is; its per-dispatch AOT hook has no counterpart (the
+port's snapshots act at library load, solver/aot.py). An error of
 the kernels or of the CUDA runtime propagates, as everywhere in this
 package; any other exception is the ``error`` standdown. The wall of each
 stage lands in ``solver.last_timing`` (topology, partition, encode,
@@ -80,7 +82,8 @@ from karpenter_tpu_torch.metrics.registry import (
     SHARD_PARTITIONS,
     TRANSFER_BYTES,
 )
-from karpenter_tpu_torch.obs import flight, trace
+from karpenter_tpu_torch.obs import flight, programs, trace
+from karpenter_tpu_torch.verify.gate import _nbytes
 from karpenter_tpu_torch.ops.ffd_core import KIND_CLAIM, KIND_NEW_CLAIM, KIND_NODE, KIND_NO_SLOT
 from karpenter_tpu_torch.ops.ffd_sweeps import wavefront_lanes
 from karpenter_tpu_torch.ops.padding import claim_axis_bucket, pad_problem
@@ -231,8 +234,6 @@ def _fetch_lanes(results, relax2_stats):
     stats, on the host."""
     from karpenter_tpu_torch.ops.relax2 import host_stats
     from karpenter_tpu_torch.solver.torch_backend import fetch_claims
-
-    from karpenter_tpu_torch.verify.gate import _nbytes
 
     kinds = [r.kind.cpu().numpy() for r in results]
     indices = [r.index.cpu().numpy() for r in results]
@@ -393,9 +394,19 @@ def _try_shard_solve(
         wavefront = wavefront_lanes()
 
         t0 = time.perf_counter()
+        from karpenter_tpu_torch.ops.ffd_core import problem_bounds_free
+        from karpenter_tpu_torch.solver.torch_backend import count_program
+
+        count_program(solver, program_name, max_claims, dev_batch)
+        obs = programs.begin_dispatch(
+            program_name, max_claims, dev_batch,
+            statics={"partitions": len(plan.parts), "devices": len(mesh),
+                     "bounds_free": bool(problem_bounds_free(batch)), "wavefront": wavefront},
+            kernel="ffd_loop_lanes",
+        )
         try:
             mesh_health.dispatch_check(mesh)
-            with trace.span(program_name, partitions=len(plan.parts)):
+            with trace.span(program_name, partitions=len(plan.parts)) as sp:
                 r2_stats = None
                 if relax2_on:
                     results, r2_stats = shard_relax2_sweeps(
@@ -403,6 +414,8 @@ def _try_shard_solve(
                 else:
                     results = shard_sweeps(dev_batch, max_claims, wavefront=wavefront)
                 kinds, indices, claims_np, iters, r2_stats = _fetch_lanes(results, r2_stats)
+                if obs is not None:
+                    programs.stamp(sp, obs, obs.finish(problem_bytes=_nbytes(dev_batch)))
         except Exception as exc:  # classified below, or re-raised
             if mesh_health.handle_dispatch_failure(exc) is None:
                 raise
@@ -432,6 +445,11 @@ def _try_shard_solve(
             max_claims = min(solver.claim_slots, claim_cap)
             continue
         timing["dispatch"] += time.perf_counter() - t0
+        programs.note_shard_lanes(
+            len(plan.parts), len(padded),
+            [len(pt.pod_idx) for pt in plan.parts],
+            [len(pt.node_idx) for pt in plan.parts],
+        )
 
         overflow = any(
             (kinds[li][: len(part.pod_idx)] == KIND_NO_SLOT).any()
@@ -585,4 +603,7 @@ def _try_shard_solve(
     }
     # first green solve after a device failure closes the recovery clock
     mesh_health.note_green()
+    if programs.enabled():
+        programs.sample_memory(pods=len(pods), cycle=trace.current_trace_id(), device=solver.device,
+                               held_bytes=_nbytes(dev_batch))
     return out

@@ -97,13 +97,22 @@ remap and the problem's upload), ``relax`` / ``relax2`` (phase 1 and its
 stats fetch), ``sweeps`` / ``narrow`` (the loop and its fetch), ``decode``,
 and the markers ``escalate``, ``relax_fallback`` and ``relax2_standdown``;
 the JAX backend's ``compile`` span has no counterpart (the kernels build
-once per process, obs/programs.py is not ported). Every host-device copy of
+once per process). Every host-device copy of
 the solve is counted in ``solver_transfer_bytes_total{direction}``: the
 padded problem once per encode pass (phase 1 and the loop read the one
 upload), the stats, verdicts, iteration counts and claim rows fetched.
 
+Each dispatch (phase 1, the convex phase, each pass of the loop) is counted
+in ``solver_compile_cache_total{result}`` under the JAX backend's program
+key (the JAX package's program name, the claim bucket, the padded shapes:
+``_program_key``, ``compile_cache_hits`` / ``_misses``) and, with
+``KARPENTER_TPU_PROGRAMS`` on, recorded in the program registry
+(obs/programs.py) under the JAX package's program name, its key stamped on
+the span around the launch; the solve ends with a memory sample. The
+kernel-library snapshots (solver/aot.py) act at library load, not here.
+
 These are the environment flags the backend reads, as the JAX backend
-reads them. Not ported: the JAX backend's AOT and program registry.
+reads them.
 """
 
 from __future__ import annotations
@@ -119,9 +128,14 @@ import torch
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.apis.objects import Pod
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
-from karpenter_tpu_torch.metrics.registry import ORDER_POLICY_SOLVES, RELAX_FALLBACK, TRANSFER_BYTES
+from karpenter_tpu_torch.metrics.registry import (
+    COMPILE_CACHE,
+    ORDER_POLICY_SOLVES,
+    RELAX_FALLBACK,
+    TRANSFER_BYTES,
+)
 from karpenter_tpu_torch.models.problem import GT_NONE, LT_NONE, problem_to_torch
-from karpenter_tpu_torch.obs import trace
+from karpenter_tpu_torch.obs import programs, trace
 from karpenter_tpu_torch.ops.ffd_core import (
     KIND_CLAIM,
     KIND_NEW_CLAIM,
@@ -163,6 +177,31 @@ from karpenter_tpu_torch.verify.gate import _nbytes
 
 class _SlotOverflow(Exception):
     pass
+
+
+# Program keys this process has dispatched at least once (the JAX backend's
+# set of the same name): (program name, claim bucket, padded leaf shapes).
+# Feeds solver_compile_cache_total.
+_COMPILED_PROGRAMS: set = set()
+
+
+def _program_key(name: str, max_claims: int, tree) -> tuple:
+    return (name, int(max_claims), programs.shape_key(tree))
+
+
+def count_program(backend, name: str, max_claims: int, tree) -> bool:
+    """Count one dispatch in solver_compile_cache_total and on ``backend``'s
+    hit/miss counters; True for a key dispatched before."""
+    key = _program_key(name, max_claims, tree)
+    hit = key in _COMPILED_PROGRAMS
+    _COMPILED_PROGRAMS.add(key)
+    COMPILE_CACHE.inc({"result": "hit" if hit else "miss"})
+    if backend is not None:
+        if hit:
+            backend.compile_cache_hits += 1
+        else:
+            backend.compile_cache_misses += 1
+    return hit
 
 
 def runs_enabled() -> bool:
@@ -352,6 +391,9 @@ class TorchSolver(SolverBackend):
         # it served, {"reason": <standdown>, ...} otherwise; None when the
         # flag is off
         self.last_shard: Optional[Dict] = None
+        # lifetime program-cache lookups (count_program)
+        self.compile_cache_hits = 0
+        self.compile_cache_misses = 0
         # the device-resident cycle (module docstring); None when off
         self._device_world = None
         if device_world:
@@ -561,10 +603,14 @@ class TorchSolver(SolverBackend):
     def _relax_phase(self, problem, max_claims):
         """Phase 1 over the padded device problem: its RelaxOut, or None when
         it placed nothing (the plain sweeps solve is then the whole solve)."""
+        count_program(self, "relax_place", max_claims, problem)
+        obs = programs.begin_dispatch("relax_place", max_claims, problem, kernel="relax_place")
         with trace.span("relax", program="relax_place") as sp:
             rout = relax_place(problem, max_claims)
             fetched = torch.stack(list(rout.stats)).cpu()
             TRANSFER_BYTES.inc({"direction": "d2h"}, _nbytes(fetched))
+            if obs is not None:
+                programs.stamp(sp, obs, obs.finish(problem_bytes=_nbytes(problem), result_bytes=_nbytes(fetched)))
             self.last_relax = dict(zip(("eligible", "placed", "demoted", "claims"), fetched.tolist()))
             if sp is not None:
                 for name, value in self.last_relax.items():
@@ -599,11 +645,16 @@ class TorchSolver(SolverBackend):
         try:
             if not relax2.relax_applicable(problem):
                 return self._relax2_standdown("finite-pool")
-            with trace.span("relax2", program="relax2_place"):
+            count_program(self, "relax2_place", max_claims, problem)
+            obs = programs.begin_dispatch("relax2_place", max_claims, problem, kernel="relax2_place")
+            with trace.span("relax2", program="relax2_place") as sp:
                 rout = relax2.relax2_place(problem, max_claims)
                 stats = relax2.host_stats(rout.stats)
                 # host_stats fetches one int32 word per stat
                 TRANSFER_BYTES.inc({"direction": "d2h"}, 4 * len(rout.stats))
+                if obs is not None:
+                    programs.stamp(sp, obs, obs.finish(problem_bytes=_nbytes(problem),
+                                                       result_bytes=4 * len(rout.stats)))
             if stats.eligible <= 0:
                 return self._relax2_standdown(relax2.classify_ineligible(problem))
             if not relax2.converged(stats.residual, stats.capviol):
@@ -730,10 +781,23 @@ class TorchSolver(SolverBackend):
 
             t0 = time.perf_counter()
             wavefront = wavefront_lanes()
+            # the JAX backend's program names (the learned order's twins
+            # carry _policy) and the kernel that serves each
             if use_sweeps:
                 program = "solve_ffd_sweeps_carried" if rout is not None else "solve_ffd_sweeps"
+                if lanes:
+                    program += "_policy"
+                kernel = "ffd_loop_wavefront" if wavefront else "ffd_loop"
             else:
                 program = "solve_ffd_runs" if use_runs else "solve_ffd"
+                kernel = "runs_screen" if use_runs else "ffd_loop"
+            pass_problem = (dataclasses.replace(problem, pod_active=rout.residue_active)
+                            if rout is not None else problem)
+            count_program(self, program, max_claims, pass_problem)
+            obs = programs.begin_dispatch(program, max_claims, pass_problem, kernel=kernel)
+            carried_in = 0
+            if obs is not None:
+                carried_in = _nbytes(rout.state) if rout is not None else _nbytes(state)
             with trace.span("sweeps" if use_sweeps else "narrow", program=program) as sp:
                 # the learned requeue order: one score per row (the rows'
                 # features do not depend on which are active), read by the
@@ -776,6 +840,9 @@ class TorchSolver(SolverBackend):
                     self.last_iters = None
                     self.last_wave_hist = None
                 TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
+                if obs is not None:
+                    programs.stamp(sp, obs, obs.finish(problem_bytes=_nbytes(problem), carried_bytes=carried_in,
+                                                       result_bytes=d2h))
                 if sp is not None:
                     sp.count("d2h_bytes", d2h)
                     if self.last_iters is not None:
@@ -844,6 +911,12 @@ class TorchSolver(SolverBackend):
                 np_final = fetch_claims(state)
                 TRANSFER_BYTES.inc({"direction": "d2h"}, _nbytes(np_final))
             decode_claim_placements(out, meta, max_claims, np_final if state is not None else None, pod_kinds)
+        # the solve cycle's memory sample (obs/programs.py): the carried
+        # FFDState, and on the CPU the tensors the solve holds
+        if programs.enabled():
+            carried = _nbytes(state) if state is not None else 0
+            programs.sample_memory(carried_bytes=carried, pods=len(pods), cycle=trace.current_trace_id(),
+                                   device=self.device, held_bytes=_nbytes(problem) + carried)
         if use_sweeps and meta is not None:
             # single-pass solves hand the device gate the exact padded tensors
             # this result decoded from (the repair pass's residue problem after

@@ -56,8 +56,11 @@ the bytes it moves in ``solver_transfer_bytes_total{direction}``, as in the
 JAX package. With ``KARPENTER_TPU_TRACE`` on, a cycle opens the JAX
 package's spans: ``encode`` (the delta encode), ``patch`` or
 ``world_adopt``, ``fused`` (the fused launch and its fetch) and ``decode``,
-and sets the ``world_outcome`` attribute. Not ported: the program registry
-and AOT hooks.
+and sets the ``world_outcome`` attribute. The patch and the fused launch
+are counted in ``solver_compile_cache_total`` and the program registry
+(obs/programs.py) under the JAX package's names (``patch_world``,
+``solve_ffd_fused_gate``), and a cycle ends with a memory sample; the JAX
+package's per-dispatch AOT hook has no counterpart (solver/aot.py).
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.metrics.registry import TRANSFER_BYTES, WORLD_PATCH
-from karpenter_tpu_torch.obs import trace
+from karpenter_tpu_torch.obs import programs, trace
 from karpenter_tpu_torch.models.problem import numpy_fields
 from karpenter_tpu_torch.ops.ffd_core import (
     KIND_CLAIM,
@@ -270,8 +273,13 @@ class DeviceWorld:
         if drift is None:
             stage_outcome = "patched" if self.patched_streak == 0 else "repatched"
             self.patched_streak += 1
+            from karpenter_tpu_torch.solver.torch_backend import count_program
+
             with trace.span("patch", program="patch_world") as sp:
-                up = upload_patch(build_patch_args(spliced, rows_prev, self.world.shapes), self.world)
+                patch = build_patch_args(spliced, rows_prev, self.world.shapes)
+                count_program(backend, "patch_world", max_claims, (self.world.t, patch))
+                obs = programs.begin_dispatch("patch_world", max_claims, (self.world.t, patch), kernel="patch_world")
+                up = upload_patch(patch, self.world)
                 patch_world(self.world, up)
                 self.last_patch = up
                 h2d = up.nbytes
@@ -280,6 +288,9 @@ class DeviceWorld:
                 donated = sum(self.world.t[n].numel() * self.world.t[n].element_size() for n in PATCH_ROWS)
                 if not self.pipelined:
                     _sync(dev)
+                if obs is not None:
+                    programs.stamp(sp, obs, obs.finish(problem_bytes=h2d, carried_bytes=donated,
+                                                       donated_bytes=donated))
                 if sp is not None:
                     sp.count("h2d_bytes", h2d)
                     sp.count("donated_bytes", donated)
@@ -312,6 +323,13 @@ class DeviceWorld:
         t_prep = time.perf_counter()
 
         # -- stage 2: fused solve + gate, then one batched fetch ----------------
+        from karpenter_tpu_torch.solver.torch_backend import count_program
+
+        count_program(backend, "solve_ffd_fused_gate", max_claims, self.world.t)
+        world_bytes = self.world.nbytes()
+        obs = programs.begin_dispatch("solve_ffd_fused_gate", max_claims, self.world.t,
+                                      statics={"bf": int(bf), "wf": int(wf), "gbf": int(gbf)},
+                                      kernel="ffd_loop_wavefront" if wf else "ffd_loop")
         with trace.span("fused", program="solve_ffd_fused_gate") as sp:
             result, counts = solve_ffd_fused_gate(self.world, pc, max_claims, bf, gbf, wf)
             if not self.pipelined:
@@ -336,6 +354,8 @@ class DeviceWorld:
             d2h = sum(x.nbytes for x in fetched)
             TRANSFER_BYTES.inc({"direction": "h2d"}, h2d + pod_check.nbytes)
             TRANSFER_BYTES.inc({"direction": "d2h"}, d2h)
+            if obs is not None:
+                programs.stamp(sp, obs, obs.finish(problem_bytes=int(pod_check.nbytes), result_bytes=d2h))
             if sp is not None:
                 sp.count("h2d_bytes", pod_check.nbytes)
                 sp.count("d2h_bytes", d2h)
@@ -390,6 +410,13 @@ class DeviceWorld:
         t_decode = time.perf_counter()
 
         backend.last_relax = None  # the fused path never runs phase 1
+        if programs.enabled():
+            from karpenter_tpu_torch.verify.gate import _nbytes
+
+            carried = _nbytes(state)
+            programs.sample_memory(carried_bytes=carried, pods=len(pods), cycle=trace.current_trace_id(),
+                                   donated_bytes=donated, world_bytes=world_bytes, device=dev,
+                                   held_bytes=world_bytes + carried)
         backend.last_timing = {
             "encode": t_encode - t0, "patch": t_patch - t_encode, "relax": 0.0,
             "device": t_fetch - t_patch, "decode": t_decode - t_fetch,

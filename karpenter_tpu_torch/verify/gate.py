@@ -383,21 +383,35 @@ def _nbytes(tree) -> int:
     return 0
 
 
+# the gate's program keys dispatched so far (the JAX gate's set of the same
+# name); feeds solver_compile_cache_total
+_SEEN_GATE_PROGRAMS: set = set()
+
+
 def _device_counts(ctx, result, pods, pod_requirements_override) -> Dict[str, int]:
     """Build the gate tensors for ``result`` against the stashed problem, run
     the invariant program on the solve's device, and return the nonzero
     per-invariant counts (empty dict = device-accept)."""
-    from karpenter_tpu_torch.metrics.registry import TRANSFER_BYTES
-    from karpenter_tpu_torch.obs import trace
+    from karpenter_tpu_torch.metrics.registry import COMPILE_CACHE, TRANSFER_BYTES
+    from karpenter_tpu_torch.obs import programs, trace
     from karpenter_tpu_torch.verify import device as dev
 
     gp, ga, bf = _build_args(ctx, result, pods, pod_requirements_override)
+    # the JAX gate's program-cache key: claim bucket, bounds_free, shapes
+    key = ("verify_gate", int(ctx.max_claims), bool(bf), programs.shape_key(gp))
+    cache_hit = key in _SEEN_GATE_PROGRAMS
+    _SEEN_GATE_PROGRAMS.add(key)
+    COMPILE_CACHE.inc({"result": "hit" if cache_hit else "miss"})
     # what this wrapper hands to the device: the result's GateArgs, and the
     # problem when the solve left no copy of it there
-    TRANSFER_BYTES.inc({"direction": "h2d"}, _nbytes(ga) + (_nbytes(ctx.problem) if ctx.device_problem is None else 0))
+    h2d = _nbytes(ga) + (_nbytes(ctx.problem) if ctx.device_problem is None else 0)
+    TRANSFER_BYTES.inc({"direction": "h2d"}, h2d)
+    obs = programs.begin_dispatch("verify_gate", ctx.max_claims, gp, statics={"bf": int(bf)}, kernel="gate_counts")
     with trace.span("gate_program", program="verify_gate") as sp:
         counts = dev.verify_gate(gp, ga, bf, ctx.device_tables).cpu().numpy()
         TRANSFER_BYTES.inc({"direction": "d2h"}, int(counts.nbytes))
+        if obs is not None:
+            programs.stamp(sp, obs, obs.finish(problem_bytes=_nbytes((gp, ga)), result_bytes=int(counts.nbytes)))
         nonzero = {
             dev.INVARIANTS[i]: int(counts[i])
             for i in range(len(dev.INVARIANTS))

@@ -44,12 +44,14 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "karpenter_tpu_torch.solver.torch_backend" in report["modules"]
     assert "karpenter_tpu_torch.verify.gate" in report["modules"]
     # the supervised serve path and what it stands on; the chain commits,
-    # the explain pass and the streaming layer
+    # the explain pass, the streaming layer, the program lifecycle and the
+    # serve replicas
     for name in ("metrics.registry", "obs.trace", "obs.slo", "obs.flight", "utils.persist", "testing.faults",
                  "solver.forensics", "solver.oracle", "solver.supervisor", "parallel.mesh", "serve",
                  "serve.estimator", "serve.pool", "serve.tenant", "serve.batch", "serve.dispatcher",
                  "ops.ffd_chain", "obs.explain", "streaming.warm", "streaming.residual",
-                 "streaming.snapshot", "testing.restart", "verify.incremental"):
+                 "streaming.snapshot", "testing.restart", "verify.incremental", "obs.programs", "solver.aot",
+                 "solver.warmup", "serve.replica"):
         assert f"karpenter_tpu_torch.{name}" in report["modules"], name
     assert report["bad"] == []
 

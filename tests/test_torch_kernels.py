@@ -1523,7 +1523,7 @@ def test_operator_build_thread_holds_readyz(cuda):
         op._warm_thread.join(900)
         assert urllib.request.urlopen(f"http://127.0.0.1:{health}/readyz", timeout=5).status == 200
         programs = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/programs", timeout=5).read())
-        assert programs["built"] == len(kernels.SOURCES)
+        assert programs["kernels"]["built"] == len(kernels.SOURCES)
     finally:
         op.stop()
 

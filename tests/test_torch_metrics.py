@@ -5,8 +5,8 @@ every module of the port imported, each series the port registers is
 documented in README.md or docs/*.md, appears in the port's /metrics
 exposition with ``# HELP`` and ``# TYPE``, has help text, follows the
 ``_seconds``/``_total`` conventions, and is a series of the JAX package of
-the same kind (and buckets); the JAX package's series the port does not
-register are exactly the eight that wait for their layers (``WAITING``).
+the same kind (and buckets); the port registers every series of the JAX
+package (``WAITING`` is empty).
 
 Then each of the seven series the gate, the screen, the resident world and
 the SLO engine write (``solver_gate_duration_seconds``,
@@ -39,20 +39,21 @@ from karpenter_tpu_torch.testing import workloads as W
 
 REPO = Path(__file__).resolve().parent.parent
 
-# the JAX package's series that wait for the port of their layers
-# (ROADMAP.md A4-A5)
-WAITING = {
-    # A4, replicas
-    "karpenter_serve_replica_placements_total": "A4",
-    # A5, program lifecycle
-    "karpenter_solver_aot_restore_total": "A5",
-    "karpenter_solver_compile_cache_total": "A5",
-    "karpenter_solver_persistent_cache_total": "A5",
-    "karpenter_solver_compile_seconds": "A5",
-    "karpenter_solver_program_launches_total": "A5",
-    "karpenter_solver_device_bytes": "A5",
-    "karpenter_solver_restart_recovery_seconds": "A5",
-}
+# the JAX package's series that wait for the port of their layers: none
+# since the program lifecycle and the serve replicas came (ROADMAP.md A4-A5)
+WAITING: dict = {}
+# the series of the program lifecycle and the replicas: the same names,
+# kinds, help and label names as the JAX package's
+LIFECYCLE = (
+    "karpenter_serve_replica_placements_total",
+    "karpenter_solver_aot_restore_total",
+    "karpenter_solver_compile_cache_total",
+    "karpenter_solver_persistent_cache_total",
+    "karpenter_solver_compile_seconds",
+    "karpenter_solver_program_launches_total",
+    "karpenter_solver_device_bytes",
+    "karpenter_solver_restart_recovery_seconds",
+)
 # label values of R1's series whose emitters wait for their layers (none:
 # the incremental mode came with the streaming layer)
 WAITING_MODES: dict = {}
@@ -120,7 +121,7 @@ def test_port_series_are_documented_exposed_and_the_jax_packages():
 
 def test_r1_series_equal_the_jax_packages():
     port, jax = _registry("karpenter_tpu_torch"), _registry("karpenter_tpu")
-    for name in R1 + STREAMING:
+    for name in R1 + STREAMING + LIFECYCLE:
         p, j = port.get(name), jax.get(name)
         assert p is not None, name
         assert (p.kind, p.help) == (j.kind, j.help), name

@@ -13,24 +13,26 @@ reasons in order, execute the same disruption commands and move the same
 counters. The threaded and endpoint-hammering scenarios run on real clocks
 and threads, so only their own assertions are compared.
 
-Left out: ``test_prewarm_uses_live_catalog`` (:367), the JAX package's
-bucket prewarm (solver/warmup.py), which is not ported. In its place: the
-kernel-build thread that ``start()`` runs on the card holds /readyz at 503
-until it ends (here with the build replaced; on the card
-tests/test_torch_kernels.py's ``cuda`` case), no thread runs on the CPU, a
-build failure keeps /readyz at 503 and is named in /statusz, and so is a
-device fault of a controller pass.
+``test_prewarm_uses_live_catalog`` (:367) runs through both packages with
+the backend forced to the host oracle on the CPU (the scenario asks for the
+JAX backend). Also here: the warm thread that ``start()`` runs on the card
+builds the kernels first and holds /readyz at 503 until it ends (here with
+the build replaced; on the card tests/test_torch_kernels.py's ``cuda``
+case), no thread runs on the CPU, a build failure keeps /readyz at 503 and
+is named in /statusz, and so is a device fault of a controller pass; the
+prewarm knobs parse and reach the warm as in the JAX package.
 
 Also here: the endpoint scenarios of tests/test_obs_trace.py (:272),
 tests/test_obs_slo.py (:186), tests/test_explain.py (:412) and
 tests/test_serve.py (:288, :335), each through both packages' serving
 modules; and the Operator's construction contract (the torch backend needs
-CUDA unless asked for the CPU; bad backends and the unported prewarm knobs
-raise; the relax and device-world flags read with the JAX package's rules).
+CUDA unless asked for the CPU; bad backends raise; the relax and
+device-world flags read with the JAX package's rules).
 """
 
 from __future__ import annotations
 
+import importlib
 import inspect
 import json
 import socket
@@ -57,7 +59,10 @@ from karpenter_tpu_torch.operator import serving
 from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 from karpenter_tpu_torch.utils.clock import FakeClock
 
-LEFT_OUT = ("test_prewarm_uses_live_catalog",)
+LEFT_OUT = ()
+# scenarios whose Options ask for the JAX backend: the port runs them on the
+# host oracle on the CPU
+PORT_OPTIONS = {"test_prewarm_uses_live_catalog": {"solver_backend": "oracle", "solver_device": "cpu"}}
 # real clocks and threads: only the scenario's own assertions are compared
 UNDIGESTED = (
     "test_threaded_start_serves_metrics_and_survives_errors",
@@ -97,7 +102,8 @@ def _forensics_dirs(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_operator_scenario(name, request):
-    assert_same_run(getattr(TOP, name), request, digest=name not in UNDIGESTED)
+    p_overrides = {"Options": forced_options(True, **PORT_OPTIONS[name])} if name in PORT_OPTIONS else None
+    assert_same_run(getattr(TOP, name), request, p_overrides=p_overrides, digest=name not in UNDIGESTED)
 
 
 @pytest.mark.parametrize("name", WITH_OPERATOR)
@@ -240,11 +246,40 @@ def test_bad_backend_raises_naming_the_choices(backend):
         Options.parse([], env={"SOLVER_BACKEND": backend})
 
 
-@pytest.mark.parametrize("knob", ["prewarm_max_pods", "prewarm_screen_candidates"])
-def test_bucket_prewarm_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="A5"):
-        Options(**{knob: 10000})
-    assert getattr(Options(), knob) == 0
+def test_prewarm_knobs_parse_and_reach_the_warm(monkeypatch):
+    """``prewarm_max_pods`` and ``prewarm_screen_candidates`` parse from
+    flags and env as the JAX package's do, and the warm thread hands them to
+    ``prewarm_solver`` and ``prewarm_screen`` (with the live catalog), as the
+    JAX package's ``maybe_prewarm_in_background`` does."""
+    from karpenter_tpu.operator.options import Options as JOptions
+    from karpenter_tpu.solver import warmup as jwarm
+    from karpenter_tpu_torch.solver import warmup
+
+    argv, env = ["--prewarm-max-pods", "10000"], {"PREWARM_SCREEN_CANDIDATES": "200"}
+    for cls in (Options, JOptions):
+        opts = cls.parse(argv, env=env)
+        assert (opts.prewarm_max_pods, opts.prewarm_screen_candidates) == (10000, 200)
+        assert (cls().prewarm_max_pods, cls().prewarm_screen_candidates) == (0, 0)
+    seen = {}
+    for pkg, mod, opts in ((True, warmup, Options.parse(argv, env=env)),
+                           (False, jwarm, JOptions.parse(argv, env=env))):
+        calls = []
+        monkeypatch.setattr(mod, "prewarm_solver", lambda max_pods=0, catalog=None: calls.append(
+            ("solver", max_pods, len(catalog))))
+        monkeypatch.setattr(mod, "prewarm_screen", lambda n: calls.append(("screen", n)))
+        monkeypatch.setattr(mod, "prewarm_shard", lambda catalog=None: calls.append(("shard",)))
+        monkeypatch.setattr(mod, "prewarm_device_world", lambda catalog=None: calls.append(("world",)))
+        monkeypatch.setattr(mod, "persistent_cache_enabled", lambda: True)
+        monkeypatch.setattr(mod, "_on_accelerator", lambda: True)
+        if pkg:
+            opts.solver_device = "cpu"
+        cloud = (FakeCloudProvider if pkg else importlib.import_module(
+            "karpenter_tpu.cloudprovider.fake").FakeCloudProvider)()
+        t = mod.maybe_prewarm_in_background(opts, cloud)
+        t.join(30)
+        seen[pkg] = calls
+    assert seen[True] == seen[False]
+    assert seen[True][0][:2] == ("solver", 10000) and ("screen", 200) in seen[True]
 
 
 def test_solver_device_parses_like_every_field():
@@ -309,10 +344,11 @@ def _statusz(port) -> dict:
 
 def _started(monkeypatch=None, build=None):
     """A started CPU Operator; with ``build``, one that takes its solver for
-    the card's and runs ``build`` on its build thread."""
+    the card's and runs ``build`` as the warm thread's kernel build
+    (``kernels.load_all``)."""
     if build is not None:
         monkeypatch.setattr(op_mod, "_kernels_on_card", lambda sup: True)
-        monkeypatch.setattr(kernels, "build", build)
+        monkeypatch.setattr(kernels, "load_all", build)
     port, health = _ports()
     op = Operator(FakeCloudProvider(), Options(solver_device="cpu", metrics_port=port, health_probe_port=health))
     op.start()
@@ -327,13 +363,14 @@ def test_no_build_thread_on_the_cpu():
         payload = _statusz(port)
         assert payload["ready"] and payload["warmup_complete"]
         assert "kernel_build_error" not in payload
-        assert [k["name"] for k in payload["programs"]["kernels"]] == list(kernels.SOURCES)
+        assert [k["name"] for k in payload["kernels"]["kernels"]] == list(kernels.SOURCES)
+        assert payload["recovery"] == {"phase": "idle"} and payload["programs"]["enabled"] is False
     finally:
         op.stop()
 
 
 def test_build_thread_holds_readyz(monkeypatch):
-    """start() on the card builds the kernels on a thread of its own;
+    """start() on the card builds the kernels on the warm thread first;
     /readyz answers 503 until it ends (the build replaced by one that waits
     for the test)."""
     release, started = threading.Event(), threading.Event()

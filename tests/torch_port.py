@@ -19,7 +19,9 @@ the factories build the port's objects) and its function-level imports
 ``assert_same_run`` runs a scenario through both packages and compares what
 it left: the Envs and Operators it built (claims, nodes with their taints,
 bindings, pending pods, event reasons in order), the disruption commands
-executed, and the counters it moved (label sets and values).
+executed, and the counters it moved (label sets and values; the
+program-cache lookups of the solves only, since the two harnesses' solvers
+differ in whether a gate follows each solve).
 """
 
 from __future__ import annotations
@@ -392,6 +394,51 @@ def moved(before: dict, after: dict, names) -> dict:
 # bytes moved between host and device: the two packages copy different
 # tensors, so only the directions are compared
 BYTES_COUNTERS = ("karpenter_solver_transfer_bytes_total",)
+# program-cache lookups: the JAX harness's Env solves on a bare JaxSolver,
+# the port's on a SupervisedSolver, whose validation runs the device gate
+# after each solve; so the gate's lookups (verify/gate._device_counts) are
+# taken out of each side's counts and the solves' lookups compared exactly
+COMPILE_CACHE = "karpenter_solver_compile_cache_total"
+
+
+@contextlib.contextmanager
+def _fresh_program_caches(pkg: str):
+    """One package's program-cache sets empty while the block runs (and
+    merged back after), so that a scenario's hits and misses do not depend
+    on what the tests before it dispatched in this process."""
+    sets = [getattr(importlib.import_module(pkg + mod), name)
+            for mod, name in ((".solver.jax_backend" if pkg == _J[:-1] else ".solver.torch_backend",
+                               "_COMPILED_PROGRAMS"), (".verify.gate", "_SEEN_GATE_PROGRAMS"))]
+    saved = [set(s) for s in sets]
+    for s in sets:
+        s.clear()
+    try:
+        yield
+    finally:
+        for s, old in zip(sets, saved):
+            s |= old
+
+
+@contextlib.contextmanager
+def _gate_lookups(pkg: str, out: dict):
+    """Count one package's gate program-cache lookups by result while the
+    block runs."""
+    gate = importlib.import_module(pkg + ".verify.gate")
+    real = gate._device_counts
+
+    def counted(*args, **kwargs):
+        seen = len(gate._SEEN_GATE_PROGRAMS)
+        try:
+            return real(*args, **kwargs)
+        finally:
+            result = "miss" if len(gate._SEEN_GATE_PROGRAMS) > seen else "hit"
+            out[(("result", result),)] = out.get((("result", result),), 0) + 1
+
+    gate._device_counts = counted
+    try:
+        yield
+    finally:
+        gate._device_counts = real
 
 
 def run_pair_side(fn, port: bool, overrides=None, args=()):
@@ -409,11 +456,16 @@ def run_pair_side(fn, port: bool, overrides=None, args=()):
         return op
 
     executed: list = []
+    gate_lookups: dict = {}
     before = counters(port)
-    with _recorded_run(_P[:-1] if port else _J[:-1], executed):
+    pkg = _P[:-1] if port else _J[:-1]
+    with _recorded_run(pkg, executed), _fresh_program_caches(pkg), _gate_lookups(pkg, gate_lookups):
         _, envs = run_scenario(fn, PortEnv if port else JEnv, {"Operator": operator, **(overrides or {})},
                                port=port, args=args)
     after = counters(port)
+    # the solves' program-cache lookups: the gate's taken out (COMPILE_CACHE)
+    for labels, n in gate_lookups.items():
+        after.setdefault(COMPILE_CACHE, {})[labels] = after.get(COMPILE_CACHE, {}).get(labels, 0.0) - n
     return [disruption_digest(e) for e in envs + built], executed, (before, after), envs + built
 
 
@@ -422,8 +474,8 @@ def assert_same_run(fn, request, j_overrides=None, p_overrides=None, digest=True
     and with ``digest`` the two must leave the same claims, nodes, bindings,
     pending pods and events, execute the same commands and move the same
     counters (of the series the port registers; the bytes counters by
-    label set). A scenario that is a test class's method gets
-    ``self_arg``."""
+    label set; the program-cache lookups of the solves, COMPILE_CACHE). A
+    scenario that is a test class's method gets ``self_arg``."""
     args = ((None,) if self_arg else ()) + scenario_args(fn, request, skip_self=self_arg)
     jd, jx, (jb, ja), _ = run_pair_side(fn, False, j_overrides, args)
     pargs = ((None,) if self_arg else ()) + tuple(to_port(a) for a in args[1 if self_arg else 0:])
