@@ -31,7 +31,7 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      the plain path's ``TorchSolver(device="cpu")``. The wavefront corpora
      (tests/test_wavefront_parity.py's seeds 4000-4002, chain-3003, fuzz-3
      and topology-8 with existing nodes): ``ffd_loop`` with the wavefront on
-     (csrc/wave.cuh) at W = 4 and W = 2, fresh, carried (from all-FAIL seeds
+     (csrc/wave.cuh) at W = 4, and at W = 2 on WAVE_NARROW_CORPORA, fresh, carried (from all-FAIL seeds
      and from phase 1), scored, in the lanes mode on two lanes and in the
      fused launch, each bit-equal to ``sweeps_plain`` with the wavefront in
      kinds, indices, the 7 IterCounts fields and ``wave_hist``.
@@ -120,8 +120,9 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      2's batch with tests/test_explain.py's engineered pods added
      (resources, requirements), each with ``KARPENTER_TPU_EXPLAIN`` off and
      on: the same placements, one ``attribute`` launch with the flag on
-     (none off), words equal to ``attribute_plain``'s on the same rows and
-     state, the report's reasons equal to the plain words' decode; then the
+     (none off), words equal to ``attribute_plain``'s on the same state for
+     the first EXPLAIN_PLAIN_ROWS rows, the report's reasons for them equal
+     to the plain words' decode; then the
      kernel alone under each row plan (its split by section, its latency
      floor), wrapped and plain on the limited batch's rows, and the explain
      overhead.
@@ -141,15 +142,16 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      plain bit for bit, with its split by stage.
   8. the partitioned solve (the JAX package's ``KARPENTER_TPU_SHARD`` with
      ``_MIN_DEVICES=1`` and ``_PARTITIONS=8``, programs 13-14) and mesh
-     health (program 18) at full width: 100,000 pods of the JAX bench's
+     health (program 18) at full width: 50,000 pods of the JAX bench's
      fleet corpus (``make_fleet_pods``, 32 neighborhoods) against 400 types,
      sharded into 8 lanes of one ``ffd_loop`` launch (one cluster each),
      served, every partition's ``gate_counts`` clean and equal to its plain
-     version on every cluster size (the deepest partition timed), every pod the
-     unsharded FFD control schedules scheduled, and each pod scheduled
-     beyond them one with a required pod affinity; the recorded stack's lanes
+     version on every cluster size (the deepest partition timed), the pods
+     it and the unsharded FFD control place apart each with a required pod
+     affinity, both counts and the pods apart the JAX package's
+     (EXPECT_FLEET); the recorded stack's lanes
      launch equal to 8 single-lane launches bit for bit (kinds, indices,
-     state, IterCounts) and to the plain twin on two lanes; the same
+     state, IterCounts) and to the plain twin on lane 0; the same
      with ``KARPENTER_TPU_RELAX2=1`` (``relax_place``'s convex lanes mode,
      then the seeded lanes loop); the 10,000-pod fleet, fresh and relax2,
      equal to the JAX package's (EXPECT_SHARD); ``device[0].loss@1`` under
@@ -268,7 +270,30 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      placements equal to the flat service's, aggregate pods/s of each; then
      ``ReplicaSet(2)`` with ``failover(1)`` after the third cycle: every
      ticket ok, the moved tenants placed with reason ``failover``.
- 15. a ``kernels`` JSON line: per kernel its launches on the main path, its
+ 15. the operational entry points (``tools_phase``, CHAOS_* and FLEET_*),
+     each with the launch counts set to 0 just before it and read just after.
+     The chaos sweep (``karpenter_tpu_torch.tools.chaos_sweep``): its quick
+     matrix, the 60-pod corpus over 50 types through
+     ``SupervisedSolver`` under every class of FAULT_SPECS, on ``oracle``
+     and ``torch`` (on the card): every cycle completed, each cell's
+     placements the fault-free oracle baseline's (the fallback answered) or
+     the port's own fault-free solve's; tenant isolation (8 streams) and
+     fleet isolation (200 registered, 16 active) over ``TorchSolver``
+     tenants; the device-loss row at 2,000 pods (``device[0].loss@1`` under
+     ``KARPENTER_TPU_MESH_HEALTH=1``: a classified recarve, the unsharded
+     standdown validator-clean with the control's scheduled set, re-entry
+     through ``probe`` launches, the next sharded solve served; then
+     ``ReplicaSet(2)`` failing replica 1 over after a classified loss, every
+     ticket ok; only ``mesh-recovery`` breached, a trace-linked flight dump).
+     Then one open-loop trace (``karpenter_tpu_torch.tools.load_harness.
+     serve_fleet``) at bench.py's serve_fleet shape: 1,000 tenants (gold,
+     silver, bronze), 600 requests of 4 ``default_pod_factory`` pods over 50
+     types at 8 / svc_s arrivals a second (svc_s the median warm solo solve
+     through ``SupervisedSolver(TorchSolver())``), the admission bound 25 *
+     svc_s, over ``ReplicaSet(2)`` with stacking on: no unclassified
+     outcome, no error or pending request, every request served or shed;
+     pods/s, p50 and p99 and the shed census printed.
+ 16. a ``kernels`` JSON line: per kernel its launches on the main path, its
      time alone and through its wrapper, its bound, and the plain version's
      time; for ``ffd_loop``, ``relax_place`` and ``runs_screen`` also the
      work counters their launches recorded, from which the operation bounds
@@ -285,8 +310,14 @@ Builds the hand-written CUDA kernels from ``karpenter_tpu_torch/csrc`` and runs:
      those of ``ffd_loop``, ``relax_place`` and ``gate_counts`` their
      launches per warm cycle of phase 13 (``launches_warm_cycle``), and
      ``runs_screen``'s the ``RUNS`` solve (``runs_solve``). Every entry
-     carries ``restored``: whether phase 14's restart restored its library.
- 16. the card's name and power limit; the last line is the device JSON.
+     carries ``restored``: whether phase 14's restart restored its library;
+     those of ``ffd_loop``, ``relax_place``, ``gate_counts``,
+     ``runs_screen`` and ``probe`` carry ``launches_chaos`` and
+     ``launches_open_loop`` (phase 15).
+ 17. the card's name and power limit; the last line is the device JSON.
+
+Each phase's wall is printed on the line ``phase walls (s): {...}`` before
+the kernels line.
 
 Any mismatch or exception exits non-zero. Needs one CUDA device; imports
 only torch, numpy and karpenter_tpu_torch.
@@ -367,6 +398,10 @@ WIDE_ITS = 400
 # type's capacity, 400 cpu at the 400-type catalog: 20 claims take 7,352 of
 # the 10,000 pods on the card)
 EXPLAIN_CPU_LIMIT = 8000.0
+# the explain phase holds the kernel's words to attribute_plain's on the
+# solve's first rows (all 2,648 of them took 25 s of plain loops; cut for
+# phase 15's time)
+EXPLAIN_PLAIN_ROWS = 1000
 
 # the flag-gated phase-1 and order paths (phase 7): the JAX package's own
 # values for each full-width run, read from its JaxSolver(initial_claim_slots
@@ -403,7 +438,12 @@ EXPECT_POLICY = {
 # held to its single-lane launch). EXPECT_SHARD: the JAX
 # package's own sharded solve of the 10,000-pod fleet on the CPU (8 host
 # devices, the same knobs, EXPLAIN off).
-SHARD_PODS = 100000
+# The fleet runs at 50,000 pods (8 lanes of 6,250; the JAX bench's 100,000
+# through PR 17, cut for phase 15's time). EXPECT_FLEET: the JAX package's
+# sharded solve of it and its FFD control (KARPENTER_TPU_RELAX=0) on the
+# CPU (8 host devices, the same knobs; tools/fleet_parity.py --package jax)
+SHARD_PODS = 50000
+EXPECT_FLEET = dict(scheduled=49995, control=49973, lost=[5116, 18266, 40992, 43019, 48614], gained=27)
 SHARD_CHECK_PODS = 10000
 SHARD_NEIGHBORHOODS = 32
 SHARD_PARTITIONS = 8
@@ -735,6 +775,14 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
+    # each phase's wall, printed on a line of its own before the kernels line
+    walls = {"0 build": round(build_s, 1)}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
     log(f"build: {build_s:.1f}s (per library {({k: round(v, 1) for k, v in kernels.BUILD_SECONDS.items()})})")
     for name in kernels.SOURCES:
         for line in (kernels.BUILD_DIR / f"{name}.log").read_text(errors="replace").splitlines():
@@ -1067,6 +1115,7 @@ def run(dev) -> int:
         raise AssertionError(f"gate corruptions cover only {sorted(tripped)}")
 
     log(f"  phase 1 wall {time.perf_counter() - t_phase:.1f}s")
+    lap("1 kernels vs plain")
 
     # -- 2. the main path at full width --------------------------------------
     t_phase = time.perf_counter()
@@ -1441,25 +1490,40 @@ def run(dev) -> int:
         f"bound {k2_bound:.5f} ms ({k2_by}); one launch {LATENCY['launch_ms']:.4f} ms; latency floor by layout "
         f"{ {k: round(v['latency_floor_ms'], 5) for k, v in gate_layouts.items()} } ms")
     log(f"  phase 2 wall {time.perf_counter() - t_phase:.1f}s")
+    lap("2 main path")
     rs = consolidation_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
+    lap("3 screen")
     churn_entries, churn = churn_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound)
+    lap("4 churn")
     stacked = serve_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, (pods, its, tpls, nodes), result)
+    lap("5 serve")
     attr_entry = explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_err)
+    lap("6 explain")
     relax2_entry, lane_entry = flags_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results,
                                            compare_relax2, relax2_err, score_err)
+    lap("7 flags")
     shard_entries, shard = shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results,
                                        compare_relax2)
+    lap("8 shard")
     main = dict(workload=(pods, its, tpls, nodes), result=result, result_off=result_off, prob=prob, C=C, rxk=rxk,
                 residue=residue, astate=astate)
     wave_entry = wavefront_phase(dev, main, time_ms, time_launches, plain_ms, ffd_bound, compare_results)
+    lap("9 wavefront")
     provision = provision_phase(dev)
+    lap("10 provision")
     disruption = disruption_phase(dev, time_ms, time_launches, plain_ms)
+    lap("11 disruption")
     operator = operator_phase(dev)
+    lap("12 operator")
     rs["launches_disruption_pass"] = disruption["launches"]["runs_screen"]
     streaming = streaming_phase(dev, main, time_ms, time_launches, plain_ms, io_bytes, bound)
+    lap("13 streaming")
     rs["runs_solve"] = streaming.pop("runs_solve")
     rs["launches_runs_solve"] = rs["runs_solve"]["launches"]
     lifecycle = lifecycle_phase(dev, build_s)
+    lap("14 lifecycle")
+    tools = tools_phase(dev)
+    lap("15 tools")
 
     line = {
         "kernels": [
@@ -1557,6 +1621,7 @@ def run(dev) -> int:
         "operator": operator,
         "streaming": streaming,
         "lifecycle": lifecycle,
+        "tools": tools,
     }
     for entry in line["kernels"]:
         if entry["name"] in ("ffd_loop", "relax_place", "gate_counts", "runs_screen"):
@@ -1567,6 +1632,11 @@ def run(dev) -> int:
             entry["launches_warm_cycle"] = {arm: streaming[arm]["launches_per_warm_cycle"][entry["name"]]
                                             for arm in ("relax_off", "relax_on")}
     for entry in line["kernels"]:
+        if entry["name"] in TOOLS_KERNELS:
+            # its launches over phase 15's chaos rows and open-loop trace
+            entry["launches_chaos"] = tools["launches_chaos"][entry["name"]]
+            entry["launches_open_loop"] = tools["launches_open_loop"][entry["name"]]
+    for entry in line["kernels"]:
         # whether phase 14's restart restored the entry's library from its
         # snapshot (a mode's entry follows its library)
         name = entry["name"]
@@ -1574,6 +1644,7 @@ def run(dev) -> int:
                                                "gate_counts_fused": "gate_counts",
                                                "runs_screen_stacked": "runs_screen"}.get(name, name)
         entry["restored"] = bool(lifecycle["restored"].get(lib, False))
+    log(f"phase walls (s): {json.dumps(walls)}")
     log(f"smoke wall {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line), flush=True)
     smi = subprocess.run(
@@ -1588,7 +1659,7 @@ def run(dev) -> int:
 
 def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_results, compare_relax2):
     """Phase 8: the partitioned solve (KARPENTER_TPU_SHARD, programs 13-14)
-    and mesh health with its probe (program 18), with SHARD_ENV: the 100k
+    and mesh health with its probe (program 18), with SHARD_ENV: the 50k
     fleet sharded against its unsharded control; the recorded stacks' lanes
     launches against single-lane launches bit for bit and against their
     plain twins on SHARD_PLAIN_LANES; the 10k fleet against the JAX
@@ -1728,10 +1799,13 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
     # scheduled-set parity where it holds: the partitions share no node,
     # group or finite budget, but a pod with a required pod affinity must
     # join the claim its peers landed in, whose room the unsharded solve
-    # shares with every other partition's pods; so the sharded solve keeps
-    # every pod the control schedules, and any pod it schedules beyond them
-    # carries a required pod affinity (the JAX package's own 10k fleet:
-    # 9,862 sharded, 9,829 with its FFD control, 33 affinity pods apart)
+    # shares with every other partition's pods; so the two solves place the
+    # same pods less some that carry a required pod affinity, which either
+    # side may place where the other does not. The JAX package's own fleet
+    # on the CPU: at 10,000 pods 9,862 sharded, 9,829 with its FFD control
+    # (33 affinity pods more); at 50,000 49,995 and 49,973 (27 affinity pods
+    # more, and 5 the control places, 5116, 18266, 40992, 43019 and 48614,
+    # each with a required pod affinity, fail sharded on their topology)
     def placed(r):
         return {i for c in r.new_claims for i in c.pod_indices} | {i for v in r.node_pods.values() for i in v}
 
@@ -1740,9 +1814,12 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         return a is not None and a.pod_affinity is not None and bool(a.pod_affinity.required)
 
     lost, gained = placed(cres) - placed(result), placed(result) - placed(cres)
-    if lost or any(not affinity(i) for i in gained):
-        raise AssertionError(f"fleet: the sharded solve lost {len(lost)} of the control's pods or gained "
-                             f"{sum(not affinity(i) for i in gained)} without a required pod affinity")
+    if any(not affinity(i) for i in lost | gained):
+        raise AssertionError(f"fleet: the sharded solve lost {sum(not affinity(i) for i in lost)} of the control's "
+                             f"pods or gained {sum(not affinity(i) for i in gained)} without a required pod affinity")
+    got = dict(scheduled=result.num_scheduled(), control=cres.num_scheduled(), lost=sorted(lost), gained=len(gained))
+    if got != EXPECT_FLEET:
+        raise AssertionError(f"fleet: {got} != the JAX package's {EXPECT_FLEET}")
     summary = {
         "pods": SHARD_PODS, "partitions": info["partitions"], "part_pods": info["part_pods"],
         "bucket_pods": info["bucket_pods"], "pad_frac": info["pad_frac"], "max_claims": info["max_claims"],
@@ -1750,11 +1827,11 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
         "sweep_iters": info["sweep_iters"], "scheduled": result.num_scheduled(), "claims": len(result.new_claims),
         "wall_s": wall, "split_s": split, "control_wall_s": cwall, "control_split_s": dict(ctrl.last_timing),
         "control_scheduled": cres.num_scheduled(), "affinity_gained": len(gained),
-        "control_escalations": ctrl.claim_escalations, "control_claims": len(cres.new_claims),
+        "affinity_lost": len(lost), "control_escalations": ctrl.claim_escalations, "control_claims": len(cres.new_claims),
         "control_launches": claunches, "speedup_vs_control": cwall / wall,
     }
-    log(f"  fleet sharded: {result.num_scheduled()}/{SHARD_PODS} scheduled (control {cres.num_scheduled()}: every "
-        f"control pod kept, {len(gained)} more, each with a required pod affinity), "
+    log(f"  fleet sharded: {result.num_scheduled()}/{SHARD_PODS} scheduled (control {cres.num_scheduled()}: the same "
+        f"pods less {len(lost)} and plus {len(gained)}, each with a required pod affinity), "
         f"claims {len(result.new_claims)} (control {len(cres.new_claims)}), merged {info['merged_claims']}, "
         f"parts {info['part_pods']}, bucket {info['bucket_pods']}, pad_frac {info['pad_frac']}, max_claims "
         f"{info['max_claims']}, {len(seen)} dispatch(es), narrow {info['narrow_iters']}, sweeps {info['sweep_iters']}; "
@@ -1911,7 +1988,8 @@ def shard_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, compare_
     r2_int = r2_work["type_tests"] * (K * Wd + O) + r2_work["record_lanes"] * 2
     r2_flt = r2_work["type_tests"] * 2 * R + len(probs2) * P2 * R * 6 + r2_work["pgd_columns"] * PGD_COLUMN_OPS
     r2_bound, r2_by = bound(r2_bytes, r2_int, r2_flt)
-    summary["relax2"] = {"wall_s": wall2, "split_s": dict(s2.last_timing), "scheduled": res2.num_scheduled(),
+    summary["relax2"] = {"pods": SHARD_PODS, "wall_s": wall2, "split_s": dict(s2.last_timing),
+                         "scheduled": res2.num_scheduled(),
                          "claims": len(res2.new_claims), "merged_claims": info2["merged_claims"],
                          "dispatches": len(seen2), "relax2": r2, "carried_ms": c_ms,
                          "narrow_iters": info2["narrow_iters"], "sweep_iters": info2["sweep_iters"]}
@@ -2436,22 +2514,25 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
             problem, state, rows, words, tables = seen[0]
             if tables is None:
                 raise AssertionError(f"explain {name}: the solve handed the explain pass no tables")
-            wp, p_ms = plain_ms(lambda: ffd_step.attribute_plain(problem, state, rows))
-            if not torch.equal(words.cpu(), wp.cpu()):
+            n_plain = min(len(rows), EXPLAIN_PLAIN_ROWS)
+            wp, p_ms = plain_ms(lambda: ffd_step.attribute_plain(problem, state, rows[:n_plain]))
+            if not torch.equal(words[:n_plain].cpu(), wp.cpu()):
                 raise AssertionError(f"explain {name}: attribute words differ from plain on the solve's rows")
-            attr_err = max(attr_err, int((words.cpu().long() - wp.cpu().long()).abs().max()))
+            attr_err = max(attr_err, int((words[:n_plain].cpu().long() - wp.cpu().long()).abs().max()))
+            checked = list(rep.pods.items())[:n_plain]
             plain_reasons = {
                 orig: obs_explain.decode_pod(orig, obs_explain.KIND_NAMES.index(e.kind), wp[i].tolist()).reason
-                for i, (orig, e) in enumerate(rep.pods.items())
+                for i, (orig, e) in enumerate(checked)
             }
-            if plain_reasons != {orig: e.reason for orig, e in rep.pods.items()}:
+            if plain_reasons != {orig: e.reason for orig, e in checked}:
                 raise AssertionError(f"explain {name}: the report's reasons differ from the plain words' decode")
             log(f"  {name}: scheduled {on.num_scheduled()}/{len(batch)}, {len(on.failures)} explained; reasons "
                 f"{rep.counts()}; placements == flag off; attribute launches on/off "
-                f"{on_launches['attribute']}/{off_launches['attribute']}; words == plain ({p_ms:.1f} ms plain); "
+                f"{on_launches['attribute']}/{off_launches['attribute']}; words == plain on the first {n_plain} of "
+                f"{len(rows)} rows ({p_ms:.1f} ms plain); "
                 f"solve {off_ms:.1f} ms off, {on_ms:.1f} ms on; explain overhead {rep.overhead_s * 1e3:.2f} ms")
             if timed is None:
-                timed = (problem, state, rows, words, tables, p_ms, rep, on_launches["attribute"])
+                timed = (problem, state, rows, words, tables, p_ms, rep, on_launches["attribute"], n_plain)
     finally:
         ffd_step.attribute_pods = real
         os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
@@ -2460,7 +2541,7 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
 
     # the kernel alone, through its wrapper, and plain, on the limited
     # batch's rows
-    problem, state, rows, words, tables, p_ms, rep, n_launch = timed
+    problem, state, rows, words, tables, p_ms, rep, n_launch, n_plain = timed
     aprob, astate = _lane_align(problem, state)
     # the row plans: each run of byte-identical rows once (the problem's
     # pod_eqprev, the default), and every row (the problem without it)
@@ -2506,7 +2587,8 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
     flt_ops = work["type_tests"] * 2 * R
     b_ms, b_by = bound(nbytes, int_ops, flt_ops)
     log(f"  attribute over {len(rows)} rows ({layout}): kernel {k_ms:.4f} ms, "
-        f"wrapper {wrap_ms:.4f} ms, plain {p_ms:.1f} ms; work {work}; bytes {nbytes}, int ops {int_ops:.4g}, "
+        f"wrapper {wrap_ms:.4f} ms, plain {p_ms:.1f} ms on the first {n_plain} rows; work {work}; bytes {nbytes}, "
+        f"int ops {int_ops:.4g}, "
         f"float ops {flt_ops:.4g}; bound {b_ms:.5f} ms ({b_by})")
     log(f"  explain phase wall {time.perf_counter() - t_phase:.1f}s")
     return {
@@ -2523,6 +2605,7 @@ def explain_phase(dev, time_ms, time_launches, plain_ms, io_bytes, bound, attr_e
         "library_ms": None,
         "wrapper_ms": wrap_ms,
         "rows": len(rows),
+        "plain_rows": n_plain,
         "work": work,
         "layout": layout,
         "by_layout": by_layout,
@@ -3352,7 +3435,7 @@ def wave_kernels_phase(dev, encode, compare_results, weights):
         scores = POL.lane_scores(prob, weights)
         xp = RX.relax_place_plain(prob, slots)
         pc = torch.ones((prob.num_pods,), dtype=torch.bool, device=dev)
-        for lanes in (3, 1):
+        for lanes in (3, 1) if tag in WAVE_NARROW_CORPORA else (3,):
             name = f"{tag} W={lanes + 1}"
             rp = sweeps_plain(prob, initial_state(prob, slots), bf, wavefront=lanes)
             check(f"{name} fresh", solve_ffd_sweeps(prob, slots, wavefront=lanes), rp)
@@ -3384,6 +3467,11 @@ def wave_kernels_phase(dev, encode, compare_results, weights):
         raise AssertionError(f"the wavefront corpora do not cover: {missing}")
     log(f"  wavefront corpora wall {time.perf_counter() - t_phase:.1f}s")
     return err
+
+
+# the corpora that also run at W = 2 (all six did before phase 15; cut for
+# its time): the most retry lanes and the most wave commits
+WAVE_NARROW_CORPORA = ("wave-4001", "topology-8")
 
 
 def WAVE_CORPORA(W):
@@ -5103,6 +5191,124 @@ def replica_phase(dev):
         f"service's; failover(1) after cycle 3 moved {len(moved)} tenants (reason failover), all "
         f"{len(digests)} tickets ok")
     return out
+
+
+# the operational entry points (phase 15): the chaos sweep's quick matrix
+# (its 60-pod corpus over 50 types, every fault class, the oracle and the
+# port), its tenant- and fleet-isolation rows, its device-loss row (2,000
+# pods, its quick size), and one open-loop trace at bench.py's serve_fleet
+# shape (1,000 tenants in three classes, 600 requests of 4 pods over 50
+# types, two replicas, stacking on)
+CHAOS_PODS = 60
+CHAOS_TYPES = 50
+CHAOS_TENANTS = 8
+CHAOS_FLEET = (200, 16)  # registered, active
+CHAOS_LOSS_PODS = 2000
+FLEET_TENANTS = 1000
+FLEET_REQUESTS = 600
+FLEET_REPLICAS = 2
+TOOLS_KERNELS = ("ffd_loop", "relax_place", "gate_counts", "runs_screen", "probe")
+# the fault-free cell's placements on the port's primary: the JAX sweep's
+# (tools/chaos_sweep.py, backend jax, KARPENTER_TPU_RELAX unset) on the
+# quick corpus, read on the CPU (tests/test_torch_chaos_sweep.py holds it)
+CHAOS_PRIMARY_DIGEST = "bd1bd1a7bc5e12bfa1282be9d7c9bafd5b025c11ebf96c7fcd6e9f2fd86a0823"
+
+
+def placements_digest(key) -> str:
+    """sha256 of a chaos row's ``placements_key`` as JSON."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(key, default=int).encode()).hexdigest()
+
+
+def tools_phase(dev):
+    """Phase 15 (see the module docstring): the chaos sweep and the open-loop
+    harness over the port on the card, each run with the launch counts set
+    to 0 just before it and read just after. Returns the phase's record."""
+    import torch
+
+    from karpenter_tpu_torch import kernels
+    from karpenter_tpu_torch.tools import chaos_sweep as CS
+    from karpenter_tpu_torch.tools import load_harness as LH
+
+    t_phase = time.perf_counter()
+    log(f"phase 15: the operational entry points: the chaos sweep's quick matrix ({CHAOS_PODS} pods x "
+        f"{CHAOS_TYPES} types, {len(CS.FAULT_SPECS)} fault classes x oracle, torch), its isolation and "
+        f"device-loss rows, and an open-loop serve_fleet trace ({FLEET_TENANTS} tenants, {FLEET_REQUESTS} "
+        f"requests, ReplicaSet({FLEET_REPLICAS}))")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = CS.run_matrix([CHAOS_PODS], ("oracle", "torch"), CHAOS_TYPES, device=dev)
+    failed = CS.print_matrix(rows)
+    # every cell completes; a cell's placements are the fault-free baseline's
+    # (the oracle's: every oracle cell, and every torch cell the fallback
+    # answered), or, where the port's primary answered, the JAX sweep's own
+    # fault-free placements on this corpus
+    off = [(r["backend"], r["fault"]) for r in rows if not r["survived"] or (
+        r["key"] != r["base_key"] if r["backend"] == "oracle" or r["fallbacks"]
+        else placements_digest(r["key"]) != CHAOS_PRIMARY_DIGEST)]
+    classes = {(r["backend"], r["fault"]) for r in rows}
+    if failed or off or classes != {(b, f) for b in ("oracle", "torch") for f in CS.FAULT_SPECS}:
+        raise AssertionError(f"chaos matrix: failed {failed}, placements off the baseline {off}")
+    matrix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not CS.tenant_isolation(tenants=CHAOS_TENANTS, cycles=8, backend="torch", device=dev):
+        raise AssertionError("chaos: tenant isolation failed")
+    tenant_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not CS.fleet_isolation(registered=CHAOS_FLEET[0], active=CHAOS_FLEET[1], backend="torch", device=dev):
+        raise AssertionError("chaos: fleet isolation failed")
+    fleet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probes_before = kernels.LAUNCHES["probe"]
+    loss = CS.device_loss_row(CHAOS_LOSS_PODS, device=dev)
+    torch.cuda.synchronize()
+    loss_probes = kernels.LAUNCHES["probe"] - probes_before
+    if not loss["ok"] or loss_probes < 4:
+        raise AssertionError(f"chaos: the device-loss row failed ({loss_probes} probe launches): {loss}")
+    loss_s = time.perf_counter() - t0
+    launches_chaos = dict(kernels.LAUNCHES)
+    missing = [k for k in TOOLS_KERNELS if k != "runs_screen" and not launches_chaos[k]]
+    if missing or not launches_chaos["ffd_loop_lanes"]:
+        raise AssertionError(f"chaos: kernels not launched: {missing}, {launches_chaos}")
+    log(f"  chaos: matrix {len(rows)}/{len(rows)} cells survived on the baseline's placements "
+        f"({matrix_s:.1f}s); tenant isolation {CHAOS_TENANTS} streams ok ({tenant_s:.1f}s); fleet isolation "
+        f"{CHAOS_FLEET[0]} registered / {CHAOS_FLEET[1]} active ok ({fleet_s:.1f}s); device loss: standdown "
+        f"{loss['shard']}, recarves {loss['recarves']}, scheduled {loss['scheduled']} (== control), "
+        f"{loss_probes} probe launches, recovery {loss['mesh_recovery_s']}s, then sharded "
+        f"{loss['recovered_shard_reason']}; serve {loss['serve_outcomes']} tickets ok, {loss['migrated']} "
+        f"tenants failed over; slo {loss['slo_breached']}, flight {loss['flight_dump_kinds']} ({loss_s:.1f}s); "
+        f"launches {launches_chaos}")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = LH.serve_fleet(device=dev, n_tenants=FLEET_TENANTS, requests=FLEET_REQUESTS, replicas=FLEET_REPLICAS)
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    launches_open = dict(kernels.LAUNCHES)
+    census = {k: v for k, v in report["outcomes"].items() if k != "ok"}
+    if (report["unclassified"] or report["pending"] or census.get("error")
+            or sum(report["outcomes"].values()) != report["requests"]
+            or report["served"] + sum(census.values()) != report["requests"] or not report["served"]
+            or not launches_open["ffd_loop"] or (report["batch_hit_rate"] > 0 and not launches_open["runs_screen"])):
+        raise AssertionError(f"open loop: {report}; launches {launches_open}")
+    log(f"  open loop ({report['requests']} requests over {report['tenants']} tenants, ReplicaSet("
+        f"{report['replicas']}), svc_s {report['calibrated_service_s'] * 1e3:.2f} ms, rate {report['rate_hz']} "
+        f"/s, admission bound {report['admit_bound_s'] * 1e3:.1f} ms): {report['agg_pods_per_s']} pods/s, "
+        f"p50 {report['p50_cycle_s'] * 1e3:.2f} ms, p99 {report['p99_cycle_s'] * 1e3:.2f} ms, served "
+        f"{report['served']}, shed census {census}, by class {report['by_class']}, stacked share "
+        f"{report['batch_hit_rate']}, placements {report.get('placements')}, 0 unclassified; wall {open_s:.1f}s; "
+        f"launches {launches_open}")
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 15 wall {wall:.1f}s")
+    return {"matrix": [{k: r[k] for k in ("backend", "fault", "survived", "scheduled", "retries", "fallbacks", "s")}
+                       for r in rows],
+            "device_loss": {k: loss[k] for k in ("shard", "recarves", "scheduled", "mesh_recovery_s", "migrated",
+                                                 "slo_breached", "flight_dump_kinds")},
+            "walls_s": {"matrix": matrix_s, "tenant_isolation": tenant_s, "fleet_isolation": fleet_s,
+                        "device_loss": loss_s, "open_loop": open_s, "phase": wall},
+            "open_loop": {k: v for k, v in report.items() if k != "by_class"},
+            "launches_chaos": launches_chaos, "launches_open_loop": launches_open}
 
 
 if __name__ == "__main__":

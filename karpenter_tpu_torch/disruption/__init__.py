@@ -13,3 +13,13 @@
   filters;
 - ``types`` and ``pdblimits``: candidates, commands and the PDB gate.
 """
+
+from karpenter_tpu_torch.disruption.types import (  # noqa: E402
+    DECISION_DELETE,
+    DECISION_NONE,
+    DECISION_REPLACE,
+    Candidate,
+    Command,
+)
+
+__all__ = ["Candidate", "Command", "DECISION_DELETE", "DECISION_NONE", "DECISION_REPLACE"]

@@ -15,7 +15,7 @@ Failures raise typed exceptions, which the solver supervisor classifies by
 class name (solver/supervisor.classify_failure): a build that fails raises
 :class:`KernelCompileError` (class ``compile``: the same sources fail the
 same way again), a launch that the CUDA runtime refuses raises
-:class:`KernelDeviceError` (class ``device``, retried). A shape whose
+:class:`KernelDeviceError` (class ``device``; the supervisor raises it). A shape whose
 dynamic shared memory exceeds what a block of the card may opt into is such a
 refused launch: each ``*_launch`` sizes its shared memory from the shape and
 returns the runtime's error when the card cannot hold it.

@@ -26,15 +26,16 @@ baseline) with:
              result to disk (forensics.dump_quarantine), counts as a primary
              failure, and fails over. An error of the device gate on a
              primary result is a failed attempt of the primary, classified
-             and retried like any solve error.
+             like any solve error (an error of its kernel raises, below).
   raise      an error of the port's own kernels or of the CUDA runtime
              (``device_fault``: the kernels' typed build and launch errors,
-             a CUDA out-of-memory error, a ``CUDA error: ...``) is retried
-             like its class and then raised to the caller. It neither
-             fails over nor salvages nor counts towards the circuit: an
-             oracle answer on the host would hide a kernel that does not
-             build or launch. This is where the port differs from the JAX
-             package, which fails over every class.
+             a CUDA out-of-memory error, a ``CUDA error: ...``) is raised to
+             the caller at once. It is neither retried nor failed over nor
+             salvaged, and it does not count towards the circuit: an oracle
+             answer on the host, or a retry that happens to answer, would
+             hide a kernel that does not build or launch. This is where the
+             port differs from the JAX package, which retries and fails over
+             every class.
   circuit    N consecutive primary failures trip the breaker: solves route
              straight to the fallback until a cooldown elapses, then one
              half-open probe decides between closing and re-opening. State is
@@ -481,6 +482,10 @@ class SupervisedSolver(SolverBackend):
                 if failure_class == CLASS_DEADLINE:
                     SOLVE_DEADLINE_EXCEEDED.inc()
                     self.counters["deadline_exceeded"] += 1
+                if device_fault(exc):
+                    # the kernel or the card failed: surface it, never hide
+                    # it behind a retry, the host fallback or a salvaged cycle
+                    raise
                 if failure_class in RETRYABLE and attempt + 1 < attempts:
                     SOLVER_RETRIES.inc({"class": failure_class})
                     self.counters["solve_retries"] += 1
@@ -492,10 +497,6 @@ class SupervisedSolver(SolverBackend):
                     ):
                         self._sleep(self._backoff(attempt))
                     continue
-                if device_fault(exc):
-                    # the kernel or the card failed: surface it, never hide
-                    # it behind the host fallback or a salvaged cycle
-                    raise
                 log.warning(
                     "primary solve failed (class=%s, attempt %d/%d): %s",
                     failure_class, attempt + 1, attempts, exc,

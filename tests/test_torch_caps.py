@@ -79,8 +79,8 @@ def test_shared_memory_beyond_the_device_is_a_kernel_error(monkeypatch):
 
 def test_supervisor_raises_a_kernel_shape_error_without_failing_over(monkeypatch):
     """A launch whose shape the device refuses raises the typed kernel error
-    (a device fault): the supervisor retries it and raises it, and the oracle
-    never answers."""
+    (a device fault): the supervisor raises it at once, and the oracle never
+    answers."""
     pods, its, tpls, nodes = W.wide_lanes_workload()
 
     def refused(problem, max_claims, order_scores=None, wavefront=None, tables=None):
@@ -96,5 +96,5 @@ def test_supervisor_raises_a_kernel_shape_error_without_failing_over(monkeypatch
     with pytest.raises(kernels.KernelDeviceError) as err:
         sup.solve(pods, its, tpls, nodes)
     assert device_fault(err.value) and not isinstance(err.value, ValueError)
-    assert sup.counters["solve_retries"] == 1 and sup.counters["solve_fallbacks"] == 0
+    assert sup.counters["solve_retries"] == 0 and sup.counters["solve_fallbacks"] == 0
     assert sup.circuit_state() == "closed"

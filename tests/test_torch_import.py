@@ -44,14 +44,15 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "karpenter_tpu_torch.solver.torch_backend" in report["modules"]
     assert "karpenter_tpu_torch.verify.gate" in report["modules"]
     # the supervised serve path and what it stands on; the chain commits,
-    # the explain pass, the streaming layer, the program lifecycle and the
-    # serve replicas
+    # the explain pass, the streaming layer, the program lifecycle, the
+    # serve replicas and the operational entry points
     for name in ("metrics.registry", "obs.trace", "obs.slo", "obs.flight", "utils.persist", "testing.faults",
                  "solver.forensics", "solver.oracle", "solver.supervisor", "parallel.mesh", "serve",
                  "serve.estimator", "serve.pool", "serve.tenant", "serve.batch", "serve.dispatcher",
                  "ops.ffd_chain", "obs.explain", "streaming.warm", "streaming.residual",
                  "streaming.snapshot", "testing.restart", "verify.incremental", "obs.programs", "solver.aot",
-                 "solver.warmup", "serve.replica"):
+                 "solver.warmup", "serve.replica", "tools", "tools.load_harness", "tools.chaos_sweep",
+                 "tools.explain", "tools.trace_report", "tools.flight_report"):
         assert f"karpenter_tpu_torch.{name}" in report["modules"], name
     assert report["bad"] == []
 
@@ -80,3 +81,23 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("tool", ["load_harness", "chaos_sweep", "explain", "trace_report", "flight_report"])
+def test_tools_run_as_modules(tool):
+    """``python -m karpenter_tpu_torch.tools.<name> --help`` runs, takes
+    ``--device`` and pulls in neither jax nor the JAX package."""
+    probe = (
+        "import runpy, sys\n"
+        f"sys.argv = ['{tool}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('karpenter_tpu_torch.tools.{tool}', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code in (0, None), exc.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'karpenter_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(REPO), env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--device" in out.stdout

@@ -316,7 +316,7 @@ def test_host_error_is_a_standdown(knobs, monkeypatch):
                                    RuntimeError("CUDA error: an illegal memory access was encountered")])
 def test_kernel_error_propagates_through_the_supervisor(error, knobs, monkeypatch):
     """A kernel or CUDA error inside the phase is neither a standdown nor a
-    fallback: the supervisor retries and raises it."""
+    fallback: the supervisor raises it at once."""
     calls = []
 
     def fault(problem, max_claims):
@@ -330,8 +330,8 @@ def test_kernel_error_propagates_through_the_supervisor(error, knobs, monkeypatc
     before = RELAX_FALLBACK.value({"reason": "error"})
     with pytest.raises(type(error)):
         sup.solve(*draw("bulk-48")[1])
-    # a device error is retried once; a build error is not (it fails again)
-    assert len(calls) == (1 if isinstance(error, kernels.KernelCompileError) else 2)
+    # neither a device error nor a build error is retried
+    assert len(calls) == 1
     assert primary.last_relax2 is None
     assert RELAX_FALLBACK.value({"reason": "error"}) == before
     assert sup.counters["solve_fallbacks"] == 0

@@ -119,25 +119,39 @@ def traced(trace, run):
         trace.reset_ring()
 
 
-@pytest.mark.parametrize("case", ["default", "relax-off", "relax2", "supervised"])
+@pytest.mark.parametrize("case", ["default", "relax-off", "relax2", "supervised", "audited"])
 def test_solve_span_trees_match_jax(case, monkeypatch):
     """One traced solve of fuzz-6 in each package: the two-phase default, the
     plain sweeps solve (``relax=False`` / ``KARPENTER_TPU_RELAX=0``), the
-    convex phase 1 (``KARPENTER_TPU_RELAX2=1``) and a solve under the
-    supervisor, whose gate opens ``gate`` / ``gate_program``: equal span
-    names and nesting."""
+    convex phase 1 (``KARPENTER_TPU_RELAX2=1``), a solve under the
+    supervisor, whose gate opens ``gate`` / ``gate_program``, and the
+    default with every accepted result audited on the host
+    (``KARPENTER_TPU_VERIFY_AUDIT_FRAC=1``: ``validate`` under the solve):
+    equal span names and nesting.
+
+    The gate's audit draws its sample from a generator seeded by the number
+    of gates the package has run in the process (``verify/gate._audit_
+    calls``), so the test sets both packages' counts to 0: left as earlier
+    tests in the same process leave them, one package's solve could audit
+    (a ``validate`` span) where the other's does not."""
     from karpenter_tpu.obs import trace as j_trace
     from karpenter_tpu.solver.oracle import OracleSolver as JOracle
     from karpenter_tpu.solver.supervisor import SupervisedSolver as JSupervised
+    from karpenter_tpu.verify import gate as j_gate
     from karpenter_tpu_torch.cloudprovider.fake import FAKE_WELL_KNOWN_LABELS as T_LABELS
     from karpenter_tpu_torch.obs import trace as t_trace
     from karpenter_tpu_torch.solver.oracle import OracleSolver
     from karpenter_tpu_torch.solver.supervisor import SupervisedSolver
+    from karpenter_tpu_torch.verify import gate as t_gate
 
-    relax = case in ("default", "relax2")
+    relax = case in ("default", "relax2", "audited")
     monkeypatch.setenv("KARPENTER_TPU_RELAX", "1" if relax else "0")
     if case == "relax2":
         monkeypatch.setenv("KARPENTER_TPU_RELAX2", "1")
+    if case == "audited":
+        monkeypatch.setenv("KARPENTER_TPU_VERIFY_AUDIT_FRAC", "1")
+    monkeypatch.setattr(j_gate, "_audit_calls", 0)
+    monkeypatch.setattr(t_gate, "_audit_calls", 0)
     workload, t_workload, _ = draw("fuzz-6")
     js = JaxSolver(well_known=FAKE_WELL_KNOWN_LABELS)
     ts = TorchSolver(well_known=T_LABELS, device="cpu", relax=relax)
@@ -146,10 +160,11 @@ def test_solve_span_trees_match_jax(case, monkeypatch):
         ts = SupervisedSolver(ts, fallback=OracleSolver(), validate="full")
     jt = traced(j_trace, lambda: js.solve(*workload))
     tt = traced(t_trace, lambda: ts.solve(*t_workload))
-    assert tt == jt and len(tt) == 1
+    assert tt == jt and len(tt) == 1, f"port trees {tt}\nJAX trees {jt}"
     names = str(tt)
     for stage in ("encode", "bucket", "sweeps", "decode"):
         assert f"'{stage}'" in names
-    assert ("'relax'" in names) == (case == "default")
+    assert ("'relax'" in names) == (case in ("default", "audited"))
     assert ("'relax2'" in names) == (case == "relax2")
     assert ("'gate_program'" in names) == (case != "relax-off")
+    assert ("'validate'" in names) == (case == "audited")

@@ -496,8 +496,8 @@ def test_torch_primary_passes_the_device_gate_unaltered():
 
 def test_device_gate_error_is_a_failed_primary_attempt(monkeypatch):
     """An error of the device gate's kernel on a primary result is
-    classified like a solve error (a CUDA error: device, retried) and then
-    raised; it is never an accept and never failed over."""
+    classified like a solve error (a CUDA error: device) and raised at
+    once; it is never an accept, never retried and never failed over."""
     from karpenter_tpu_torch import verify
     from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 
@@ -510,24 +510,24 @@ def test_device_gate_error_is_a_failed_primary_attempt(monkeypatch):
                                     sleep_fn=lambda x: None)
     with pytest.raises(RuntimeError, match="CUDA error"):
         sup.solve(pods, its, tpls, nodes)
-    assert sup.counters["solve_retries"] == 1 and sup.counters["solve_fallbacks"] == 0
+    assert sup.counters["solve_retries"] == 0 and sup.counters["solve_fallbacks"] == 0
     assert sup.last_failure["class"] == "device" and sup.circuit_state() == "closed"
 
 
 @pytest.mark.parametrize("fallback", [True, False], ids=["fallback", "no-fallback"])
 @pytest.mark.parametrize(
-    "error,attempts",
+    "error",
     [
-        (kernels.KernelCompileError("kernel build failed:\nruns_screen: nvcc exit 1"), 1),
-        (kernels.KernelDeviceError("runs_screen: CUDA launch error 700"), 2),
-        (torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"), 2),
-        (RuntimeError("CUDA error: an illegal memory access was encountered"), 2),
+        kernels.KernelCompileError("kernel build failed:\nruns_screen: nvcc exit 1"),
+        kernels.KernelDeviceError("runs_screen: CUDA launch error 700"),
+        torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"),
+        RuntimeError("CUDA error: an illegal memory access was encountered"),
     ],
     ids=["compile", "launch", "oom", "cuda-error"],
 )
-def test_kernel_and_cuda_errors_raise_not_fail_over(error, attempts, fallback):
-    """An error of the port's own kernels or of the CUDA runtime is retried
-    as its class allows and then raised: no host fallback, no salvage, no
+def test_kernel_and_cuda_errors_raise_not_fail_over(error, fallback):
+    """An error of the port's own kernels or of the CUDA runtime is raised
+    at once, whatever its class: no retry, no host fallback, no salvage, no
     step towards an open circuit. An injected fault of the same class still
     fails over (test_fault_class_completes_cycle_with_parity)."""
     pods, its, tpls = build_problem(PORT, pod_count=12)
@@ -537,7 +537,7 @@ def test_kernel_and_cuda_errors_raise_not_fail_over(error, attempts, fallback):
     assert PORT.sup.device_fault(error) and not PORT.sup.device_fault(PORT.faults.FaultDeviceError("device"))
     with pytest.raises(type(error)):
         sup.solve(pods, its, tpls)
-    assert primary.calls == attempts and sup.counters["solve_retries"] == attempts - 1
+    assert primary.calls == 1 and sup.counters["solve_retries"] == 0
     assert sup.counters["solve_fallbacks"] == 0 and sup.counters["salvaged"] == 0
     assert sup.circuit_state() == "closed"
 
